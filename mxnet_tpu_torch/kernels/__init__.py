@@ -1,0 +1,9 @@
+"""Hand-written CUDA kernels of the port, one module each.
+
+Every module holds the kernel's wrapper, its plain PyTorch version and its
+launch counter. A wrapper dispatches on the tensor's device: a CPU tensor
+takes the plain version, a CUDA tensor launches the kernel or raises.
+Sources are in ``mxnet_tpu_torch/csrc``; :mod:`._lib` builds them.
+"""
+
+from . import bn_act, softmax_rows  # noqa: F401

@@ -1,0 +1,124 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` source has a plain C interface. :func:`build` compiles
+each source with its own ``nvcc`` (all started together) for ``sm_90a`` and
+links the objects into ``build/mxnet_tpu_torch/libkernels-<digest>.so`` at
+the root of the checkout; the digest covers the sources and the flags, so
+an edited source never loads a stale library. :func:`library` builds on
+first CUDA use and loads the result with ``ctypes``. Nothing here runs at
+import: the CPU tests import every module of the package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+from ..base import MXNetError
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "mxnet_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_LL = ctypes.c_longlong
+_I = ctypes.c_int
+# C entry -> argtypes; every pointer and the stream pass as c_void_p
+_SIGNATURES = {
+    "mxt_bn_act_f32": [_P, _P, _P, _P, _P, _P, _LL, _LL, _LL,
+                       ctypes.c_float, _I, _I, _P],
+    "mxt_softmax_rows_f32": [_P, _P, _LL, _LL, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc():
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise MXNetError("nvcc not found (looked in $CUDA_HOME/bin, "
+                     "/usr/local/cuda/bin and PATH): the CUDA kernels "
+                     "cannot be built")
+
+
+def _sources():
+    return sorted(SRC_DIR.glob("*.cu"))
+
+
+def library_path():
+    """Where :func:`build` puts the library for the current sources."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libkernels-{h.hexdigest()[:16]}.so"
+
+
+def build():
+    """Compile and link the kernels unless the library for these sources
+    exists. Returns ``(path, compiler log)``; raises :class:`MXNetError`
+    with the compiler's output when a source does not build."""
+    out = library_path()
+    if out.exists():
+        return out, ""
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        jobs = []
+        for src in _sources():
+            obj = tmp / (src.stem + ".o")
+            jobs.append((src, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for src, _obj, proc in jobs:
+            text = proc.communicate()[0]
+            log.append(f"== {src.name}\n{text}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise MXNetError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+        lib_tmp = tmp / out.name
+        link = subprocess.run(
+            [nvcc, "-shared", *[str(o) for _s, o, _p in jobs],
+             "-o", str(lib_tmp)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise MXNetError(f"linking {out.name} failed:\n{link.stdout}")
+        os.replace(lib_tmp, out)
+        return out, "\n".join(log)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def library():
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path, _log = build()
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(err, name):
+    """Raise when a C entry reported a CUDA error (its cudaGetLastError)."""
+    if err != 0:
+        raise MXNetError(f"{name}: CUDA error {err} at launch")
