@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA card.
+"""Drive the PyTorch port's main paths once on one CUDA card: serving and
+training.
 
     python3 chip_smoke.py
 
@@ -21,7 +22,31 @@ Run from the root of a checkout. Phases, each printing its own lines:
    kernels), and the launch counters checked at 17 ``bn_act`` and 1
    ``softmax_rows`` per served batch; then the time per batch and the
    images per second at bucket 32, through the server and for the forward
-   alone, and a ``torch.profiler`` breakdown of one forward by kernel.
+   alone, and a ``torch.profiler`` breakdown of one forward by kernel;
+5. training kernels — ``bn_stats``, the training forward (``bn_stats`` +
+   ``bn_act``), ``bn_act_bwd``, ``softmax_output_bwd`` and
+   ``sgd_mom_multi`` against their plain versions at the shapes one
+   ResNet-50 training step gives them at batch 32 (50 BatchNorm inputs,
+   the (32, 1000) loss layer, 155 parameters) and at odd ones (H*W = 49,
+   C not a multiple of 4, N not a multiple of 8, ``fix_gamma``,
+   ``use_ignore``, a NaN gradient under the guard), with CUDA-event times
+   of the kernel, the plain version and the PyTorch library call for the
+   same function, beside the bound;
+6. training — full ResNet-50 (random He-normal weights from the seed)
+   trained by ``Module.fit`` over an ``NDArrayIter`` of synthetic data on
+   ``gpu(0)``, SGD with momentum 0.9, wd 1e-4, ``rescale_grad`` 1/32, at
+   batch 32, with the launch counters checked per step (``bn_stats`` 50,
+   ``bn_act`` 50, ``bn_act_bwd`` 100, ``softmax_rows`` 1,
+   ``softmax_output_bwd`` 1, ``sgd_mom_multi`` 1); 10 steps on one fixed
+   batch must lower the training cross-entropy to at most
+   ``LOSS_RATIO`` of its first value; then ms per step, steps/s and
+   images/s by CUDA events after the warm-up, peak memory, and a
+   ``torch.profiler`` breakdown of one step by kernel;
+7. training parity — two ``fused_train_update`` steps of full ResNet-50 at
+   batch 8 on ``gpu(0)`` and on the port's CPU path (plain versions) from
+   the same parameters: after each step the loss, every parameter,
+   momentum and BatchNorm statistic within the stated tolerances (in norm,
+   over all tensors of a kind; see ``PARITY_TOL``).
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. Any failed phase exits non-zero before the result
@@ -57,6 +82,37 @@ PATH_BN = [((32, 64, 56, 56), 1), ((32, 256, 56, 56), 3),
            ((32, 512, 28, 28), 4), ((32, 1024, 14, 14), 6),
            ((32, 2048, 7, 7), 3)]
 PATH_SOFTMAX = (32, 1000)
+TRAIN_BATCH = 32
+# each port kernel's CUDA function names, as torch.profiler reports them
+PORT_KERNELS = {"bn_stats": "bn_stats_kernel", "bn_act": "bn_act_kernel",
+                "bn_act_bwd": "bn_bwd_", "softmax_rows": "softmax_rows_kernel",
+                "softmax_output_bwd": "softmax_output_bwd_kernel",
+                "sgd_mom_multi": "sgd_mom_multi_kernel"}
+PARITY_BATCH = 8
+TRAIN_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+LOSS_RATIO = 0.7  # cross-entropy after 10 steps on one batch / its first
+# training kernels against their plain versions on the card (float32): the
+# channel sums are taken in another order than torch.sum, so sums over n
+# elements carry up to n * 2**-24 of absolute error; the anchored variance
+# loses 8 * 2**-23 * dmean**2 to cancellation (dmean: batch mean - anchor)
+STAT_RTOL, STAT_ATOL = 1e-5, 1e-6
+DX_RTOL, DX_ATOL = 1e-4, 1e-5
+EXACT_ATOL = 1e-6  # softmax_output_bwd and sgd_mom_multi repeat the plain ops
+# card against the port's CPU path, two SGD steps of full ResNet-50 at
+# batch 8 at lr 0.01, each from the same state on both sides. Each kind is
+# compared over all its tensors at once, in norm: |got - want| <= rtol *
+# |want| (step 1, step 2). The forward agrees to
+# float32 summation order (the first loss, the statistics). The gradients
+# do not to that level: a ReLU or max-pool input within rounding distance
+# of its decision boundary takes the other branch on the other device and
+# moves a whole gradient term, so the difference grows from the head to the
+# stem, to a few percent in norm there, and tensors whose gradient nearly
+# cancels (a BatchNorm beta before a convolution) carry more of it. The
+# momenta hold lr * grad; a kernel that dropped or mis-signed a term would
+# be off by tens of percent. The per-tensor worst case is printed.
+PARITY_LR = 0.01
+PARITY_TOL = {"loss": (1e-4, 1e-4), "param": (1e-3, 1e-3),
+              "momentum": (5e-2, 5e-2), "aux": (1e-3, 1e-3)}
 
 
 def fail(msg):
@@ -373,6 +429,614 @@ def phase_serving(torch, mx, card):
     return launches
 
 
+def resnet50_shapes(mx, batch):
+    """(symbol, the 50 BatchNorm input shapes at ``batch``, the 155
+    parameter (name, shape) pairs) of ResNet-50."""
+    sym = mx.models.resnet.get_symbol(num_classes=1000, num_layers=50,
+                                      image_shape="3,224,224")
+    internals = sym.get_internals()
+    _, outs, _ = internals.infer_shape(data=(batch, 3, 224, 224))
+    shape_of = dict(zip(internals.list_outputs(), outs))
+    bn = []
+    for node in sym._topo():
+        if not node.is_variable and node.op.name == "BatchNorm":
+            inode, idx = node.inputs[0]
+            bn.append(shape_of[inode.name + ("_output" if idx == 0
+                                             else f"_output{idx}")])
+    arg_shapes, _, _ = sym.infer_shape(data=(batch, 3, 224, 224))
+    params = [(n, s) for n, s in zip(sym.list_arguments(), arg_shapes)
+              if n not in ("data", "softmax_label")]
+    return sym, bn, params
+
+
+def check(torch, what, got, want, rtol, atol):
+    err, ok = max_err(torch, got, want, rtol, atol)
+    if not ok:
+        fail(f"{what}: max abs err {err:g} over rtol {rtol} atol {atol:g}")
+    return err
+
+
+def phase_train_kernels(torch, mx):
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.kernels import (
+        bn_act as ba, bn_act_bwd as bb, bn_stats as bs,
+        sgd_mom_multi as sg, softmax_output_bwd as so)
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    _sym, bn_shapes, params = resnet50_shapes(mx, TRAIN_BATCH)
+    counts = {}
+    for s in bn_shapes:
+        counts[s] = counts.get(s, 0) + 1
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    # --- bn_stats: every path shape plus odd ones and anchor stress
+    odd = [(3, 5, 7, 9), (9, 4, 3, 3), (5, 3), (2, 2048, 7, 7)]
+    st_err = 0.0
+    for shape in list(counts) + odd:
+        for offset in (0.0, 30.0):
+            c = shape[1]
+            x = randn(*shape) + offset
+            mm = 0.1 * randn(c)
+            mv = 0.5 + torch.rand(c, generator=gen, device=dev)
+            mm2, mv2, anchor = mm.clone(), mv.clone(), mm.clone()
+            got = bs.bn_stats(x, mm, mv, 0.9)
+            want = bs.bn_stats_plain(x, mm2, mv2, 0.9)
+            dmean = float((want[0] - anchor).abs().max())
+            cancel = 8 * 2.0 ** -23 * dmean ** 2
+            what = f"bn_stats {shape} offset {offset}"
+            st_err = max(st_err,
+                         check(torch, what + " mean", got[0], want[0],
+                               STAT_RTOL, STAT_ATOL),
+                         check(torch, what + " var", got[1], want[1],
+                               STAT_RTOL, STAT_ATOL + cancel),
+                         check(torch, what + " moving_mean", mm, mm2,
+                               STAT_RTOL, STAT_ATOL),
+                         check(torch, what + " moving_var", mv, mv2,
+                               STAT_RTOL, STAT_ATOL + cancel))
+            if not offset and not torch.equal(got[2], want[2]):
+                fail(f"{what}: the clamp derivative kvar differs")
+    print(f"[train-kernels] bn_stats matches its plain version at "
+          f"{len(counts) + len(odd)} shapes x anchor offsets 0 and 30: max "
+          f"abs err {st_err:g} (rtol {STAT_RTOL}, atol {STAT_ATOL} + "
+          f"8*2^-23*dmean^2 on the variance)", flush=True)
+
+    # per-step tensors: one set per distinct shape
+    T = {}
+    for s in counts:
+        c = s[1]
+        x = randn(*s)
+        mm, mv = 0.1 * randn(c), 0.5 + torch.rand(c, generator=gen,
+                                                  device=dev)
+        gamma = 0.5 + torch.rand(c, generator=gen, device=dev)
+        beta = 0.1 * randn(c)
+        mean, var, kvar = bs.bn_stats(x, mm.clone(), mv.clone(), 0.9)
+        y = ba.bn_act(x, mean, var, gamma, beta, BN_EPS, False, True)
+        T[s] = dict(x=x, mm=mm, mv=mv, gamma=gamma, beta=beta, mean=mean,
+                    var=var, kvar=kvar, y=y, dy=randn(*s),
+                    invstd=torch.rsqrt(var + BN_EPS))
+
+    def per_step(fn):
+        def run():
+            for s, mult in counts.items():
+                for _ in range(mult):
+                    fn(T[s])
+        return run
+
+    n_elems = sum(math.prod(s) for s in bn_shapes)
+    st_ms = cuda_ms(torch, per_step(lambda t: bs.bn_stats(
+        t["x"], t["mm"], t["mv"], 0.9)), reps=10)
+    st_plain = cuda_ms(torch, per_step(lambda t: bs.bn_stats_plain(
+        t["x"], t["mm"], t["mv"], 0.9)), reps=5)
+    st_lib = cuda_ms(torch, per_step(lambda t: torch.var_mean(
+        t["x"], (0, 2, 3), correction=0)), reps=10)
+    st_bound, st_by = bound(n_elems * 4, 4 * n_elems)
+    n_bn = len(bn_shapes)
+    print(f"[train-kernels] bn_stats per step ({n_bn} launches, "
+          f"{n_elems * 4 / 1e9:.3f} GB): kernel {st_ms:.4f} ms, plain "
+          f"{st_plain:.4f} ms, torch.var_mean {st_lib:.4f} ms, bound "
+          f"{st_bound:.4f} ms ({st_by}), {n_elems * 4 / st_ms / 1e9:.2f} TB/s",
+          flush=True)
+
+    def fwd_kernel(t):
+        mean, var, _k = bs.bn_stats(t["x"], t["mm"], t["mv"], 0.9)
+        ba.bn_act(t["x"], mean, var, t["gamma"], t["beta"], BN_EPS, False,
+                  True)
+
+    def fwd_plain(t):
+        mean, var, _k = bs.bn_stats_plain(t["x"], t["mm"], t["mv"], 0.9)
+        ba.bn_act_plain(t["x"], mean, var, t["gamma"], t["beta"], BN_EPS,
+                        False, True)
+
+    fw_ms = cuda_ms(torch, per_step(fwd_kernel), reps=10)
+    fw_plain = cuda_ms(torch, per_step(fwd_plain), reps=5)
+    fw_lib = cuda_ms(torch, per_step(lambda t: F.batch_norm(
+        t["x"], t["mm"], t["mv"], t["gamma"], t["beta"], training=True,
+        momentum=0.1, eps=BN_EPS).relu_()), reps=10)
+    fw_bound, fw_by = bound(n_elems * 12, 9 * n_elems)
+    print(f"[train-kernels] training BatchNorm+ReLU forward per step "
+          f"(bn_stats + bn_act, {2 * n_bn} launches): kernels {fw_ms:.4f} ms, plain "
+          f"{fw_plain:.4f} ms, F.batch_norm(training=True)+relu_ "
+          f"{fw_lib:.4f} ms, bound {fw_bound:.4f} ms ({fw_by})", flush=True)
+
+    # --- bn_act_bwd: every path shape (relu, batch statistics) plus odd
+    # shapes, fix_gamma, no ReLU and use_global_stats
+    bw_err = 0.0
+    cases = [(s, True, False, True) for s in counts]
+    for s in odd:
+        cases += [(s, True, True, True), (s, False, False, True),
+                  (s, True, False, False)]
+    for s, relu, fix_gamma, batch_stats in cases:
+        t = T.get(s)
+        if t is None:
+            c = s[1]
+            x = randn(*s)
+            mean, var, kvar = bs.bn_stats(x, torch.zeros(c, device=dev),
+                                          torch.ones(c, device=dev), 0.9)
+            gamma = 0.5 + torch.rand(c, generator=gen, device=dev)
+            t = dict(x=x, mean=mean, var=var, kvar=kvar, gamma=gamma,
+                     y=torch.relu(x), dy=randn(*s))
+        args = (t["dy"], t["y"] if relu else None, t["x"], t["mean"],
+                t["var"], t["gamma"], t["kvar"] if batch_stats else None,
+                BN_EPS, fix_gamma, relu)
+        got, want = bb.bn_act_bwd(*args), bb.bn_act_bwd_plain(*args)
+        n = math.prod(s) // s[1]
+        what = f"bn_act_bwd {s} relu={relu} fix_gamma={fix_gamma} " \
+               f"batch_stats={batch_stats}"
+        bw_err = max(bw_err, check(torch, what + " dx", got[0], want[0],
+                                   DX_RTOL, DX_ATOL))
+        for name, g, w in (("dgamma", got[1], want[1]),
+                           ("dbeta", got[2], want[2])):
+            check(torch, f"{what} {name}", g, w, DX_RTOL, n * 2.0 ** -24)
+    print(f"[train-kernels] bn_act_bwd matches its plain version in "
+          f"{len(cases)} cases: max abs err on dx {bw_err:g} (rtol {DX_RTOL}, "
+          f"atol {DX_ATOL}; channel sums atol n*2^-24)", flush=True)
+
+    def bwd_lib(t):
+        dyp = torch.ops.aten.threshold_backward(t["dy"], t["y"], 0)
+        torch.ops.aten.native_batch_norm_backward(
+            dyp, t["x"], t["gamma"], None, None, t["mean"], t["invstd"],
+            True, BN_EPS, [True, True, True])
+
+    bw_ms = cuda_ms(torch, per_step(lambda t: bb.bn_act_bwd(
+        t["dy"], t["y"], t["x"], t["mean"], t["var"], t["gamma"], t["kvar"],
+        BN_EPS, False, True)), reps=10)
+    bw_plain = cuda_ms(torch, per_step(lambda t: bb.bn_act_bwd_plain(
+        t["dy"], t["y"], t["x"], t["mean"], t["var"], t["gamma"], t["kvar"],
+        BN_EPS, False, True)), reps=5)
+    bw_lib = cuda_ms(torch, per_step(bwd_lib), reps=10)
+    bw_bound, bw_by = bound(n_elems * 16, 12 * n_elems)
+    print(f"[train-kernels] bn_act_bwd per step ({2 * n_bn} launches; one-pass "
+          f"minimum {n_elems * 16 / 1e9:.3f} GB, the kernels move 28 bytes "
+          f"per element): kernel {bw_ms:.4f} ms, plain {bw_plain:.4f} ms, "
+          f"native_batch_norm_backward+threshold_backward {bw_lib:.4f} ms, "
+          f"bound {bw_bound:.4f} ms ({bw_by})", flush=True)
+    T.clear()
+
+    # --- softmax_output_bwd
+    so_err = 0.0
+    for shape, kw in [((32, 1000), {}),
+                      ((32, 1000), {"normalization": "batch",
+                                    "grad_scale": 0.5}),
+                      ((7, 11), {"normalization": "valid", "use_ignore": True,
+                                 "ignore_label": 3.0}),
+                      ((2, 5, 3, 4), {"multi_output": True,
+                                      "normalization": "valid"}),
+                      ((2, 3, 7), {"use_ignore": True, "ignore_label": 0.0})]:
+        multi = kw.get("multi_output", False)
+        classes = shape[1] if multi else shape[-1]
+        lshape = (shape[0],) + shape[2:] if multi else shape[:-1]
+        p = torch.softmax(3 * randn(*shape), dim=1 if multi else -1)
+        label = torch.randint(0, classes, lshape, generator=gen,
+                              device=dev).float()
+        got = so.softmax_output_bwd(p, label, **kw)
+        want = so.softmax_output_bwd_plain(
+            p, label, kw.get("grad_scale", 1.0), kw.get("ignore_label", -1.0),
+            kw.get("use_ignore", False), kw.get("normalization", "null"),
+            multi)
+        so_err = max(so_err, check(torch, f"softmax_output_bwd {shape} {kw}",
+                                   got, want, 0.0, EXACT_ATOL))
+    p = torch.softmax(3 * randn(*PATH_SOFTMAX), dim=-1)
+    label = torch.randint(0, 1000, (32,), generator=gen, device=dev).float()
+    so_ms = cuda_ms(torch, lambda: so.softmax_output_bwd(p, label), reps=100)
+    so_plain = cuda_ms(torch, lambda: so.softmax_output_bwd_plain(
+        p, label, 1.0, -1.0, False, "null", False), reps=100)
+    so_bound, so_by = bound(2 * p.numel() * 4 + 32 * 4, 2 * p.numel())
+    print(f"[train-kernels] softmax_output_bwd matches its plain version in 5 "
+          f"cases: max abs err {so_err:g} (atol {EXACT_ATOL}); at (32, 1000): "
+          f"kernel {so_ms:.4f} ms, plain {so_plain:.4f} ms, no library call, "
+          f"bound {so_bound * 1e3:.3f} us ({so_by})", flush=True)
+
+    # --- sgd_mom_multi over ResNet-50's 155 parameters
+    def sgd_set():
+        ws = [randn(*s) * 0.05 for _n, s in params]
+        gs = [randn(*s) * 0.01 for _n, s in params]
+        ms = [randn(*s) * 0.001 for _n, s in params]
+        return ws, gs, ms
+
+    names = [n for n, _s in params]
+    lrs = [0.1] * len(names)
+    wds = [0.0 if not n.endswith(("_weight", "_gamma")) else 1e-4
+           for n in names]
+    sg_err = 0.0
+    ws, gs, ms = sgd_set()
+    for momentum, clip in ((0.9, -1.0), (0.9, 0.005), (0.0, -1.0)):
+        w2, m2 = [t.clone() for t in ws], [t.clone() for t in ms]
+        moms = ms if momentum else None
+        sg.sgd_mom_multi(ws, gs, moms, lrs, wds, momentum, 1 / 32, clip)
+        sg.sgd_mom_multi_plain(w2, gs, m2 if momentum else None, lrs, wds,
+                               momentum, 1 / 32, clip)
+        for got, want in zip(ws + (ms if momentum else []),
+                             w2 + (m2 if momentum else [])):
+            sg_err = max(sg_err, check(torch, f"sgd_mom_multi momentum="
+                                       f"{momentum} clip={clip}", got, want,
+                                       0.0, EXACT_ATOL))
+    # the guard: a NaN gradient skips the step, restores the statistics
+    aux = torch.ones(26560, device=dev)
+    snap = torch.zeros_like(aux)
+    guard = sg.Guard(torch.zeros(2, dtype=torch.int32, device=dev),
+                     [(aux, snap)])
+    w0, m0 = [t.clone() for t in ws], [t.clone() for t in ms]
+    big = max(range(len(gs)), key=lambda i: gs[i].numel())
+    gs[big].view(-1)[7] = float("nan")
+    sg.sgd_mom_multi(ws, gs, ms, lrs, wds, 0.9, 1 / 32, -1.0, guard=guard)
+    torch.cuda.synchronize()
+    if guard.counters.tolist() != [1, 1] or not torch.equal(aux, snap) or \
+            any(not torch.equal(a, b) for a, b in zip(ws + ms, w0 + m0)):
+        fail(f"sgd_mom_multi guard: counters {guard.counters.tolist()}, the "
+             f"step was not skipped or the statistics not restored")
+    gs[big].view(-1)[7] = 0.0
+    aux.fill_(2.0)
+    sg.sgd_mom_multi(ws, gs, ms, lrs, wds, 0.9, 1 / 32, -1.0, guard=guard)
+    if guard.counters.tolist() != [1, 0] or not bool((aux == 2).all()):
+        fail(f"sgd_mom_multi guard after a finite step: counters "
+             f"{guard.counters.tolist()}")
+    cache = {}
+    builds = sg.TABLE_BUILDS.value
+    sg_ms = cuda_ms(torch, lambda: sg.sgd_mom_multi(
+        ws, gs, ms, lrs, wds, 0.9, 1 / 32, -1.0, cache=cache), reps=50)
+    if sg.TABLE_BUILDS.value != builds + 1:
+        fail(f"sgd_mom_multi rebuilt its table "
+             f"{sg.TABLE_BUILDS.value - builds} times for unmoved tensors")
+    sg_plain = cuda_ms(torch, lambda: sg.sgd_mom_multi_plain(
+        ws, gs, ms, lrs, wds, 0.9, 1 / 32, -1.0), reps=5)
+    tparams = [torch.nn.Parameter(w) for w in ws]
+    for p_, g in zip(tparams, gs):
+        p_.grad = g
+    topt = torch.optim.SGD(tparams, lr=0.1, momentum=0.9, weight_decay=1e-4,
+                           fused=True)
+    sg_lib = cuda_ms(torch, topt.step, reps=50)
+    numel = sum(math.prod(s) for _n, s in params)
+    sg_bound, sg_by = bound(20 * numel, 6 * numel)
+    print(f"[train-kernels] sgd_mom_multi matches its plain version over "
+          f"{len(params)} tensors ({numel / 1e6:.2f} M values) x momentum/clip: "
+          f"max abs err {sg_err:g} (atol {EXACT_ATOL}); a NaN gradient under "
+          f"the guard skips the step and restores the statistics, counters "
+          f"[1, 1] then [1, 0]; per step: kernel {sg_ms:.4f} ms (1 launch, "
+          f"table built once), plain {sg_plain:.4f} ms, "
+          f"torch.optim.SGD(fused=True).step {sg_lib:.4f} ms (other "
+          f"semantics, a yardstick), bound {sg_bound:.4f} ms ({sg_by})",
+          flush=True)
+    return [
+        {"name": "bn_stats", "route": "cuda",
+         "source": "mxnet_tpu_torch/csrc/bn_stats.cu",
+         "replaces": "mxnet_tpu/ops/defs_nn.py:425",
+         "max_abs_err": st_err, "ms": st_ms, "plain_ms": st_plain,
+         "bound_ms": st_bound, "bound_by": st_by, "library_ms": st_lib,
+         "train_forward_ms": fw_ms, "train_forward_plain_ms": fw_plain,
+         "train_forward_library_ms": fw_lib,
+         "train_forward_bound_ms": fw_bound},
+        {"name": "bn_act_bwd", "route": "cuda",
+         "source": "mxnet_tpu_torch/csrc/bn_act_bwd.cu",
+         "replaces": "mxnet_tpu/ops/defs_nn.py:380",
+         "max_abs_err": bw_err, "ms": bw_ms, "plain_ms": bw_plain,
+         "bound_ms": bw_bound, "bound_by": bw_by, "library_ms": bw_lib},
+        {"name": "softmax_output_bwd", "route": "cuda",
+         "source": "mxnet_tpu_torch/csrc/softmax_output_bwd.cu",
+         "replaces": "mxnet_tpu/ops/defs_nn.py:718",
+         "max_abs_err": so_err, "ms": so_ms, "plain_ms": so_plain,
+         "bound_ms": so_bound, "bound_by": so_by, "library_ms": None},
+        {"name": "sgd_mom_multi", "route": "cuda",
+         "source": "mxnet_tpu_torch/csrc/sgd_mom_multi.cu",
+         "replaces": "mxnet_tpu/executor.py:1606",
+         "max_abs_err": sg_err, "ms": sg_ms, "plain_ms": sg_plain,
+         "bound_ms": sg_bound, "bound_by": sg_by, "library_ms": sg_lib},
+    ]
+
+
+def resnet50_numpy(mx, seed):
+    """ResNet-50 parameters as numpy: He-normal weights, gamma 1, beta and
+    biases 0, moving_mean 0, moving_var 1."""
+    sym, _bn, params = resnet50_shapes(mx, 1)
+    rng = np.random.default_rng(seed)
+    args = {}
+    for name, shape in params:
+        if name.endswith("_weight"):
+            std = math.sqrt(2.0 / math.prod(shape[1:]))
+            args[name] = rng.standard_normal(shape, np.float32) * std
+        elif name.endswith("_gamma"):
+            args[name] = np.ones(shape, np.float32)
+        else:
+            args[name] = np.zeros(shape, np.float32)
+    _, _, aux_shapes = sym.infer_shape(data=(1, 3, 224, 224))
+    auxs = {n: (np.ones if n.endswith("_var") else np.zeros)(s, np.float32)
+            for n, s in zip(sym.list_auxiliary_states(), aux_shapes)}
+    return sym, args, auxs
+
+
+def cross_entropy(torch, probs, labels):
+    """Mean cross-entropy of (N, K) probabilities against labels, on the
+    probabilities' device."""
+    p = probs[torch.arange(probs.shape[0], device=probs.device),
+              labels.to(torch.int64)]
+    return -torch.log(p + 1e-8).mean()
+
+
+def profile_step(torch, step, reps=2):
+    """Kernels of one training step by self device time (kernel events
+    only), and the device's busy share of the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(ev.self_device_time_total / reps, round(ev.count / reps), ev.key)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and ev.self_device_time_total]
+    busy = sum(r[0] for r in rows)
+    if not busy:
+        print("[profile] torch.profiler recorded no device time")
+        return {}
+    print(f"[profile] one training step at batch {TRAIN_BATCH}: device busy "
+          f"{busy / 1e3:.2f} ms of {wall_us / reps / 1e3:.2f} ms wall "
+          f"({100 * busy * reps / wall_us:.0f}%); top kernels by device time:")
+    for us, count, key in sorted(rows, reverse=True)[:14]:
+        print(f"[profile]   {us / 1e3:8.3f} ms {100 * us / busy:5.1f}% "
+              f"x{count:<4d} {key[:90]}")
+    # the port's kernels: device time per step, apart from the host's
+    # launch path that the CUDA-event times above include
+    ours = {}
+    for us, count, key in rows:
+        for kernel, mark in PORT_KERNELS.items():
+            if mark in key:
+                ms, n = ours.get(kernel, (0.0, 0))
+                ours[kernel] = (ms + us / 1e3, n + count)
+    for kernel, (ms, n) in sorted(ours.items()):
+        print(f"[profile]   port kernel {kernel}: {ms:.4f} ms device time in "
+              f"{n} launches per step")
+    return {k: v[0] for k, v in ours.items()}
+
+
+def phase_training(torch, mx, card):
+    from mxnet_tpu_torch import telemetry as tm
+    from mxnet_tpu_torch.kernels import (
+        bn_act, bn_act_bwd, bn_stats, sgd_mom_multi, softmax_output_bwd,
+        softmax_rows)
+
+    t0 = time.perf_counter()
+    sym, args, auxs = resnet50_numpy(mx, SEED)
+    n_bn = len(resnet50_shapes(mx, TRAIN_BATCH)[1])  # 50 in ResNet-50
+    cpu = mx.cpu()
+    arg_nd = {k: mx.nd.array(v, ctx=cpu) for k, v in args.items()}
+    aux_nd = {k: mx.nd.array(v, ctx=cpu) for k, v in auxs.items()}
+    rng = np.random.default_rng(SEED + 3)
+    steps = 6
+    x = rng.standard_normal((steps * TRAIN_BATCH, 3, 224, 224), np.float32)
+    y = rng.integers(0, 1000, steps * TRAIN_BATCH).astype(np.float32)
+    it = mx.io.NDArrayIter(x, y, batch_size=TRAIN_BATCH)  # on gpu(0)
+    mod = mx.mod.Module(sym)  # on the current context, gpu(0)
+    kernels = {"bn_stats": bn_stats, "bn_act": bn_act,
+               "bn_act_bwd": bn_act_bwd, "softmax_rows": softmax_rows,
+               "softmax_output_bwd": softmax_output_bwd,
+               "sgd_mom_multi": sgd_mom_multi}
+    per_step = {"bn_stats": n_bn, "bn_act": n_bn, "bn_act_bwd": 2 * n_bn,
+                "softmax_rows": 1, "softmax_output_bwd": 1,
+                "sgd_mom_multi": 1}
+
+    # the main path: every count at 0 just before, read just after
+    tm.reset()
+    mod.fit(it, num_epoch=1, eval_metric=["acc", "ce"], optimizer="sgd",
+            optimizer_params=TRAIN_OPT, arg_params=arg_nd, aux_params=aux_nd)
+    torch.cuda.synchronize()
+    launches = {k: m.LAUNCHES.value for k, m in kernels.items()}
+    batches = tm.counter("fit.batches").value
+    builds = sgd_mom_multi.TABLE_BUILDS.value
+    if batches != steps or launches != {k: v * steps
+                                        for k, v in per_step.items()}:
+        fail(f"training launch counters {launches} over {batches} steps; "
+             f"expected per step {per_step}")
+    if mod._exec_group._exec.arg_dict["conv0_weight"].context != mx.gpu(0):
+        fail("Module.fit did not train on gpu(0)")
+    if builds != 1:
+        fail(f"the update kernel's table was built {builds} times over "
+             f"{steps} steps; its weights and momenta never move")
+    uploads = sgd_mom_multi.GRAD_UPLOADS.value
+    print(f"[training] ResNet-50 Module.fit on {mx.current_context()}: "
+          f"{batches} steps at batch {TRAIN_BATCH} in "
+          f"{time.perf_counter() - t0:.1f} s (set-up, cuDNN's choices and "
+          f"first launches included); launches {launches} = per step "
+          f"{per_step}; the update's table built {builds} time(s), the "
+          f"gradient pointers uploaded {uploads} time(s)", flush=True)
+
+    # 10 steps on one fixed batch lower the cross-entropy
+    mod2 = mx.mod.Module(sym)
+    mod2.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mod2.init_params(arg_params=arg_nd, aux_params=aux_nd)
+    mod2.init_optimizer(optimizer="sgd", optimizer_params=TRAIN_OPT)
+    it.reset()
+    batch = next(iter(it))
+    label = batch.label[0]._data
+
+    def step():
+        mod2.forward_backward(batch)
+        mod2.update()
+
+    losses = []
+    for _ in range(10):
+        step()
+        losses.append(cross_entropy(torch, mod2.get_outputs()[0]._data,
+                                    label))
+    losses = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in losses) or \
+            losses[-1] > LOSS_RATIO * losses[0]:
+        fail(f"training cross-entropy over 10 steps on one batch: {losses}; "
+             f"expected the last <= {LOSS_RATIO} x the first")
+    print(f"[training] cross-entropy over 10 steps on one batch of "
+          f"{TRAIN_BATCH}: {' '.join(f'{v:.3f}' for v in losses)} (last/first "
+          f"{losses[-1] / losses[0]:.3f}, limit {LOSS_RATIO})", flush=True)
+
+    # time per step: CUDA events around 10 steps after the warm-up above
+    torch.cuda.reset_peak_memory_stats()
+    reps = 10
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        step()
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - w0) / reps * 1e3
+    step_ms = start.elapsed_time(end) / reps
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[training] ResNet-50 at batch {TRAIN_BATCH} on {card}: "
+          f"{step_ms:.2f} ms per step by CUDA events ({1e3 / step_ms:.2f} "
+          f"steps/s, {TRAIN_BATCH * 1e3 / step_ms:.1f} images/s); host wall "
+          f"{wall_ms:.2f} ms per step; peak device memory {peak:.2f} GiB",
+          flush=True)
+    device_ms = profile_step(torch, step)
+    return launches, device_ms
+
+
+def phase_train_parity(torch, mx):
+    """Two fused steps of full ResNet-50 at batch 8 on the card and on the
+    port's CPU path (plain versions). Each step starts both sides from the
+    same state — the second from the card's state after the first, copied
+    to the CPU — and every quantity is compared after it: free-running
+    sides would drift apart (the gradient difference below moves the
+    weights, and a ResNet's gradient at initialization is sensitive to
+    that)."""
+    sym, args, auxs = resnet50_numpy(mx, SEED + 4)
+    rng = np.random.default_rng(SEED + 5)
+    x = rng.standard_normal((2, PARITY_BATCH, 3, 224, 224), np.float32)
+    y = rng.integers(0, 1000, (2, PARITY_BATCH)).astype(np.float32)
+    names = sorted(args)
+    sides = {}
+    t0 = time.perf_counter()
+    for where, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu()),
+                       ("card, cuDNN off", mx.gpu(0))):
+        exe = sym.simple_bind(ctx, grad_req="write",
+                              data=(PARITY_BATCH, 3, 224, 224),
+                              softmax_label=(PARITY_BATCH,))
+        exe.copy_params_from({k: mx.nd.array(v, ctx=mx.cpu())
+                              for k, v in args.items()},
+                             {k: mx.nd.array(v, ctx=mx.cpu())
+                              for k, v in auxs.items()})
+        opt = mx.optimizer.SGD(momentum=0.9, rescale_grad=1 / PARITY_BATCH,
+                               learning_rate=PARITY_LR, wd=1e-4,
+                               param_idx2name=dict(enumerate(names)))
+        states = [opt.create_state(i, exe.arg_dict[n])
+                  for i, n in enumerate(names)]
+        sides[where] = (exe, opt, states)
+
+    def step(where, s):
+        exe, opt, states = sides[where]
+        exe.forward(is_train=True, data=x[s], softmax_label=y[s])
+        exe.backward()
+        exe.fused_train_update(names, opt.torch_apply, states,
+                               [opt._get_lr(i) for i in range(len(names))],
+                               [opt._get_wd(i) for i in range(len(names))],
+                               [s + 1] * len(names))
+        out = exe.outputs[0]._data
+        loss = cross_entropy(torch, out, torch.from_numpy(y[s]).to(
+            out.device))
+        return {"loss": {"loss": np.array([float(loss)])},
+                "param": {n: exe.arg_dict[n].asnumpy() for n in names},
+                "momentum": {n: st.asnumpy() for n, st in zip(names, states)},
+                "aux": {n: exe.aux_dict[n].asnumpy() for n in auxs}}
+
+    # the same card with PyTorch's own convolutions in place of cuDNN's: how
+    # far the first step's gradients move when only the convolutions'
+    # summation order changes (measurement only, it fails nothing)
+    torch.backends.cudnn.enabled = False
+    try:
+        other = step("card, cuDNN off", 0)["momentum"]
+    finally:
+        torch.backends.cudnn.enabled = True
+    results = {"card": [], "cpu": []}
+    for s in range(2):
+        if s:  # the CPU side takes over the card's state
+            card, cpu = sides["card"], sides["cpu"]
+            for n in names:
+                card[0].arg_dict[n].copyto(cpu[0].arg_dict[n])
+            for n in auxs:
+                card[0].aux_dict[n].copyto(cpu[0].aux_dict[n])
+            for a, b in zip(card[2], cpu[2]):
+                a.copyto(b)
+        for where in ("card", "cpu"):
+            results[where].append(step(where, s))
+    lines, bad = [], []
+    for s in range(2):
+        for kind, rtols in PARITY_TOL.items():
+            rtol = rtols[s]
+            want_all = results["cpu"][s][kind]
+            got_all = results["card"][s][kind]
+            diff = math.sqrt(sum(float(np.sum((got_all[n] - w) ** 2))
+                                 for n, w in want_all.items()))
+            norm = math.sqrt(sum(float(np.sum(w ** 2))
+                                 for w in want_all.values()))
+            rel = diff / norm if all(np.isfinite(got_all[n]).all()
+                                     for n in want_all) else math.inf
+            worst = max(want_all, key=lambda n: float(
+                np.linalg.norm(got_all[n] - want_all[n])
+                / max(np.linalg.norm(want_all[n]), 1e-30)))
+            worst_rel = float(np.linalg.norm(got_all[worst] - want_all[worst])
+                              / max(np.linalg.norm(want_all[worst]), 1e-30))
+            lines.append(f"step {s + 1} {kind}: |card - cpu| / |cpu| = "
+                         f"{rel:.3g} (rtol {rtol}); worst tensor {worst} "
+                         f"{worst_rel:.3g}")
+            if not rel <= rtol:
+                bad.append(f"step {s + 1} {kind} {rel:.3g} > {rtol}")
+    print(f"[parity] two fused steps of ResNet-50 at batch {PARITY_BATCH}, "
+          f"card against the port's CPU path "
+          f"({time.perf_counter() - t0:.1f} s): losses "
+          f"{[float(st['loss']['loss'][0]) for st in results['card']]} vs "
+          f"{[float(st['loss']['loss'][0]) for st in results['cpu']]}",
+          flush=True)
+    for line in lines:
+        print(f"[parity]   {line}")
+    # where the gradient difference comes from: it grows from the head
+    # (the FC layer) down to the stem (the first convolution)
+    depth = {n: float(np.linalg.norm(results["card"][0]["momentum"][n]
+                                     - results["cpu"][0]["momentum"][n])
+                      / np.linalg.norm(results["cpu"][0]["momentum"][n]))
+             for n in ("fc1_weight", "bn1_gamma", "stage4_unit3_conv3_weight",
+                       "stage1_unit1_conv1_weight", "conv0_weight")
+             if n in results["cpu"][0]["momentum"]}
+    print("[parity]   step 1 momentum, |card - cpu| / |cpu| from head to "
+          "stem: " + ", ".join(f"{n} {v:.2e}" for n, v in depth.items()))
+    card0 = results["card"][0]["momentum"]
+    spread = math.sqrt(sum(float(np.sum((card0[n] - other[n]) ** 2))
+                           for n in names)) / math.sqrt(sum(
+                               float(np.sum(card0[n] ** 2)) for n in names))
+    print(f"[parity]   step 1 momentum, the card with cuDNN against the card "
+          f"without: |a - b| / |a| = {spread:.3g}")
+    if bad:
+        fail(f"training parity: card and CPU differ beyond the tolerance in "
+             f"{bad}")
+
+
 def main():
     import torch
 
@@ -385,9 +1049,15 @@ def main():
     card = phase_device(torch)
     phase_build()
     kernels = phase_kernels(torch)
-    launches = phase_serving(torch, mx, card)
+    kernels += phase_train_kernels(torch, mx)
+    served = phase_serving(torch, mx, card)
+    trained, device_ms = phase_training(torch, mx, card)
+    phase_train_parity(torch, mx)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches_serving"] = served.get(k["name"], 0)
+        k["launches_training"] = trained[k["name"]]
+        k["launches"] = k["launches_serving"] + k["launches_training"]
+        k["step_device_ms"] = device_ms.get(k["name"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,13 +2,15 @@
 
 A second package beside the JAX one, with the same module names and
 layout so each module's counterpart is easy to find. It imports torch and
-numpy, never ``jax`` and nothing from ``mxnet_tpu``. This slice serves
+numpy, never ``jax`` and nothing from ``mxnet_tpu``. It trains and serves
 models end to end: Symbol graphs (JSON and ``.params`` compatible with the
-JAX package), a forward-only executor, ``Predictor`` and ``ModelServer``.
-Entry points run on the card (``gpu(0)``) unless the caller asks for the
-CPU. Inference BatchNorm+ReLU and the SoftmaxOutput forward run
-hand-written CUDA kernels (:mod:`.kernels`); convolutions and matrix
-products go to cuDNN/cuBLAS through torch.
+JAX package), an eager executor with backward and a fused update,
+``Module.fit`` with SGD, initializers, metrics and ``NDArrayIter``,
+``Predictor`` and ``ModelServer``. Entry points run on the card
+(``gpu(0)``) unless the caller asks for the CPU. BatchNorm (+ReLU) forward
+and backward, the SoftmaxOutput forward and loss backward and the
+multi-tensor SGD update run hand-written CUDA kernels (:mod:`.kernels`);
+convolutions and matrix products go to cuDNN/cuBLAS through torch.
 """
 
 import torch
@@ -30,6 +32,15 @@ from . import ndarray as nd  # noqa: E402
 from . import symbol  # noqa: E402
 from . import symbol as sym  # noqa: E402
 from .executor import Executor  # noqa: E402
+from . import random  # noqa: E402
+from . import initializer  # noqa: E402
+from . import initializer as init  # noqa: E402
+from . import lr_scheduler, optimizer  # noqa: E402
+from . import optimizer as opt  # noqa: E402
+from .optimizer import Optimizer  # noqa: E402
+from . import metric, io, callback, model  # noqa: E402
+from . import module  # noqa: E402
+from . import module as mod  # noqa: E402
 from . import contrib, convert, models, predictor, serving  # noqa: E402
 from .attribute import AttrScope  # noqa: E402
 from .name import NameManager  # noqa: E402
@@ -38,5 +49,7 @@ __all__ = [
     "MXNetError", "Context", "cpu", "gpu", "current_context", "num_gpus",
     "nd", "ndarray", "sym", "symbol", "Executor", "contrib", "convert",
     "models", "predictor", "serving", "kernels", "ops", "base", "context",
-    "env", "telemetry", "AttrScope", "NameManager",
+    "env", "telemetry", "AttrScope", "NameManager", "random", "init",
+    "initializer", "lr_scheduler", "optimizer", "opt", "Optimizer", "metric",
+    "io", "callback", "model", "module", "mod",
 ]

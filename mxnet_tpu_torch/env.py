@@ -4,7 +4,8 @@ The port honours the same ``MXNET_*`` names as ``mxnet_tpu/env.py``. Every
 variable the port reads is declared here once, with type, default and
 documentation; modules read through :func:`get`. Variables of subsystems
 that are not yet ported are declared only where setting them must raise
-(the serving mesh, sequence buckets and the checkpoint watcher).
+(the serving mesh, sequence buckets, the checkpoint watcher and training
+windows).
 """
 
 from __future__ import annotations
@@ -89,6 +90,29 @@ _declare("MXNET_SERVING_SEQ_BUCKETS", str, "",
 _declare("MXNET_SERVING_WATCH", float, 0.0,
          "Checkpoint-watch poll period for hot reload. Not yet ported: a "
          "non-zero value raises MXNetError.")
+
+_declare("MXNET_EXEC_BULK_EXEC_TRAIN", _parse_bool, True,
+         "When false, Module.update skips the fused training step "
+         "(Executor.fused_train_update, one multi-tensor kernel launch over "
+         "every parameter) and applies the optimizer parameter by "
+         "parameter (reference MXNET_EXEC_BULK_EXEC_TRAIN).")
+_declare("MXNET_NONFINITE_GUARD", str, "",
+         "Non-finite-gradient sentinel for training updates: 'skip' adds "
+         "every gradient into a device probe inside the fused step and, "
+         "when it is NaN/Inf, keeps the old parameters, optimizer state "
+         "and BatchNorm statistics (no per-batch host sync); 'rollback' "
+         "raises at the epoch end after MXNET_NONFINITE_TOLERANCE "
+         "consecutive skips (restoring a checkpoint is not yet ported); "
+         "'raise' fails the fit loop on the first skipped batch (a "
+         "per-batch host check). Empty (default) = off. Skips are counted "
+         "in fit.nonfinite_skip.")
+_declare("MXNET_NONFINITE_TOLERANCE", int, 3,
+         "Consecutive non-finite-gradient skips tolerated before "
+         "MXNET_NONFINITE_GUARD=rollback escalates.")
+_declare("MXNET_TRAIN_WINDOW", str, "",
+         "Fused-K training windows for Module.fit. Not yet ported "
+         "(ROADMAP.md queue 1 item 2): a value other than empty or 1 "
+         "raises MXNetError.")
 
 
 def get(name):

@@ -1,30 +1,45 @@
-"""Executor — binds a Symbol to arrays and runs its forward, eagerly.
+"""Executor — binds a Symbol to arrays and runs it eagerly: forward,
+backward and the fused training update.
 
-Counterpart of ``mxnet_tpu/executor.py``, forward-only. The JAX executor
-traces the bound graph into one jitted XLA program; here
+Counterpart of ``mxnet_tpu/executor.py``. The JAX executor traces the
+bound graph into one jitted XLA program per step; here
 :meth:`_Graph.evaluate` (the interpreter of ``_CompiledGraph.evaluate``)
-walks the graph in topological order and runs each op's PyTorch body under
-``torch.inference_mode``. The NHWC, rematerialisation, device-placement
-and rng branches of the reference interpreter, gradients, training mode
-and the fused train update are not yet ported.
+walks the graph in topological order and runs each op's PyTorch body:
+under ``torch.inference_mode`` at inference, under autograd in training.
+``forward(is_train=True)`` records the graph (BatchNorm updates its moving
+statistics then, once per forward, as the reference does), ``backward()``
+differentiates it at once — loss heads drive it without ``out_grads``, as
+``_head_loss_flags`` has it — and ``fused_train_update`` applies the
+optimizer to every parameter in one multi-tensor kernel launch, with the
+``MXNET_NONFINITE_GUARD`` select on the device. The NHWC,
+rematerialisation, device-placement and rng branches of the reference
+interpreter, training windows (``n_steps > 1``), small-parameter packing
+and CUDA-graph capture of the step are not yet ported.
 
-Where XLA would fuse an inference BatchNorm into the ReLU that consumes
-it, the interpreter routes the pair to the ``bn_act`` kernel with the
-ReLU fused: a BatchNorm whose visible output has exactly one consumer, an
-``Activation(act_type="relu")``, runs with ``relu=True`` and the
-Activation passes that value through. Any other BatchNorm runs with
-``relu=False`` and its consumers run as written.
+Where XLA would fuse a BatchNorm into the ReLU that consumes it, the
+interpreter routes the pair to the ``bn_act`` kernel (and in training its
+backward to ``bn_act_bwd``) with the ReLU fused: a BatchNorm whose visible
+output has exactly one consumer, an ``Activation(act_type="relu")``, runs
+with ``relu=True`` and the Activation passes that value through. Any other
+BatchNorm runs with ``relu=False`` and its consumers run as written.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .base import MXNetError
+from . import env as _env
+from .base import MXNetError, np_dtype
 from .context import Context
-from .ndarray import NDArray
+from .kernels.sgd_mom_multi import Guard
+from .ndarray import NDArray, ones as nd_ones, zeros as nd_zeros
 from .ops.defs_nn import batch_norm
 from .ops.registry import OpMode
+
+_GRAD_REQ = ("null", "write", "add")
+_WINDOWS = ("training windows (n_steps > 1, data_stacks, "
+            "publish_grads=False) are not yet ported to mxnet_tpu_torch "
+            "(ROADMAP.md queue 1 item 2)")
 
 
 def _fused_bn_relu(symbol, topo):
@@ -48,6 +63,18 @@ def _fused_bn_relu(symbol, topo):
                 and consumers.get((id(bn), 0)) == [node]):
             fused[id(node)] = bn
     return fused
+
+
+def _head_loss_flags(graph):
+    """Which graph heads are loss outputs (drive an implicit backward)."""
+    return [not node.is_variable and node.op.is_loss
+            for (node, _ix) in graph.heads]
+
+
+def nonfinite_guard_on():
+    """True when ``MXNET_NONFINITE_GUARD`` asks for the guard."""
+    return str(_env.get("MXNET_NONFINITE_GUARD") or "").lower() in (
+        "skip", "rollback", "raise")
 
 
 class _Graph:
@@ -86,11 +113,19 @@ class _Graph:
                 continue
             ins = [env[id(inode)][idx] for (inode, idx) in node.inputs]
             if id(node) in self.fused:
-                outs = ins  # its BatchNorm already applied the ReLU
+                outs, new_aux = ins, []  # its BatchNorm applied the ReLU
             elif id(node) in self._fused_bns:
-                outs, _aux = batch_norm(ins, node.params(), mode, relu=True)
+                outs, new_aux = batch_norm(ins, node.params(), mode,
+                                           relu=True)
             else:
-                outs, _aux = node.op.apply(ins, node.params(), mode)
+                outs, new_aux = node.op.apply(ins, node.params(), mode)
+            # an op's new aux values land in the aux arrays (BatchNorm
+            # writes its moving statistics in place and returns them)
+            n_args = len(node.inputs) - len(new_aux)
+            for (inode, idx), value in zip(node.inputs[n_args:], new_aux):
+                held = env[id(inode)][idx]
+                if value is not held:
+                    held.copy_(value)
             env[id(node)] = outs
             for (inode, _idx) in node.inputs:
                 if self._last_use[id(inode)] == pos:
@@ -99,21 +134,18 @@ class _Graph:
 
 
 class Executor:
-    """A bound forward computation (reference ``Executor::Bind``).
+    """A bound computation (reference ``Executor::Bind``).
 
-    ``args``/``aux_states`` are dicts or name-ordered lists of NDArrays.
-    Gradients are not yet ported: ``args_grad`` with a ``grad_req`` other
-    than ``"null"`` raises :class:`MXNetError`.
+    ``args``/``args_grad``/``aux_states`` are dicts or name-ordered lists of
+    NDArrays; ``grad_req`` is ``"write"``, ``"add"`` or ``"null"``, one for
+    all or per argument. An argument with a request but no gradient array
+    gets ``"null"``, as in the reference.
     """
 
     def __init__(self, symbol, ctx, args=None, args_grad=None,
-                 grad_req="null", aux_states=None):
+                 grad_req="write", aux_states=None):
         self._symbol = symbol
         self._ctx = ctx if isinstance(ctx, Context) else Context(ctx)
-        if args_grad and grad_req != "null":
-            raise MXNetError(
-                "Executor: gradients are not yet ported to mxnet_tpu_torch "
-                "(bind with grad_req='null')")
         self.graph = _Graph(symbol)
         self.arg_names = self.graph.arg_names
         self.aux_names = self.graph.aux_names
@@ -121,12 +153,35 @@ class Executor:
         self.arg_dict = self._norm_arrays(args, self.arg_names, "args")
         self.aux_dict = self._norm_arrays(aux_states, self.aux_names,
                                           "aux_states")
+        if isinstance(grad_req, str):
+            self.grad_req = {n: grad_req for n in self.arg_names}
+        elif isinstance(grad_req, (list, tuple)):
+            self.grad_req = dict(zip(self.arg_names, grad_req))
+        elif isinstance(grad_req, dict):
+            self.grad_req = {n: grad_req.get(n, "null")
+                             for n in self.arg_names}
+        else:
+            raise MXNetError(f"invalid grad_req {grad_req!r}")
+        for n, r in self.grad_req.items():
+            if r not in _GRAD_REQ:
+                raise MXNetError(f"invalid grad_req {r!r} for {n}")
+        self.grad_dict = self._norm_arrays(args_grad, self.arg_names,
+                                           "args_grad", allow_missing=True)
+        for n in self.arg_names:
+            if self.grad_req[n] != "null" and n not in self.grad_dict:
+                self.grad_req[n] = "null"
         self._outputs = None
+        # (head tensors, {name: leaf}) of a training forward
+        self._recorded = None
+        self._grads_fresh = False  # a backward no update has consumed yet
+        self._aux_snapshot = None  # (flat copy, restore pairs) for the guard
+        self._guard_dev = None  # device int32 [total, consecutive] skips
+        self._update_cache = {}  # the update kernel's device table
 
     @staticmethod
-    def _norm_arrays(arrays, names, what):
+    def _norm_arrays(arrays, names, what, allow_missing=False):
         if arrays is None:
-            if names:
+            if names and not allow_missing:
                 raise MXNetError(f"{what}: expected arrays for {names}")
             return {}
         if not isinstance(arrays, dict):
@@ -138,11 +193,26 @@ class Executor:
         out = {}
         for n in names:
             if n not in arrays or arrays[n] is None:
+                if allow_missing:
+                    continue
                 raise MXNetError(f"{what}: missing array for {n!r}")
             if not isinstance(arrays[n], NDArray):
                 raise MXNetError(f"{what}[{n}] must be NDArray")
             out[n] = arrays[n]
         return out
+
+    # ------------------------------------------------------------------
+    @property
+    def arg_arrays(self):
+        return [self.arg_dict[n] for n in self.arg_names]
+
+    @property
+    def grad_arrays(self):
+        return [self.grad_dict.get(n) for n in self.arg_names]
+
+    @property
+    def aux_arrays(self):
+        return [self.aux_dict[n] for n in self.aux_names]
 
     @property
     def outputs(self):
@@ -150,30 +220,205 @@ class Executor:
             raise MXNetError("outputs accessed before any forward call")
         return list(self._outputs)
 
+    @property
+    def output_dict(self):
+        return dict(zip(self.output_names, self.outputs))
+
+    # ------------------------------------------------------------------
     def forward(self, is_train=False, **kwargs):
         """Write new input values (kwargs) and run the forward pass. The
         kernels are enqueued on the device's current stream; reading an
-        output with ``asnumpy`` waits for them."""
-        if is_train:
-            raise MXNetError("Executor.forward(is_train=True) is not yet "
-                             "ported to mxnet_tpu_torch")
+        output with ``asnumpy`` waits for them. With ``is_train`` the
+        forward takes batch statistics, updates the BatchNorm moving
+        statistics and is recorded for :meth:`backward`."""
         for name, arr in kwargs.items():
             if name not in self.arg_dict:
                 raise MXNetError(f"forward: unknown argument {name!r}")
             tgt = self.arg_dict[name]
-            src = arr._data if isinstance(arr, NDArray) else torch.as_tensor(arr)
+            src = arr._data if isinstance(arr, NDArray) \
+                else torch.as_tensor(arr)
             if tuple(src.shape) != tgt.shape:
                 raise MXNetError(
                     f"forward: shape mismatch for {name}: bound {tgt.shape}, "
                     f"got {tuple(src.shape)}")
             tgt._data.copy_(src)
-        with torch.inference_mode():
-            outs = self.graph.evaluate(
-                [self.arg_dict[n]._data for n in self.arg_names],
-                [self.aux_dict[n]._data for n in self.aux_names],
-                is_train=False)
-        self._outputs = [NDArray(o) for o in outs]
+        self._recorded = None
+        self._grads_fresh = False
+        aux_vals = [self.aux_dict[n]._data for n in self.aux_names]
+        if not is_train:
+            with torch.inference_mode():
+                outs = self.graph.evaluate(
+                    [self.arg_dict[n]._data for n in self.arg_names],
+                    aux_vals, is_train=False)
+            self._outputs = [NDArray(o) for o in outs]
+            return list(self._outputs)
+        if nonfinite_guard_on():
+            self._snapshot_aux()
+        leaves = {}
+        arg_vals = []
+        for n in self.arg_names:
+            t = self.arg_dict[n]._data
+            if self.grad_req[n] != "null":
+                # a leaf sharing the array's storage: the update writes the
+                # array in place, after the backward that reads the leaf
+                t = t.detach().requires_grad_(True)
+                leaves[n] = t
+            arg_vals.append(t)
+        with torch.enable_grad():
+            outs = self.graph.evaluate(arg_vals, aux_vals, is_train=True)
+        self._recorded = (outs, leaves)
+        self._outputs = [NDArray(o.detach()) for o in outs]
         return list(self._outputs)
+
+    def _snapshot_aux(self):
+        """Copy the aux arrays (BatchNorm moving statistics) into one flat
+        buffer kept across steps, for the guard to restore on a skipped
+        step."""
+        vals = [self.aux_dict[n]._data for n in self.aux_names
+                if self.aux_dict[n]._data.dtype == torch.float32]
+        if not vals:
+            self._aux_snapshot = (None, [])
+            return
+        total = sum(v.numel() for v in vals)
+        flat = self._aux_snapshot[0] if self._aux_snapshot else None
+        if (flat is None or flat.numel() != total
+                or flat.device != vals[0].device):
+            flat = torch.empty(total, device=vals[0].device)
+        torch.cat([v.reshape(-1) for v in vals], out=flat)
+        pairs, off = [], 0
+        for v in vals:
+            pairs.append((v, flat[off:off + v.numel()].view(v.shape)))
+            off += v.numel()
+        self._aux_snapshot = (flat, pairs)
+
+    def backward(self, out_grads=None, is_train=True):
+        """Differentiate the recorded training forward (run one first if
+        the last forward was not recorded) and write the gradients.
+
+        Without ``out_grads`` the loss heads (SoftmaxOutput, whose backward
+        ignores the head gradient) drive the backward and the other heads
+        contribute nothing; a graph without a loss head then raises.
+        ``grad_req="write"`` gradients take the new values, ``"add"`` adds
+        them in place."""
+        if self._outputs is None:
+            raise MXNetError("backward called before forward")
+        if self._recorded is None:
+            self.forward(is_train=True)
+        outs, leaves = self._recorded
+        self._recorded = None
+        if out_grads is not None and not isinstance(out_grads, (list, tuple)):
+            out_grads = [out_grads]
+        flags = _head_loss_flags(self.graph)
+        if out_grads is None and not any(flags):
+            raise MXNetError(
+                "backward() without out_grads requires a loss output "
+                "(SoftmaxOutput/...); pass explicit head gradients for plain "
+                "outputs")
+        heads, head_grads = [], []
+        for j, o in enumerate(outs):
+            if not o.requires_grad:
+                continue
+            if out_grads is not None:
+                g = out_grads[j]
+                g = g._data if isinstance(g, NDArray) else torch.as_tensor(g)
+                head_grads.append(g.to(o.device, o.dtype))
+            elif flags[j]:
+                # the loss layer ignores its head gradient
+                head_grads.append(torch.ones((), dtype=o.dtype,
+                                             device=o.device).expand_as(o))
+            else:
+                continue
+            heads.append(o)
+        names = list(leaves)
+        for n in names:
+            if self.grad_req[n] == "write":
+                # release last step's gradient first, so the allocator can
+                # hand its memory to this step's (stable addresses keep the
+                # update kernel's cached table valid)
+                self.grad_dict[n]._data = None
+        grads = [None] * len(names)
+        if heads:
+            grads = torch.autograd.grad(heads, [leaves[n] for n in names],
+                                        grad_outputs=head_grads,
+                                        allow_unused=True)
+        for n, g in zip(names, grads):
+            if g is None:
+                g = torch.zeros_like(leaves[n])
+            if self.grad_req[n] == "add":
+                self.grad_dict[n]._data.add_(g)
+            else:
+                self.grad_dict[n]._data = g
+        self._grads_fresh = True
+
+    # --- the fused training update --------------------------------------
+    def nonfinite_guard_stats(self):
+        """``(total_skips, consecutive_skips)`` of the fused-step guard.
+        Reads the device counters — call at sync points, never per batch."""
+        if self._guard_dev is None:
+            return (0, 0)
+        a = self._guard_dev.cpu().numpy()
+        return (int(a[0]), int(a[1]))
+
+    def reset_nonfinite_guard(self, keep_total=True):
+        """Zero the consecutive-skip counter (or both counters with
+        ``keep_total=False``)."""
+        if self._guard_dev is None:
+            return
+        total = self.nonfinite_guard_stats()[0] if keep_total else 0
+        self._guard_dev.copy_(torch.tensor([total, 0], dtype=torch.int32))
+
+    def fused_train_update(self, update_names, apply_fn, states, lrs, wds, ts,
+                           cache_token=None, n_steps=1, data_stacks=None,
+                           publish_grads=True):
+        """Apply the optimizer to every parameter in ``update_names`` after
+        a :meth:`backward`, in place (reference ``fused_train_update``,
+        single step).
+
+        ``apply_fn(weights, grads, states, lrs, wds, ts, cache=, guard=)``
+        updates lists of tensors at once (``Optimizer.torch_apply``: one
+        launch of the multi-tensor kernel) and returns the new states.
+        Under ``MXNET_NONFINITE_GUARD`` a step whose gradients are not all
+        finite keeps the old parameters, optimizer state and BatchNorm
+        statistics, and advances the device skip counters
+        (:meth:`nonfinite_guard_stats`). Training windows raise
+        :class:`MXNetError`."""
+        if int(n_steps) != 1 or data_stacks is not None or not publish_grads:
+            raise MXNetError(f"fused_train_update: {_WINDOWS}")
+        if not self._grads_fresh:
+            raise MXNetError(
+                "fused_train_update requires a backward() whose gradients "
+                "no update has consumed yet")
+        guard = None
+        if nonfinite_guard_on():
+            if self._aux_snapshot is None:
+                raise MXNetError(
+                    "MXNET_NONFINITE_GUARD was turned on after the forward; "
+                    "the step has no BatchNorm statistics to restore")
+            if self._guard_dev is None:
+                self._guard_dev = torch.zeros(
+                    2, dtype=torch.int32, device=self._ctx.torch_device())
+            guard = Guard(self._guard_dev, self._aux_snapshot[1])
+        weights = [self.arg_dict[n]._data for n in update_names]
+        grads = [self.grad_dict[n]._data for n in update_names]
+        new_states = apply_fn(weights, grads, states, lrs, wds, ts,
+                              cache=self._update_cache, guard=guard)
+        self._grads_fresh = False
+        return new_states
+
+    # ------------------------------------------------------------------
+    def copy_params_from(self, arg_params, aux_params=None,
+                         allow_extra_params=False):
+        for name, arr in arg_params.items():
+            if name in self.arg_dict:
+                arr.copyto(self.arg_dict[name])
+            elif not allow_extra_params:
+                raise MXNetError(
+                    f"Found name {name!r} not in executor arguments")
+        for name, arr in (aux_params or {}).items():
+            if name in self.aux_dict:
+                arr.copyto(self.aux_dict[name])
+            elif not allow_extra_params:
+                raise MXNetError(f"Found name {name!r} not in aux states")
 
     def compile(self, kinds=None):
         """Warm the forward before traffic: one forward over the bound
@@ -188,3 +433,44 @@ class Executor:
         if self._ctx.device_type == "gpu":
             torch.cuda.synchronize(self._ctx.torch_device())
         return kinds
+
+    @staticmethod
+    def simple_bind(symbol, ctx, grad_req="write", type_dict=None,
+                    shared_exec=None, **kwargs):
+        """Infer shapes and dtypes from the input shapes in ``kwargs`` and
+        allocate every array on ``ctx`` (reference ``simple_bind``):
+        arguments, gradients for the arguments ``grad_req`` asks for, aux
+        states (``*moving_var`` at 1, the rest at 0). Arrays of
+        ``shared_exec`` whose shape matches are shared."""
+        ctx = ctx if isinstance(ctx, Context) else Context(ctx)
+        arg_shapes, _out, aux_shapes = symbol.infer_shape(**kwargs)
+        arg_dtypes, _odt, aux_dtypes = symbol.infer_type(
+            **dict(type_dict or {}))
+        arg_names = symbol.list_arguments()
+        aux_names = symbol.list_auxiliary_states()
+        if isinstance(grad_req, str):
+            req = {n: grad_req for n in arg_names}
+        elif isinstance(grad_req, (list, tuple)):
+            req = dict(zip(arg_names, grad_req))
+        else:
+            req = {n: grad_req.get(n, "null") for n in arg_names}
+
+        def alloc(pool, name, shape, dtype, make=nd_zeros):
+            if shared_exec is not None:
+                have = getattr(shared_exec, pool).get(name)
+                if have is not None and have.shape == tuple(shape):
+                    return have
+            return make(shape, ctx=ctx, dtype=np_dtype(dtype))
+
+        args, grads = {}, {}
+        for n, s, d in zip(arg_names, arg_shapes, arg_dtypes):
+            args[n] = alloc("arg_dict", n, s, d)
+            if req.get(n, "null") != "null":
+                grads[n] = alloc("grad_dict", n, s, d)
+        auxs = {}
+        for n, s, d in zip(aux_names, aux_shapes, aux_dtypes):
+            make = nd_ones if n.endswith(("moving_var", "running_var")) \
+                else nd_zeros
+            auxs[n] = alloc("aux_dict", n, s, d, make)
+        return Executor(symbol, ctx, args=args, args_grad=grads or None,
+                        grad_req=req, aux_states=auxs)

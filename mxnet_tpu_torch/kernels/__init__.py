@@ -6,4 +6,6 @@ takes the plain version, a CUDA tensor launches the kernel or raises.
 Sources are in ``mxnet_tpu_torch/csrc``; :mod:`._lib` builds them.
 """
 
-from . import bn_act, softmax_rows  # noqa: F401
+from . import (  # noqa: F401
+    bn_act, bn_act_bwd, bn_stats, sgd_mom_multi, softmax_output_bwd,
+    softmax_rows)

@@ -36,10 +36,24 @@ _SIGNATURES = {
     "mxt_bn_act_f32": [_P, _P, _P, _P, _P, _P, _LL, _LL, _LL,
                        ctypes.c_float, _I, _I, _P],
     "mxt_softmax_rows_f32": [_P, _P, _LL, _LL, _P],
+    "mxt_bn_stats_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I,
+                         ctypes.c_float, ctypes.c_float, _P],
+    "mxt_bn_bwd_reduce_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL,
+                              _LL, _LL, _I, ctypes.c_float, _I, _I, _P],
+    "mxt_bn_bwd_dx_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL,
+                          ctypes.c_float, _I, _I, _I, _P],
+    "mxt_softmax_output_bwd_f32": [_P, _P, _P, _P, _LL, _LL, _LL,
+                                   ctypes.c_float, ctypes.c_float, _I, _I,
+                                   ctypes.c_float, _P],
+    "mxt_sgd_probe_f32": [_P, _P, _P, _I, _I, _LL, _P, _P],
+    "mxt_sgd_mom_multi_f32": [_P, _P, _P, _P, _P, _I, _I, _LL,
+                              ctypes.c_float, _I, ctypes.c_float,
+                              ctypes.c_float, _P, _P, _P],
 }
 
 _lock = threading.Lock()
 _lib = None
+_tickets = {}
 
 
 def _nvcc():
@@ -122,3 +136,41 @@ def check(err, name):
     """Raise when a C entry reported a CUDA error (its cudaGetLastError)."""
     if err != 0:
         raise MXNetError(f"{name}: CUDA error {err} at launch")
+
+
+def tickets(device, n):
+    """A zeroed uint32 buffer of at least ``n`` per-channel tickets on
+    ``device``, shared by the reductions that finish in their last block
+    (bn_stats, bn_act_bwd). Each such kernel returns every ticket it takes
+    to 0, so the buffer stays zeroed between launches; launches that share
+    it run in order on one stream."""
+    with _lock:
+        buf = _tickets.get(device)
+        if buf is None or buf.numel() < n:
+            import torch
+
+            buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+            _tickets[device] = buf
+        return buf
+
+
+def stream_of(t):
+    """The raw handle of the current CUDA stream of ``t``'s device."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_f32(name, t, device, shape=None):
+    """Raise unless ``t`` is a contiguous float32 tensor on ``device`` (of
+    ``shape`` when given) — what every kernel here takes."""
+    import torch
+
+    if (t.dtype != torch.float32 or not t.is_contiguous()
+            or t.device != device
+            or (shape is not None and tuple(t.shape) != tuple(shape))):
+        want = f"{tuple(shape)} " if shape is not None else ""
+        raise MXNetError(
+            f"{name} must be a contiguous float32 {want}tensor on {device}, "
+            f"got {t.dtype} {tuple(t.shape)} on {t.device} "
+            f"contiguous={t.is_contiguous()}")

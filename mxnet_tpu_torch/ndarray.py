@@ -1,12 +1,20 @@
 """NDArray over a ``torch.Tensor``, and the ``.params`` file format.
 
-Counterpart of ``mxnet_tpu/ndarray.py`` for what the serving path needs:
-the array handle with ``asnumpy``/``copyto``/``as_in_context``, the
-creation helpers :func:`array` and :func:`zeros`, and ``.params``
+Counterpart of ``mxnet_tpu/ndarray.py`` for what the serving and training
+paths need: the array handle with ``asnumpy``/``copyto``/``copy``/
+``as_in_context``, assignment, the arithmetic the optimizer, initializers
+and metrics use, the creation helpers :func:`array`, :func:`zeros`,
+:func:`ones` and :func:`empty`, :func:`clip`, one function per registered
+op (``nd.sgd_mom_update(w, g, mom, out=w, ...)``), and ``.params``
 :func:`save`/:func:`load`/:func:`load_buffer`, byte-compatible with the
 JAX package and the reference (``src/ndarray/ndarray.cc`` NDArray::Save V2,
 list container magic 0x112). Legacy V0/V1 array records, sparse storage and
-the imperative op namespace are not yet ported.
+``autograd`` are not yet ported.
+
+Assignment (``a[:] = v``), ``copyto`` an NDArray, ``out=`` and the in-place
+operators write into the array's existing tensor, where the JAX package
+rebinds its immutable buffer: the storage stays put, so device tables that
+hold pointers to parameters stay valid.
 
 Creation without a ``ctx`` places the array on the current context, which
 defaults to ``gpu(0)``; :func:`load` places arrays on the CPU, as the
@@ -17,6 +25,7 @@ from __future__ import annotations
 
 import io
 import struct
+import sys
 
 import numpy as np
 import torch
@@ -24,14 +33,18 @@ import torch
 from . import telemetry as _telemetry
 from .base import MXNetError, np_dtype
 from .context import Context, context_of, cpu, current_context
-from .ops.registry import torch_dtype
+from .ops import registry as _reg
+from .ops.registry import OpMode, torch_dtype
 
 # every device->host copy flows through asnumpy
 _SYNC_ASNUMPY = _telemetry.counter("ndarray.asnumpy")
 
 
 def _to_numpy(t):
-    t = t.detach().cpu()  # .cpu() waits for the device
+    # a copy: arrays are updated in place, so a view of a CPU tensor would
+    # change under the caller (.cpu() copies a device tensor and waits)
+    t = t.detach()
+    t = t.clone() if t.device.type == "cpu" else t.cpu()
     if t.dtype == torch.bfloat16:
         import ml_dtypes
 
@@ -100,6 +113,94 @@ class NDArray:
             return self
         return self.copyto(context)
 
+    def copy(self):
+        """A new array with the same values on the same device."""
+        return NDArray(self._data.clone())
+
+    def asscalar(self):
+        return self.asnumpy().reshape(-1)[0]
+
+    def astype(self, dtype):
+        return NDArray(self._data.to(torch_dtype(dtype)))
+
+    def reshape(self, shape):
+        return NDArray(self._data.reshape(tuple(shape)))
+
+    def wait_to_read(self):
+        if self._data.device.type == "cuda":
+            torch.cuda.current_stream(self._data.device).synchronize()
+
+    def __len__(self):
+        if not self.shape:
+            raise TypeError("len() of unsized object")
+        return self.shape[0]
+
+    def __getitem__(self, key):
+        return NDArray(self._data[key])
+
+    def __setitem__(self, key, value):
+        """Write into this array's tensor (in place)."""
+        if isinstance(value, NDArray):
+            value = value._data
+        elif not isinstance(value, torch.Tensor):
+            value = torch.as_tensor(np.asarray(value),
+                                    dtype=self._data.dtype)
+        self._data[key] = value.to(self._data.device)
+
+    # --- arithmetic -------------------------------------------------------
+    @staticmethod
+    def _operand(o):
+        return o._data if isinstance(o, NDArray) else o
+
+    def __add__(self, o):
+        return NDArray(self._data + self._operand(o))
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return NDArray(self._data - self._operand(o))
+
+    def __rsub__(self, o):
+        return NDArray(self._operand(o) - self._data)
+
+    def __mul__(self, o):
+        return NDArray(self._data * self._operand(o))
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        return NDArray(self._data / self._operand(o))
+
+    def __rtruediv__(self, o):
+        return NDArray(self._operand(o) / self._data)
+
+    def __neg__(self):
+        return NDArray(-self._data)
+
+    def __iadd__(self, o):
+        self._data.add_(self._operand(o))
+        return self
+
+    def __isub__(self, o):
+        self._data.sub_(self._operand(o))
+        return self
+
+    def __imul__(self, o):
+        self._data.mul_(self._operand(o))
+        return self
+
+    def __itruediv__(self, o):
+        self._data.div_(self._operand(o))
+        return self
+
+    def sum(self, axis=None, keepdims=False):
+        if axis is None:
+            return NDArray(self._data.sum())
+        return NDArray(self._data.sum(dim=axis, keepdim=keepdims))
+
+    def clip(self, a_min, a_max):
+        return NDArray(torch.clamp(self._data, a_min, a_max))
+
     def __repr__(self):
         return (f"<NDArray {'x'.join(map(str, self.shape))} "
                 f"@{self.context}>")
@@ -121,12 +222,38 @@ def array(source_array, ctx=None, dtype=None):
     return NDArray(_to_tensor(arr, device))
 
 
-def zeros(shape, ctx=None, dtype=None):
+def _filled(fill, shape, ctx, dtype):
     if isinstance(shape, int):
         shape = (shape,)
     device = (ctx or current_context()).torch_device()
-    return NDArray(torch.zeros(tuple(shape), dtype=torch_dtype(dtype),
-                               device=device))
+    return NDArray(fill(tuple(shape), dtype=torch_dtype(dtype), device=device))
+
+
+def zeros(shape, ctx=None, dtype=None):
+    return _filled(torch.zeros, shape, ctx, dtype)
+
+
+def ones(shape, ctx=None, dtype=None):
+    return _filled(torch.ones, shape, ctx, dtype)
+
+
+def empty(shape, ctx=None, dtype=None):
+    return _filled(torch.empty, shape, ctx, dtype)
+
+
+def clip(data, a_min, a_max, out=None):
+    """Elementwise ``min(max(data, a_min), a_max)``."""
+    res = torch.clamp(data._data, a_min, a_max)
+    if out is None:
+        return NDArray(res)
+    out._data.copy_(res)
+    return out
+
+
+def waitall():
+    """Wait for every kernel queued on the current device."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------
@@ -258,3 +385,58 @@ def _load_stream(f, fname):
             raise MXNetError(f"{fname}: name/array count mismatch")
         return dict(zip(names, arrays))
     return arrays
+
+
+# ---------------------------------------------------------------------------
+# one function per registered op (the reference's generated mx.nd namespace)
+# ---------------------------------------------------------------------------
+def _make_ndarray_function(opdef, func_name):
+    def generic_op(*args, **kwargs):
+        out = kwargs.pop("out", None)
+        kwargs.pop("name", None)
+        arrays = {k: v for k, v in kwargs.items() if isinstance(v, NDArray)}
+        raw = {k: v for k, v in kwargs.items() if not isinstance(v, NDArray)}
+        params = opdef.parse_params(raw)
+        pos = list(args)
+        inputs = []
+        names = opdef.arg_names(params) + opdef.aux_names(params)
+        for nm in names:
+            if nm in arrays:
+                inputs.append(arrays.pop(nm))
+            elif pos:
+                inputs.append(pos.pop(0))
+            else:
+                raise MXNetError(f"{func_name}: missing input {nm!r}")
+        if pos or arrays:
+            raise MXNetError(f"{func_name}: unexpected inputs")
+        outputs, new_aux = opdef.apply([i._data for i in inputs], params,
+                                       OpMode(is_train=False))
+        n_args = len(opdef.arg_names(params))
+        for handle, value in zip(inputs[n_args:], new_aux):
+            if value is not handle._data:
+                handle._data.copy_(value)
+        arg_names = opdef.arg_names(params)
+        for in_name, out_idx in opdef.mutate:
+            inputs[arg_names.index(in_name)]._data.copy_(outputs[out_idx])
+        vis = outputs[:opdef.num_visible_outputs(params)]
+        if out is not None:
+            outs = out if isinstance(out, (list, tuple)) else [out]
+            for handle, value in zip(outs, vis):
+                handle._data.copy_(value)
+            return out
+        res = [NDArray(o) for o in vis]
+        return res[0] if len(res) == 1 else res
+
+    generic_op.__name__ = func_name
+    generic_op.__doc__ = opdef.doc or f"{func_name} (op {opdef.name})"
+    return generic_op
+
+
+def _init_ops():
+    module = sys.modules[__name__]
+    for name in _reg.list_ops():
+        if not hasattr(module, name):
+            setattr(module, name, _make_ndarray_function(_reg.get(name), name))
+
+
+_init_ops()

@@ -1,5 +1,5 @@
-"""Operator registry and definitions of the port (the ResNet serving
-subset of ``mxnet_tpu/ops``)."""
+"""Operator registry and definitions of the port (the ResNet training and
+serving subset of ``mxnet_tpu/ops``)."""
 
 from . import registry
 from .registry import OpDef, OpMode, Param, register, get, exists, list_ops
@@ -8,3 +8,4 @@ from .registry import OpDef, OpMode, Param, register, get, exists, list_ops
 from . import defs_elemwise  # noqa: F401
 from . import defs_tensor  # noqa: F401
 from . import defs_nn  # noqa: F401
+from . import defs_optimizer  # noqa: F401

@@ -1,16 +1,17 @@
-"""Neural-network layer operators, forward at inference.
+"""Neural-network layer operators.
 
 Counterpart of ``mxnet_tpu/ops/defs_nn.py`` for the ops of the ResNet
-serving path: FullyConnected, Convolution, Activation, BatchNorm, Pooling
-and SoftmaxOutput. Convolution and FullyConnected are cuDNN/cuBLAS calls
-through torch, as the JAX package leaves them to XLA; float32 runs without
-TF32 (``mxnet_tpu_torch/__init__.py`` clears both flags), matching the
-reference's ``precision=HIGHEST``. The inference BatchNorm (with the ReLU
-the executor fuses into it) and the SoftmaxOutput forward run the port's
-hand-written kernels (:mod:`mxnet_tpu_torch.kernels`).
-
-Training forward and every backward are not yet ported: a training-mode
-BatchNorm raises :class:`MXNetError`.
+path: FullyConnected, Convolution, Activation, BatchNorm, Pooling and
+SoftmaxOutput, forward and backward. Convolution and FullyConnected are
+cuDNN/cuBLAS calls through torch, as the JAX package leaves them to XLA;
+float32 runs without TF32 (``mxnet_tpu_torch/__init__.py`` clears both
+flags), matching the reference's ``precision=HIGHEST``. BatchNorm (with the ReLU the executor
+fuses into it) and SoftmaxOutput run the port's hand-written kernels
+(:mod:`mxnet_tpu_torch.kernels`): at inference ``bn_act`` and
+``softmax_rows``; in training the same forward kernels behind a
+``torch.autograd.Function`` — with ``bn_stats`` for the batch statistics —
+whose backward is ``bn_act_bwd`` and ``softmax_output_bwd``. The other ops
+are differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -29,6 +30,9 @@ from ..base import (
     parse_str,
 )
 from ..kernels.bn_act import bn_act
+from ..kernels.bn_act_bwd import bn_act_bwd
+from ..kernels.bn_stats import bn_stats
+from ..kernels.softmax_output_bwd import softmax_output_bwd
 from ..kernels.softmax_rows import softmax
 from .registry import Param, register
 
@@ -162,20 +166,55 @@ register(
 
 
 # --- BatchNorm -------------------------------------------------------------
+class _BatchNormAct(torch.autograd.Function):
+    """Training BatchNorm (+ the fused ReLU) over given statistics: the
+    forward is ``bn_act``, the backward ``bn_act_bwd``. ``kvar`` (the clamp
+    derivative from ``bn_stats``) marks batch statistics; None means the
+    moving statistics (``use_global_stats``), which do not depend on x."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, mean, var, kvar, eps, fix_gamma, relu):
+        y = bn_act(x, mean, var, gamma, beta, eps, fix_gamma, relu)
+        ctx.save_for_backward(x, y if relu else None, mean, var, gamma, kvar)
+        ctx.cfg = (eps, fix_gamma, relu)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, y, mean, var, gamma, kvar = ctx.saved_tensors
+        eps, fix_gamma, relu = ctx.cfg
+        dx, dgamma, dbeta = bn_act_bwd(dy.contiguous(), y, x, mean, var,
+                                       gamma, kvar, eps, fix_gamma, relu)
+        return dx, dgamma, dbeta, None, None, None, None, None, None
+
+
 def batch_norm(ins, params, mode, relu=False):
-    """Inference BatchNorm over the moving statistics, with the following
-    ReLU fused in when ``relu`` (the executor's BatchNorm -> Activation
-    route). Returns the op protocol's ``(outputs, new_aux)``."""
+    """BatchNorm, with the following ReLU fused in when ``relu`` (the
+    executor's BatchNorm -> Activation route). At inference it normalizes
+    over the moving statistics. In training it takes the anchored batch
+    statistics (``bn_stats``, which updates the moving statistics in place
+    — once per forward, as the reference does) unless
+    ``use_global_stats``. Returns the op protocol's ``(outputs, new_aux)``."""
     data, gamma, beta, moving_mean, moving_var = ins
-    if mode.is_train and not params["use_global_stats"]:
-        raise MXNetError(
-            "BatchNorm: the training forward (batch statistics) is not yet "
-            "ported to mxnet_tpu_torch")
     if params["axis"] != 1:
         raise MXNetError("BatchNorm: only axis=1 is ported")
-    out = bn_act(data, moving_mean, moving_var, gamma, beta, params["eps"],
-                 params["fix_gamma"], relu)
-    return [out, moving_mean, moving_var], [moving_mean, moving_var]
+    eps, fix_gamma = params["eps"], params["fix_gamma"]
+    if not mode.is_train:
+        out = bn_act(data, moving_mean, moving_var, gamma, beta, eps,
+                     fix_gamma, relu)
+        return [out, moving_mean, moving_var], [moving_mean, moving_var]
+    if params["output_mean_var"]:
+        raise MXNetError("BatchNorm: output_mean_var=True in training is not "
+                         "yet ported to mxnet_tpu_torch")
+    if params["use_global_stats"]:
+        mean, var, kvar = moving_mean, moving_var, None
+    else:
+        with torch.no_grad():
+            mean, var, kvar = bn_stats(data.detach(), moving_mean,
+                                       moving_var, params["momentum"])
+    out = _BatchNormAct.apply(data, gamma, beta, mean, var, kvar, eps,
+                              fix_gamma, relu)
+    return [out, mean, var], [moving_mean, moving_var]
 
 
 def _bn_fill(shapes, params):
@@ -276,15 +315,47 @@ register(
 
 
 # --- SoftmaxOutput ---------------------------------------------------------
-def _softmax_output(ins, params, mode):
-    """SoftmaxOutput forward: the class-axis softmax (the label only feeds
-    the loss-layer backward, which is not yet ported)."""
-    data, _label = ins
+def _softmax_forward(data, params):
     if params["multi_output"]:
         return softmax(data, 1)
     if params["preserve_shape"]:
         return softmax(data, -1)
     return softmax(data.reshape(data.shape[0], -1), -1).reshape(data.shape)
+
+
+class _SoftmaxOutputLoss(torch.autograd.Function):
+    """SoftmaxOutput in training: forward ``softmax_rows``, backward the
+    loss layer's ``softmax_output_bwd``, which ignores the head gradient."""
+
+    @staticmethod
+    def forward(ctx, data, label, params):
+        p = _softmax_forward(data, params)
+        ctx.save_for_backward(p, label)
+        ctx.params = params
+        return p
+
+    @staticmethod
+    def backward(ctx, _head_grad):
+        p, label = ctx.saved_tensors
+        q = ctx.params
+        if not q["multi_output"] and not q["preserve_shape"] and p.dim() != 2:
+            raise MXNetError(
+                "SoftmaxOutput backward: data of rank > 2 needs multi_output "
+                "or preserve_shape (the reference's one-hot fails there too)")
+        grad = softmax_output_bwd(
+            p, label, q["grad_scale"], q["ignore_label"], q["use_ignore"],
+            q["normalization"], q["multi_output"])
+        return grad, None, None
+
+
+def _softmax_output(ins, params, mode):
+    """SoftmaxOutput: the class-axis softmax; in training the loss-layer
+    backward ``(p - onehot(label)) * grad_scale`` (reference
+    ``softmax_output-inl.h``)."""
+    data, label = ins
+    if mode.is_train:
+        return _SoftmaxOutputLoss.apply(data, label, params)
+    return _softmax_forward(data, params)
 
 
 def _softmax_output_fill(shapes, params):

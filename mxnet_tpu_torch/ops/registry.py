@@ -4,7 +4,13 @@ Counterpart of ``mxnet_tpu/ops/registry.py``. Each op is registered once
 with:
 
 * ``fn(inputs, params, mode) -> outputs`` or ``(outputs, new_aux)`` — plain
-  PyTorch on tensors. Only forward at inference is ported in this slice.
+  PyTorch on tensors. ``mode.is_train`` selects the training forward. The
+  backward is autograd's by default: the executor records the training
+  forward and ``torch.autograd`` differentiates the op bodies. Where a
+  hand-written kernel carries an op (BatchNorm, SoftmaxOutput), the body
+  runs a ``torch.autograd.Function`` whose backward is a kernel too.
+  ``is_loss`` marks an op whose backward ignores the head gradient, so
+  ``Executor.backward()`` without ``out_grads`` drives it.
 * ``param_schema`` — typed parameters with defaults; values parse from
   python natives *or* the string form used in Symbol attributes / JSON.
 * ``fill_in_shapes(in_shapes, params)`` — optional completion of *unknown
@@ -35,7 +41,9 @@ _GRAPH_ATTRS = {"ctx_group", "lr_mult", "wd_mult", "force_mirroring",
 
 @dataclass(frozen=True)
 class OpMode:
-    """Execution-time context handed to every op ``fn``."""
+    """Execution-time context handed to every op ``fn``: ``is_train``
+    selects the training forward (batch statistics, the loss-layer
+    backward)."""
 
     is_train: bool = False
 
@@ -79,6 +87,7 @@ class OpDef:
         num_visible_outputs=None,
         aliases: Sequence[str] = (),
         is_loss: bool = False,
+        mutate: Sequence = (),
         doc: str = "",
     ):
         self.name = name
@@ -91,6 +100,9 @@ class OpDef:
         self._num_visible_outputs = num_visible_outputs
         self.aliases = tuple(aliases)
         self.is_loss = bool(is_loss)
+        # (input name, output index): imperative calls write that output
+        # back into the input's array (optimizer state)
+        self.mutate = list(mutate)
         self.doc = doc
 
     # --- introspection ---------------------------------------------------

@@ -406,10 +406,20 @@ class Symbol:
         return "\n".join(lines)
 
     # --- binding ----------------------------------------------------------
+    def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
+                    shared_exec=None, **kwargs):
+        """Infer shapes from the input shapes in ``kwargs``, allocate every
+        array on ``ctx`` (default: the current context) and bind."""
+        from .executor import Executor
+
+        return Executor.simple_bind(
+            self, ctx or current_context(), grad_req=grad_req,
+            type_dict=type_dict, shared_exec=shared_exec, **kwargs)
+
     def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
              aux_states=None):
-        """Bind to a forward-only :class:`~mxnet_tpu_torch.executor.Executor`
-        (gradients are not yet ported)."""
+        """Bind to an :class:`~mxnet_tpu_torch.executor.Executor` on ``ctx``
+        (default: the current context)."""
         from .executor import Executor
 
         return Executor(

@@ -8,7 +8,15 @@ machine that has only the port's dependencies:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerances are float32: rtol 1e-5 / atol 1e-6 for ``bn_act`` (rsqrt and
-division may differ by an ulp), 1e-6 absolute for probabilities.
+division may differ by an ulp), 1e-6 absolute for probabilities. The
+training kernels sum over a channel in another order than ``torch.sum``:
+``bn_stats`` holds mean and variance to rtol 1e-5 / atol 1e-6 plus the
+float32 cancellation of the anchored variance (``8 * 2**-23 * dmean**2``,
+``dmean`` the distance of the batch mean from the anchor); ``bn_act_bwd``
+holds ``dx`` to rtol 1e-4 / atol 1e-5 and the channel sums ``dgamma`` and
+``dbeta`` to rtol 1e-4 / atol 1e-3 (thousands of terms of order 1);
+``softmax_output_bwd`` and ``sgd_mom_multi`` repeat the plain version's
+operations in its order and are held to 1e-6 absolute.
 """
 
 import numpy as np
@@ -17,6 +25,10 @@ import torch
 
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.kernels import bn_act as bn_mod
+from mxnet_tpu_torch.kernels import bn_act_bwd as bwd_mod
+from mxnet_tpu_torch.kernels import bn_stats as stats_mod
+from mxnet_tpu_torch.kernels import sgd_mom_multi as sgd_mod
+from mxnet_tpu_torch.kernels import softmax_output_bwd as sob_mod
 from mxnet_tpu_torch.kernels import softmax_rows as sm_mod
 
 pytestmark = pytest.mark.cuda
@@ -75,3 +87,151 @@ def test_kernels_raise_on_what_they_do_not_take(card):
         sm_mod.softmax_rows(x[:, :, 0, :].transpose(0, 1))
     with pytest.raises(MXNetError):
         sm_mod.softmax_rows(x)
+
+
+# -- training kernels ---------------------------------------------------------
+TRAIN_SHAPES = [(8, 64, 56, 56), (4, 2048, 7, 7), (9, 4, 3, 3), (3, 5, 7, 9),
+                (5, 3)]
+
+
+def _stats_inputs(shape, device, offset):
+    rng = np.random.default_rng(7)
+    c = shape[1]
+    x = rng.standard_normal(shape) * rng.uniform(0.5, 2, (1, c) + (1,) *
+                                                (len(shape) - 2)) + offset
+    mm = rng.uniform(-0.5, 0.5, c)
+    mv = rng.uniform(0.5, 2.0, c)
+    return [torch.from_numpy(a.astype(np.float32)).to(device)
+            for a in (x, mm, mv)]
+
+
+@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+@pytest.mark.parametrize("offset", [0.0, 30.0])
+def test_bn_stats_kernel_matches_plain(card, shape, offset):
+    x, mm, mv = _stats_inputs(shape, card, offset)
+    mm2, mv2 = mm.clone(), mv.clone()
+    before = stats_mod.LAUNCHES.value
+    got = stats_mod.bn_stats(x, mm, mv, 0.9)
+    want = stats_mod.bn_stats_plain(x, mm2, mv2, 0.9)
+    assert stats_mod.LAUNCHES.value == before + 1
+    dmean2 = float((want[0] - mm2).abs().max()) ** 2 + offset ** 2
+    cancel = 8 * 2.0 ** -23 * dmean2
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6 + cancel)
+    torch.testing.assert_close(mm, mm2, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(mv, mv2, rtol=1e-5, atol=1e-6 + cancel)
+    if not offset:
+        assert torch.equal(got[2], want[2])
+
+
+def _bwd_inputs(shape, device):
+    rng = np.random.default_rng(8)
+    c = shape[1]
+    f = [rng.standard_normal(shape), rng.standard_normal(shape),
+         rng.uniform(-0.3, 0.3, c), rng.uniform(0.5, 2.0, c),
+         rng.uniform(0.5, 1.5, c), rng.choice([0.0, 0.5, 1.0], c)]
+    dy, x, mean, var, gamma, kvar = (
+        torch.from_numpy(a.astype(np.float32)).to(device) for a in f)
+    y = torch.relu(x - 0.1)
+    return dy, y, x, mean, var, gamma, kvar
+
+
+@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+@pytest.mark.parametrize("relu, fix_gamma, batch_stats",
+                         [(True, False, True), (False, True, True),
+                          (True, True, False)])
+def test_bn_act_bwd_kernel_matches_plain(card, shape, relu, fix_gamma,
+                                         batch_stats):
+    dy, y, x, mean, var, gamma, kvar = _bwd_inputs(shape, card)
+    kvar = kvar if batch_stats else None
+    y = y if relu else None
+    before = bwd_mod.LAUNCHES.value
+    got = bwd_mod.bn_act_bwd(dy, y, x, mean, var, gamma, kvar, 2e-5,
+                             fix_gamma, relu)
+    want = bwd_mod.bn_act_bwd_plain(dy, y, x, mean, var, gamma, kvar, 2e-5,
+                                    fix_gamma, relu)
+    assert bwd_mod.LAUNCHES.value == before + 2
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-5)
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("shape, kwargs", [
+    ((32, 1000), {}),
+    ((32, 1000), {"normalization": "batch", "grad_scale": 0.5}),
+    ((7, 11), {"normalization": "valid", "use_ignore": True,
+               "ignore_label": 3.0}),
+    ((2, 5, 3, 4), {"multi_output": True, "normalization": "valid"}),
+    ((2, 3, 7), {"use_ignore": True, "ignore_label": 0.0}),
+])
+def test_softmax_output_bwd_kernel_matches_plain(card, shape, kwargs):
+    rng = np.random.default_rng(9)
+    p = torch.softmax(torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)), dim=-1).to(card)
+    classes = shape[1] if kwargs.get("multi_output") else shape[-1]
+    lshape = ((shape[0],) + shape[2:] if kwargs.get("multi_output")
+              else shape[:-1])
+    label = torch.from_numpy(rng.integers(0, classes, lshape).astype(
+        np.float32)).to(card)
+    before = sob_mod.LAUNCHES.value
+    got = sob_mod.softmax_output_bwd(p, label, **kwargs)
+    assert sob_mod.LAUNCHES.value == before + 1
+    torch.testing.assert_close(
+        got, sob_mod.softmax_output_bwd_plain(
+            p, label, kwargs.get("grad_scale", 1.0),
+            kwargs.get("ignore_label", -1.0), kwargs.get("use_ignore", False),
+            kwargs.get("normalization", "null"),
+            kwargs.get("multi_output", False)), rtol=0, atol=1e-6)
+
+
+def _sgd_inputs(device, sizes=(1, 7, 64, 70000, 32769)):
+    rng = np.random.default_rng(10)
+    make = [lambda n: rng.standard_normal(n) for _ in range(3)]
+    return [[torch.from_numpy(m(n).astype(np.float32)).to(device)
+             for n in sizes] for m in make]
+
+
+@pytest.mark.parametrize("momentum, clip", [(0.9, -1.0), (0.9, 0.5),
+                                            (0.0, -1.0)])
+def test_sgd_mom_multi_kernel_matches_plain(card, momentum, clip):
+    ws, gs, ms = _sgd_inputs(card)
+    moms = ms if momentum else None
+    lrs = [0.1, 0.05, 0.1, 0.2, 0.1]
+    wds = [1e-4, 0.0, 1e-4, 1e-4, 0.0]
+    ref = [[t.clone() for t in ws], [t.clone() for t in ms]]
+    cache = {}
+    before = sgd_mod.LAUNCHES.value
+    builds = sgd_mod.TABLE_BUILDS.value
+    for _ in range(2):
+        sgd_mod.sgd_mom_multi(ws, gs, moms, lrs, wds, momentum, 1 / 32, clip,
+                              cache=cache)
+        sgd_mod.sgd_mom_multi_plain(ref[0], gs, ref[1] if moms else None,
+                                    lrs, wds, momentum, 1 / 32, clip)
+    assert sgd_mod.LAUNCHES.value == before + 2
+    assert sgd_mod.TABLE_BUILDS.value == builds + 1  # cached between steps
+    for got, want in zip(ws + (ms if moms else []),
+                         ref[0] + (ref[1] if moms else [])):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+def test_sgd_mom_multi_guard_skips_a_non_finite_step(card):
+    ws, gs, ms = _sgd_inputs(card)
+    aux, snap = torch.ones(50000, device=card), torch.zeros(50000, device=card)
+    guard = sgd_mod.Guard(torch.zeros(2, dtype=torch.int32, device=card),
+                          [(aux, snap)])
+    w0, m0 = [t.clone() for t in ws], [t.clone() for t in ms]
+    gs[3][123] = float("nan")
+    before = sgd_mod.LAUNCHES.value
+    sgd_mod.sgd_mom_multi(ws, gs, ms, [0.1] * 5, [1e-4] * 5, 0.9, 1.0, -1.0,
+                          guard=guard)
+    assert sgd_mod.LAUNCHES.value == before + 2  # probe + update
+    assert guard.counters.tolist() == [1, 1]
+    for got, want in zip(ws + ms, w0 + m0):
+        assert torch.equal(got, want)
+    assert torch.equal(aux, snap)
+    gs[3][123] = 0.0
+    aux.fill_(2.0)
+    sgd_mod.sgd_mom_multi(ws, gs, ms, [0.1] * 5, [1e-4] * 5, 0.9, 1.0, -1.0,
+                          guard=guard)
+    assert guard.counters.tolist() == [1, 0]
+    assert not torch.equal(ws[3], w0[3]) and bool((aux == 2.0).all())
