@@ -23,8 +23,8 @@ Run from the root of a checkout. Phases, each printing its own lines:
    ``softmax_rows`` per served batch; then the time per batch and the
    images per second at bucket 32, through the server and for the forward
    alone, and a ``torch.profiler`` breakdown of one forward by kernel;
-5. training kernels — ``bn_stats``, the training forward (``bn_stats`` +
-   ``bn_act``), ``bn_act_bwd``, ``softmax_output_bwd`` and
+5. training kernels — ``bn_stats``, ``bn_act``, the training forward
+   (``bn_stats`` + ``bn_act``), ``bn_act_bwd``, ``softmax_output_bwd`` and
    ``sgd_mom_multi`` against their plain versions at the shapes one
    ResNet-50 training step gives them at batch 32 (50 BatchNorm inputs,
    the (32, 1000) loss layer, 155 parameters) and at odd ones (H*W = 49,
@@ -37,16 +37,19 @@ Run from the root of a checkout. Phases, each printing its own lines:
    ``gpu(0)``, SGD with momentum 0.9, wd 1e-4, ``rescale_grad`` 1/32, at
    batch 32, with the launch counters checked per step (``bn_stats`` 50,
    ``bn_act`` 50, ``bn_act_bwd`` 100, ``softmax_rows`` 1,
-   ``softmax_output_bwd`` 1, ``sgd_mom_multi`` 1); 10 steps on one fixed
-   batch must lower the training cross-entropy to at most
-   ``LOSS_RATIO`` of its first value; then ms per step, steps/s and
-   images/s by CUDA events after the warm-up, peak memory, and a
+   ``softmax_output_bwd`` 1, ``sgd_mom_multi`` 1), and ms per step,
+   steps/s and images/s of ``fit``'s own steps after the first by the
+   host's clock, with the time spent waiting for the input; 10 steps on
+   one fixed batch must lower the training cross-entropy to at most
+   ``LOSS_RATIO`` of its first value; then the compute step alone (one
+   batch already on the card) by CUDA events, peak memory, and a
    ``torch.profiler`` breakdown of one step by kernel;
 7. training parity — two ``fused_train_update`` steps of full ResNet-50 at
    batch 8 on ``gpu(0)`` and on the port's CPU path (plain versions) from
    the same parameters: after each step the loss, every parameter,
    momentum and BatchNorm statistic within the stated tolerances (in norm,
-   over all tensors of a kind; see ``PARITY_TOL``).
+   over all tensors of a kind, and over the BatchNorm gamma and beta
+   momenta as a group of their own; see ``PARITY_TOL``).
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. Any failed phase exits non-zero before the result
@@ -83,6 +86,7 @@ PATH_BN = [((32, 64, 56, 56), 1), ((32, 256, 56, 56), 3),
            ((32, 2048, 7, 7), 3)]
 PATH_SOFTMAX = (32, 1000)
 TRAIN_BATCH = 32
+FIT_STEPS = 12  # Module.fit's steps on the main path; 2..12 are timed
 # each port kernel's CUDA function names, as torch.profiler reports them
 PORT_KERNELS = {"bn_stats": "bn_stats_kernel", "bn_act": "bn_act_kernel",
                 "bn_act_bwd": "bn_bwd_", "softmax_rows": "softmax_rows_kernel",
@@ -97,6 +101,10 @@ LOSS_RATIO = 0.7  # cross-entropy after 10 steps on one batch / its first
 # loses 8 * 2**-23 * dmean**2 to cancellation (dmean: batch mean - anchor)
 STAT_RTOL, STAT_ATOL = 1e-5, 1e-6
 DX_RTOL, DX_ATOL = 1e-4, 1e-5
+# the training forward (bn_stats, then bn_act with the batch statistics):
+# the statistics agree to STAT_RTOL, and the output carries their error
+# times |x_hat| * gamma (up to ~8 here)
+FWD_RTOL, FWD_ATOL = 1e-4, 1e-5
 EXACT_ATOL = 1e-6  # softmax_output_bwd and sgd_mom_multi repeat the plain ops
 # card against the port's CPU path, two SGD steps of full ResNet-50 at
 # batch 8 at lr 0.01, each from the same state on both sides. Each kind is
@@ -110,9 +118,15 @@ EXACT_ATOL = 1e-6  # softmax_output_bwd and sgd_mom_multi repeat the plain ops
 # cancels (a BatchNorm beta before a convolution) carry more of it. The
 # momenta hold lr * grad; a kernel that dropped or mis-signed a term would
 # be off by tens of percent. The per-tensor worst case is printed.
+# "bn_momentum" is the momenta of the BatchNorm gamma and beta tensors
+# alone: the large convolution weights dominate the norm over all momenta,
+# so a fault confined to dgamma or dbeta would hide there. A group's
+# relative difference in norm is at most its worst tensor's, which read
+# 2.4e-2 in earlier runs (stage2_unit2_bn3_beta).
 PARITY_LR = 0.01
 PARITY_TOL = {"loss": (1e-4, 1e-4), "param": (1e-3, 1e-3),
-              "momentum": (5e-2, 5e-2), "aux": (1e-3, 1e-3)}
+              "momentum": (5e-2, 5e-2), "bn_momentum": (5e-2, 5e-2),
+              "aux": (1e-3, 1e-3)}
 
 
 def fail(msg):
@@ -504,8 +518,10 @@ def phase_train_kernels(torch, mx):
           f"abs err {st_err:g} (rtol {STAT_RTOL}, atol {STAT_ATOL} + "
           f"8*2^-23*dmean^2 on the variance)", flush=True)
 
-    # per-step tensors: one set per distinct shape
+    # per-step tensors: one set per distinct shape; bn_act is held against
+    # its plain version at each (the serving phase checks other shapes)
     T = {}
+    ba_err = 0.0
     for s in counts:
         c = s[1]
         x = randn(*s)
@@ -515,6 +531,10 @@ def phase_train_kernels(torch, mx):
         beta = 0.1 * randn(c)
         mean, var, kvar = bs.bn_stats(x, mm.clone(), mv.clone(), 0.9)
         y = ba.bn_act(x, mean, var, gamma, beta, BN_EPS, False, True)
+        ba_err = max(ba_err, check(
+            torch, f"bn_act {s} (training shape)", y,
+            ba.bn_act_plain(x, mean, var, gamma, beta, BN_EPS, False, True),
+            BN_RTOL, BN_ATOL))
         T[s] = dict(x=x, mm=mm, mv=mv, gamma=gamma, beta=beta, mean=mean,
                     var=var, kvar=kvar, y=y, dy=randn(*s),
                     invstd=torch.rsqrt(var + BN_EPS))
@@ -543,13 +563,36 @@ def phase_train_kernels(torch, mx):
 
     def fwd_kernel(t):
         mean, var, _k = bs.bn_stats(t["x"], t["mm"], t["mv"], 0.9)
-        ba.bn_act(t["x"], mean, var, t["gamma"], t["beta"], BN_EPS, False,
-                  True)
+        return ba.bn_act(t["x"], mean, var, t["gamma"], t["beta"], BN_EPS,
+                         False, True)
 
     def fwd_plain(t):
         mean, var, _k = bs.bn_stats_plain(t["x"], t["mm"], t["mv"], 0.9)
-        ba.bn_act_plain(t["x"], mean, var, t["gamma"], t["beta"], BN_EPS,
-                        False, True)
+        return ba.bn_act_plain(t["x"], mean, var, t["gamma"], t["beta"],
+                               BN_EPS, False, True)
+
+    # the training forward against its plain version at every shape, each
+    # side from the same moving statistics
+    fw_err = 0.0
+    for s, t in T.items():
+        mm, mv = t["mm"].clone(), t["mv"].clone()
+        got = fwd_kernel(t)
+        got_mm, got_mv = t["mm"].clone(), t["mv"].clone()
+        t["mm"].copy_(mm)
+        t["mv"].copy_(mv)
+        want = fwd_plain(t)
+        fw_err = max(fw_err, check(torch, f"training forward {s}", got, want,
+                                   FWD_RTOL, FWD_ATOL))
+        check(torch, f"training forward {s} moving_mean", got_mm, t["mm"],
+              STAT_RTOL, STAT_ATOL)
+        check(torch, f"training forward {s} moving_var", got_mv, t["mv"],
+              STAT_RTOL, STAT_ATOL)
+    print(f"[train-kernels] bn_act matches its plain version at the "
+          f"{len(T)} training shapes: max abs err {ba_err:g} (rtol {BN_RTOL}, "
+          f"atol {BN_ATOL}); the training forward (bn_stats + bn_act) "
+          f"matches its plain version there: max abs err {fw_err:g} (rtol "
+          f"{FWD_RTOL}, atol {FWD_ATOL}), moving statistics as bn_stats",
+          flush=True)
 
     fw_ms = cuda_ms(torch, per_step(fwd_kernel), reps=10)
     fw_plain = cuda_ms(torch, per_step(fwd_plain), reps=5)
@@ -726,6 +769,7 @@ def phase_train_kernels(torch, mx):
          "replaces": "mxnet_tpu/ops/defs_nn.py:425",
          "max_abs_err": st_err, "ms": st_ms, "plain_ms": st_plain,
          "bound_ms": st_bound, "bound_by": st_by, "library_ms": st_lib,
+         "train_forward_max_abs_err": fw_err,
          "train_forward_ms": fw_ms, "train_forward_plain_ms": fw_plain,
          "train_forward_library_ms": fw_lib,
          "train_forward_bound_ms": fw_bound},
@@ -744,7 +788,7 @@ def phase_train_kernels(torch, mx):
          "replaces": "mxnet_tpu/executor.py:1606",
          "max_abs_err": sg_err, "ms": sg_ms, "plain_ms": sg_plain,
          "bound_ms": sg_bound, "bound_by": sg_by, "library_ms": sg_lib},
-    ]
+    ], ba_err
 
 
 def resnet50_numpy(mx, seed):
@@ -830,7 +874,7 @@ def phase_training(torch, mx, card):
     arg_nd = {k: mx.nd.array(v, ctx=cpu) for k, v in args.items()}
     aux_nd = {k: mx.nd.array(v, ctx=cpu) for k, v in auxs.items()}
     rng = np.random.default_rng(SEED + 3)
-    steps = 6
+    steps = FIT_STEPS
     x = rng.standard_normal((steps * TRAIN_BATCH, 3, 224, 224), np.float32)
     y = rng.integers(0, 1000, steps * TRAIN_BATCH).astype(np.float32)
     it = mx.io.NDArrayIter(x, y, batch_size=TRAIN_BATCH)  # on gpu(0)
@@ -843,10 +887,22 @@ def phase_training(torch, mx, card):
                 "softmax_rows": 1, "softmax_output_bwd": 1,
                 "sgd_mom_multi": 1}
 
+    # fit's own steps after the first, as a user pays for them: the host's
+    # copy of each batch to the card, the step, the metric. The card is
+    # drained at the end of the first step and of the last.
+    marks = {}
+
+    def timer(param):
+        if param.nbatch in (0, steps - 1):
+            torch.cuda.synchronize()
+            marks[param.nbatch] = (time.perf_counter(), tm.histogram(
+                "fit.data_wait").sum, tm.histogram("fit.dispatch").sum)
+
     # the main path: every count at 0 just before, read just after
     tm.reset()
     mod.fit(it, num_epoch=1, eval_metric=["acc", "ce"], optimizer="sgd",
-            optimizer_params=TRAIN_OPT, arg_params=arg_nd, aux_params=aux_nd)
+            optimizer_params=TRAIN_OPT, arg_params=arg_nd, aux_params=aux_nd,
+            batch_end_callback=timer)
     torch.cuda.synchronize()
     launches = {k: m.LAUNCHES.value for k, m in kernels.items()}
     batches = tm.counter("fit.batches").value
@@ -867,6 +923,17 @@ def phase_training(torch, mx, card):
           f"first launches included); launches {launches} = per step "
           f"{per_step}; the update's table built {builds} time(s), the "
           f"gradient pointers uploaded {uploads} time(s)", flush=True)
+    timed = steps - 1
+    fit_ms = (marks[steps - 1][0] - marks[0][0]) / timed * 1e3
+    wait_ms = (marks[steps - 1][1] - marks[0][1]) / timed / 1e3
+    dispatch_ms = (marks[steps - 1][2] - marks[0][2]) / timed / 1e3
+    print(f"[training] Module.fit at batch {TRAIN_BATCH} on {card}, steps 2.."
+          f"{steps} by the host's clock: {fit_ms:.2f} ms per step "
+          f"({1e3 / fit_ms:.2f} steps/s, {TRAIN_BATCH * 1e3 / fit_ms:.1f} "
+          f"images/s); per step fit.data_wait {wait_ms:.2f} ms (the "
+          f"NDArrayIter's batch copied to the card), fit.dispatch "
+          f"{dispatch_ms:.2f} ms (forward, backward and update enqueued)",
+          flush=True)
 
     # 10 steps on one fixed batch lower the cross-entropy
     mod2 = mx.mod.Module(sym)
@@ -895,7 +962,8 @@ def phase_training(torch, mx, card):
           f"{TRAIN_BATCH}: {' '.join(f'{v:.3f}' for v in losses)} (last/first "
           f"{losses[-1] / losses[0]:.3f}, limit {LOSS_RATIO})", flush=True)
 
-    # time per step: CUDA events around 10 steps after the warm-up above
+    # the compute step alone (one batch already on the card, no input
+    # pipeline, no metric): CUDA events around 10 steps after the warm-up
     torch.cuda.reset_peak_memory_stats()
     reps = 10
     start = torch.cuda.Event(enable_timing=True)
@@ -910,13 +978,72 @@ def phase_training(torch, mx, card):
     wall_ms = (time.perf_counter() - w0) / reps * 1e3
     step_ms = start.elapsed_time(end) / reps
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"[training] ResNet-50 at batch {TRAIN_BATCH} on {card}: "
+    print(f"[training] ResNet-50 compute step (forward_backward + update on "
+          f"a batch on the card) at batch {TRAIN_BATCH} on {card}: "
           f"{step_ms:.2f} ms per step by CUDA events ({1e3 / step_ms:.2f} "
           f"steps/s, {TRAIN_BATCH * 1e3 / step_ms:.1f} images/s); host wall "
           f"{wall_ms:.2f} ms per step; peak device memory {peak:.2f} GiB",
           flush=True)
     device_ms = profile_step(torch, step)
     return launches, device_ms
+
+
+def parity_side(mx, sym, args, auxs, ctx, data_shape):
+    """``(executor, optimizer, momenta)`` on ``ctx``: ``sym`` bound for
+    training at ``data_shape`` with the numpy ``args`` and ``auxs``, SGD with
+    momentum 0.9 at ``PARITY_LR`` and wd 1e-4, and zero momenta."""
+    names = sorted(args)
+    exe = sym.simple_bind(ctx, grad_req="write", data=data_shape,
+                          softmax_label=data_shape[:1])
+    exe.copy_params_from({k: mx.nd.array(v, ctx=mx.cpu())
+                          for k, v in args.items()},
+                         {k: mx.nd.array(v, ctx=mx.cpu())
+                          for k, v in auxs.items()})
+    opt = mx.optimizer.SGD(momentum=0.9, rescale_grad=1 / data_shape[0],
+                           learning_rate=PARITY_LR, wd=1e-4,
+                           param_idx2name=dict(enumerate(names)))
+    states = [opt.create_state(i, exe.arg_dict[n])
+              for i, n in enumerate(names)]
+    return exe, opt, states
+
+
+def parity_step(torch, side, x, y, t):
+    """One fused training step (update count ``t``) of ``side`` on the batch
+    ``x``, ``y``; after it, each kind of ``PARITY_TOL`` as numpy arrays by
+    tensor name."""
+    exe, opt, states = side
+    names = sorted(n for n in exe.arg_dict if n not in ("data",
+                                                        "softmax_label"))
+    exe.forward(is_train=True, data=x, softmax_label=y)
+    exe.backward()
+    exe.fused_train_update(names, opt.torch_apply, states,
+                           [opt._get_lr(i) for i in range(len(names))],
+                           [opt._get_wd(i) for i in range(len(names))],
+                           [t] * len(names))
+    out = exe.outputs[0]._data
+    loss = cross_entropy(torch, out, torch.from_numpy(y).to(out.device))
+    momentum = {n: st.asnumpy() for n, st in zip(names, states)}
+    return {"loss": {"loss": np.array([float(loss)])},
+            "param": {n: exe.arg_dict[n].asnumpy() for n in names},
+            "momentum": momentum,
+            "bn_momentum": {n: m for n, m in momentum.items()
+                            if n.endswith(("_gamma", "_beta"))},
+            "aux": {n: a.asnumpy() for n, a in exe.aux_dict.items()}}
+
+
+def parity_diff(got, want):
+    """``(|got - want| / |want|`` in norm over all tensors of one kind, the
+    tensor with the largest difference of its own, that difference)``;
+    the first is inf where ``got`` holds a non-finite value."""
+    diff = math.sqrt(sum(float(np.sum((got[n] - w) ** 2))
+                         for n, w in want.items()))
+    norm = math.sqrt(sum(float(np.sum(w ** 2)) for w in want.values()))
+    rel = diff / norm if all(np.isfinite(got[n]).all()
+                             for n in want) else math.inf
+    own = {n: float(np.linalg.norm(got[n] - w)
+                    / max(np.linalg.norm(w), 1e-30)) for n, w in want.items()}
+    worst = max(own, key=own.get)
+    return rel, worst, own[worst]
 
 
 def phase_train_parity(torch, mx):
@@ -931,78 +1058,28 @@ def phase_train_parity(torch, mx):
     rng = np.random.default_rng(SEED + 5)
     x = rng.standard_normal((2, PARITY_BATCH, 3, 224, 224), np.float32)
     y = rng.integers(0, 1000, (2, PARITY_BATCH)).astype(np.float32)
-    names = sorted(args)
-    sides = {}
     t0 = time.perf_counter()
-    for where, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu()),
-                       ("card, cuDNN off", mx.gpu(0))):
-        exe = sym.simple_bind(ctx, grad_req="write",
-                              data=(PARITY_BATCH, 3, 224, 224),
-                              softmax_label=(PARITY_BATCH,))
-        exe.copy_params_from({k: mx.nd.array(v, ctx=mx.cpu())
-                              for k, v in args.items()},
-                             {k: mx.nd.array(v, ctx=mx.cpu())
-                              for k, v in auxs.items()})
-        opt = mx.optimizer.SGD(momentum=0.9, rescale_grad=1 / PARITY_BATCH,
-                               learning_rate=PARITY_LR, wd=1e-4,
-                               param_idx2name=dict(enumerate(names)))
-        states = [opt.create_state(i, exe.arg_dict[n])
-                  for i, n in enumerate(names)]
-        sides[where] = (exe, opt, states)
-
-    def step(where, s):
-        exe, opt, states = sides[where]
-        exe.forward(is_train=True, data=x[s], softmax_label=y[s])
-        exe.backward()
-        exe.fused_train_update(names, opt.torch_apply, states,
-                               [opt._get_lr(i) for i in range(len(names))],
-                               [opt._get_wd(i) for i in range(len(names))],
-                               [s + 1] * len(names))
-        out = exe.outputs[0]._data
-        loss = cross_entropy(torch, out, torch.from_numpy(y[s]).to(
-            out.device))
-        return {"loss": {"loss": np.array([float(loss)])},
-                "param": {n: exe.arg_dict[n].asnumpy() for n in names},
-                "momentum": {n: st.asnumpy() for n, st in zip(names, states)},
-                "aux": {n: exe.aux_dict[n].asnumpy() for n in auxs}}
-
-    # the same card with PyTorch's own convolutions in place of cuDNN's: how
-    # far the first step's gradients move when only the convolutions'
-    # summation order changes (measurement only, it fails nothing)
-    torch.backends.cudnn.enabled = False
-    try:
-        other = step("card, cuDNN off", 0)["momentum"]
-    finally:
-        torch.backends.cudnn.enabled = True
+    sides = {where: parity_side(mx, sym, args, auxs, ctx, x.shape[1:])
+             for where, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu()))}
     results = {"card": [], "cpu": []}
     for s in range(2):
         if s:  # the CPU side takes over the card's state
             card, cpu = sides["card"], sides["cpu"]
-            for n in names:
+            for n in args:
                 card[0].arg_dict[n].copyto(cpu[0].arg_dict[n])
             for n in auxs:
                 card[0].aux_dict[n].copyto(cpu[0].aux_dict[n])
             for a, b in zip(card[2], cpu[2]):
                 a.copyto(b)
         for where in ("card", "cpu"):
-            results[where].append(step(where, s))
+            results[where].append(parity_step(torch, sides[where], x[s], y[s],
+                                              s + 1))
     lines, bad = [], []
     for s in range(2):
         for kind, rtols in PARITY_TOL.items():
             rtol = rtols[s]
-            want_all = results["cpu"][s][kind]
-            got_all = results["card"][s][kind]
-            diff = math.sqrt(sum(float(np.sum((got_all[n] - w) ** 2))
-                                 for n, w in want_all.items()))
-            norm = math.sqrt(sum(float(np.sum(w ** 2))
-                                 for w in want_all.values()))
-            rel = diff / norm if all(np.isfinite(got_all[n]).all()
-                                     for n in want_all) else math.inf
-            worst = max(want_all, key=lambda n: float(
-                np.linalg.norm(got_all[n] - want_all[n])
-                / max(np.linalg.norm(want_all[n]), 1e-30)))
-            worst_rel = float(np.linalg.norm(got_all[worst] - want_all[worst])
-                              / max(np.linalg.norm(want_all[worst]), 1e-30))
+            rel, worst, worst_rel = parity_diff(results["card"][s][kind],
+                                                results["cpu"][s][kind])
             lines.append(f"step {s + 1} {kind}: |card - cpu| / |cpu| = "
                          f"{rel:.3g} (rtol {rtol}); worst tensor {worst} "
                          f"{worst_rel:.3g}")
@@ -1016,22 +1093,6 @@ def phase_train_parity(torch, mx):
           flush=True)
     for line in lines:
         print(f"[parity]   {line}")
-    # where the gradient difference comes from: it grows from the head
-    # (the FC layer) down to the stem (the first convolution)
-    depth = {n: float(np.linalg.norm(results["card"][0]["momentum"][n]
-                                     - results["cpu"][0]["momentum"][n])
-                      / np.linalg.norm(results["cpu"][0]["momentum"][n]))
-             for n in ("fc1_weight", "bn1_gamma", "stage4_unit3_conv3_weight",
-                       "stage1_unit1_conv1_weight", "conv0_weight")
-             if n in results["cpu"][0]["momentum"]}
-    print("[parity]   step 1 momentum, |card - cpu| / |cpu| from head to "
-          "stem: " + ", ".join(f"{n} {v:.2e}" for n, v in depth.items()))
-    card0 = results["card"][0]["momentum"]
-    spread = math.sqrt(sum(float(np.sum((card0[n] - other[n]) ** 2))
-                           for n in names)) / math.sqrt(sum(
-                               float(np.sum(card0[n] ** 2)) for n in names))
-    print(f"[parity]   step 1 momentum, the card with cuDNN against the card "
-          f"without: |a - b| / |a| = {spread:.3g}")
     if bad:
         fail(f"training parity: card and CPU differ beyond the tolerance in "
              f"{bad}")
@@ -1049,7 +1110,9 @@ def main():
     card = phase_device(torch)
     phase_build()
     kernels = phase_kernels(torch)
-    kernels += phase_train_kernels(torch, mx)
+    trained_kernels, bn_act_err = phase_train_kernels(torch, mx)
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], bn_act_err)
+    kernels += trained_kernels
     served = phase_serving(torch, mx, card)
     trained, device_ms = phase_training(torch, mx, card)
     phase_train_parity(torch, mx)

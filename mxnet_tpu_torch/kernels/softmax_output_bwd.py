@@ -26,7 +26,8 @@ from .. import telemetry as _tm
 from ..base import MXNetError
 from . import _lib
 
-# counts kernel launches only (never the plain version)
+# counts kernel launches only (never the plain version): one per call, two
+# under normalization='valid' (the count of valid labels, then the rows)
 LAUNCHES = _tm.counter("kernel.softmax_output_bwd.launches")
 _NORM = {"null": 0, "batch": 1, "valid": 2}
 
@@ -100,5 +101,5 @@ def softmax_output_bwd(p, label, grad_scale=1.0, ignore_label=-1.0,
             int(bool(use_ignore)), _NORM[normalization], float(p.shape[0]),
             _lib.stream_of(p))
     _lib.check(err, "softmax_output_bwd")
-    LAUNCHES.inc()
+    LAUNCHES.inc(2 if normalization == "valid" else 1)
     return g
