@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main paths once on one CUDA card: serving and
-training.
+"""Drive the PyTorch port's main paths once on one CUDA card: ResNet-50
+serving and training, and LSTM-PTB training.
 
     python3 chip_smoke.py
 
@@ -49,11 +49,38 @@ Run from the root of a checkout. Phases, each printing its own lines:
    the same parameters: after each step the loss, every parameter,
    momentum and BatchNorm statistic within the stated tolerances (in norm,
    over all tensors of a kind, and over the BatchNorm gamma and beta
-   momenta as a group of their own; see ``PARITY_TOL``).
+   momenta as a group of their own; see ``PARITY_TOL``);
+8. LSTM kernels — ``lstm_cell`` and ``lstm_cell_bwd`` at (32, 4 x 200)
+   with and without a forget bias and with ``dnext_c`` None,
+   ``adam_multi`` over the LSTM-PTB model's 4.65 M parameters with wd and
+   clip on and off and the guard skipping a NaN step, and
+   ``softmax_rows``/``softmax_output_bwd`` at the head's (1024, 10000),
+   against their plain versions (``LSTM_RTOL``/``LSTM_ATOL``, the softmax
+   limits above), timed beside the bound and one PyTorch call each;
+9. LSTM training — the LSTM-PTB model (``LSTM``: hidden and embedding
+   200, 2 layers, vocabulary 10000, random Xavier weights from the seed)
+   trained by ``BucketingModule.fit`` on ``gpu(0)`` with Adam over two
+   epochs of ``examples/lstm_bucketing.py``'s synthetic corpus at batch
+   32, buckets 8/16/24/32: every bucket visited, every step's launches
+   exactly 2T ``lstm_cell``, 2T ``lstm_cell_bwd``, one ``adam_multi``,
+   ``softmax_rows`` and ``softmax_output_bwd`` and no plain version, one
+   Adam table per bucket executor over one storage, the second epoch's
+   Train-Perplexity below ``PPL_LIMIT``; per bucket ms per step by the
+   host's clock and CUDA events, tokens/s, and under ``torch.profiler``
+   the device's busy share and top operations;
+10. LSTM parity — two Adam steps of the T=8 bucket at full width on the
+    card and on the port's CPU path, each from the same state, within
+    ``LSTM_PARITY_TOL`` in norm, beside the CPU path in float64.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. Any failed phase exits non-zero before the result
 lines. Without CUDA it exits non-zero at once.
+
+    python3 chip_smoke.py --cpu-perplexity 0 1 2
+
+runs the LSTM-PTB fit of phase 9 on the port's CPU path for each
+initialization seed given and prints each epoch's Train-Perplexity (the
+readings ``PPL_LIMIT`` was fixed from); it needs no card.
 """
 
 import json
@@ -91,7 +118,10 @@ FIT_STEPS = 12  # Module.fit's steps on the main path; 2..12 are timed
 PORT_KERNELS = {"bn_stats": "bn_stats_kernel", "bn_act": "bn_act_kernel",
                 "bn_act_bwd": "bn_bwd_", "softmax_rows": "softmax_rows_kernel",
                 "softmax_output_bwd": "softmax_output_bwd_kernel",
-                "sgd_mom_multi": "sgd_mom_multi_kernel"}
+                "sgd_mom_multi": "sgd_mom_multi_kernel",
+                "lstm_cell": "lstm_cell_kernel",
+                "lstm_cell_bwd": "lstm_cell_bwd_kernel",
+                "adam_multi": "adam_multi_kernel"}
 PARITY_BATCH = 8
 TRAIN_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
 LOSS_RATIO = 0.7  # cross-entropy after 10 steps on one batch / its first
@@ -127,6 +157,34 @@ PARITY_LR = 0.01
 PARITY_TOL = {"loss": (1e-4, 1e-4), "param": (1e-3, 1e-3),
               "momentum": (5e-2, 5e-2), "bn_momentum": (5e-2, 5e-2),
               "aux": (1e-3, 1e-3)}
+# the LSTM-PTB configuration: examples/lstm_bucketing.py's defaults with
+# PTB's 10000-word vocabulary, over its synthetic corpus
+LSTM = {"num_hidden": 200, "num_layers": 2, "num_embed": 200,
+        "vocab_size": 10000}
+LSTM_BATCH = 32
+LSTM_BUCKETS = (8, 16, 24, 32)
+LSTM_OPT = {"learning_rate": 0.01}
+LSTM_EPOCHS = 2
+# the LSTM cell and Adam against their plain versions (float32): the same
+# operations in the same order, but expf/tanhf/sqrtf may round an ulp away
+# from torch's own kernels
+LSTM_RTOL, LSTM_ATOL = 1e-5, 1e-6
+# Train-Perplexity of the second epoch (an average of the batches'
+# perplexities) must fall below PPL_LIMIT and below the first epoch's. The
+# port's CPU path at this size (``--cpu-perplexity 0 1 ... 9``) reads
+# 6058..8396 over ten initialization seeds (mean 7256, sd 808; first epoch
+# 10733..12863; guessing uniformly over 10000 words gives 10000). The card
+# initializes from its own generator, so the limit sits ~2.8 sd above that
+# mean
+PPL_LIMIT = 9500.0
+# card against the port's CPU path, two Adam steps of the T=8 bucket at
+# full width, each from the same state, in norm over all tensors of a kind:
+# |card - cpu| <= rtol * |cpu|. No ReLU or max-pool branch can flip here:
+# the CPU path in float32 against the same path in float64 differs by at
+# most 1.1e-7 (loss), 2.4e-7 (parameters), 3.2e-7 (Adam means) and 3.5e-7
+# (variances) over the two steps, so 1e-5 leaves ~30x for the card's other
+# summation order
+LSTM_PARITY_TOL = {"loss": 1e-5, "param": 1e-5, "mean": 1e-5, "var": 1e-5}
 
 
 def fail(msg):
@@ -1098,7 +1156,581 @@ def phase_train_parity(torch, mx):
              f"{bad}")
 
 
+def synthetic_corpus(vocab_size, n=2000, seed=0):
+    """``examples/lstm_bucketing.py``'s synthetic corpus: ``n`` arithmetic
+    word sequences of length 8, 16, 24 or 32."""
+    rs = np.random.RandomState(seed)
+    sents = []
+    for _ in range(n):
+        length = rs.choice([8, 16, 24, 32])
+        start = rs.randint(1, vocab_size - 1)
+        step = rs.choice([1, 2])
+        sents.append([(start + step * i) % (vocab_size - 1) + 1
+                      for i in range(length)])
+    return sents
+
+
+def lstm_param_shapes(mx, seq_len=8):
+    """(symbol of the ``seq_len`` bucket, begin-state names, the 11
+    parameter (name, shape) pairs) of the LSTM-PTB model."""
+    sym_gen, states = mx.models.lstm_lm_sym_gen(**LSTM)
+    sym = sym_gen(seq_len)[0]
+    shapes = {"data": (LSTM_BATCH, seq_len),
+              "softmax_label": (LSTM_BATCH, seq_len)}
+    shapes.update({n: (LSTM_BATCH, LSTM["num_hidden"]) for n in states})
+    arg_shapes, _, _ = sym.infer_shape(**shapes)
+    params = [(n, s) for n, s in zip(sym.list_arguments(), arg_shapes)
+              if n not in shapes]
+    return sym, states, params
+
+
+def phase_lstm_kernels(torch, mx):
+    from mxnet_tpu_torch.kernels import (
+        adam_multi as am, lstm_cell as lc, sgd_mom_multi as sg,
+        softmax_output_bwd as so, softmax_rows as sr)
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def close(what, got, want):
+        return check(torch, what, got, want, LSTM_RTOL, LSTM_ATOL)
+
+    # --- lstm_cell / lstm_cell_bwd at the path's (32, 4 x 200)
+    n, h = LSTM_BATCH, LSTM["num_hidden"]
+    i2h, h2h = 2 * randn(n, 4 * h), 2 * randn(n, 4 * h)
+    c, dh, dc = randn(n, h), randn(n, h), randn(n, h)
+    fwd_err = bwd_err = 0.0
+    for fb in (1.0, 0.0):
+        got = lc.lstm_cell(i2h, h2h, c, fb)
+        want = lc.lstm_cell_plain(i2h, h2h, c, fb)
+        for name, g, w in zip(("next_h", "next_c", "gates"), got, want):
+            fwd_err = max(fwd_err, close(f"lstm_cell fb={fb} {name}", g, w))
+        for dnext_c in (dc, None):
+            got_b = lc.lstm_cell_bwd(dh, dnext_c, want[2], c, want[1])
+            want_b = lc.lstm_cell_bwd_plain(dh, dnext_c, want[2], c, want[1])
+            for name, g, w in zip(("dgates", "dc_prev"), got_b, want_b):
+                bwd_err = max(bwd_err, close(
+                    f"lstm_cell_bwd fb={fb} dnext_c="
+                    f"{'None' if dnext_c is None else 'given'} {name}", g, w))
+    # torch's fused cell computes the same function with the forget bias as
+    # a bias vector: a yardstick, checked against the plain version
+    fused_cell = torch.ops.aten._thnn_fused_lstm_cell
+    fused_cell_bwd = torch.ops.aten._thnn_fused_lstm_cell_backward_impl
+    bias, zero = torch.zeros(4 * h, device=dev), torch.zeros(4 * h,
+                                                            device=dev)
+    bias[h:2 * h] = 1.0
+    hy, cy, ws = fused_cell(i2h, h2h, c, bias, zero)
+    plain = lc.lstm_cell_plain(i2h, h2h, c, 1.0)
+    lib_err = max(float((hy - plain[0]).abs().max()),
+                  float((cy - plain[1]).abs().max()))
+    fwd_ms = cuda_ms(torch, lambda: lc.lstm_cell(i2h, h2h, c, 1.0), reps=200)
+    fwd_plain = cuda_ms(torch, lambda: lc.lstm_cell_plain(i2h, h2h, c, 1.0),
+                        reps=100)
+    fwd_lib = cuda_ms(torch, lambda: fused_cell(i2h, h2h, c, bias, zero),
+                      reps=200)
+    act, next_c = plain[2], plain[1]
+    bwd_ms = cuda_ms(torch, lambda: lc.lstm_cell_bwd(dh, dc, act, c, next_c),
+                     reps=200)
+    bwd_plain = cuda_ms(torch, lambda: lc.lstm_cell_bwd_plain(
+        dh, dc, act, c, next_c), reps=100)
+    bwd_lib = cuda_ms(torch, lambda: fused_cell_bwd(dh, dc, c, cy, ws, True),
+                      reps=200)
+    # per (n, j): gate sums, bias, 3 sigmoids, 2 tanh, the state update
+    fwd_bound, fwd_by = bound(15 * n * h * 4, 25 * n * h)
+    bwd_bound, bwd_by = bound(13 * n * h * 4, 30 * n * h)
+    print(f"[lstm-kernels] lstm_cell and lstm_cell_bwd match their plain "
+          f"versions at ({n}, 4x{h}) with forget bias 1 and 0, dnext_c given "
+          f"and None: max abs err {fwd_err:g} / {bwd_err:g} (rtol "
+          f"{LSTM_RTOL}, atol {LSTM_ATOL}); torch._thnn_fused_lstm_cell "
+          f"computes the same cell to {lib_err:g}", flush=True)
+    print(f"[lstm-kernels] per launch: lstm_cell {fwd_ms:.4f} ms, plain "
+          f"{fwd_plain:.4f} ms, torch._thnn_fused_lstm_cell {fwd_lib:.4f} ms, "
+          f"bound {fwd_bound * 1e3:.3f} us ({fwd_by}); lstm_cell_bwd "
+          f"{bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, "
+          f"_thnn_fused_lstm_cell_backward_impl {bwd_lib:.4f} ms, bound "
+          f"{bwd_bound * 1e3:.3f} us ({bwd_by})", flush=True)
+
+    # --- adam_multi over the model's 11 tensors (4.65 M values)
+    _sym, _states, params = lstm_param_shapes(mx)
+    numel = sum(math.prod(s) for _n, s in params)
+
+    def adam_set():
+        return ([0.05 * randn(*s) for _n, s in params],
+                [randn(*s) for _n, s in params],
+                [0.01 * randn(*s) for _n, s in params],
+                [1e-3 * torch.rand(s, generator=gen, device=dev)
+                 for _n, s in params])
+
+    opt = mx.optimizer.Adam(**LSTM_OPT)
+    wds0 = [1.0 if n.endswith("_weight") else 0.0 for n, _s in params]
+    ad_err = 0.0
+    for wd, clip in ((0.0, -1.0), (1e-4, 0.05), (1e-2, -1.0)):
+        ws_, gs, ms, vs = adam_set()
+        ref = [[t.clone() for t in x] for x in (ws_, ms, vs)]
+        wds = [wd * k for k in wds0]
+        for t in (1, 2):
+            lrs = [opt.lr_t(0.01, t)] * len(params)
+            am.adam_multi(ws_, gs, ms, vs, lrs, wds, 0.9, 0.999, 1e-8,
+                          1 / LSTM_BATCH, clip)
+            am.adam_multi_plain(ref[0], gs, ref[1], ref[2], lrs, wds, 0.9,
+                                0.999, 1e-8, 1 / LSTM_BATCH, clip)
+        for got, want in zip(ws_ + ms + vs, ref[0] + ref[1] + ref[2]):
+            ad_err = max(ad_err, close(f"adam_multi wd={wd} clip={clip}",
+                                       got, want))
+    # the guard: a NaN gradient skips the step on the device
+    ws_, gs, ms, vs = adam_set()
+    guard = sg.Guard(torch.zeros(2, dtype=torch.int32, device=dev))
+    before = [t.clone() for t in ws_ + ms + vs]
+    lrs = [opt.lr_t(0.01, 1)] * len(params)
+    gs[0].view(-1)[11] = float("nan")
+    am.adam_multi(ws_, gs, ms, vs, lrs, [0.0] * len(params), 0.9, 0.999,
+                  1e-8, 1 / LSTM_BATCH, -1.0, guard=guard)
+    torch.cuda.synchronize()
+    if guard.counters.tolist() != [1, 1] or any(
+            not torch.equal(a, b) for a, b in zip(ws_ + ms + vs, before)):
+        fail(f"adam_multi guard: counters {guard.counters.tolist()}, the "
+             f"step was not skipped")
+    gs[0].view(-1)[11] = 0.0
+    am.adam_multi(ws_, gs, ms, vs, lrs, [0.0] * len(params), 0.9, 0.999,
+                  1e-8, 1 / LSTM_BATCH, -1.0, guard=guard)
+    if guard.counters.tolist() != [1, 0] or torch.equal(ws_[0], before[0]):
+        fail(f"adam_multi guard after a finite step: counters "
+             f"{guard.counters.tolist()}")
+    cache = {}
+    builds = am.TABLE_BUILDS.value
+    wds = [1e-4 * k for k in wds0]
+    ad_ms = cuda_ms(torch, lambda: am.adam_multi(
+        ws_, gs, ms, vs, lrs, wds, 0.9, 0.999, 1e-8, 1 / LSTM_BATCH, -1.0,
+        cache=cache), reps=50)
+    if am.TABLE_BUILDS.value != builds + 1:
+        fail(f"adam_multi rebuilt its table {am.TABLE_BUILDS.value - builds} "
+             f"times for unmoved tensors")
+    ad_plain = cuda_ms(torch, lambda: am.adam_multi_plain(
+        ws_, gs, ms, vs, lrs, wds, 0.9, 0.999, 1e-8, 1 / LSTM_BATCH, -1.0),
+        reps=5)
+    tparams = [torch.nn.Parameter(w) for w in ws_]
+    for p_, g in zip(tparams, gs):
+        p_.grad = g
+    topt = torch.optim.Adam(tparams, lr=0.01, fused=True)
+    ad_lib = cuda_ms(torch, topt.step, reps=50)
+    ad_bound, ad_by = bound(28 * numel, 15 * numel)
+    print(f"[lstm-kernels] adam_multi matches its plain version over "
+          f"{len(params)} tensors ({numel / 1e6:.2f} M values) x wd/clip, two "
+          f"steps each: max abs err {ad_err:g} (rtol {LSTM_RTOL}, atol "
+          f"{LSTM_ATOL}); a NaN gradient under the guard skips the step, "
+          f"counters [1, 1] then [1, 0]; per step: kernel {ad_ms:.4f} ms (1 "
+          f"launch, table built once), plain {ad_plain:.4f} ms, "
+          f"torch.optim.Adam(fused=True).step {ad_lib:.4f} ms (other "
+          f"semantics, a yardstick), bound {ad_bound:.4f} ms ({ad_by})",
+          flush=True)
+
+    # --- the head's softmax kernels at (32 x 32, 10000)
+    rows, vocab = LSTM_BATCH * max(LSTM_BUCKETS), LSTM["vocab_size"]
+    x = 4.0 * randn(rows, vocab)
+    sm_err = check(torch, "softmax_rows (1024, 10000)", sr.softmax_rows(x),
+                   sr.softmax_rows_plain(x), 0.0, SM_ATOL)
+    sm_ms = cuda_ms(torch, lambda: sr.softmax_rows(x), reps=50)
+    sm_plain = cuda_ms(torch, lambda: sr.softmax_rows_plain(x), reps=50)
+    sm_lib = cuda_ms(torch, lambda: torch.softmax(x, dim=1), reps=50)
+    sm_bound, sm_by = bound(2 * x.numel() * 4, 7 * x.numel())
+    p = torch.softmax(x, dim=1)
+    label = torch.randint(0, vocab, (rows,), generator=gen,
+                          device=dev).float()
+    so_err = check(torch, "softmax_output_bwd (1024, 10000)",
+                   so.softmax_output_bwd(p, label),
+                   so.softmax_output_bwd_plain(p, label, 1.0, -1.0, False,
+                                               "null", False),
+                   0.0, EXACT_ATOL)
+    so_ms = cuda_ms(torch, lambda: so.softmax_output_bwd(p, label), reps=50)
+    so_plain = cuda_ms(torch, lambda: so.softmax_output_bwd_plain(
+        p, label, 1.0, -1.0, False, "null", False), reps=50)
+    so_bound, so_by = bound(2 * p.numel() * 4 + rows * 4, 2 * p.numel())
+    print(f"[lstm-kernels] at the head's ({rows}, {vocab}): softmax_rows "
+          f"max abs err {sm_err:g} (atol {SM_ATOL}), kernel {sm_ms:.4f} ms, "
+          f"plain {sm_plain:.4f} ms, torch.softmax {sm_lib:.4f} ms, bound "
+          f"{sm_bound:.4f} ms ({sm_by}); softmax_output_bwd max abs err "
+          f"{so_err:g} (atol {EXACT_ATOL}), kernel {so_ms:.4f} ms, plain "
+          f"{so_plain:.4f} ms, no library call, bound {so_bound:.4f} ms "
+          f"({so_by})", flush=True)
+    new = [
+        {"name": "lstm_cell", "route": "cuda",
+         "source": "mxnet_tpu_torch/csrc/lstm_cell.cu",
+         "replaces": "mxnet_tpu/rnn/rnn_cell.py:245",
+         "max_abs_err": fwd_err, "ms": fwd_ms, "plain_ms": fwd_plain,
+         "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": fwd_lib},
+        {"name": "lstm_cell_bwd", "route": "cuda",
+         "source": "mxnet_tpu_torch/csrc/lstm_cell.cu",
+         "replaces": "mxnet_tpu/rnn/rnn_cell.py:245",
+         "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain,
+         "bound_ms": bwd_bound, "bound_by": bwd_by, "library_ms": bwd_lib},
+        {"name": "adam_multi", "route": "cuda",
+         "source": "mxnet_tpu_torch/csrc/adam_multi.cu",
+         "replaces": "mxnet_tpu/ops/defs_optimizer.py:78",
+         "max_abs_err": ad_err, "ms": ad_ms, "plain_ms": ad_plain,
+         "bound_ms": ad_bound, "bound_by": ad_by, "library_ms": ad_lib},
+    ]
+    head = {"softmax_rows": {"lstm_max_abs_err": sm_err, "lstm_ms": sm_ms,
+                             "lstm_plain_ms": sm_plain,
+                             "lstm_library_ms": sm_lib,
+                             "lstm_bound_ms": sm_bound},
+            "softmax_output_bwd": {"lstm_max_abs_err": so_err,
+                                   "lstm_ms": so_ms,
+                                   "lstm_plain_ms": so_plain,
+                                   "lstm_library_ms": None,
+                                   "lstm_bound_ms": so_bound}}
+    return new, head
+
+
+def count_plain_calls(torch, modules):
+    """Wrap every plain version the kernel wrappers of ``modules`` may call
+    so that each call on data is counted (shape inference at bind runs the
+    plain versions on ``meta`` tensors, which hold no data); returns the
+    dict of counts."""
+    calls = {}
+    for mod in modules:
+        for name in dir(mod):
+            fn = getattr(mod, name)
+            if name.endswith("_plain") and callable(fn):
+                def counted(*a, _fn=fn, _name=name, **k):
+                    first = next((t for t in a if isinstance(t, torch.Tensor)
+                                  or isinstance(t, list)), None)
+                    if isinstance(first, list):
+                        first = first[0] if first else None
+                    if first is None or first.device.type != "meta":
+                        calls[_name] = calls.get(_name, 0) + 1
+                    return _fn(*a, **k)
+                setattr(mod, name, counted)
+                calls[name] = 0
+    return calls
+
+
+def lstm_profile(torch, mod, batch, reps=3):
+    """One bucket's step (``forward_backward`` + ``update`` on a batch
+    already on the card) under torch.profiler: the device's busy share of
+    the wall time, the top device operations, and the port's kernels'
+    device time per step. Measurement only; it fails nothing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def step():
+        mod.forward_backward(batch)
+        mod.update()
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(ev.self_device_time_total / reps, round(ev.count / reps), ev.key)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and ev.self_device_time_total]
+    busy = sum(r[0] for r in rows)
+    ours = {}
+    for us, count, key in rows:
+        for kernel, mark in PORT_KERNELS.items():
+            if mark in key:
+                ms, n = ours.get(kernel, (0.0, 0))
+                ours[kernel] = (ms + us / 1e3, n + count)
+    launches = sum(r[1] for r in rows)
+    return (busy / 1e3, wall_us / reps / 1e3, launches,
+            sorted(rows, reverse=True)[:6], ours)
+
+
+def launch_counters():
+    """Each port kernel's launch counter, by kernel name."""
+    from mxnet_tpu_torch import kernels as K
+
+    counters = {name: getattr(K, name).LAUNCHES for name in PORT_KERNELS
+                if name != "lstm_cell_bwd"}
+    counters["lstm_cell_bwd"] = K.lstm_cell.BWD_LAUNCHES
+    return counters
+
+
+def lstm_fit(mx, seed, **callbacks):
+    """``BucketingModule.fit`` of the LSTM-PTB configuration on the current
+    context, parameters initialized from ``seed``: ``LSTM_EPOCHS`` epochs of
+    ``synthetic_corpus(10000, n=2000)``. Returns ``(iterator, module,
+    Train-Perplexity of each epoch)``."""
+    it = mx.rnn.BucketSentenceIter(
+        synthetic_corpus(LSTM["vocab_size"], n=2000), LSTM_BATCH,
+        buckets=list(LSTM_BUCKETS), invalid_label=0)
+    sym_gen, states = mx.models.lstm_lm_sym_gen(**LSTM)
+    mx.random.seed(seed)
+    mod = mx.mod.BucketingModule(sym_gen,
+                                 default_bucket_key=it.default_bucket_key,
+                                 state_names=states)
+    metric = mx.metric.Perplexity(0)
+    epochs = []
+    mod.fit(it, eval_metric=metric, optimizer="adam",
+            optimizer_params=LSTM_OPT,
+            initializer=mx.init.Xavier(factor_type="in", magnitude=2.34),
+            num_epoch=LSTM_EPOCHS,
+            epoch_end_callback=lambda *_a: epochs.append(metric.get()[1]),
+            **callbacks)
+    return it, mod, epochs
+
+
+def cpu_perplexity(seeds):
+    """The LSTM-PTB fit on the port's CPU path for each initialization
+    seed, printing each epoch's Train-Perplexity: how ``PPL_LIMIT`` was
+    fixed. Needs no card."""
+    import mxnet_tpu_torch as mx
+
+    for seed in seeds:
+        t0 = time.perf_counter()
+        with mx.cpu():
+            _it, _mod, epochs = lstm_fit(mx, seed)
+        print(f"[cpu-perplexity] seed {seed}: Train-Perplexity by epoch "
+              f"{epochs} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def phase_lstm_training(torch, mx, card):
+    from mxnet_tpu_torch import telemetry as tm
+    from mxnet_tpu_torch import kernels as K
+
+    t0 = time.perf_counter()
+    kernels = launch_counters()
+    plain_calls = count_plain_calls(
+        torch, [getattr(K, n) for n in PORT_KERNELS if n != "lstm_cell_bwd"])
+    per_step = []  # (epoch, bucket, launches of the step, host s, event)
+    last = {}
+
+    def on_batch(param):
+        now = {k: c.value for k, c in kernels.items()}
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        step = {k: v - last.get(k, 0) for k, v in now.items()}
+        last.update(now)
+        per_step.append((param.epoch, param.locals["data_batch"].bucket_key,
+                         step, time.perf_counter(), ev))
+
+    # the main path (on gpu(0)): every count at 0 just before, read just
+    # after
+    tm.reset()
+    it, mod, epochs = lstm_fit(mx, SEED, batch_end_callback=on_batch)
+    torch.cuda.synchronize()
+    launches = {k: c.value for k, c in kernels.items()}
+    builds = K.adam_multi.TABLE_BUILDS.value
+    batches = tm.counter("fit.batches").value
+    fit_s = time.perf_counter() - t0
+
+    def want(seq_len):
+        w = {k: 0 for k in kernels}
+        w.update(lstm_cell=2 * seq_len, lstm_cell_bwd=2 * seq_len,
+                 adam_multi=1, softmax_rows=1, softmax_output_bwd=1)
+        return w
+
+    visited = sorted({b for _e, b, _s, _t, _ev in per_step})
+    if visited != sorted(LSTM_BUCKETS):
+        fail(f"LSTM fit visited buckets {visited}, expected {LSTM_BUCKETS}")
+    bad = [(e, b, s) for e, b, s, _t, _ev in per_step if s != want(b)]
+    if bad or batches != len(per_step):
+        fail(f"LSTM launches per step: {len(bad)} of {len(per_step)} steps "
+             f"off, first {bad[:1]}; expected per step {want(8)} at T=8")
+    if any(plain_calls.values()):
+        fail(f"plain versions ran on the card's main path: {plain_calls}")
+    execs = [m._exec_group._exec for m in mod._buckets.values()]
+    keys = {e._update_cache.get("key") for e in execs}
+    if builds != len(LSTM_BUCKETS) or len(keys) != 1 or None in keys:
+        fail(f"Adam tables: {builds} built for {len(execs)} bucket "
+             f"executors, {len(keys)} distinct pointer sets; expected one "
+             f"build per executor, all over the same storage")
+    weight = execs[0].arg_dict["pred_weight"]
+    if weight.context != mx.gpu(0):
+        fail("BucketingModule.fit did not train on gpu(0)")
+    if not (epochs[-1] < PPL_LIMIT and epochs[-1] < epochs[0]):
+        fail(f"Train-Perplexity by epoch {epochs}; expected the last below "
+             f"{PPL_LIMIT} and below the first")
+    print(f"[lstm] BucketingModule.fit on {mx.current_context()}: "
+          f"{LSTM_EPOCHS} epochs, {batches} steps over buckets {visited} in "
+          f"{fit_s:.1f} s (binding, cuBLAS's choices and first launches "
+          f"included); launches exactly 2T lstm_cell, 2T lstm_cell_bwd, 1 "
+          f"adam_multi, 1 softmax_rows, 1 softmax_output_bwd per step of "
+          f"bucket T, totals {launches}; no plain version ran; Adam tables "
+          f"built {builds} times (once per bucket executor, one pointer set); "
+          f"Train-Perplexity by epoch {[round(v, 1) for v in epochs]} (limit "
+          f"{PPL_LIMIT})", flush=True)
+
+    # ms per step of the last epoch by bucket: between consecutive
+    # batch-end callbacks (its first step follows the epoch-end work)
+    timed = [r for r in per_step if r[0] == LSTM_EPOCHS - 1]
+    by_bucket = {}
+    for prev, cur in zip(timed, timed[1:]):
+        host = (cur[3] - prev[3]) * 1e3
+        dev = prev[4].elapsed_time(cur[4])
+        by_bucket.setdefault(cur[1], []).append((host, dev))
+    stats = {}
+    for b in sorted(by_bucket):
+        host = float(np.mean([v[0] for v in by_bucket[b]]))
+        dev = float(np.mean([v[1] for v in by_bucket[b]]))
+        stats[b] = (host, dev)
+        print(f"[lstm] bucket {b} on {card}: {host:.2f} ms per step by the "
+              f"host's clock, {dev:.2f} ms by CUDA events "
+              f"({LSTM_BATCH * b * 1e3 / host:.0f} tokens/s) over "
+              f"{len(by_bucket[b])} steps of fit's last epoch", flush=True)
+
+    # the device's busy share and top operations per bucket
+    batches_by_key = {}
+    it.reset()
+    for batch in it:
+        batches_by_key.setdefault(batch.bucket_key, batch)
+    device_ms = {}
+    for b in sorted(batches_by_key):
+        busy, wall, n_kern, top, ours = lstm_profile(torch, mod,
+                                                     batches_by_key[b])
+        print(f"[lstm-profile] bucket {b}: device busy {busy:.2f} ms of "
+              f"{wall:.2f} ms wall ({100 * busy / wall:.0f}%), {n_kern} "
+              f"kernel launches per step; top device operations:")
+        for us, count, key in top:
+            print(f"[lstm-profile]   {us / 1e3:8.3f} ms x{count:<4d} "
+                  f"{key[:90]}")
+        print("[lstm-profile]   port kernels per step: " + ", ".join(
+            f"{k} {ms:.4f} ms in {cnt}" for k, (ms, cnt) in sorted(
+                ours.items())), flush=True)
+        if b == max(LSTM_BUCKETS):
+            device_ms = {k: v[0] for k, v in ours.items()}
+    return launches, device_ms
+
+
+def lstm_numpy(mx, seed):
+    """The T=8 bucket's symbol, begin-state names and parameters as numpy:
+    Xavier(factor_type="in", magnitude=2.34) uniform weights, zero
+    biases."""
+    sym, states, params = lstm_param_shapes(mx)
+    rng = np.random.default_rng(seed)
+    args = {}
+    for name, shape in params:
+        if name.endswith("_weight"):
+            scale = math.sqrt(2.34 / shape[1])
+            args[name] = rng.uniform(-scale, scale, shape).astype(np.float32)
+        else:
+            args[name] = np.zeros(shape, np.float32)
+    return sym, states, args
+
+
+def lstm_parity_side(mx, sym, states, args, ctx, dtype=np.float32):
+    """A Module over the T=8 bucket on ``ctx`` with the numpy ``args``
+    (cast to ``dtype``) and Adam."""
+    mod = mx.mod.Module(sym, state_names=states, context=ctx)
+    shape = (LSTM_BATCH, 8)
+    mod.bind(data_shapes=[mx.io.DataDesc("data", shape, dtype)],
+             label_shapes=[mx.io.DataDesc("softmax_label", shape, dtype)])
+    mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu(), dtype=dtype)
+                                for k, v in args.items()})
+    mod.init_optimizer(optimizer="adam", optimizer_params=LSTM_OPT)
+    return mod
+
+
+def lstm_parity_step(torch, mx, mod, x, y, dtype=np.float32):
+    """One training step of ``mod`` on ``x``, ``y``; after it, each kind of
+    ``LSTM_PARITY_TOL`` as float64 numpy arrays by tensor name."""
+    ctx = mod._context[0]
+    batch = mx.io.DataBatch([mx.nd.array(x, ctx=ctx, dtype=dtype)],
+                            [mx.nd.array(y, ctx=ctx, dtype=dtype)])
+    mod.forward_backward(batch)
+    mod.update()
+    out = mod.get_outputs()[0]._data
+    loss = cross_entropy(torch, out, torch.from_numpy(
+        y.reshape(-1)).to(out.device))
+    names = mod._exec_group.param_names
+    arg, _aux = mod.get_params()
+    res = {"loss": {"loss": np.array([float(loss)])},
+           "param": {n: arg[n].asnumpy().astype(np.float64) for n in names},
+           "mean": {}, "var": {}}
+    for i, (mean, var) in mod._updater.states.items():
+        res["mean"][names[i]] = mean.asnumpy().astype(np.float64)
+        res["var"][names[i]] = var.asnumpy().astype(np.float64)
+    return res
+
+
+def lstm_parity_batches(seed):
+    """Two (data, label) batches of the T=8 bucket: words 1..vocab-1, the
+    labels the next word."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(1, LSTM["vocab_size"], (2, LSTM_BATCH, 9))
+    return [(w[:, :8].astype(np.float32), w[:, 1:].astype(np.float32))
+            for w in words]
+
+
+def lstm_parity_run(torch, mx, sides, batches, dtypes):
+    """Two steps of ``sides`` (name -> Module, whose arrays hold
+    ``dtypes[name]``); before the second, every side takes the first
+    side's parameters and Adam states. Returns ``{name: [step
+    results]}``."""
+    names = list(sides)
+    results = {n: [] for n in names}
+    for s, (x, y) in enumerate(batches):
+        if s:
+            lead = sides[names[0]]
+            arg, _aux = lead.get_params()
+            for n in names[1:]:
+                mod = sides[n]
+                mod.set_params({k: mx.nd.array(v.asnumpy().astype(
+                    dtypes[n]), ctx=mx.cpu(), dtype=dtypes[n])
+                    for k, v in arg.items()}, {})
+                for i, st in lead._updater.states.items():
+                    for a, b in zip(st, mod._updater.states[i]):
+                        b[:] = a.asnumpy().astype(dtypes[n])
+        for n in names:
+            results[n].append(lstm_parity_step(torch, mx, sides[n], x, y,
+                                               dtypes[n]))
+    return results
+
+
+def phase_lstm_parity(torch, mx):
+    """Two Adam steps of the LSTM-PTB model's T=8 bucket at full width on
+    the card and on the port's CPU path (plain versions), each from the same
+    state, compared in norm over each kind; beside them the same CPU path
+    in float64, the yardstick of float32's own rounding."""
+    sym, states, args = lstm_numpy(mx, SEED + 7)
+    batches = lstm_parity_batches(SEED + 8)
+    t0 = time.perf_counter()
+    dtypes = {"card": np.float32, "cpu": np.float32, "cpu64": np.float64}
+    sides = {"card": lstm_parity_side(mx, sym, states, args, mx.gpu(0)),
+             "cpu": lstm_parity_side(mx, sym, states, args, mx.cpu()),
+             "cpu64": lstm_parity_side(mx, sym, states, args, mx.cpu(),
+                                       np.float64)}
+    res = lstm_parity_run(torch, mx, sides, batches, dtypes)
+    lines, bad = [], []
+    for s in range(2):
+        for kind, rtol in LSTM_PARITY_TOL.items():
+            rel, worst, worst_rel = parity_diff(res["card"][s][kind],
+                                                res["cpu"][s][kind])
+            lines.append(f"step {s + 1} {kind}: |card - cpu| / |cpu| = "
+                         f"{rel:.3g} (rtol {rtol}); worst tensor {worst} "
+                         f"{worst_rel:.3g}")
+            if not rel <= rtol:
+                bad.append(f"step {s + 1} {kind} {rel:.3g} > {rtol}")
+            # the yardstick: the same CPU path in float32 against float64
+            rel64, worst64, worst64_rel = parity_diff(res["cpu"][s][kind],
+                                                      res["cpu64"][s][kind])
+            lines.append(f"step {s + 1} {kind}: |cpu - cpu float64| / "
+                         f"|cpu float64| = {rel64:.3g}; worst tensor "
+                         f"{worst64} {worst64_rel:.3g}")
+    print(f"[lstm-parity] two Adam steps of the T=8 bucket at batch "
+          f"{LSTM_BATCH}, card against the port's CPU path "
+          f"({time.perf_counter() - t0:.1f} s): losses "
+          f"{[float(r['loss']['loss'][0]) for r in res['card']]} vs "
+          f"{[float(r['loss']['loss'][0]) for r in res['cpu']]}", flush=True)
+    for line in lines:
+        print(f"[lstm-parity]   {line}")
+    if bad:
+        fail(f"LSTM training parity: card and CPU differ beyond the "
+             f"tolerance in {bad}")
+
+
 def main():
+    if sys.argv[1:2] == ["--cpu-perplexity"]:
+        cpu_perplexity([int(a) for a in sys.argv[2:]])
+        return
     import torch
 
     if not torch.cuda.is_available():
@@ -1113,14 +1745,24 @@ def main():
     trained_kernels, bn_act_err = phase_train_kernels(torch, mx)
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], bn_act_err)
     kernels += trained_kernels
+    lstm_kernels, head = phase_lstm_kernels(torch, mx)
+    kernels += lstm_kernels
+    for k in kernels:
+        k.update(head.get(k["name"], {}))
     served = phase_serving(torch, mx, card)
     trained, device_ms = phase_training(torch, mx, card)
     phase_train_parity(torch, mx)
+    lstm_trained, lstm_device_ms = phase_lstm_training(torch, mx, card)
+    phase_lstm_parity(torch, mx)
     for k in kernels:
-        k["launches_serving"] = served.get(k["name"], 0)
-        k["launches_training"] = trained[k["name"]]
-        k["launches"] = k["launches_serving"] + k["launches_training"]
-        k["step_device_ms"] = device_ms.get(k["name"])
+        name = k["name"]
+        k["launches_serving"] = served.get(name, 0)
+        k["launches_training"] = trained.get(name, 0)
+        k["launches_lstm"] = lstm_trained.get(name, 0)
+        k["launches"] = (k["launches_serving"] + k["launches_training"]
+                         + k["launches_lstm"])
+        k["step_device_ms"] = device_ms.get(name)
+        k["lstm_step_device_ms"] = lstm_device_ms.get(name)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,12 +5,14 @@ layout so each module's counterpart is easy to find. It imports torch and
 numpy, never ``jax`` and nothing from ``mxnet_tpu``. It trains and serves
 models end to end: Symbol graphs (JSON and ``.params`` compatible with the
 JAX package), an eager executor with backward and a fused update,
-``Module.fit`` with SGD, initializers, metrics and ``NDArrayIter``,
+``Module.fit`` and ``BucketingModule.fit`` with SGD and Adam, RNN cells and
+``BucketSentenceIter``, initializers, metrics and ``NDArrayIter``,
 ``Predictor`` and ``ModelServer``. Entry points run on the card
 (``gpu(0)``) unless the caller asks for the CPU. BatchNorm (+ReLU) forward
-and backward, the SoftmaxOutput forward and loss backward and the
-multi-tensor SGD update run hand-written CUDA kernels (:mod:`.kernels`);
-convolutions and matrix products go to cuDNN/cuBLAS through torch.
+and backward, the SoftmaxOutput forward and loss backward, the LSTM cell
+step forward and backward and the multi-tensor SGD and Adam updates run
+hand-written CUDA kernels (:mod:`.kernels`); convolutions and matrix
+products go to cuDNN/cuBLAS through torch.
 """
 
 import torch
@@ -41,6 +43,7 @@ from .optimizer import Optimizer  # noqa: E402
 from . import metric, io, callback, model  # noqa: E402
 from . import module  # noqa: E402
 from . import module as mod  # noqa: E402
+from . import rnn  # noqa: E402
 from . import contrib, convert, models, predictor, serving  # noqa: E402
 from .attribute import AttrScope  # noqa: E402
 from .name import NameManager  # noqa: E402
@@ -51,5 +54,5 @@ __all__ = [
     "models", "predictor", "serving", "kernels", "ops", "base", "context",
     "env", "telemetry", "AttrScope", "NameManager", "random", "init",
     "initializer", "lr_scheduler", "optimizer", "opt", "Optimizer", "metric",
-    "io", "callback", "model", "module", "mod",
+    "io", "callback", "model", "module", "mod", "rnn",
 ]

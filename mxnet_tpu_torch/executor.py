@@ -22,6 +22,15 @@ backward to ``bn_act_bwd``) with the ReLU fused: a BatchNorm whose visible
 output has exactly one consumer, an ``Activation(act_type="relu")``, runs
 with ``relu=True`` and the Activation passes that value through. Any other
 BatchNorm runs with ``relu=False`` and its consumers run as written.
+
+In the same way the gate chain of an LSTM cell step (``LSTMCell.__call__``
+unrolled: ``_plus(FC, FC)`` -> ``SliceChannel(4)`` -> three sigmoids and a
+tanh, with an optional ``_plus_scalar`` forget bias -> ``next_c = f * c +
+i * g`` -> ``next_h = o * tanh(next_c)``) runs as one ``lstm_cell`` launch,
+and in training its backward as one ``lstm_cell_bwd``, when none of its
+intermediates has a consumer outside the chain: ``next_c`` and ``next_h``
+take the places of their nodes, the other nodes of the chain run nothing.
+Any other graph runs op by op, as written.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import torch
 from . import env as _env
 from .base import MXNetError, np_dtype
 from .context import Context
+from .kernels.lstm_cell import LSTMCellFn, lstm_cell
 from .kernels.sgd_mom_multi import Guard
 from .ndarray import NDArray, ones as nd_ones, zeros as nd_zeros
 from .ops.defs_nn import batch_norm
@@ -42,15 +52,21 @@ _WINDOWS = ("training windows (n_steps > 1, data_stacks, "
             "(ROADMAP.md queue 1 item 2)")
 
 
-def _fused_bn_relu(symbol, topo):
-    """``{id(relu node): bn node}`` for every BatchNorm -> Activation(relu)
-    pair the interpreter may fuse."""
+def _consumers(symbol, topo):
+    """``{(id(node), output index): [consumer nodes]}``; a graph head
+    counts as a consumer ``None``."""
     consumers = {}
     for node in topo:
         for (inp, idx) in node.inputs:
             consumers.setdefault((id(inp), idx), []).append(node)
     for (node, idx) in symbol._outputs:
         consumers.setdefault((id(node), idx), []).append(None)  # a head
+    return consumers
+
+
+def _fused_bn_relu(topo, consumers):
+    """``{id(relu node): bn node}`` for every BatchNorm -> Activation(relu)
+    pair the interpreter may fuse."""
     fused = {}
     for node in topo:
         if node.is_variable or node.op.name != "Activation":
@@ -63,6 +79,110 @@ def _fused_bn_relu(symbol, topo):
                 and consumers.get((id(bn), 0)) == [node]):
             fused[id(node)] = bn
     return fused
+
+
+def _is_op(node, name, **params):
+    """True when ``node`` runs op ``name`` with these parameter values."""
+    if node is None or node.is_variable or node.op.name != name:
+        return False
+    p = node.params()
+    return all(p[k] == v for k, v in params.items())
+
+
+class _LSTMStep:
+    """One LSTM cell step's gate chain: ``inputs`` are the ``(node, index)``
+    edges of ``i2h``, ``h2h`` and ``c_prev``; ``c_node`` (the ``next_c``
+    add) runs the fused step and holds ``[next_c, next_h]``, ``h_node``
+    (the ``next_h`` multiply) passes ``next_h`` on; ``members`` are the
+    chain's nodes."""
+
+    def __init__(self, inputs, forget_bias, c_node, h_node, members):
+        self.inputs = inputs
+        self.forget_bias = forget_bias
+        self.c_node = c_node
+        self.h_node = h_node
+        self.members = members
+
+    def run(self, ins, mode):
+        """``[next_c, next_h]`` of the step, through the cell kernels (their
+        wrappers check the shapes and types)."""
+        i2h, h2h, c_prev = ins
+        if mode.is_train and torch.is_grad_enabled():
+            next_h, next_c = LSTMCellFn.apply(i2h, h2h, c_prev,
+                                              self.forget_bias)
+        else:
+            next_h, next_c, _act = lstm_cell(i2h, h2h, c_prev,
+                                             self.forget_bias, save=False)
+        return [next_c, next_h]
+
+
+def _fused_lstm(topo, consumers):
+    """``{id(next_c node): _LSTMStep}`` for every LSTM gate chain the
+    interpreter may fuse: the chain of ``LSTMCell.__call__`` from the
+    ``_plus`` of two ``FullyConnected`` outputs to ``next_h``, whose
+    intermediates feed nothing outside it."""
+
+    def sole(node, idx=0):
+        use = consumers.get((id(node), idx), [])
+        return use[0] if len(use) == 1 else None
+
+    def other(node, known):
+        """The input edge of binary ``node`` that is not ``(known, 0)``."""
+        edges = list(node.inputs)
+        if (known, 0) not in edges:
+            return None
+        edges.remove((known, 0))
+        return edges[0]
+
+    steps = {}
+    for sl in topo:
+        if not _is_op(sl, "SliceChannel", num_outputs=4, axis=1,
+                      squeeze_axis=False):
+            continue
+        gates, gidx = sl.inputs[0]
+        if gidx or not _is_op(gates, "_plus") or sole(gates) is not sl:
+            continue
+        if not all(idx == 0 and _is_op(fc, "FullyConnected", flatten=True)
+                   for fc, idx in gates.inputs):
+            continue
+        acts, members, forget_bias = [], [gates, sl], 0.0
+        for k, act_type in enumerate(("sigmoid", "sigmoid", "tanh",
+                                      "sigmoid")):
+            a = sole(sl, k)
+            if k == 1 and _is_op(a, "_plus_scalar"):
+                forget_bias = a.params()["scalar"]
+                members.append(a)
+                a = sole(a)
+            if not _is_op(a, "Activation", act_type=act_type):
+                break
+            acts.append(a)
+        if len(acts) != 4:
+            continue
+        i_act, f_act, g_act, o_act = acts
+        mul_fc, mul_ig, mul_h = sole(f_act), sole(i_act), sole(o_act)
+        if not (_is_op(mul_fc, "_mul") and _is_op(mul_ig, "_mul")
+                and _is_op(mul_h, "_mul") and sole(g_act) is mul_ig
+                and other(mul_ig, i_act) == (g_act, 0)):
+            continue
+        c_prev = other(mul_fc, f_act)
+        c_node = sole(mul_fc)
+        if (c_prev is None or not _is_op(c_node, "_plus")
+                or sole(mul_ig) is not c_node
+                or other(c_node, mul_fc) != (mul_ig, 0)):
+            continue
+        tanh_c = other(mul_h, o_act)
+        if (tanh_c is None or tanh_c[1]
+                or not _is_op(tanh_c[0], "Activation", act_type="tanh")
+                or tanh_c[0].inputs != [(c_node, 0)]
+                or sole(tanh_c[0]) is not mul_h):
+            continue
+        members += acts + [mul_fc, mul_ig, c_node, tanh_c[0], mul_h]
+        if c_prev[0] in members:
+            continue
+        steps[id(c_node)] = _LSTMStep(
+            list(gates.inputs) + [c_prev], forget_bias, c_node, mul_h,
+            members)
+    return steps
 
 
 def _head_loss_flags(graph):
@@ -88,14 +208,31 @@ class _Graph:
         self._arg_index = {n: i for i, n in enumerate(self.arg_names)}
         self._aux_index = {n: i for i, n in enumerate(self.aux_names)}
         self.heads = symbol._outputs
-        self.fused = _fused_bn_relu(symbol, self.topo)
+        consumers = _consumers(symbol, self.topo)
+        self.fused = _fused_bn_relu(self.topo, consumers)
         self._fused_bns = {id(bn) for bn in self.fused.values()}
-        # position of each node's last consumer: an intermediate value is
+        self.lstm = _fused_lstm(self.topo, consumers)
+        self._lstm_h = {id(st.h_node): st for st in self.lstm.values()}
+        skip = {id(m) for st in self.lstm.values() for m in st.members
+                if m is not st.c_node and m is not st.h_node}
+        # the values each node reads: a fused LSTM step reads the chain's
+        # inputs at its next_c node and nothing at its other nodes
+        self._reads = {}
+        for node in self.topo:
+            if id(node) in skip:
+                self._reads[id(node)] = None
+            elif id(node) in self.lstm:
+                self._reads[id(node)] = self.lstm[id(node)].inputs
+            elif id(node) in self._lstm_h:
+                self._reads[id(node)] = [(self._lstm_h[id(node)].c_node, 1)]
+            else:
+                self._reads[id(node)] = node.inputs
+        # position of each node's last reader: an intermediate value is
         # dropped there, so a forward holds its working set, not every
         # activation of the graph
         self._last_use = {}
         for i, node in enumerate(self.topo):
-            for (inode, _idx) in node.inputs:
+            for (inode, _idx) in self._reads[id(node)] or ():
                 self._last_use[id(inode)] = i
         for (node, _idx) in self.heads:
             self._last_use[id(node)] = len(self.topo)
@@ -111,8 +248,15 @@ class _Graph:
                 else:
                     env[id(node)] = [arg_vals[self._arg_index[node.name]]]
                 continue
-            ins = [env[id(inode)][idx] for (inode, idx) in node.inputs]
-            if id(node) in self.fused:
+            reads = self._reads[id(node)]
+            if reads is None:
+                continue  # inside a fused LSTM step
+            ins = [env[id(inode)][idx] for (inode, idx) in reads]
+            if id(node) in self.lstm:
+                outs, new_aux = self.lstm[id(node)].run(ins, mode), []
+            elif id(node) in self._lstm_h:
+                outs, new_aux = ins, []  # next_h of its fused step
+            elif id(node) in self.fused:
                 outs, new_aux = ins, []  # its BatchNorm applied the ReLU
             elif id(node) in self._fused_bns:
                 outs, new_aux = batch_norm(ins, node.params(), mode,
@@ -127,7 +271,7 @@ class _Graph:
                 if value is not held:
                     held.copy_(value)
             env[id(node)] = outs
-            for (inode, _idx) in node.inputs:
+            for (inode, _idx) in reads:
                 if self._last_use[id(inode)] == pos:
                     env.pop(id(inode), None)
         return [env[id(node)][idx] for (node, idx) in self.heads]

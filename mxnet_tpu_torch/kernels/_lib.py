@@ -49,6 +49,11 @@ _SIGNATURES = {
     "mxt_sgd_mom_multi_f32": [_P, _P, _P, _P, _P, _I, _I, _LL,
                               ctypes.c_float, _I, ctypes.c_float,
                               ctypes.c_float, _P, _P, _P],
+    "mxt_lstm_cell_f32": [_P, _P, _P, _P, _P, _P, _LL, _I, ctypes.c_float,
+                          _P],
+    "mxt_lstm_cell_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _P],
+    "mxt_adam_multi_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _LL]
+    + [ctypes.c_float] * 7 + [_P, _P, _P],
 }
 
 _lock = threading.Lock()

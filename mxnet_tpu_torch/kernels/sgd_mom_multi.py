@@ -28,8 +28,8 @@ chunks of ``CHUNK`` elements. The caller passes a ``cache`` dict (one per
 executor); the table is rebuilt only when a weight or momentum moves, the
 ``(lr, wd)`` rows are uploaded only when they change. Autograd allocates
 the gradients anew each step, so their pointers are one int64 per tensor
-beside the table, uploaded from pinned memory (no host wait) when they
-move. The kernel writes through raw pointers, outside autograd.
+beside the table. Both uploads go from pinned memory, without a host
+wait. The kernel writes through raw pointers, outside autograd.
 """
 
 from __future__ import annotations
@@ -107,6 +107,18 @@ def sgd_mom_multi_plain(weights, grads, moms, lrs, wds, momentum,
         c.copy_(torch.stack([c[0] + miss, (c[1] + miss) * miss]))
 
 
+def block_map(sizes, chunk, name):
+    """``(blocks, n_blocks)``: one ``(entry, start)`` row per block of
+    ``chunk`` elements over tensors of ``sizes`` (update entries first,
+    then restore entries)."""
+    blocks = np.array([(e, s) for e, size in enumerate(sizes)
+                       for s in range(0, size, chunk)] or [[0, 0]], np.int64)
+    n_blocks = sum(-(-size // chunk) for size in sizes)
+    if n_blocks >= 2 ** 31:
+        raise MXNetError(f"{name}: {n_blocks} blocks exceed the grid")
+    return blocks, n_blocks
+
+
 def _table(weights, moms, restores, device, cache):
     """The device table of ``(weight, mom, numel)`` entries, restore
     entries and the block map; rebuilt only when a tensor moved."""
@@ -119,12 +131,7 @@ def _table(weights, moms, restores, device, cache):
     entries = np.array([list(k) for k in key[:n_entries]], np.int64)
     rest = np.array([list(k) for k in key[n_entries:]] or [[0, 0, 0]],
                     np.int64)
-    sizes = [k[2] for k in key]
-    blocks = np.array([(e, s) for e, size in enumerate(sizes)
-                       for s in range(0, size, CHUNK)] or [[0, 0]], np.int64)
-    n_blocks = sum(-(-size // CHUNK) for size in sizes)
-    if n_blocks >= 2 ** 31:
-        raise MXNetError(f"sgd_mom_multi: {n_blocks} blocks exceed the grid")
+    blocks, n_blocks = block_map([k[2] for k in key], CHUNK, "sgd_mom_multi")
     table = {"entries": torch.from_numpy(entries).to(device),
              "restores": torch.from_numpy(rest).to(device),
              "blocks": torch.from_numpy(blocks).to(device),
@@ -135,24 +142,27 @@ def _table(weights, moms, restores, device, cache):
     return table
 
 
-def _grad_ptrs(grads, device, cache):
+def grad_ptrs(grads, device, cache, uploads=GRAD_UPLOADS):
     """The gradients' pointers on the device, uploaded (from pinned memory,
-    without a host wait) only when they moved."""
+    without a host wait) only when they moved; ``uploads`` counts them."""
     key = tuple(g.data_ptr() for g in grads)
     if cache.get("grad_key") != key:
         host = torch.tensor(key, dtype=torch.int64).pin_memory()
         cache["grads"] = host.to(device, non_blocking=True)
         cache["grad_key"] = key
-        GRAD_UPLOADS.inc()
+        uploads.inc()
     return cache["grads"]
 
 
-def _hyper(lrs, wds, device, cache):
+def hyper_rows(lrs, wds, device, cache):
+    """The ``(lr, wd)`` rows on the device, uploaded (from pinned memory,
+    without a host wait) only when they changed."""
     host = np.array([lrs, wds], np.float32).T.copy()
     old = cache.get("hyper_host")
     if old is None or old.shape != host.shape or not np.array_equal(old, host):
         cache["hyper_host"] = host
-        cache["hyper"] = torch.from_numpy(host).to(device)
+        cache["hyper"] = torch.from_numpy(host).pin_memory().to(
+            device, non_blocking=True)
     return cache["hyper"]
 
 
@@ -200,8 +210,8 @@ def sgd_mom_multi(weights, grads, moms, lrs, wds, momentum, rescale_grad,
             guard.probe = torch.empty(1, device=dev)
     cache = {} if cache is None else cache
     table = _table(weights, moms, restores, dev, cache)
-    hyper = _hyper(lrs, wds, dev, cache)
-    gptrs = _grad_ptrs(grads, dev, cache)
+    hyper = hyper_rows(lrs, wds, dev, cache)
+    gptrs = grad_ptrs(grads, dev, cache)
     lib = _lib.library()
     stream = _lib.stream_of(weights[0])
     with torch.cuda.device(dev):

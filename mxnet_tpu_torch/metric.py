@@ -2,15 +2,16 @@
 
 Counterpart of ``mxnet_tpu/metric.py`` (reference ``python/mxnet/metric.py``)
 for ``EvalMetric``, ``CompositeEvalMetric``, ``Accuracy``,
-``TopKAccuracy``, ``CrossEntropy`` and :func:`create`. Metrics consume
-(labels, preds) NDArray lists each batch; ``get()`` returns (name, value).
+``TopKAccuracy``, ``CrossEntropy``, ``Perplexity`` and :func:`create`.
+Metrics consume (labels, preds) NDArray lists each batch; ``get()``
+returns (name, value).
 
 Device-resident accumulation, as in the JAX package: ``device_update()``
 adds the batch statistic to a device scalar (the kernels stay queued
 behind the training step) and only ``get()`` reads it on the host.
 ``update()`` is the synchronous numpy path. The other metrics of the JAX
-package (F1, MAE, MSE, RMSE, Perplexity, Loss, custom callables) are not
-yet ported.
+package (F1, MAE, MSE, RMSE, Loss, custom callables) are not yet
+ported.
 """
 
 from __future__ import annotations
@@ -214,6 +215,57 @@ class CrossEntropy(EvalMetric):
         return (-torch.log(prob + self.eps)).sum(), int(n)
 
 
+def _nll(probs):
+    return -torch.sum(torch.log(torch.clamp_min(probs, 1e-10)))
+
+
+class Perplexity(EvalMetric):
+    """Perplexity over a sequence of softmax outputs (reference
+    ``Perplexity``): each batch adds ``exp(-sum(log p[label]) / n)`` over
+    its ``n`` labels that are not ``ignore_label``; ``get()`` averages the
+    batches."""
+
+    def __init__(self, ignore_label, axis=-1, name="Perplexity"):
+        super().__init__(name)
+        self.ignore_label = ignore_label
+        self.axis = axis
+
+    def update(self, labels, preds):
+        if len(labels) != len(preds):
+            raise ValueError(f"{len(labels)} labels for {len(preds)} "
+                             "predictions")
+        loss = 0.0
+        num = 0
+        for label, pred in zip(labels, preds):
+            if label.size != pred.size / pred.shape[-1]:
+                raise ValueError(f"shape mismatch: {label.shape} vs. "
+                                 f"{pred.shape}")
+            label_np = label.asnumpy().astype("int32").reshape(-1)
+            pred_np = pred.asnumpy().reshape(-1, pred.shape[-1])
+            probs = pred_np[_np.arange(label_np.shape[0]), label_np]
+            if self.ignore_label is not None:
+                ignore = (label_np == self.ignore_label).astype(pred_np.dtype)
+                num -= int(ignore.sum())
+                probs = probs * (1 - ignore) + ignore
+            loss -= _np.sum(_np.log(_np.maximum(1e-10, probs)))
+            num += label_np.shape[0]
+        self.sum_metric += _np.exp(loss / num) if num > 0 else 0.0
+        self.num_inst += 1
+
+    def _device_batch(self, label, pred):
+        # update()'s formula on the device, without a host read
+        lab = label.reshape(-1).to(torch.int32)
+        p = pred.reshape(lab.shape[0], pred.shape[-1])
+        probs = torch.gather(p, 1, lab.to(torch.int64)[:, None])[:, 0]
+        if self.ignore_label is None:
+            return torch.exp(_nll(probs) / lab.shape[0]), 1
+        ignore = (lab == self.ignore_label).to(p.dtype)
+        num = lab.shape[0] - ignore.sum()
+        loss = _nll(probs * (1 - ignore) + ignore)
+        return torch.where(num > 0, torch.exp(loss / num),
+                           torch.zeros_like(loss)), 1
+
+
 def create(metric, **kwargs):
     """Create by name or list (reference ``mx.metric.create``)."""
     if isinstance(metric, EvalMetric):
@@ -230,6 +282,7 @@ def create(metric, **kwargs):
         "cross-entropy": CrossEntropy,
         "top_k_accuracy": TopKAccuracy,
         "topkaccuracy": TopKAccuracy,
+        "perplexity": Perplexity,
     }
     if not isinstance(metric, str) or metric.lower() not in metrics:
         raise MXNetError(f"metric {metric!r} is not ported to "

@@ -1,7 +1,9 @@
 """Module API (reference ``python/mxnet/module/``): ``BaseModule``,
-``DataParallelExecutorGroup`` (one device) and ``Module``. The bucketing,
-sequential, GAN and Python modules are not yet ported."""
+``DataParallelExecutorGroup`` (one device), ``Module`` and
+``BucketingModule``. The sequential, GAN and Python modules are not yet
+ported."""
 
 from .base_module import BaseModule
+from .bucketing_module import BucketingModule
 from .executor_group import DataParallelExecutorGroup
 from .module import Module

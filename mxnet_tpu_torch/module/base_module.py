@@ -69,6 +69,12 @@ class _NonfiniteGuard:
         mode = str(_env.get("MXNET_NONFINITE_GUARD") or "").lower()
         if mode not in ("skip", "rollback", "raise"):
             return None
+        if not hasattr(module, "nonfinite_stats"):
+            logging.warning(
+                "MXNET_NONFINITE_GUARD set but %s exposes no guard counters; "
+                "each update is still guarded on the device, but escalation "
+                "is off", type(module).__name__)
+            return None
         return _NonfiniteGuard(module, mode,
                                _env.get("MXNET_NONFINITE_TOLERANCE"))
 
@@ -225,14 +231,19 @@ class BaseModule:
             eval_metric.reset()
             nbatch = 0
             batches = iter(train_data)
-            while True:
-                with _tm.span("fit.data_wait"):
-                    data_batch = next(batches, None)
-                if data_batch is None:
-                    break
+            with _tm.span("fit.data_wait"):
+                pending = next(batches, None)
+            while pending is not None:
+                data_batch = pending
                 with _tm.span("fit.dispatch"):
                     self.forward_backward(data_batch)
                     self.update()
+                # fetch and prepare the next batch while this step runs on
+                # the card (a BucketingModule binds its bucket here)
+                with _tm.span("fit.data_wait"):
+                    pending = next(batches, None)
+                    if pending is not None:
+                        self.prepare(pending)
                 with _tm.span("fit.metric"):
                     self.update_metric(eval_metric, data_batch.label)
                 if batch_end_callback is not None:
@@ -269,6 +280,10 @@ class BaseModule:
                     self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
                                      name, val)
             train_data.reset()
+
+    def prepare(self, data_batch):
+        """Get ready for ``data_batch`` before its step (reference
+        ``prepare``); batches already live on their context here."""
 
     # --- symbol/params interface ------------------------------------------
     @property

@@ -12,9 +12,10 @@ from __future__ import annotations
 
 import logging
 
-from ..base import MXNetError
+from ..base import MXNetError, parse_shape
 from ..executor import Executor
 from ..io import DataDesc
+from ..optimizer import _map_state
 
 
 def _as_desc_list(shapes):
@@ -77,6 +78,20 @@ class DataParallelExecutorGroup:
         self.batch_size = self.data_shapes[0].shape[0]
         shape_kwargs = {d.name: d.shape for d in self.data_shapes}
         shape_kwargs.update({d.name: d.shape for d in self.label_shapes})
+        # complete partial __shape__ hints (0 = batch) on the other input
+        # arguments — RNN begin states — with the batch size, as the
+        # reference's binder does
+        attrs = self.symbol.attr_dict()
+        axis = DataDesc.get_batch_axis(self.data_shapes[0].layout)
+        bsz = self.data_shapes[0].shape[max(axis, 0)]
+        for name in self.arg_names:
+            hint = attrs.get(name, {}).get("__shape__")
+            if name in shape_kwargs or name in self.param_names or not hint:
+                continue
+            shape = parse_shape(hint)
+            if shape:
+                shape_kwargs[name] = tuple(bsz if d == 0 else d
+                                           for d in shape)
         type_kwargs = {d.name: d.dtype for d in self.data_shapes}
         type_kwargs.update({d.name: d.dtype for d in self.label_shapes})
         shared_exec = shared_group._exec if shared_group is not None else None
@@ -180,8 +195,7 @@ class DataParallelExecutorGroup:
                 st = updater.states.get(i)
                 if st is None and i not in updater.states:
                     st = optimizer.create_state(i, w)
-                if st is not None:
-                    st = st.as_in_context(w.context)
+                st = _map_state(st, lambda a, w=w: a.as_in_context(w.context))
                 updater.states[i] = st
                 keys.append(i)
                 names.append(n)

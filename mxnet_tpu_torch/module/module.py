@@ -368,6 +368,29 @@ class Module(BaseModule):
     def update_metric(self, eval_metric, labels):
         self._exec_group.update_metric(eval_metric, labels)
 
+    def get_states(self, merge_multi_context=True):
+        """The state arrays (``state_names``, e.g. RNN begin states), in
+        order."""
+        self._require(bound=True, params=True)
+        states = [self._exec_group._exec.arg_dict[n]
+                  for n in self._state_names]
+        return states if merge_multi_context else [[s] for s in states]
+
+    def set_states(self, states=None, value=None):
+        """Write the state arrays from ``states`` (one array, or one list
+        of per-device arrays, per state) or fill them with ``value``."""
+        self._require(bound=True, params=True)
+        if (states is None) == (value is None):
+            raise MXNetError("set_states takes either states or value")
+        for i, name in enumerate(self._state_names):
+            arr = self._exec_group._exec.arg_dict[name]
+            if states is None:
+                arr[:] = value
+                continue
+            src = states[i][0] if isinstance(states[i], (list, tuple)) \
+                else states[i]
+            src.copyto(arr)
+
     # ------------------------------------------------------------------
     def save_optimizer_states(self, fname):
         self._require(optimizer=True)

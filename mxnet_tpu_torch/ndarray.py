@@ -126,6 +126,11 @@ class NDArray:
     def reshape(self, shape):
         return NDArray(self._data.reshape(tuple(shape)))
 
+    @property
+    def T(self):
+        """The array with its axes reversed (a view)."""
+        return NDArray(self._data.permute(*reversed(range(self.ndim))))
+
     def wait_to_read(self):
         if self._data.device.type == "cuda":
             torch.cuda.current_stream(self._data.device).synchronize()

@@ -1,29 +1,33 @@
-"""Optimizers (the SGD subset).
+"""Optimizers (SGD and Adam).
 
 Counterpart of ``mxnet_tpu/optimizer.py`` (reference
 ``python/mxnet/optimizer.py``): the ``Optimizer`` base with the
 reference's lr/wd multiplier resolution (per-optimizer dicts > symbol
 ``__lr_mult__``/``__wd_mult__`` attributes > the bias/gamma/beta
-heuristic), ``SGD``, ``create``/``register``, ``Updater`` and
+heuristic), ``SGD``, ``Adam``, ``create``/``register``, ``Updater`` and
 ``get_updater``.
 
-``SGD.update`` is the imperative per-parameter path (``nd.sgd_mom_update``
-with ``out=weight``). ``SGD.torch_apply`` is the counterpart of
-``jax_apply`` for the fused training step: where the JAX package traces
-one update per parameter into the step's XLA program, the port updates
-every parameter in one launch of the multi-tensor kernel
-(:mod:`mxnet_tpu_torch.kernels.sgd_mom_multi`). The other optimizers of
-the JAX package (Adam, RMSProp, NAG, ...) are not yet ported.
+``update`` is the imperative per-parameter path (``nd.sgd_mom_update``,
+``nd.adam_update`` with ``out=weight``). ``torch_apply`` is the
+counterpart of ``jax_apply`` for the fused training step: where the JAX
+package traces one update per parameter into the step's XLA program, the
+port updates every parameter in one launch of a multi-tensor kernel
+(:mod:`mxnet_tpu_torch.kernels.sgd_mom_multi`,
+:mod:`mxnet_tpu_torch.kernels.adam_multi`). The other optimizers of the
+JAX package (RMSProp, NAG, AdaGrad, ...) are not yet ported.
 """
 
 from __future__ import annotations
 
+import math
 import pickle
 
 import numpy as np
 
+from .kernels.adam_multi import adam_multi
 from .kernels.sgd_mom_multi import sgd_mom_multi
-from .ndarray import NDArray, array, sgd_mom_update, sgd_update, zeros
+from .ndarray import (NDArray, adam_update, array, sgd_mom_update, sgd_update,
+                      zeros)
 
 
 class Optimizer:
@@ -168,6 +172,53 @@ class SGD(Optimizer):
         return states
 
 
+@register
+class Adam(Optimizer):
+    """Adam (reference ``Adam``), on the ``adam_multi`` kernel."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (zeros(weight.shape, ctx=weight.context, dtype=weight.dtype),
+                zeros(weight.shape, ctx=weight.context, dtype=weight.dtype))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        t = self._index_update_count[index]
+        # the bias correction in double, as the reference's imperative path
+        lr = self._get_lr(index) * math.sqrt(1.0 - self.beta2 ** t) \
+            / (1.0 - self.beta1 ** t)
+        mean, var = state
+        adam_update(weight, grad, mean, var, out=weight, lr=lr,
+                    wd=self._get_wd(index), beta1=self.beta1,
+                    beta2=self.beta2, epsilon=self.epsilon,
+                    rescale_grad=self.rescale_grad,
+                    clip_gradient=self._clip())
+
+    def lr_t(self, lr, t):
+        """The bias-corrected rate of the fused step, in float32 as
+        ``jax_apply`` computes it: ``lr * sqrt(1 - beta2^t) / (1 -
+        beta1^t)``."""
+        one, t = np.float32(1.0), np.float32(t)
+        return float(np.float32(lr)
+                     * np.sqrt(one - np.float32(self.beta2) ** t)
+                     / (one - np.float32(self.beta1) ** t))
+
+    def torch_apply(self, weights, grads, states, lrs, wds, ts, cache=None,
+                    guard=None):
+        adam_multi(weights, grads, [s[0]._data for s in states],
+                   [s[1]._data for s in states],
+                   [self.lr_t(lr, t) for lr, t in zip(lrs, ts)], wds,
+                   self.beta1, self.beta2, self.epsilon, self.rescale_grad,
+                   self._clip(), guard=guard, cache=cache)
+        return states
+
+
 create = Optimizer.create_optimizer
 
 
@@ -200,11 +251,13 @@ class Updater:
 
 
 def _map_state(st, f):
-    """Map ``f`` over the leaves of an optimizer-state tree."""
+    """Map ``f`` over the leaves of an optimizer-state tree; a tuple whose
+    leaves all map to themselves comes back as the same object."""
     if st is None:
         return None
     if isinstance(st, (list, tuple)):
-        return tuple(_map_state(x, f) for x in st)
+        new = tuple(_map_state(x, f) for x in st)
+        return st if all(a is b for a, b in zip(new, st)) else new
     if isinstance(st, (NDArray, np.ndarray)):
         return f(st)
     return st

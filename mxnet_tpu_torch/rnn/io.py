@@ -1,0 +1,158 @@
+"""RNN data iterators — bucketed language-model batching.
+
+A copy of ``mxnet_tpu/rnn/io.py`` (reference ``python/mxnet/rnn/io.py``):
+``encode_sentences`` and ``BucketSentenceIter``. Bucket assignment is one
+``np.searchsorted`` over the length vector, each bucket's sentences land
+in a dense (n, L) matrix padded in one shot, and next-token labels come
+from slicing the padded matrix. The shuffles draw from the same
+``RandomState`` in the same order, so the batches are the reference's,
+batch for batch, for the same seed. Batches carry ``bucket_key`` for
+``BucketingModule``; their arrays live on ``ctx`` (the current context,
+``gpu(0)``, unless the caller asks for another).
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+
+from ..io import DataBatch, DataDesc, DataIter
+from ..ndarray import array
+
+
+def encode_sentences(sentences, vocab=None, invalid_label=-1, invalid_key="\n",
+                     start_label=0):
+    """Map token sequences to integer-id sequences.
+
+    With ``vocab=None`` a new vocabulary is grown on the fly (ids start at
+    ``start_label`` and skip ``invalid_label``); with a given vocab, unknown
+    tokens are an error. Returns (encoded, vocab) like the reference.
+    """
+    grow = vocab is None
+    if grow:
+        vocab = {invalid_key: invalid_label}
+    next_id = start_label
+
+    def assign(token):
+        nonlocal next_id
+        ident = vocab.get(token)
+        if ident is None:
+            if not grow:
+                raise ValueError(f"Unknown token {token!r}")
+            if next_id == invalid_label:
+                next_id += 1  # keep the invalid id unassigned
+            ident = vocab[token] = next_id
+            next_id += 1
+        return ident
+
+    return [[assign(tok) for tok in sent] for sent in sentences], vocab
+
+
+class BucketSentenceIter(DataIter):
+    """Bucketed sentence iterator for language modelling.
+
+    Each sentence is padded to its bucket length; the label sequence is the
+    input shifted one step left (next-token prediction) padded with
+    ``invalid_label``. ``layout`` "NT" yields (batch, time) batches, "TN"
+    time-major. ``ctx`` is where the batches live (default: the current
+    context).
+    """
+
+    def __init__(self, sentences, batch_size, buckets=None, invalid_label=-1,
+                 data_name="data", label_name="softmax_label", dtype="float32",
+                 layout="NTC", seed=0, ctx=None):
+        super().__init__(batch_size)
+        lengths = np.array([len(s) for s in sentences])
+        if not buckets:
+            # default buckets: every length with at least one full batch
+            counts = np.bincount(lengths)
+            buckets = [L for L in range(len(counts)) if counts[L] >= batch_size]
+        self.buckets = sorted(buckets)
+
+        # vectorised bucket assignment: smallest bucket >= sentence length
+        which = np.searchsorted(self.buckets, lengths)
+        dropped = int(np.sum(which >= len(self.buckets)))
+        if dropped:
+            logging.warning(
+                "discarded %d sentences longer than the largest bucket.",
+                dropped,
+            )
+
+        self._matrices = []
+        for b, L in enumerate(self.buckets):
+            members = [sentences[i] for i in np.where(which == b)[0]]
+            mat = np.full((len(members), L), invalid_label, dtype=dtype)
+            for row, sent in zip(mat, members):
+                row[: len(sent)] = sent
+            self._matrices.append(mat)
+
+        self.batch_size = batch_size
+        self.invalid_label = invalid_label
+        self.data_name = data_name
+        self.label_name = label_name
+        self.dtype = dtype
+        self.major_axis = layout.find("N")
+        if self.major_axis not in (0, 1):
+            raise ValueError(
+                f"Invalid layout {layout}: must be NT (batch major) or TN"
+            )
+        self.default_bucket_key = max(self.buckets)
+        self.layout = layout
+        self.ctx = ctx
+        self._rs = np.random.RandomState(seed)
+        self._plan = []  # [(bucket_idx, row_offset)]
+        self._cursor = 0
+        self.reset()
+
+    @property
+    def provide_data(self):
+        shape = self._batch_shape(self.default_bucket_key)
+        return [DataDesc(self.data_name, shape, layout=self.layout)]
+
+    @property
+    def provide_label(self):
+        shape = self._batch_shape(self.default_bucket_key)
+        return [DataDesc(self.label_name, shape, layout=self.layout)]
+
+    def _batch_shape(self, length):
+        if self.major_axis == 0:
+            return (self.batch_size, length)
+        return (length, self.batch_size)
+
+    def reset(self):
+        self._cursor = 0
+        self._data = []
+        self._label = []
+        self._plan = []
+        for b, mat in enumerate(self._matrices):
+            perm = self._rs.permutation(len(mat))
+            mat = mat[perm]
+            # next-token labels: shift left, pad the tail column
+            lbl = np.full_like(mat, self.invalid_label)
+            if mat.shape[1] > 1:
+                lbl[:, :-1] = mat[:, 1:]
+            self._data.append(array(mat, ctx=self.ctx, dtype=self.dtype))
+            self._label.append(array(lbl, ctx=self.ctx, dtype=self.dtype))
+            full = len(mat) - len(mat) % self.batch_size
+            self._plan.extend(
+                (b, off) for off in range(0, full, self.batch_size)
+            )
+        self._rs.shuffle(self._plan)
+
+    def next(self):
+        if self._cursor >= len(self._plan):
+            raise StopIteration
+        b, off = self._plan[self._cursor]
+        self._cursor += 1
+        data = self._data[b][off:off + self.batch_size]
+        label = self._label[b][off:off + self.batch_size]
+        if self.major_axis == 1:
+            data, label = data.T, label.T
+        return DataBatch(
+            [data], [label], pad=0, bucket_key=self.buckets[b],
+            provide_data=[DataDesc(self.data_name, data.shape,
+                                   layout=self.layout)],
+            provide_label=[DataDesc(self.label_name, label.shape,
+                                    layout=self.layout)],
+        )

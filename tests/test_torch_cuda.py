@@ -16,7 +16,10 @@ float32 cancellation of the anchored variance (``8 * 2**-23 * dmean**2``,
 holds ``dx`` to rtol 1e-4 / atol 1e-5 and the channel sums ``dgamma`` and
 ``dbeta`` to rtol 1e-4 / atol 1e-3 (thousands of terms of order 1);
 ``softmax_output_bwd`` and ``sgd_mom_multi`` repeat the plain version's
-operations in its order and are held to 1e-6 absolute.
+operations in its order and are held to 1e-6 absolute. ``lstm_cell``,
+``lstm_cell_bwd`` and ``adam_multi`` repeat them too, but ``expf``,
+``tanhf`` and ``sqrtf`` may round differently from torch's own kernels:
+rtol 1e-5 / atol 1e-6.
 """
 
 import numpy as np
@@ -24,9 +27,11 @@ import pytest
 import torch
 
 from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.kernels import adam_multi as adam_mod
 from mxnet_tpu_torch.kernels import bn_act as bn_mod
 from mxnet_tpu_torch.kernels import bn_act_bwd as bwd_mod
 from mxnet_tpu_torch.kernels import bn_stats as stats_mod
+from mxnet_tpu_torch.kernels import lstm_cell as lstm_mod
 from mxnet_tpu_torch.kernels import sgd_mom_multi as sgd_mod
 from mxnet_tpu_torch.kernels import softmax_output_bwd as sob_mod
 from mxnet_tpu_torch.kernels import softmax_rows as sm_mod
@@ -236,3 +241,142 @@ def test_sgd_mom_multi_guard_skips_a_non_finite_step(card):
                           guard=guard)
     assert guard.counters.tolist() == [1, 0]
     assert not torch.equal(ws[3], w0[3]) and bool((aux == 2.0).all())
+
+
+# -- LSTM-PTB kernels ---------------------------------------------------------
+LSTM_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _lstm_inputs(device, n=32, hidden=200):
+    rng = np.random.default_rng(11)
+    arrays = [rng.standard_normal((n, 4 * hidden)) * 2,
+              rng.standard_normal((n, 4 * hidden)) * 2,
+              rng.standard_normal((n, hidden)),
+              rng.standard_normal((n, hidden)),
+              rng.standard_normal((n, hidden))]
+    return [torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays]
+
+
+@pytest.mark.parametrize("forget_bias", [1.0, 0.0])
+@pytest.mark.parametrize("shape", [(32, 200), (3, 5)])
+def test_lstm_cell_kernels_match_plain(card, forget_bias, shape):
+    i2h, h2h, c, dh, dc = _lstm_inputs(card, *shape)
+    before = (lstm_mod.LAUNCHES.value, lstm_mod.BWD_LAUNCHES.value)
+    got = lstm_mod.lstm_cell(i2h, h2h, c, forget_bias)
+    want = lstm_mod.lstm_cell_plain(i2h, h2h, c, forget_bias)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **LSTM_TOL)
+    act, next_c = want[2], want[1]
+    for dnext_c in (dc, None):  # None: the last step's next_c
+        got_b = lstm_mod.lstm_cell_bwd(dh, dnext_c, act, c, next_c)
+        want_b = lstm_mod.lstm_cell_bwd_plain(dh, dnext_c, act, c, next_c)
+        for g, w in zip(got_b, want_b):
+            torch.testing.assert_close(g, w, **LSTM_TOL)
+    assert (lstm_mod.LAUNCHES.value, lstm_mod.BWD_LAUNCHES.value) == (
+        before[0] + 1, before[1] + 2)
+    _h, _c, none = lstm_mod.lstm_cell(i2h, h2h, c, forget_bias, save=False)
+    assert none is None
+
+
+def test_lstm_cell_kernels_raise_on_what_they_do_not_take(card):
+    i2h, h2h, c, dh, _dc = _lstm_inputs(card, 4, 8)
+    with pytest.raises(MXNetError):
+        lstm_mod.lstm_cell(i2h.double(), h2h.double(), c.double())
+    with pytest.raises(MXNetError):
+        lstm_mod.lstm_cell(i2h, h2h, c[:, :7])
+    with pytest.raises(MXNetError):
+        lstm_mod.lstm_cell(i2h, h2h.cpu(), c)
+    with pytest.raises(MXNetError):
+        lstm_mod.lstm_cell_bwd(dh.t().contiguous().t(), None, i2h, c, c)
+
+
+def _adam_inputs(device, sizes=(1, 7, 64, 70000, 8193)):
+    rng = np.random.default_rng(12)
+    ws = [rng.standard_normal(n) * 0.1 for n in sizes]
+    gs = [rng.standard_normal(n) for n in sizes]
+    ms = [rng.standard_normal(n) * 0.01 for n in sizes]
+    vs = [rng.uniform(0, 1e-3, n) for n in sizes]
+    return [[torch.from_numpy(a.astype(np.float32)).to(device) for a in arr]
+            for arr in (ws, gs, ms, vs)]
+
+
+@pytest.mark.parametrize("wd, clip", [(0.0, -1.0), (1e-4, 0.5),
+                                      (1e-2, -1.0)])
+def test_adam_multi_kernel_matches_plain(card, wd, clip):
+    ws, gs, ms, vs = _adam_inputs(card)
+    lrs = [3e-3, 1e-3, 3e-3, 2e-3, 3e-3]
+    wds = [wd, 0.0, wd, wd, 0.0]
+    ref = [[t.clone() for t in x] for x in (ws, ms, vs)]
+    cache = {}
+    before = adam_mod.LAUNCHES.value
+    builds = adam_mod.TABLE_BUILDS.value
+    for _ in range(2):
+        adam_mod.adam_multi(ws, gs, ms, vs, lrs, wds, 0.9, 0.999, 1e-8,
+                            1 / 32, clip, cache=cache)
+        adam_mod.adam_multi_plain(*ref[:1], gs, *ref[1:], lrs, wds, 0.9,
+                                  0.999, 1e-8, 1 / 32, clip)
+    assert adam_mod.LAUNCHES.value == before + 2
+    assert adam_mod.TABLE_BUILDS.value == builds + 1  # cached between steps
+    for got, want in zip(ws + ms + vs, ref[0] + ref[1] + ref[2]):
+        torch.testing.assert_close(got, want, **LSTM_TOL)
+
+
+def test_adam_multi_guard_skips_a_non_finite_step(card):
+    ws, gs, ms, vs = _adam_inputs(card)
+    aux, snap = torch.ones(9000, device=card), torch.zeros(9000, device=card)
+    guard = sgd_mod.Guard(torch.zeros(2, dtype=torch.int32, device=card),
+                          [(aux, snap)])
+    before = [t.clone() for t in ws + ms + vs]
+    gs[3][123] = float("nan")
+    n = adam_mod.LAUNCHES.value
+    args = ([1e-3] * 5, [1e-4] * 5, 0.9, 0.999, 1e-8, 1.0, -1.0)
+    adam_mod.adam_multi(ws, gs, ms, vs, *args, guard=guard)
+    assert adam_mod.LAUNCHES.value == n + 2  # probe + update
+    assert guard.counters.tolist() == [1, 1]
+    for got, want in zip(ws + ms + vs, before):
+        assert torch.equal(got, want)
+    assert torch.equal(aux, snap)
+    gs[3][123] = 0.0
+    aux.fill_(2.0)
+    adam_mod.adam_multi(ws, gs, ms, vs, *args, guard=guard)
+    assert guard.counters.tolist() == [1, 0]
+    assert not torch.equal(ws[3], before[3]) and bool((aux == 2.0).all())
+
+
+def test_bucketing_fit_on_the_card_updates_one_storage(card):
+    """A small BucketingModule.fit on the card: every step of bucket T
+    launches 2T cell steps each way and one Adam update; every bucket's
+    executor builds its Adam table once, over the same weights and
+    states."""
+    import mxnet_tpu_torch as mx
+
+    rng = np.random.RandomState(1)
+    sents = [list(rng.randint(1, 40, n)) for n in [3, 4, 7, 8] * 6]
+    it = mx.rnn.BucketSentenceIter(sents, 4, buckets=[4, 8], invalid_label=0)
+    sym_gen, states = mx.models.lstm_lm_sym_gen(
+        num_hidden=16, num_layers=2, num_embed=16, vocab_size=40)
+    mod = mx.mod.BucketingModule(sym_gen, default_bucket_key=8,
+                                 state_names=states)
+
+    def counts():
+        return (lstm_mod.LAUNCHES.value, lstm_mod.BWD_LAUNCHES.value,
+                adam_mod.LAUNCHES.value)
+
+    steps, last = [], [counts()]
+
+    def on_batch(param):
+        now = counts()
+        steps.append((param.locals["data_batch"].bucket_key,
+                      tuple(a - b for a, b in zip(now, last[0]))))
+        last[0] = now
+
+    builds = adam_mod.TABLE_BUILDS.value
+    mod.fit(it, eval_metric=mx.metric.Perplexity(0), optimizer="adam",
+            optimizer_params={"learning_rate": 0.01}, num_epoch=2,
+            batch_end_callback=on_batch)
+    assert {b for b, _ in steps} == {4, 8}
+    assert all(n == (2 * b, 2 * b, 1) for b, n in steps)
+    assert adam_mod.TABLE_BUILDS.value == builds + 2
+    keys = {m._exec_group._exec._update_cache["key"]
+            for m in mod._buckets.values()}
+    assert len(keys) == 1
