@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one CUDA card: ResNet-50
-serving and training, and LSTM-PTB training.
+serving and training, LSTM-PTB training, and SSD-VGG16 serving.
 
     python3 chip_smoke.py
 
@@ -70,7 +70,32 @@ Run from the root of a checkout. Phases, each printing its own lines:
    the device's busy share and top operations;
 10. LSTM parity — two Adam steps of the T=8 bucket at full width on the
     card and on the port's CPU path, each from the same state, within
-    ``LSTM_PARITY_TOL`` in norm, beside the CPU path in float64.
+    ``LSTM_PARITY_TOL`` in norm, beside the CPU path in float64;
+11. SSD kernels (run after phase 3, before the serving phase) — SSD-VGG16
+    (``models.ssd.get_symbol(num_classes=20, data_shape=300)``, A = 8096
+    anchors, random weights from the seed: He-normal trunk, N(0, 0.01)
+    heads) at batch 8 on the card, its detection step's own tensors
+    recorded: ``nms`` against its plain version bit for bit on that head
+    (force off and on), on grid boxes whose IoUs sit exactly at the
+    threshold with tied scores, and on all-equal and paired scores with an
+    image that has no valid box; ``multibox_decode`` on the logits (the
+    strided view) and on probabilities (``DECODE_RTOL``/``DECODE_ATOL``,
+    class ids exact where the best class is clear); ``l2norm_channel`` at
+    conv4_3's (8, 512, 37, 37) and odd shapes, scale 1 and 20
+    (``L2_RTOL``/``L2_ATOL``); each timed beside its bound and, for the
+    normalization, ``F.normalize * 20``;
+12. SSD serving — the same model behind ``ModelServer(ServingConfig(
+    buckets=(1, 8)))``: 9 requests (a wave of 8, then 1), each served
+    batch launching exactly 1 ``multibox_decode``, 2 ``nms`` (mask and
+    scan) and 1 ``l2norm_channel`` and no plain version on data; the plain
+    NMS on the CPU fed the card's own bucket-8 head tensors gives the
+    card's rows bit for bit; every answer against the port's CPU
+    ``Predictor`` (scores and boxes within ``SSD_SERVE_TOL`` for every
+    anchor, class ids equal where both sides kept the anchor and the best
+    class is clear, at most ``SSD_KEEP_LIMIT`` keep decisions apart: near
+    ties in the scores may reorder the greedy pass); then ms per batch at
+    bucket 8 through the server and for the forward alone, and under
+    ``torch.profiler`` the device's busy share and top operations.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. Any failed phase exits non-zero before the result
@@ -81,6 +106,13 @@ lines. Without CUDA it exits non-zero at once.
 runs the LSTM-PTB fit of phase 9 on the port's CPU path for each
 initialization seed given and prints each epoch's Train-Perplexity (the
 readings ``PPL_LIMIT`` was fixed from); it needs no card.
+
+    python3 chip_smoke.py --cpu-ssd
+
+serves phase 12's 9 images through the port's CPU ``Predictor`` in float32
+and in float64 and prints how far they are apart (the readings
+``SSD_SERVE_TOL`` and ``SSD_KEEP_LIMIT`` were fixed from); it needs no
+card.
 """
 
 import json
@@ -121,7 +153,9 @@ PORT_KERNELS = {"bn_stats": "bn_stats_kernel", "bn_act": "bn_act_kernel",
                 "sgd_mom_multi": "sgd_mom_multi_kernel",
                 "lstm_cell": "lstm_cell_kernel",
                 "lstm_cell_bwd": "lstm_cell_bwd_kernel",
-                "adam_multi": "adam_multi_kernel"}
+                "adam_multi": "adam_multi_kernel",
+                "multibox_decode": "multibox_decode_kernel",
+                "nms": "nms_", "l2norm_channel": "l2norm_channel_kernel"}
 PARITY_BATCH = 8
 TRAIN_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
 LOSS_RATIO = 0.7  # cross-entropy after 10 steps on one batch / its first
@@ -185,6 +219,31 @@ PPL_LIMIT = 9500.0
 # (variances) over the two steps, so 1e-5 leaves ~30x for the card's other
 # summation order
 LSTM_PARITY_TOL = {"loss": 1e-5, "param": 1e-5, "mean": 1e-5, "var": 1e-5}
+# SSD-VGG16 serving: get_symbol(num_classes=20, data_shape=300), float32
+SSD_CLASSES, SSD_SHAPE, SSD_ANCHORS = 20, 300, 8096
+SSD_BATCH = 8
+SSD_BUCKETS = (1, 8)
+SSD_REQUESTS = 9  # a wave of 8, then 1
+SSD_SERVE_BATCHES = 100  # bucket-8 batches timed through the server (~3.5 s)
+SSD_CONV4_3 = (SSD_BATCH, 512, 37, 37)
+SSD_L2_EPS = 1e-10  # L2Normalization's default eps
+# multibox_decode against its plain version: the softmax's sum of 21 terms
+# runs in another order (a few ulps of the probabilities)
+DECODE_RTOL, DECODE_ATOL = 1e-6, 1e-7
+# l2norm_channel: the channel sum of 512 squares runs in another order;
+# atol times the scale
+L2_RTOL, L2_ATOL = 1e-5, 1e-6
+NMS_IOU_OPS = 15  # float ops of one IoU and its tests, per-box areas apart
+# the card's SSD answers against the port's CPU Predictor, fixed before the
+# card ran the SSD path from ``--cpu-ssd``: the port's CPU path in float32
+# against float64 on the same 9 images read a worst score or box difference
+# of 2.1e-6 (7.1e-6 relative, floor 0.1), 0 keep and 0 class disagreements
+# over 72864 anchors. Score and box columns (rtol, atol) for every anchor;
+# keep decisions that may differ: a near tie between two scores reorders
+# the greedy pass and moves a short chain of decisions, so the limit
+# allows a few such chains (16, 0.02 % of the anchors) though 0 was read
+SSD_SERVE_TOL = (1e-4, 1e-5)
+SSD_KEEP_LIMIT = 16
 
 
 def fail(msg):
@@ -1727,9 +1786,517 @@ def phase_lstm_parity(torch, mx):
              f"tolerance in {bad}")
 
 
+# --- SSD-VGG16 serving -----------------------------------------------------
+def ssd_numpy(mx, seed, dtype=np.float32):
+    """SSD-VGG16's inference symbol (20 classes, 300x300) and parameters as
+    numpy, from ``seed``: He-normal weights for the VGG trunk and the extra
+    scales, N(0, 0.01) for the multibox heads (the usual init of detection
+    heads), zero biases."""
+    sym = mx.models.ssd.get_symbol(num_classes=SSD_CLASSES,
+                                   data_shape=SSD_SHAPE)
+    arg_shapes, _, _ = sym.infer_shape(data=(1, 3, SSD_SHAPE, SSD_SHAPE))
+    rng = np.random.default_rng(seed)
+    args = {}
+    for name, shape in zip(sym.list_arguments(), arg_shapes):
+        if name == "data":
+            continue
+        if name.endswith("_weight"):
+            std = (0.01 if "_pred_conv_" in name
+                   else math.sqrt(2.0 / math.prod(shape[1:])))
+            args[name] = rng.standard_normal(shape, np.float32) * std
+        else:
+            args[name] = np.zeros(shape, np.float32)
+    return sym, {k: v.astype(dtype) for k, v in args.items()}
+
+
+def ssd_params(mx, args, device):
+    arg_nd, _ = mx.convert.params_from_numpy(args, {}, device)
+    return {f"arg:{k}": v for k, v in arg_nd.items()}
+
+
+def ssd_images(n, dtype=np.float32):
+    return np.random.default_rng(SEED + 11).standard_normal(
+        (n, 3, SSD_SHAPE, SSD_SHAPE), np.float32).astype(dtype)
+
+
+class record_detection:
+    """Within the block, keep the inputs and outputs of every
+    ``multibox_decode`` and ``nms`` call of the detection step (the tensors
+    themselves; nothing is copied or launched)."""
+
+    def __enter__(self):
+        from mxnet_tpu_torch.kernels import multibox_decode as dec, nms
+
+        self.mods = [(dec, "multibox_decode", dec.multibox_decode),
+                     (nms, "nms", nms.nms)]
+        self.calls = {"multibox_decode": [], "nms": []}
+        for mod, name, fn in self.mods:
+            def rec(*a, _fn=fn, _name=name):
+                out = _fn(*a)
+                self.calls[_name].append((a, out))
+                return out
+            setattr(mod, name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.mods:
+            setattr(mod, name, fn)
+
+
+def nms_grid_inputs(torch, dev, seed, n=4, a=1000, classes=3):
+    """NMS inputs whose boxes lie on a 1/16 grid, so many IoUs are exactly
+    1/2, 1/4 or 1/3; scores from four levels (ties), every ninth exactly at
+    the 0.01 validity threshold. Returns (boxes, score, cls_id, order)."""
+    rng = np.random.default_rng(seed)
+    x1 = rng.integers(0, 10, (n, a, 2)) / 16
+    wh = rng.integers(1, 6, (n, a, 2)) / 16
+    boxes = np.concatenate([x1, x1 + wh], 2).astype(np.float32)
+    score = np.asarray([0.2, 0.4, 0.6, 0.8], np.float32)[
+        rng.integers(0, 4, (n, a))]
+    score[:, ::9] = np.float32(0.01)
+    cls_id = rng.integers(0, classes, (n, a)).astype(np.int32)
+    return nms_tensors(torch, dev, boxes, score, cls_id)
+
+
+def nms_tie_inputs(torch, dev, seed, a=777):
+    """Three images: every score equal (grid boxes, two classes); scores
+    duplicated in pairs over continuous boxes; no valid box (every score
+    at or below 0.01)."""
+    rng = np.random.default_rng(seed)
+    x1 = rng.integers(0, 10, (a, 2)) / 16
+    grid = np.concatenate([x1, x1 + rng.integers(1, 6, (a, 2)) / 16], 1)
+    lo = rng.uniform(0, 0.7, (a, 2))
+    cont = np.concatenate([lo, lo + rng.uniform(0.05, 0.3, (a, 2))], 1)
+    boxes = np.stack([grid, cont, cont]).astype(np.float32)
+    pairs = np.repeat(rng.uniform(0.02, 1, (a + 1) // 2), 2)[:a]
+    score = np.stack([np.full(a, 0.5), pairs,
+                      rng.uniform(0, 0.01, a)]).astype(np.float32)
+    score[2, ::5] = np.float32(0.01)
+    cls_id = np.stack([rng.integers(0, 2, a), rng.integers(0, 3, a),
+                       rng.integers(0, 3, a)]).astype(np.int32)
+    return nms_tensors(torch, dev, boxes, score, cls_id)
+
+
+def nms_tensors(torch, dev, boxes, score, cls_id):
+    boxes, score, cls_id = (torch.from_numpy(t).to(dev)
+                            for t in (boxes, score, cls_id))
+    return boxes, score, cls_id, torch.argsort(-score, dim=1, stable=True)
+
+
+def nms_iou_count(torch, out, score, cls_id, order, threshold, force):
+    """IoUs greedy NMS needs on these inputs: for each kept box, the valid
+    boxes after it in the order that it may suppress — those of its own
+    class, or of any class with ``force``."""
+    valid = torch.gather(score, 1, order) > threshold
+    kept = torch.gather(out[..., 0] >= 0, 1, order)
+    group = (torch.zeros_like(order) if force
+             else torch.gather(cls_id, 1, order).long())
+    ones = torch.nn.functional.one_hot(group, int(group.max()) + 1)
+    ones = ones * valid[..., None]
+    after = ones.sum(1, keepdim=True) - torch.cumsum(ones, 1)
+    own = torch.gather(after, 2, group[..., None])[..., 0]
+    return int((own * kept).sum())
+
+
+def keep_count(out):
+    return int((out[..., 0] >= 0).sum())
+
+
+def phase_ssd_kernels(torch, mx, ssd):
+    """``nms``, ``multibox_decode`` and ``l2norm_channel`` against their
+    plain versions on the card: NMS bit for bit on three sets of inputs
+    (the real SSD-300 head at batch 8, grid boxes with IoUs exactly at the
+    threshold, ties and an invalid image), the decode within
+    ``DECODE_RTOL``/``DECODE_ATOL``, the normalization within
+    ``L2_RTOL``/``L2_ATOL``; each timed beside its bound and the PyTorch
+    call for the same function where there is one."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.kernels import (
+        l2norm_channel as l2, multibox_decode as dec, nms)
+
+    dev = torch.device("cuda", 0)
+    sym, args = ssd
+    t0 = time.perf_counter()
+    pred = mx.predictor.Predictor(sym, ssd_params(mx, args, "cuda:0"),
+                                  {"data": (SSD_BATCH, 3, SSD_SHAPE,
+                                            SSD_SHAPE)})
+    with record_detection() as rec:
+        pred.forward(data=ssd_images(SSD_BATCH))
+        torch.cuda.synchronize()
+    (logits, loc, anchors, var, clip, softmax), _ = rec.calls[
+        "multibox_decode"][0]
+    (boxes, score, cls_id, order, thr, nms_thr, force), head_out = rec.calls[
+        "nms"][0]
+    print(f"[ssd-kernels] SSD-300 head at batch {SSD_BATCH} "
+          f"({time.perf_counter() - t0:.1f} s): logits {tuple(logits.shape)} "
+          f"strides {logits.stride()}, loc {tuple(loc.shape)}, anchors "
+          f"{tuple(anchors.shape)}; threshold {thr}, nms_threshold {nms_thr}",
+          flush=True)
+    if (logits.shape != (SSD_BATCH, SSD_CLASSES + 1, SSD_ANCHORS)
+            or not softmax):
+        fail(f"SSD head: logits {tuple(logits.shape)} softmax={softmax}")
+
+    # --- nms: bit for bit on three sets of inputs
+    sets = [("SSD-300 head", (boxes, score, cls_id, order), thr,
+             [(nms_thr, False), (nms_thr, True)]),
+            ("grid boxes, IoU at the threshold",
+             nms_grid_inputs(torch, dev, SEED + 12), 0.01,
+             [(0.5, False), (0.25, False), (0.5, True)]),
+            ("ties, force, an invalid image",
+             nms_tie_inputs(torch, dev, SEED + 13), 0.01,
+             [(0.5, False), (0.5, True), (0.3, False)])]
+    nms_err = 0.0
+    for what, ins, t, cases in sets:
+        kept = []
+        for nt, fs in cases:
+            got = nms.nms(*ins, t, nt, fs)
+            want = nms.nms_plain(*ins, t, nt, fs)
+            torch.cuda.synchronize()
+            nms_err = max(nms_err, float((got - want).abs().max()))
+            if not torch.equal(got, want):
+                diff = int((got[..., 0] != want[..., 0]).sum())
+                fail(f"nms on {what} (nms_threshold {nt}, force {fs}): "
+                     f"{diff} ids/keep decisions differ from the plain "
+                     f"version")
+            kept.append(keep_count(got))
+        if what == "SSD-300 head" and not torch.equal(
+                head_out, nms.nms_plain(*ins, t, nms_thr, False)):
+            fail("nms in the detection step differs from its plain version")
+        print(f"[ssd-kernels] nms equals its plain version bit for bit on "
+              f"{what} {tuple(ins[0].shape[:2])}: kept {kept} of "
+              f"{ins[1].numel()} for (nms_threshold, force) {cases}",
+              flush=True)
+
+    # --- multibox_decode: softmax on the logits, and on probabilities
+    dec_err = 0.0
+    probs = dec.channel_softmax(logits)
+    for what, cls, sm in (("logits (strided view)", logits, True),
+                          ("probabilities", probs.contiguous(), False)):
+        got = dec.multibox_decode(cls, loc, anchors, var, clip, sm)
+        want = dec.multibox_decode_plain(cls, loc, anchors, var, clip, sm)
+        for name, g, w in zip(("boxes", "score"), got[:2], want[:2]):
+            dec_err = max(dec_err, check(
+                torch, f"multibox_decode {name} from {what}", g, w,
+                DECODE_RTOL, DECODE_ATOL))
+        fg = (dec.channel_softmax(cls) if sm else cls)[:, 1:]
+        top2 = torch.topk(fg, 2, dim=1).values
+        clear = top2[:, 0] - top2[:, 1] > DECODE_RTOL * top2[:, 0] + \
+            DECODE_ATOL
+        bad = int(((got[2] != want[2]) & clear).sum())
+        if bad:
+            fail(f"multibox_decode class ids from {what}: {bad} differ "
+                 f"where the two best probabilities are apart")
+        print(f"[ssd-kernels] multibox_decode matches its plain version on "
+              f"{what}: boxes and scores within rtol {DECODE_RTOL} atol "
+              f"{DECODE_ATOL}, class ids equal at {int(clear.sum())} of "
+              f"{clear.numel()} anchors with a clear best class (the rest "
+              f"within rounding of a tie)", flush=True)
+
+    # --- l2norm_channel: conv4_3's shape and odd ones, scale 1 and 20
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    l2_err = 0.0
+    for shape in (SSD_CONV4_3, (3, 5, 7, 9), (2, 3), (1, 1000, 1, 1)):
+        x = torch.randn(shape, generator=gen, device=dev)
+        for scale in (1.0, 20.0):
+            l2_err = max(l2_err, check(
+                torch, f"l2norm_channel {shape} scale {scale}",
+                l2.l2norm_channel(x, SSD_L2_EPS, scale),
+                l2.l2norm_channel_plain(x, SSD_L2_EPS, scale),
+                L2_RTOL, L2_ATOL * scale))
+    print(f"[ssd-kernels] l2norm_channel matches its plain version at 4 "
+          f"shapes x scale 1, 20: max abs err {l2_err:g} (rtol {L2_RTOL}, "
+          f"atol {L2_ATOL} x scale)", flush=True)
+
+    # --- times at the serving path's shapes, beside the bounds
+    n, c1, a = logits.shape
+    dec_ms = cuda_ms(torch, lambda: dec.multibox_decode(
+        logits, loc, anchors, var, clip, True), reps=50)
+    dec_plain = cuda_ms(torch, lambda: dec.multibox_decode_plain(
+        logits, loc, anchors, var, clip, True), reps=10)
+    dec_bound, dec_by = bound(n * a * (4 * c1 + 16 + 16 + 8) + a * 16,
+                              n * a * (5 * c1 + 20))
+    nms_ms = cuda_ms(torch, lambda: nms.nms(boxes, score, cls_id, order, thr,
+                                            nms_thr, False), reps=20)
+    nms_plain = cuda_ms(torch, lambda: nms.nms_plain(
+        boxes, score, cls_id, order, thr, nms_thr, False), reps=1, warmup=0)
+    ious = nms_iou_count(torch, head_out, score, cls_id, order, thr, False)
+    nms_bound, nms_by = bound(n * a * (16 + 4 + 4 + 8 + 24),
+                              ious * NMS_IOU_OPS)
+    x = torch.randn(SSD_CONV4_3, generator=gen, device=dev)
+    l2_ms = cuda_ms(torch, lambda: l2.l2norm_channel(x, SSD_L2_EPS, 20.0),
+                    reps=50)
+    l2_plain = cuda_ms(torch, lambda: l2.l2norm_channel_plain(
+        x, SSD_L2_EPS, 20.0), reps=20)
+    l2_lib = cuda_ms(torch, lambda: F.normalize(x, dim=1) * 20.0, reps=20)
+    l2_bound, l2_by = bound(2 * x.numel() * 4, 4 * x.numel())
+    print(f"[ssd-kernels] multibox_decode at {tuple(logits.shape)}: kernel "
+          f"{dec_ms:.4f} ms, plain {dec_plain:.4f} ms, bound "
+          f"{dec_bound * 1e3:.2f} us ({dec_by}); nms at {(n, a)}: kernel "
+          f"(mask + scan) {nms_ms:.4f} ms, plain {nms_plain:.1f} ms, "
+          f"{keep_count(head_out)} kept, {ious} same-class IoUs needed, bound "
+          f"{nms_bound * 1e3:.2f} us ({nms_by}); l2norm_channel at "
+          f"{SSD_CONV4_3} x 20: kernel {l2_ms:.4f} ms, plain {l2_plain:.4f} "
+          f"ms, F.normalize * 20 {l2_lib:.4f} ms (max(norm, eps), not "
+          f"+ eps), bound {l2_bound * 1e3:.2f} us ({l2_by})", flush=True)
+    del pred
+    return [
+        {"name": "multibox_decode", "route": "cuda",
+         "source": "mxnet_tpu_torch/csrc/multibox_decode.cu",
+         "replaces": "mxnet_tpu/ops/defs_contrib.py:256",
+         "max_abs_err": dec_err, "ms": dec_ms, "plain_ms": dec_plain,
+         "bound_ms": dec_bound, "bound_by": dec_by, "library_ms": None},
+        {"name": "nms", "route": "cuda",
+         "source": "mxnet_tpu_torch/csrc/nms.cu",
+         "replaces": "mxnet_tpu/ops/defs_contrib.py:234",
+         "max_abs_err": nms_err, "ms": nms_ms, "plain_ms": nms_plain,
+         "bound_ms": nms_bound, "bound_by": nms_by, "library_ms": None},
+        {"name": "l2norm_channel", "route": "cuda",
+         "source": "mxnet_tpu_torch/csrc/l2norm_channel.cu",
+         "replaces": "mxnet_tpu/ops/defs_nn.py:500",
+         "max_abs_err": l2_err, "ms": l2_ms, "plain_ms": l2_plain,
+         "bound_ms": l2_bound, "bound_by": l2_by, "library_ms": l2_lib},
+    ]
+
+
+def ssd_cpu_answers(mx, sym, args, x, dtype=np.float32):
+    """The port's CPU Predictor on ``x``: the detections and the class
+    probabilities (a Group with ``cls_prob``, so the detection there runs
+    op by op, on the probabilities)."""
+    internals = sym.get_internals()
+    group = mx.sym.Group([sym, internals["cls_prob_output"]])
+    pred = mx.predictor.Predictor(
+        group, ssd_params(mx, {k: v.astype(dtype) for k, v in args.items()},
+                          "cpu"),
+        {"data": x.shape}, dev_type="cpu", input_types={"data": dtype})
+    det, prob = pred.run(data=x.astype(dtype))
+    return det, prob
+
+
+def ssd_compare(got, want, prob):
+    """``got`` against ``want`` (n, A, 6) detections: the worst score and
+    box difference over every anchor, the anchors whose keep decision
+    differs, and the class ids that differ where both kept the anchor and
+    ``prob`` (the reference side's class probabilities) has a clear best
+    foreground class."""
+    cont = np.abs(got[..., 1:].astype(np.float64) - want[..., 1:])
+    scale = np.abs(want[..., 1:]).astype(np.float64)
+    worst_rel = float((cont / np.maximum(scale, SSD_SERVE_TOL[1]
+                                         / SSD_SERVE_TOL[0])).max())
+    over = int((cont > SSD_SERVE_TOL[1] + SSD_SERVE_TOL[0] * scale).sum())
+    keep_g, keep_w = got[..., 0] >= 0, want[..., 0] >= 0
+    top2 = -np.sort(-prob[:, 1:], axis=1)[:, :2]
+    clear = top2[:, 0] - top2[:, 1] > SSD_SERVE_TOL[0] * top2[:, 0]
+    both = keep_g & keep_w
+    ids = int(((got[..., 0] != want[..., 0]) & both & clear).sum())
+    return {"max_abs": float(cont.max()), "worst_rel": worst_rel,
+            "over_tol": over, "keep_diff": int((keep_g != keep_w).sum()),
+            "id_diff": ids, "kept": int(keep_g.sum()),
+            "kept_ref": int(keep_w.sum())}
+
+
+def ssd_cpu_readings():
+    """The readings ``SSD_SERVE_TOL`` and ``SSD_KEEP_LIMIT`` were fixed
+    from, made before any card ran the SSD path: the port's CPU Predictor
+    in float32 against the same in float64, SSD-300 at the served 9
+    images. Needs no card."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    sym, args = ssd_numpy(mx, SEED + 10)
+    x = ssd_images(SSD_REQUESTS)
+    t0 = time.perf_counter()
+    det32, _ = ssd_cpu_answers(mx, sym, args, x)
+    det64, prob64 = ssd_cpu_answers(mx, sym, args, x, np.float64)
+    res = ssd_compare(det32, det64, prob64)
+    print(f"[ssd-cpu] float32 against float64, SSD-300 at {SSD_REQUESTS} "
+          f"images on the CPU ({torch.get_num_threads()} threads, "
+          f"{time.perf_counter() - t0:.1f} s): {json.dumps(res)}", flush=True)
+    return res
+
+
+def phase_ssd_serving(torch, mx, card, ssd):
+    """SSD-300 behind ``ModelServer(buckets=(1, 8))`` on the card: 9
+    requests (a wave of 8, then 1) with the launches of each served batch
+    checked exactly and no plain version on data; the answers against the
+    port's CPU Predictor (``SSD_SERVE_TOL``, ``SSD_KEEP_LIMIT``) and the
+    card's own head tensors through the plain CPU NMS, bit for bit; then
+    the time per batch at bucket 8 through the server and for the forward
+    alone, and a ``torch.profiler`` breakdown of one forward."""
+    from mxnet_tpu_torch import kernels as K
+    from mxnet_tpu_torch import telemetry as tm
+    from mxnet_tpu_torch.serving import ModelServer, ServingConfig
+
+    sym, args = ssd
+    names = ("multibox_decode", "nms", "l2norm_channel")
+    t0 = time.perf_counter()
+    srv = ModelServer(sym, ssd_params(mx, args, "cpu"),
+                      {"data": (3, SSD_SHAPE, SSD_SHAPE)},
+                      config=ServingConfig(buckets=SSD_BUCKETS,
+                                           max_delay_ms=200))
+    try:
+        srv.warmup()
+        srv.start()
+        graph = srv.predictor(SSD_BATCH)._exec.graph
+        print(f"[ssd-serving] SSD-300 server up in "
+              f"{time.perf_counter() - t0:.1f} s: replicas "
+              f"{[r['device'] for r in srv.stats()['replicas']]}, buckets "
+              f"{SSD_BUCKETS}, routes: {len(graph.detection)} detection, "
+              f"{len(graph.l2norm)} l2norm", flush=True)
+        if (len(graph.detection), len(graph.l2norm)) != (1, 1):
+            fail("the SSD graph did not take the detection and l2norm routes")
+        x = ssd_images(SSD_REQUESTS)
+        waves = [(range(0, SSD_BATCH), SSD_BATCH),
+                 (range(SSD_BATCH, SSD_REQUESTS), 1)]
+        answers, buckets = [None] * SSD_REQUESTS, [None] * SSD_REQUESTS
+        plain_calls = count_plain_calls(torch, [getattr(K, n) for n in names])
+
+        # the main path: every count at 0 just before, read just after
+        tm.reset()
+        for k in plain_calls:
+            plain_calls[k] = 0
+        for idx, _want in waves:
+            futs = {i: srv.submit(x[i]) for i in idx}
+            for i, f in futs.items():
+                answers[i] = f.result(timeout=300)[0]
+                buckets[i] = f.bucket
+        launches = {n: getattr(K, n).LAUNCHES.value for n in names}
+        others = {n: getattr(K, n).LAUNCHES.value for n in PORT_KERNELS
+                  if n not in names and n != "lstm_cell_bwd"}
+        batches = tm.counter("serving.batches").value
+        plain = dict(plain_calls)
+
+        for idx, want in waves:
+            got = {buckets[i] for i in idx}
+            if got != {want}:
+                fail(f"requests {idx} ran in buckets {got}, expected {want}")
+        want_launches = {"multibox_decode": batches, "nms": 2 * batches,
+                         "l2norm_channel": batches}
+        if (batches != len(waves) or launches != want_launches
+                or any(others.values()) or any(plain.values())):
+            fail(f"SSD launches {launches} (others {others}) over {batches} "
+                 f"served batches, plain calls {plain}; expected per batch 1 "
+                 f"multibox_decode, 2 nms, 1 l2norm_channel and nothing else")
+        print(f"[ssd-serving] {SSD_REQUESTS} requests served in buckets 8, 1 "
+              f"({batches} batches): launches {launches} = 1 "
+              f"multibox_decode, 2 nms, 1 l2norm_channel per batch; plain "
+              f"versions on data {sum(plain.values())}", flush=True)
+
+        # the card's own head tensors through the plain NMS on the CPU
+        pred = srv.predictor(SSD_BATCH)
+        with record_detection() as rec:
+            pred.forward(data=x[:SSD_BATCH])
+            torch.cuda.synchronize()
+        ins, card_out = rec.calls["nms"][0]
+        cpu_out = K.nms.nms_plain(*[t.cpu() if hasattr(t, "cpu") else t
+                                    for t in ins])
+        if not torch.equal(card_out.cpu(), cpu_out):
+            fail("the card's NMS rows differ from the plain CPU NMS on the "
+                 "card's own head tensors")
+        got = np.stack(answers)
+        if not np.array_equal(got[:SSD_BATCH], card_out.cpu().numpy()):
+            fail("the served answers differ from a forward of the same "
+                 "bucket-8 predictor")
+        print(f"[ssd-serving] the plain NMS on the CPU, fed the card's own "
+              f"head tensors at bucket 8, gives the card's rows bit for bit "
+              f"({keep_count(card_out)} kept of {card_out.shape[0]} x "
+              f"{card_out.shape[1]})", flush=True)
+
+        # every answer against the port's CPU Predictor
+        t1 = time.perf_counter()
+        ref, prob = ssd_cpu_answers(mx, sym, args, x)
+        res = ssd_compare(got, ref, prob)
+        if (got.shape != (SSD_REQUESTS, SSD_ANCHORS, 6)
+                or not np.isfinite(got).all()):
+            fail(f"answers: shape {got.shape}, finite "
+                 f"{np.isfinite(got).all()}")
+        print(f"[ssd-serving] answers against the CPU Predictor "
+              f"({time.perf_counter() - t1:.1f} s): {json.dumps(res)}; "
+              f"limits: score and box rtol {SSD_SERVE_TOL[0]} atol "
+              f"{SSD_SERVE_TOL[1]}, keep disagreements <= {SSD_KEEP_LIMIT}, "
+              f"class ids 0 where both kept and clear", flush=True)
+        if res["over_tol"] or res["id_diff"] or \
+                res["keep_diff"] > SSD_KEEP_LIMIT:
+            fail(f"SSD answers vs the CPU Predictor: {res}")
+
+        # throughput at bucket 8: a closed loop of 8 requests, batch after
+        # batch, over a window of a few seconds
+        tm.reset()
+        per_batch = []
+        for _ in range(SSD_SERVE_BATCHES):
+            t0 = time.perf_counter()
+            futs = [srv.submit(x[i]) for i in range(SSD_BATCH)]
+            for f in futs:
+                f.result(timeout=300)
+            per_batch.append((time.perf_counter() - t0) * 1e3)
+        batch_ms = float(np.mean(per_batch))
+        lo, p10, p50, p90, hi = np.percentile(per_batch, (0, 10, 50, 90, 100))
+        infer = tm.histogram("serving.infer")
+        wait = tm.histogram("serving.queue_wait")
+        fwd_ms = cuda_ms(torch, lambda: pred.forward(), reps=20, warmup=2)
+        print(f"[ssd-serving] bucket 8 on {card}: {batch_ms:.2f} ms per batch "
+              f"through the server ({8e3 / batch_ms:.1f} images/s) over "
+              f"{SSD_SERVE_BATCHES} batches in {sum(per_batch) / 1e3:.2f} s; "
+              f"per batch min {lo:.2f}, p10 {p10:.2f}, p50 {p50:.2f}, p90 "
+              f"{p90:.2f}, max {hi:.2f} ms; serving.infer mean "
+              f"{infer.sum / infer.count / 1e3:.2f} ms, serving.queue_wait "
+              f"mean {wait.sum / wait.count / 1e3:.2f} ms over {infer.count} "
+              f"batches; forward alone {fwd_ms:.2f} ms "
+              f"({8e3 / fwd_ms:.1f} images/s)", flush=True)
+        device_ms = ssd_profile(torch, pred)
+    finally:
+        srv.close()
+    return launches, device_ms
+
+
+def ssd_profile(torch, pred, reps=3):
+    """One bucket-8 forward under torch.profiler: the device's busy share,
+    the top device operations and the port's kernels' device ms per
+    forward. Measurement only; it fails nothing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pred.forward()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            pred.forward()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(ev.self_device_time_total / reps, round(ev.count / reps), ev.key)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and ev.self_device_time_total]
+    busy = sum(r[0] for r in rows)
+    if not busy:
+        print("[ssd-profile] torch.profiler recorded no device time")
+        return {}
+    ours = {}
+    for us, count, key in rows:
+        for kernel, mark in PORT_KERNELS.items():
+            if mark in key:
+                ours[kernel] = ours.get(kernel, 0.0) + us / 1e3
+    print(f"[ssd-profile] one forward at bucket 8: device busy "
+          f"{busy / 1e3:.2f} ms of {wall_us / reps / 1e3:.2f} ms wall "
+          f"({100 * busy * reps / wall_us:.0f}%), "
+          f"{sum(r[1] for r in rows)} launches; the port's kernels "
+          f"{ {k: round(v, 4) for k, v in ours.items()} } ms; top by device "
+          f"time:")
+    for us, count, key in sorted(rows, reverse=True)[:10]:
+        print(f"[ssd-profile]   {us / 1e3:8.3f} ms {100 * us / busy:5.1f}% "
+              f"x{count:<3d} {key[:90]}")
+    return ours
+
+
 def main():
     if sys.argv[1:2] == ["--cpu-perplexity"]:
         cpu_perplexity([int(a) for a in sys.argv[2:]])
+        return
+    if sys.argv[1:2] == ["--cpu-ssd"]:
+        ssd_cpu_readings()
         return
     import torch
 
@@ -1749,20 +2316,25 @@ def main():
     kernels += lstm_kernels
     for k in kernels:
         k.update(head.get(k["name"], {}))
+    ssd = ssd_numpy(mx, SEED + 10)
+    kernels += phase_ssd_kernels(torch, mx, ssd)
     served = phase_serving(torch, mx, card)
     trained, device_ms = phase_training(torch, mx, card)
     phase_train_parity(torch, mx)
     lstm_trained, lstm_device_ms = phase_lstm_training(torch, mx, card)
     phase_lstm_parity(torch, mx)
+    ssd_served, ssd_device_ms = phase_ssd_serving(torch, mx, card, ssd)
     for k in kernels:
         name = k["name"]
         k["launches_serving"] = served.get(name, 0)
         k["launches_training"] = trained.get(name, 0)
         k["launches_lstm"] = lstm_trained.get(name, 0)
+        k["launches_ssd"] = ssd_served.get(name, 0)
         k["launches"] = (k["launches_serving"] + k["launches_training"]
-                         + k["launches_lstm"])
+                         + k["launches_lstm"] + k["launches_ssd"])
         k["step_device_ms"] = device_ms.get(name)
         k["lstm_step_device_ms"] = lstm_device_ms.get(name)
+        k["ssd_forward_device_ms"] = ssd_device_ms.get(name)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

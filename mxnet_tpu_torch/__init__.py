@@ -7,12 +7,13 @@ models end to end: Symbol graphs (JSON and ``.params`` compatible with the
 JAX package), an eager executor with backward and a fused update,
 ``Module.fit`` and ``BucketingModule.fit`` with SGD and Adam, RNN cells and
 ``BucketSentenceIter``, initializers, metrics and ``NDArrayIter``,
-``Predictor`` and ``ModelServer``. Entry points run on the card
-(``gpu(0)``) unless the caller asks for the CPU. BatchNorm (+ReLU) forward
-and backward, the SoftmaxOutput forward and loss backward, the LSTM cell
-step forward and backward and the multi-tensor SGD and Adam updates run
-hand-written CUDA kernels (:mod:`.kernels`); convolutions and matrix
-products go to cuDNN/cuBLAS through torch.
+``Predictor`` and ``ModelServer`` (ResNet classification and SSD
+detection). Entry points run on the card (``gpu(0)``) unless the caller
+asks for the CPU. BatchNorm (+ReLU) forward and backward, the SoftmaxOutput
+forward and loss backward, the LSTM cell step forward and backward, the
+multi-tensor SGD and Adam updates, and SSD's channel L2 normalization,
+per-anchor decode and NMS run hand-written CUDA kernels (:mod:`.kernels`);
+convolutions and matrix products go to cuDNN/cuBLAS through torch.
 """
 
 import torch

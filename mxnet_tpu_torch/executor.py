@@ -30,10 +30,22 @@ i * g`` -> ``next_h = o * tanh(next_c)``) runs as one ``lstm_cell`` launch,
 and in training its backward as one ``lstm_cell_bwd``, when none of its
 intermediates has a consumer outside the chain: ``next_c`` and ``next_h``
 take the places of their nodes, the other nodes of the chain run nothing.
-Any other graph runs op by op, as written.
+
+Two routes serve SSD's head. A channel ``SoftmaxActivation`` whose only
+consumer is a ``MultiBoxDetection`` runs nothing, and the detection reads
+its logits: one ``multibox_decode`` launch with the softmax inside, a
+stable sort of the scores, and ``nms``. A channel ``L2Normalization`` whose
+only consumer is a ``_mul_scalar`` runs nothing, and the ``_mul_scalar``
+node runs one ``l2norm_channel`` launch with the scale fused. Any other
+graph runs op by op, as written, and the symbol stays as it was built.
+A ``MultiBoxPrior`` depends only on its input's shape: the graph computes
+its anchors once per shape and device and holds them, unless they are a
+head of the graph (a caller may write to an output).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -43,7 +55,9 @@ from .context import Context
 from .kernels.lstm_cell import LSTMCellFn, lstm_cell
 from .kernels.sgd_mom_multi import Guard
 from .ndarray import NDArray, ones as nd_ones, zeros as nd_zeros
-from .ops.defs_nn import batch_norm
+from .kernels.l2norm_channel import l2norm_channel
+from .ops.defs_contrib import detect
+from .ops.defs_nn import batch_norm, no_kernel_grad
 from .ops.registry import OpMode
 
 _GRAD_REQ = ("null", "write", "add")
@@ -116,6 +130,26 @@ class _LSTMStep:
         return [next_c, next_h]
 
 
+def _pass(ins, mode):
+    """``next_h`` of a fused LSTM step, which its ``next_c`` node made."""
+    return ins
+
+
+def _run_detection(params, ins, mode):
+    """``SoftmaxActivation(mode="channel")`` -> ``MultiBoxDetection`` as one
+    detection step (``defs_contrib.detect`` on the logits)."""
+    cls_logits, loc_pred, anchors = ins
+    return [detect(cls_logits, loc_pred, anchors, params, softmax=True)]
+
+
+def _run_l2norm(eps, scale, ins, mode):
+    """``L2Normalization(mode="channel")`` -> ``_mul_scalar`` as one
+    ``l2norm_channel`` launch with the scale fused."""
+    (x,) = ins
+    no_kernel_grad(x, "L2Normalization(mode='channel')")
+    return [l2norm_channel(x, eps, scale)]
+
+
 def _fused_lstm(topo, consumers):
     """``{id(next_c node): _LSTMStep}`` for every LSTM gate chain the
     interpreter may fuse: the chain of ``LSTMCell.__call__`` from the
@@ -185,6 +219,23 @@ def _fused_lstm(topo, consumers):
     return steps
 
 
+def _fused_producers(topo, consumers, op, producer, **params):
+    """``{id(node): (node, producer node)}`` for every node running ``op``
+    whose first input is the only use of a ``producer`` op's output with
+    these parameter values: the SSD routes (a channel
+    ``SoftmaxActivation`` into ``MultiBoxDetection``, a channel
+    ``L2Normalization`` into ``_mul_scalar``)."""
+    fused = {}
+    for node in topo:
+        if not _is_op(node, op):
+            continue
+        prod, idx = node.inputs[0]
+        if (idx == 0 and _is_op(prod, producer, **params)
+                and consumers.get((id(prod), 0)) == [node]):
+            fused[id(node)] = (node, prod)
+    return fused
+
+
 def _head_loss_flags(graph):
     """Which graph heads are loss outputs (drive an implicit backward)."""
     return [not node.is_variable and node.op.is_loss
@@ -212,19 +263,44 @@ class _Graph:
         self.fused = _fused_bn_relu(self.topo, consumers)
         self._fused_bns = {id(bn) for bn in self.fused.values()}
         self.lstm = _fused_lstm(self.topo, consumers)
-        self._lstm_h = {id(st.h_node): st for st in self.lstm.values()}
-        skip = {id(m) for st in self.lstm.values() for m in st.members
-                if m is not st.c_node and m is not st.h_node}
-        # the values each node reads: a fused LSTM step reads the chain's
-        # inputs at its next_c node and nothing at its other nodes
+        self.detection = _fused_producers(
+            self.topo, consumers, "MultiBoxDetection", "SoftmaxActivation",
+            mode="channel")
+        self.l2norm = _fused_producers(
+            self.topo, consumers, "_mul_scalar", "L2Normalization",
+            mode="channel")
+        # nodes that run a fused route: {id(node): (the edges it reads,
+        # run(ins, mode) -> outputs)}; the other members of a route run
+        # nothing. A fused LSTM step reads the chain's inputs at its next_c
+        # node; a fused detection reads the softmax's logits; a fused
+        # l2norm reads the normalization's input at its _mul_scalar node
+        routes, skip = {}, set()
+        for st in self.lstm.values():
+            routes[id(st.c_node)] = (st.inputs, st.run)
+            routes[id(st.h_node)] = ([(st.c_node, 1)], _pass)
+            skip.update(id(m) for m in st.members
+                        if m is not st.c_node and m is not st.h_node)
+        for det, sm in self.detection.values():
+            routes[id(det)] = ([sm.inputs[0]] + list(det.inputs[1:]),
+                               functools.partial(_run_detection,
+                                                 det.params()))
+            skip.add(id(sm))
+        for mul, l2 in self.l2norm.values():
+            routes[id(mul)] = ([l2.inputs[0]], functools.partial(
+                _run_l2norm, l2.params()["eps"], mul.params()["scalar"]))
+            skip.add(id(l2))
+        self._routes = routes
+        heads = {id(node) for (node, _idx) in self.heads}
+        self._shape_consts = {id(node) for node in self.topo
+                              if _is_op(node, "MultiBoxPrior")
+                              and id(node) not in heads}
+        self._const_vals = {}
         self._reads = {}
         for node in self.topo:
             if id(node) in skip:
                 self._reads[id(node)] = None
-            elif id(node) in self.lstm:
-                self._reads[id(node)] = self.lstm[id(node)].inputs
-            elif id(node) in self._lstm_h:
-                self._reads[id(node)] = [(self._lstm_h[id(node)].c_node, 1)]
+            elif id(node) in routes:
+                self._reads[id(node)] = routes[id(node)][0]
             else:
                 self._reads[id(node)] = node.inputs
         # position of each node's last reader: an intermediate value is
@@ -252,15 +328,15 @@ class _Graph:
             if reads is None:
                 continue  # inside a fused LSTM step
             ins = [env[id(inode)][idx] for (inode, idx) in reads]
-            if id(node) in self.lstm:
-                outs, new_aux = self.lstm[id(node)].run(ins, mode), []
-            elif id(node) in self._lstm_h:
-                outs, new_aux = ins, []  # next_h of its fused step
+            if id(node) in self._routes:
+                outs, new_aux = self._routes[id(node)][1](ins, mode), []
             elif id(node) in self.fused:
                 outs, new_aux = ins, []  # its BatchNorm applied the ReLU
             elif id(node) in self._fused_bns:
                 outs, new_aux = batch_norm(ins, node.params(), mode,
                                            relu=True)
+            elif id(node) in self._shape_consts:
+                outs, new_aux = self._shape_const(node, ins, mode), []
             else:
                 outs, new_aux = node.op.apply(ins, node.params(), mode)
             # an op's new aux values land in the aux arrays (BatchNorm
@@ -275,6 +351,20 @@ class _Graph:
                 if self._last_use[id(inode)] == pos:
                     env.pop(id(inode), None)
         return [env[id(node)][idx] for (node, idx) in self.heads]
+
+    def _shape_const(self, node, ins, mode):
+        """The outputs of a node that depends only on its inputs' shapes,
+        computed on the first call for these shapes and devices and held."""
+        key = (id(node),) + tuple((tuple(t.shape), str(t.device))
+                                  for t in ins)
+        outs = self._const_vals.get(key)
+        if outs is None:
+            # plain tensors even inside inference_mode, so a training
+            # forward of the same graph may read them too
+            with torch.inference_mode(False), torch.no_grad():
+                outs, _aux = node.op.apply(ins, node.params(), mode)
+            self._const_vals[key] = outs
+        return outs
 
 
 class Executor:

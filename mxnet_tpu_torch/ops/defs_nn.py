@@ -2,7 +2,9 @@
 
 Counterpart of ``mxnet_tpu/ops/defs_nn.py`` for the ops of the ResNet
 path: FullyConnected, Convolution, Activation, BatchNorm, Pooling and
-SoftmaxOutput, forward and backward. Convolution and FullyConnected are
+SoftmaxOutput, forward and backward; and of the SSD path's
+L2Normalization (its channel mode on the ``l2norm_channel`` kernel) and
+SoftmaxActivation, at inference. Convolution and FullyConnected are
 cuDNN/cuBLAS calls through torch, as the JAX package leaves them to XLA;
 float32 runs without TF32 (``mxnet_tpu_torch/__init__.py`` clears both
 flags), matching the reference's ``precision=HIGHEST``. BatchNorm (with the ReLU the executor
@@ -33,7 +35,9 @@ from ..kernels.bn_act import bn_act
 from ..kernels.bn_act_bwd import bn_act_bwd
 from ..kernels.bn_stats import bn_stats
 from ..kernels.softmax_output_bwd import softmax_output_bwd
-from ..kernels.softmax_rows import softmax
+from ..kernels.l2norm_channel import l2norm_channel
+from ..kernels.multibox_decode import channel_softmax
+from ..kernels.softmax_rows import softmax, softmax_rows
 from .registry import Param, register
 
 
@@ -311,6 +315,65 @@ register(
         "cudnn_off": Param(parse_bool, False),
     },
     aliases=("Pooling_v1",),
+)
+
+
+# --- L2Normalization, SoftmaxActivation ----------------------------------
+def no_kernel_grad(x, what):
+    """Raise where autograd would need the backward of a kernel that has
+    none yet (a CUDA tensor recorded for training)."""
+    if x.device.type == "cuda" and x.requires_grad and torch.is_grad_enabled():
+        raise MXNetError(f"{what}: the backward of its CUDA kernel is not yet "
+                         "ported (ROADMAP.md queue 1, SSD training)")
+
+
+def _l2_normalization(ins, params, mode):
+    """``x / sqrt(sum(x^2) + eps)`` over the mode's axes; ``channel`` runs
+    the ``l2norm_channel`` kernel (scale 1)."""
+    (x,) = ins
+    eps, m = params["eps"], params["mode"]
+    if m == "channel":
+        no_kernel_grad(x, "L2Normalization(mode='channel')")
+        return l2norm_channel(x, eps)
+    if m == "instance":
+        axes = tuple(range(1, x.dim()))
+    elif m == "spatial":
+        axes = tuple(range(2, x.dim()))
+    else:
+        raise MXNetError(f"L2Normalization: unknown mode {m}")
+    sq = x * x
+    total = torch.sum(sq, dim=axes, keepdim=True) if axes else sq
+    return x / torch.sqrt(total + eps)
+
+
+register(
+    "L2Normalization",
+    _l2_normalization,
+    arg_names=["data"],
+    param_schema={
+        "eps": Param(parse_float, 1e-10),
+        "mode": Param(parse_str, "instance"),
+    },
+)
+
+
+def _softmax_activation(ins, params, mode):
+    """``channel``: the softmax over axis 1 (one ``jax.nn.softmax`` in the
+    reference); ``instance``: over each flattened sample, through
+    ``softmax_rows``."""
+    (x,) = ins
+    if params["mode"] == "channel":
+        return channel_softmax(x)
+    no_kernel_grad(x, "SoftmaxActivation(mode='instance')")
+    rows = x.reshape(x.shape[0], -1).contiguous()
+    return softmax_rows(rows).reshape(x.shape)
+
+
+register(
+    "SoftmaxActivation",
+    _softmax_activation,
+    arg_names=["data"],
+    param_schema={"mode": Param(parse_str, "instance")},
 )
 
 

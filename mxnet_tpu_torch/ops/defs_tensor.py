@@ -1,12 +1,14 @@
-"""Tensor-manipulation operators (the subset on the ResNet and LSTM paths).
+"""Tensor-manipulation operators (the subset on the ResNet, LSTM and SSD
+paths).
 
 Counterpart of ``mxnet_tpu/ops/defs_tensor.py``: ``Reshape`` with MXNet's
-special codes (0, -1, -2, -3, -4, ``reverse``), ``Flatten``,
-``expand_dims``, ``Concat``, ``SliceChannel`` (multi-output, with
-``squeeze_axis``), ``Embedding`` and ``identity``/``_copy``. Each is plain
-PyTorch and its backward is autograd's; ``Embedding`` is a gather with a
-dense weight gradient, as the JAX package computes it with ``jnp.take``
-outside any fused kernel. The other tensor ops are not yet ported.
+special codes (0, -1, -2, -3, -4, ``reverse``), ``Flatten``, ``transpose``
+(a view; empty ``axes`` reverses them), ``expand_dims``, ``Concat``,
+``SliceChannel`` (multi-output, with ``squeeze_axis``), ``Embedding`` and
+``identity``/``_copy``. Each is plain PyTorch and its backward is
+autograd's; ``Embedding`` is a gather with a dense weight gradient, as the
+JAX package computes it with ``jnp.take`` outside any fused kernel. The
+other tensor ops are not yet ported.
 """
 
 from __future__ import annotations
@@ -94,6 +96,19 @@ register(
     lambda ins, p, m: ins[0].reshape(ins[0].shape[0], -1),
     arg_names=["data"],
     aliases=("flatten",),
+)
+
+def _transpose(ins, params, mode):
+    (x,) = ins
+    axes = params["axes"] or tuple(reversed(range(x.dim())))
+    return x.permute(*axes)
+
+
+register(
+    "transpose",
+    _transpose,
+    arg_names=["data"],
+    param_schema={"axes": Param(parse_shape, ())},
 )
 
 register(

@@ -19,7 +19,12 @@ holds ``dx`` to rtol 1e-4 / atol 1e-5 and the channel sums ``dgamma`` and
 operations in its order and are held to 1e-6 absolute. ``lstm_cell``,
 ``lstm_cell_bwd`` and ``adam_multi`` repeat them too, but ``expf``,
 ``tanhf`` and ``sqrtf`` may round differently from torch's own kernels:
-rtol 1e-5 / atol 1e-6.
+rtol 1e-5 / atol 1e-6. The SSD kernels: ``nms`` is held bit for bit (the
+same IoU arithmetic and comparisons); ``multibox_decode``'s boxes and
+scores to rtol 1e-6 / atol 1e-7 (the softmax's sum runs in another order)
+and its class ids exactly wherever the two best probabilities are further
+apart than that; ``l2norm_channel`` to rtol 1e-5 / atol 1e-6 times the
+scale (the channel sum runs in another order).
 """
 
 import numpy as np
@@ -31,7 +36,10 @@ from mxnet_tpu_torch.kernels import adam_multi as adam_mod
 from mxnet_tpu_torch.kernels import bn_act as bn_mod
 from mxnet_tpu_torch.kernels import bn_act_bwd as bwd_mod
 from mxnet_tpu_torch.kernels import bn_stats as stats_mod
+from mxnet_tpu_torch.kernels import l2norm_channel as l2_mod
 from mxnet_tpu_torch.kernels import lstm_cell as lstm_mod
+from mxnet_tpu_torch.kernels import multibox_decode as dec_mod
+from mxnet_tpu_torch.kernels import nms as nms_mod
 from mxnet_tpu_torch.kernels import sgd_mom_multi as sgd_mod
 from mxnet_tpu_torch.kernels import softmax_output_bwd as sob_mod
 from mxnet_tpu_torch.kernels import softmax_rows as sm_mod
@@ -380,3 +388,108 @@ def test_bucketing_fit_on_the_card_updates_one_storage(card):
     keys = {m._exec_group._exec._update_cache["key"]
             for m in mod._buckets.values()}
     assert len(keys) == 1
+
+
+# -- SSD kernels -------------------------------------------------------------
+def _chip_smoke():
+    """chip_smoke.py's NMS input generators (the same sets it checks)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("shape", [(8, 512, 37, 37), (3, 5, 7, 9), (2, 3),
+                                   (1, 1000, 1, 1)])
+@pytest.mark.parametrize("scale", [1.0, 20.0])
+def test_l2norm_channel_kernel_matches_plain(card, shape, scale):
+    x = torch.randn(shape, device=card)
+    before = l2_mod.LAUNCHES.value
+    got = l2_mod.l2norm_channel(x, 1e-10, scale)
+    torch.testing.assert_close(got, l2_mod.l2norm_channel_plain(
+        x, 1e-10, scale), rtol=1e-5, atol=1e-6 * scale)
+    assert l2_mod.LAUNCHES.value == before + 1
+
+
+def _decode_inputs(device, n=3, c1=21, a=1000):
+    rng = np.random.default_rng(8)
+    logits = rng.normal(0, 1.5, (n, a, c1)).astype(np.float32)
+    loc = rng.normal(0, 1, (n, 4 * a)).astype(np.float32)
+    lo = rng.uniform(0, 0.8, (1, a, 2))
+    anchors = np.concatenate([lo, lo + rng.uniform(0.02, 0.5, (1, a, 2))], 2)
+    # the class scores as the SSD head hands them over: a transposed view
+    cls = torch.from_numpy(logits).to(device).transpose(1, 2)
+    return cls, torch.from_numpy(loc).to(device), \
+        torch.from_numpy(anchors.astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("softmax, strided", [(True, True), (True, False),
+                                              (False, False)])
+@pytest.mark.parametrize("clip", [True, False])
+def test_multibox_decode_kernel_matches_plain(card, softmax, strided, clip):
+    cls, loc, anchors = _decode_inputs(card)
+    if not softmax:
+        cls = dec_mod.channel_softmax(cls)
+    if not strided:
+        cls = cls.contiguous()
+    var = (0.1, 0.1, 0.2, 0.2)
+    before = dec_mod.LAUNCHES.value
+    boxes, score, cls_id = dec_mod.multibox_decode(cls, loc, anchors, var,
+                                                   clip, softmax)
+    w_boxes, w_score, w_id = dec_mod.multibox_decode_plain(
+        cls, loc, anchors, var, clip, softmax)
+    assert dec_mod.LAUNCHES.value == before + 1
+    torch.testing.assert_close(boxes, w_boxes, rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(score, w_score, rtol=1e-6, atol=1e-7)
+    fg = (dec_mod.channel_softmax(cls) if softmax else cls)[:, 1:]
+    top2 = torch.topk(fg, 2, dim=1).values
+    clear = top2[:, 0] - top2[:, 1] > 1e-6 * top2[:, 0] + 1e-7
+    assert bool((cls_id == w_id)[clear].all()) and cls_id.dtype == torch.int32
+
+
+@pytest.mark.parametrize("a", [5, 64, 65, 130, 1000])
+@pytest.mark.parametrize("nms_threshold, force", [(0.5, False), (0.25, False),
+                                                  (0.5, True)])
+def test_nms_kernel_matches_plain_bit_for_bit(card, a, nms_threshold, force):
+    """Grid boxes with IoUs exactly at the threshold and tied scores."""
+    ins = _chip_smoke().nms_grid_inputs(torch, card, seed=a, n=3, a=a)
+    before = nms_mod.LAUNCHES.value
+    got = nms_mod.nms(*ins, 0.01, nms_threshold, force)
+    want = nms_mod.nms_plain(*ins, 0.01, nms_threshold, force)
+    assert nms_mod.LAUNCHES.value == before + 2  # mask and scan
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("nms_threshold, force", [(0.5, False), (0.5, True),
+                                                  (0.3, False)])
+def test_nms_kernel_on_ties_and_an_invalid_image(card, nms_threshold, force):
+    ins = _chip_smoke().nms_tie_inputs(torch, card, seed=3)
+    got = nms_mod.nms(*ins, 0.01, nms_threshold, force)
+    assert torch.equal(got, nms_mod.nms_plain(*ins, 0.01, nms_threshold,
+                                              force))
+    assert int((got[2, :, 0] >= 0).sum()) == 0
+
+
+def test_ssd_kernels_raise_on_what_they_do_not_take(card):
+    cls, loc, anchors = _decode_inputs(card)
+    var = (0.1, 0.1, 0.2, 0.2)
+    with pytest.raises(MXNetError):
+        dec_mod.multibox_decode(cls.double(), loc, anchors, var, True, True)
+    with pytest.raises(MXNetError):
+        dec_mod.multibox_decode(cls, loc[:, 1:], anchors, var, True, True)
+    with pytest.raises(MXNetError):
+        dec_mod.multibox_decode(cls, loc, anchors.cpu(), var, True, True)
+    boxes, score, cls_id = dec_mod.multibox_decode(cls, loc, anchors, var,
+                                                   True, True)
+    order = torch.argsort(-score, dim=1, stable=True)
+    with pytest.raises(MXNetError):
+        nms_mod.nms(boxes, score, cls_id.long(), order, 0.01, 0.5, False)
+    with pytest.raises(MXNetError):
+        nms_mod.nms(boxes, score, cls_id, order.int(), 0.01, 0.5, False)
+    with pytest.raises(MXNetError):
+        l2_mod.l2norm_channel(torch.randn(2, 3, 4, device=card).transpose(
+            1, 2), 1e-10)
