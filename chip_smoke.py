@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one CUDA card: ResNet-50
-serving and training, LSTM-PTB training, and SSD-VGG16 serving.
+serving and training, LSTM-PTB training, and SSD-VGG16 serving and
+training.
 
     python3 chip_smoke.py
 
@@ -95,7 +96,33 @@ Run from the root of a checkout. Phases, each printing its own lines:
     class is clear, at most ``SSD_KEEP_LIMIT`` keep decisions apart: near
     ties in the scores may reorder the greedy pass); then ms per batch at
     bucket 8 through the server and for the forward alone, and under
-    ``torch.profiler`` the device's busy share and top operations.
+    ``torch.profiler`` the device's busy share and top operations;
+13. SSD training kernels — one training step of SSD-VGG16
+    (``models.ssd.get_symbol_train(num_classes=20, data_shape=300)``,
+    random weights from the seed, as in phase 11) at batch 32 on the card
+    with its kernel calls recorded: ``multibox_target`` against its plain
+    version bit for bit on the step's own tensors and on
+    ``MBT_CASES``' edge inputs; ``l2norm_channel_bwd`` at the step's
+    (32, 512, 37, 37) x 20 and odd shapes (``BWD_RTOL``/``BWD_ATOL`` of
+    ``kernels/l2norm_channel.py``); ``l2norm_channel``, ``softmax_rows`` at
+    (259072, 21), ``softmax_output_bwd`` (multi_output, use_ignore, valid),
+    ``multibox_decode`` on probabilities, ``nms`` at (32, 8096) and
+    ``sgd_mom_multi`` over SSD's parameters with wd 5e-4 at this path's
+    shapes; each timed beside its bound and, where there is one, a
+    PyTorch call for the same function;
+14. SSD training — the same model trained by ``Module.fit`` on ``gpu(0)``
+    over an ``NDArrayIter`` of painted-rectangle images (20 classes, 1..6
+    objects, mean subtracted) at batch 32, SGD lr 0.002, momentum 0.9, wd
+    5e-4, the ``Loss`` metric: every step's launches exactly
+    ``SSD_TRAIN_LAUNCHES`` and no plain version on data; 10 steps on one
+    fixed batch of 4 must lower the class cross-entropy and the loc loss
+    to ``SSD_LOSS_RATIO`` of their first values; ms per step and images/s
+    of fit's own steps after the first, the compute step by CUDA events,
+    peak memory, and a profile of one step (busy share, convolutions'
+    share, top kernels);
+15. SSD training parity — two SGD steps at batch 2 on the card and on the
+    port's CPU path, each from the same state, within ``SSD_PARITY_TOL``
+    in norm and at most ``SSD_TARGET_LIMIT`` cls_target values apart.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. Any failed phase exits non-zero before the result
@@ -113,6 +140,14 @@ serves phase 12's 9 images through the port's CPU ``Predictor`` in float32
 and in float64 and prints how far they are apart (the readings
 ``SSD_SERVE_TOL`` and ``SSD_KEEP_LIMIT`` were fixed from); it needs no
 card.
+
+    python3 chip_smoke.py --cpu-ssd-train
+
+runs phase 14's loss check on the port's CPU path for three parameter
+seeds and phase 15's two parity steps in float32 and in float64, and
+prints the readings ``SSD_LOSS_RATIO``, ``SSD_PARITY_TOL`` and
+``SSD_TARGET_LIMIT`` were fixed from (SSD-300 at batches 4 and 2: run it on
+a machine with many cores, ~3 minutes on 8); it needs no card.
 """
 
 import json
@@ -155,7 +190,12 @@ PORT_KERNELS = {"bn_stats": "bn_stats_kernel", "bn_act": "bn_act_kernel",
                 "lstm_cell_bwd": "lstm_cell_bwd_kernel",
                 "adam_multi": "adam_multi_kernel",
                 "multibox_decode": "multibox_decode_kernel",
-                "nms": "nms_", "l2norm_channel": "l2norm_channel_kernel"}
+                "nms": "nms_", "l2norm_channel": "l2norm_channel_kernel",
+                "l2norm_channel_bwd": "l2norm_channel_bwd_kernel",
+                "multibox_target": "multibox_target_kernel"}
+# kernels counted beside another one, in that one's module
+BWD_COUNTERS = {"lstm_cell_bwd": ("lstm_cell", "BWD_LAUNCHES"),
+                "l2norm_channel_bwd": ("l2norm_channel", "BWD_LAUNCHES")}
 PARITY_BATCH = 8
 TRAIN_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
 LOSS_RATIO = 0.7  # cross-entropy after 10 steps on one batch / its first
@@ -244,6 +284,58 @@ NMS_IOU_OPS = 15  # float ops of one IoU and its tests, per-box areas apart
 # allows a few such chains (16, 0.02 % of the anchors) though 0 was read
 SSD_SERVE_TOL = (1e-4, 1e-5)
 SSD_KEEP_LIMIT = 16
+# SSD-VGG16 training: get_symbol_train(num_classes=20, data_shape=300) and
+# the trainer of examples/train_ssd.py (SGD lr 0.002, momentum 0.9, wd
+# 5e-4, rescale_grad 1/batch), batch 32 as the reference MXNet
+# example/ssd/train.py has it
+SSD_TRAIN_BATCH = 32
+SSD_OBJECTS = 16  # label rows per image: 1..6 objects, the rest -1
+SSD_TRAIN_OPT = {"learning_rate": 0.002, "momentum": 0.9, "wd": 5e-4}
+SSD_FIT_STEPS = 10  # Module.fit's steps on the main path; 2..10 are timed
+SSD_MEAN = (123.0, 117.0, 104.0)  # the example iterator's mean_r/g/b
+# the painted images go in mean subtracted and divided by 58 (about the
+# pixels' standard deviation): random He-normal weights carry raw pixel
+# scale through the VGG trunk into the unnormalized heads, whose logits
+# then saturate the softmax and the first steps' loss jumps by orders of
+# magnitude
+SSD_INPUT_SCALE = 1.0 / 58
+# launches per SSD training step: softmax_output_bwd under
+# normalization="valid" launches twice per call (the count of valid labels,
+# then the gradient), nms twice (mask and scan)
+SSD_TRAIN_LAUNCHES = {"multibox_target": 1, "l2norm_channel": 1,
+                      "l2norm_channel_bwd": 1, "softmax_rows": 1,
+                      "softmax_output_bwd": 2, "multibox_decode": 1,
+                      "nms": 2, "sgd_mom_multi": 1}
+# the loss check: SSD_LOSS_STEPS steps on one fixed batch of
+# SSD_LOSS_BATCH must bring the class cross-entropy over the anchors whose
+# target is not ignored, and the loc loss per matched anchor, to at most
+# these fractions of their first values. Fixed from ``--cpu-ssd-train``
+# on the card machine's CPU before any card ran the phase: over the
+# parameter seeds SEED + 30, 31, 32 the last/first ratios read 0.653,
+# 0.467, 0.529 (cross-entropy) and 0.602, 0.400, 0.569 (loc loss). The
+# card starts from the same numpy parameters as SEED + 30, so its reading
+# should sit near that seed's; the limit leaves room for the other seeds'
+# spread above it
+SSD_LOSS_BATCH = 4
+SSD_LOSS_STEPS = 10
+SSD_LOSS_RATIO = {"ce": 0.8, "loc": 0.8}
+# card against the port's CPU path, two SGD steps of SSD-300 at batch 2,
+# each from the same state, in norm over all tensors of a kind, |card -
+# cpu| <= rtol * |cpu| (step 1, step 2); and how many anchors' cls_target
+# may differ per step. Fixed from ``--cpu-ssd-train`` before any card ran
+# the phase: the CPU path in float32 against float64 read at most 1.0e-7
+# (loss), 2.2e-7 (parameters) and 2.9e-4 (momenta; worst tensor 8.7e-4)
+# over the two steps, and 0 cls_target disagreements of 16192. The card
+# sums in other orders, and a ReLU or max-pool input within rounding of
+# its boundary moves a whole gradient term (ResNet-50's card-vs-CPU
+# momenta read 2.1e-2): 1e-5 leaves ~50x on the loss and parameters, 2e-2
+# ~70x on the momenta. A background logit within rounding of the mining
+# boundary, or a best IoU within rounding of 0.5, moves one or two
+# anchors' targets: up to 4 a step may differ, though 0 was read
+SSD_PARITY_BATCH = 2
+SSD_PARITY_TOL = {"loss": (1e-5, 1e-5), "param": (1e-5, 1e-5),
+                  "momentum": (2e-2, 2e-2)}
+SSD_TARGET_LIMIT = 4
 
 
 def fail(msg):
@@ -936,9 +1028,17 @@ def cross_entropy(torch, probs, labels):
     return -torch.log(p + 1e-8).mean()
 
 
-def profile_step(torch, step, reps=2):
+# device kernels of convolutions (cuDNN's implicit GEMM, FFT and Winograd
+# kernels and their filter transforms), by name under torch.profiler
+CONV_KERNELS = ("xmma", "conv", "fft", "winograd", "implicit", "wgrad",
+                "dgrad", "flip_filter", "pointwise_mult_and_sum")
+
+
+def profile_step(torch, step, reps=2, tag="profile",
+                 what=f"one training step at batch {TRAIN_BATCH}"):
     """Kernels of one training step by self device time (kernel events
-    only), and the device's busy share of the wall time."""
+    only), the device's busy share of the wall time and the convolutions'
+    share of the device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -956,13 +1056,18 @@ def profile_step(torch, step, reps=2):
             and ev.self_device_time_total]
     busy = sum(r[0] for r in rows)
     if not busy:
-        print("[profile] torch.profiler recorded no device time")
+        print(f"[{tag}] torch.profiler recorded no device time")
         return {}
-    print(f"[profile] one training step at batch {TRAIN_BATCH}: device busy "
-          f"{busy / 1e3:.2f} ms of {wall_us / reps / 1e3:.2f} ms wall "
-          f"({100 * busy * reps / wall_us:.0f}%); top kernels by device time:")
+    conv = sum(us for us, _c, key in rows
+               if any(m in key.lower() for m in CONV_KERNELS))
+    print(f"[{tag}] {what}: device busy {busy / 1e3:.2f} ms of "
+          f"{wall_us / reps / 1e3:.2f} ms wall "
+          f"({100 * busy * reps / wall_us:.0f}%), "
+          f"{sum(r[1] for r in rows)} launches; convolution kernels "
+          f"{conv / 1e3:.2f} ms ({100 * conv / busy:.1f}% of device time); "
+          f"top kernels by device time:")
     for us, count, key in sorted(rows, reverse=True)[:14]:
-        print(f"[profile]   {us / 1e3:8.3f} ms {100 * us / busy:5.1f}% "
+        print(f"[{tag}]   {us / 1e3:8.3f} ms {100 * us / busy:5.1f}% "
               f"x{count:<4d} {key[:90]}")
     # the port's kernels: device time per step, apart from the host's
     # launch path that the CUDA-event times above include
@@ -973,7 +1078,7 @@ def profile_step(torch, step, reps=2):
                 ms, n = ours.get(kernel, (0.0, 0))
                 ours[kernel] = (ms + us / 1e3, n + count)
     for kernel, (ms, n) in sorted(ours.items()):
-        print(f"[profile]   port kernel {kernel}: {ms:.4f} ms device time in "
+        print(f"[{tag}]   port kernel {kernel}: {ms:.4f} ms device time in "
               f"{n} launches per step")
     return {k: v[0] for k, v in ours.items()}
 
@@ -1508,9 +1613,17 @@ def launch_counters():
     from mxnet_tpu_torch import kernels as K
 
     counters = {name: getattr(K, name).LAUNCHES for name in PORT_KERNELS
-                if name != "lstm_cell_bwd"}
-    counters["lstm_cell_bwd"] = K.lstm_cell.BWD_LAUNCHES
+                if name not in BWD_COUNTERS}
+    for name, (mod, attr) in BWD_COUNTERS.items():
+        counters[name] = getattr(getattr(K, mod), attr)
     return counters
+
+
+def kernel_modules():
+    """The kernel wrapper modules, one each."""
+    from mxnet_tpu_torch import kernels as K
+
+    return [getattr(K, n) for n in PORT_KERNELS if n not in BWD_COUNTERS]
 
 
 def lstm_fit(mx, seed, **callbacks):
@@ -1557,8 +1670,7 @@ def phase_lstm_training(torch, mx, card):
 
     t0 = time.perf_counter()
     kernels = launch_counters()
-    plain_calls = count_plain_calls(
-        torch, [getattr(K, n) for n in PORT_KERNELS if n != "lstm_cell_bwd"])
+    plain_calls = count_plain_calls(torch, kernel_modules())
     per_step = []  # (epoch, bucket, launches of the step, host s, event)
     last = {}
 
@@ -1819,28 +1931,40 @@ def ssd_images(n, dtype=np.float32):
         (n, 3, SSD_SHAPE, SSD_SHAPE), np.float32).astype(dtype)
 
 
-class record_detection:
-    """Within the block, keep the inputs and outputs of every
-    ``multibox_decode`` and ``nms`` call of the detection step (the tensors
+class record_calls:
+    """Within the block, keep the arguments and result of every call of
+    each ``(key, module, attribute)`` target, by key (the tensors
     themselves; nothing is copied or launched)."""
 
-    def __enter__(self):
-        from mxnet_tpu_torch.kernels import multibox_decode as dec, nms
+    def __init__(self, targets):
+        self.targets = targets
+        self.calls = {key: [] for key, _mod, _attr in targets}
+        self.saved = []
 
-        self.mods = [(dec, "multibox_decode", dec.multibox_decode),
-                     (nms, "nms", nms.nms)]
-        self.calls = {"multibox_decode": [], "nms": []}
-        for mod, name, fn in self.mods:
-            def rec(*a, _fn=fn, _name=name):
+    def __enter__(self):
+        for key, mod, attr in self.targets:
+            fn = getattr(mod, attr)
+
+            def rec(*a, _fn=fn, _key=key):
                 out = _fn(*a)
-                self.calls[_name].append((a, out))
+                self.calls[_key].append((a, out))
                 return out
-            setattr(mod, name, rec)
+            self.saved.append((mod, attr, fn))
+            setattr(mod, attr, rec)
         return self
 
     def __exit__(self, *exc):
-        for mod, name, fn in self.mods:
-            setattr(mod, name, fn)
+        for mod, attr, fn in reversed(self.saved):
+            setattr(mod, attr, fn)
+
+
+def record_detection():
+    """Record the ``multibox_decode`` and ``nms`` calls of the detection
+    step."""
+    from mxnet_tpu_torch.kernels import multibox_decode as dec, nms
+
+    return record_calls([("multibox_decode", dec, "multibox_decode"),
+                         ("nms", nms, "nms")])
 
 
 def nms_grid_inputs(torch, dev, seed, n=4, a=1000, classes=3):
@@ -2161,9 +2285,9 @@ def phase_ssd_serving(torch, mx, card, ssd):
             for i, f in futs.items():
                 answers[i] = f.result(timeout=300)[0]
                 buckets[i] = f.bucket
-        launches = {n: getattr(K, n).LAUNCHES.value for n in names}
-        others = {n: getattr(K, n).LAUNCHES.value for n in PORT_KERNELS
-                  if n not in names and n != "lstm_cell_bwd"}
+        counters = launch_counters()
+        launches = {n: counters[n].value for n in names}
+        others = {n: c.value for n, c in counters.items() if n not in names}
         batches = tm.counter("serving.batches").value
         plain = dict(plain_calls)
 
@@ -2291,12 +2415,710 @@ def ssd_profile(torch, pred, reps=3):
     return ours
 
 
+# --- SSD-VGG16 training ------------------------------------------------------
+MBT_CASES = ("random", "padded rows and an image without objects",
+             "grid: IoU at the threshold, shared best anchors",
+             "tied and signed-zero logits at the mining boundary",
+             "a padded row after an object whose best anchor is anchor 0",
+             "mining off", "minimum negative samples")
+MBT_PARAMS = {"overlap_threshold": 0.5, "ignore_label": -1.0,
+              "negative_mining_ratio": 3.0, "negative_mining_thresh": 0.5,
+              "minimum_negative_samples": 0,
+              "variances": (0.1, 0.1, 0.2, 0.2)}
+
+
+def mbt_case(name, a=300):
+    """``(anchors (1, A, 4), label (n, G, 5), cls_pred (n, 6, A), params)``
+    as numpy for one of ``MBT_CASES``, MultiBoxTarget's edge inputs."""
+    rng = np.random.default_rng(SEED + 50 + MBT_CASES.index(name))
+
+    def grid_anchors():  # many IoUs with grid objects are 1/2, 1/4, 1/3
+        x1 = rng.integers(0, 12, (a, 2)) / 16
+        wh = rng.integers(1, 5, (a, 2)) / 16
+        return np.concatenate([x1, x1 + wh], 1).astype(np.float32)[None]
+
+    def random_anchors():
+        lo = rng.uniform(0, 0.8, (a, 2))
+        return np.concatenate([lo, lo + rng.uniform(0.05, 0.3, (a, 2))],
+                              1).astype(np.float32)[None]
+
+    def labels(valid_counts, g, grid=False):
+        label = np.full((len(valid_counts), g, 5), -1.0, np.float32)
+        for b, k in enumerate(valid_counts):
+            for j in range(k):
+                if grid:
+                    x1 = rng.integers(0, 10, 2) / 16
+                    box = np.concatenate([x1, x1 + rng.integers(2, 6, 2) / 16])
+                else:
+                    x1 = rng.uniform(0, 0.6, 2)
+                    box = np.concatenate([x1, x1 + rng.uniform(0.1, 0.4, 2)])
+                label[b, j] = [rng.integers(0, 5), *box]
+        return label
+
+    def logits(n, levels=None, p=None):
+        if levels is None:
+            return rng.standard_normal((n, 6, a)).astype(np.float32)
+        return rng.choice(np.asarray(levels, np.float32), (n, 6, a), p=p)
+
+    if name == "random":
+        return random_anchors(), labels([6, 3, 1], 6), logits(3), MBT_PARAMS
+    if name == "padded rows and an image without objects":
+        return random_anchors(), labels([2, 0, 4], 5), logits(3), MBT_PARAMS
+    if name == "grid: IoU at the threshold, shared best anchors":
+        label = labels([6, 5, 3, 6], 6, grid=True)
+        label[0, 1, 1:] = label[0, 0, 1:]  # two objects, one best anchor
+        label[1, 2, 1:] = label[1, 0, 1:]
+        return grid_anchors(), label, logits(4), MBT_PARAMS
+    if name == "tied and signed-zero logits at the mining boundary":
+        # a few keys below the signed zeros, so the boundary falls on them
+        return grid_anchors(), labels([4, 2, 3], 4, grid=True), \
+            logits(3, [-1.0, -0.0, 0.0, 0.5], [0.02, 0.3, 0.3, 0.38]), \
+            MBT_PARAMS
+    if name == "a padded row after an object whose best anchor is anchor 0":
+        # the object's best anchor is anchor 0 at IoU 0.38 (not a match by
+        # the threshold); the padded row's best anchor is anchor 0 too, and
+        # its write comes last in image 0, first in image 1
+        anc = random_anchors()
+        anc[0, 0] = [0.0, 0.0, 0.4, 0.4]
+        anc[0, 1:, :2] = np.maximum(anc[0, 1:, :2], 0.45)
+        anc[0, 1:, 2:] = anc[0, 1:, :2] + 0.1
+        obj, pad = [2.0, 0.0, 0.0, 0.2, 0.5], [-1.0, 0.0, 0.0, 0.0, 0.0]
+        label = np.array([[obj, pad], [pad, obj]], np.float32)
+        return anc, label, logits(2), dict(MBT_PARAMS,
+                                           negative_mining_ratio=-1.0)
+    if name == "mining off":
+        return random_anchors(), labels([3, 1], 4), logits(2), \
+            dict(MBT_PARAMS, negative_mining_ratio=-1.0)
+    if name == "minimum negative samples":
+        # the minimum binds in the first three images; in the last,
+        # int(2.9 * num_pos) does (truncated, as the reference's cast)
+        return random_anchors(), labels([1, 0, 2, 16], 16), \
+            logits(4, [0.0, 1.0, 2.0]), \
+            dict(MBT_PARAMS, minimum_negative_samples=40,
+                 negative_mining_ratio=2.9)
+    raise KeyError(name)
+
+
+def mbt_args(params):
+    """MultiBoxTarget's parameters in the kernel wrapper's order."""
+    return [params[k] for k in (
+        "overlap_threshold", "ignore_label", "negative_mining_ratio",
+        "negative_mining_thresh", "minimum_negative_samples", "variances")]
+
+
+def ssd_train_symbol(mx):
+    return mx.models.ssd.get_symbol_train(num_classes=SSD_CLASSES,
+                                          data_shape=SSD_SHAPE)
+
+
+def ssd_train_images(n, seed):
+    """``n`` images and labels as ``examples/train_ssd.py``'s
+    ``make_synthetic_rec`` paints them: 1..6 filled rectangles of a colour
+    per class (20 classes, colours from the seed) over noise in 0..59,
+    each side 1/6 to 1/2 of the image; then the example iterator's mean
+    subtracted, times ``SSD_INPUT_SCALE``. Labels (n, SSD_OBJECTS, 5), rows
+    ``[cls, x1, y1, x2, y2]`` normalized, -1 padded."""
+    rng = np.random.default_rng(seed)
+    colors = rng.integers(0, 256, (SSD_CLASSES, 3)).astype(np.float32)
+    s = SSD_SHAPE
+    mean = np.asarray(SSD_MEAN, np.float32)[:, None, None]
+    x = np.empty((n, 3, s, s), np.float32)
+    y = np.full((n, SSD_OBJECTS, 5), -1.0, np.float32)
+    for i in range(n):
+        img = rng.integers(0, 60, (3, s, s)).astype(np.float32)
+        for j in range(rng.integers(1, 7)):
+            c = rng.integers(0, SSD_CLASSES)
+            w, h = rng.integers(s // 6, s // 2, 2)
+            x0, y0 = rng.integers(0, s - w), rng.integers(0, s - h)
+            img[:, y0:y0 + h, x0:x0 + w] = colors[c][:, None, None]
+            y[i, j] = [c, x0 / s, y0 / s, (x0 + w) / s, (y0 + h) / s]
+        x[i] = (img - mean) * np.float32(SSD_INPUT_SCALE)
+    return x, y
+
+
+def ssd_train_module(mx, sym, args, ctx, batch, dtype=np.float32):
+    """``sym`` bound by ``Module(data_names=("data",),
+    label_names=("label",))`` on ``ctx`` at ``batch``, parameters from the
+    numpy ``args`` (cast to ``dtype``), SGD as ``SSD_TRAIN_OPT``."""
+    mod = mx.mod.Module(sym, data_names=("data",), label_names=("label",),
+                        context=ctx)
+    mod.bind(data_shapes=[mx.io.DataDesc(
+        "data", (batch, 3, SSD_SHAPE, SSD_SHAPE), dtype)],
+        label_shapes=[mx.io.DataDesc("label", (batch, SSD_OBJECTS, 5),
+                                     dtype)])
+    mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu(), dtype=dtype)
+                                for k, v in args.items()}, aux_params={})
+    mod.init_optimizer(optimizer="sgd", optimizer_params=SSD_TRAIN_OPT)
+    return mod
+
+
+def ssd_batch(mx, x, y, ctx, dtype=np.float32):
+    return mx.io.DataBatch([mx.nd.array(x, ctx=ctx, dtype=dtype)],
+                           [mx.nd.array(y, ctx=ctx, dtype=dtype)])
+
+
+def ssd_losses(torch, outs):
+    """``(class cross-entropy over the anchors whose target is not ignored,
+    loc loss per matched anchor)`` from the training symbol's outputs
+    ``[cls_prob, loc_loss, cls_label, det_out]``."""
+    prob, loc, cls_t = (o._data for o in outs[:3])
+    keep = cls_t >= 0
+    p = torch.gather(prob, 1, cls_t.clamp_min(0).long()[:, None, :])[:, 0]
+    ce = -(torch.log(p + 1e-8) * keep).sum() / keep.sum().clamp_min(1)
+    return float(ce), float(loc.sum() / (cls_t > 0).sum().clamp_min(1))
+
+
+def ssd_loss_curve(torch, mx, ctx, seed):
+    """``SSD_LOSS_STEPS`` SGD steps of SSD-300 on one fixed batch of
+    ``SSD_LOSS_BATCH`` painted images on ``ctx``, parameters from
+    ``seed``: ``(cross-entropy, loc loss)`` of each step's forward."""
+    _sym, args = ssd_numpy(mx, seed)
+    x, y = ssd_train_images(SSD_LOSS_BATCH, seed + 1)
+    mod = ssd_train_module(mx, ssd_train_symbol(mx), args, ctx,
+                           SSD_LOSS_BATCH)
+    batch = ssd_batch(mx, x, y, ctx)
+    curve = []
+    for _ in range(SSD_LOSS_STEPS):
+        mod.forward_backward(batch)
+        curve.append(ssd_losses(torch, mod.get_outputs()))
+        mod.update()
+    return curve
+
+
+def ssd_parity_step(torch, mx, mod, x, y, dtype=np.float32):
+    """One SGD step of ``mod`` on ``x``, ``y``; after it, the kinds of
+    ``SSD_PARITY_TOL`` as float64 numpy arrays by name, and the step's
+    ``cls_target``."""
+    ctx = mod._context[0]
+    mod.forward_backward(ssd_batch(mx, x, y, ctx, dtype))
+    outs = mod.get_outputs()
+    ce, loc = ssd_losses(torch, outs)
+    cls_t = outs[2].asnumpy()
+    mod.update()
+    names = mod._exec_group.param_names
+    arg, _aux = mod.get_params()
+    return {"loss": {"ce": np.array([ce]), "loc": np.array([loc])},
+            "param": {n: arg[n].asnumpy().astype(np.float64) for n in names},
+            "momentum": {names[i]: m.asnumpy().astype(np.float64)
+                         for i, m in mod._updater.states.items()},
+            "cls_target": cls_t}
+
+
+def ssd_parity_run(torch, mx, sides, dtypes, seed):
+    """Two SGD steps at ``SSD_PARITY_BATCH`` of ``sides`` (name -> Module
+    holding ``dtypes[name]``) on painted images from ``seed``; before the
+    second, every side takes the first side's parameters and momenta.
+    Returns ``{name: [step results]}``."""
+    b = SSD_PARITY_BATCH
+    x, y = ssd_train_images(2 * b, seed)
+    names = list(sides)
+    results = {n: [] for n in names}
+    for s in range(2):
+        if s:
+            lead = sides[names[0]]
+            arg, _aux = lead.get_params()
+            for n in names[1:]:
+                mod = sides[n]
+                mod.set_params({k: mx.nd.array(v.asnumpy().astype(
+                    dtypes[n]), ctx=mx.cpu(), dtype=dtypes[n])
+                    for k, v in arg.items()}, {})
+                for i, m in lead._updater.states.items():
+                    mod._updater.states[i][:] = m.asnumpy().astype(dtypes[n])
+        for n in names:
+            results[n].append(ssd_parity_step(
+                torch, mx, sides[n], x[s * b:(s + 1) * b],
+                y[s * b:(s + 1) * b], dtypes[n]))
+    return results
+
+
+def ssd_parity_lines(res, got, want):
+    """``(lines, {(step, kind): relative difference}, [cls_target
+    disagreements per step])`` of side ``got`` against side ``want``."""
+    lines, rels, apart = [], {}, []
+    for s in range(2):
+        for kind in SSD_PARITY_TOL:
+            rel, worst, worst_rel = parity_diff(res[got][s][kind],
+                                                res[want][s][kind])
+            rels[(s, kind)] = rel
+            lines.append(f"step {s + 1} {kind}: |{got} - {want}| / |{want}| "
+                         f"= {rel:.3g}; worst tensor {worst} {worst_rel:.3g}")
+        apart.append(int((res[got][s]["cls_target"]
+                          != res[want][s]["cls_target"]).sum()))
+    return lines, rels, apart
+
+
+def ssd_train_cpu_readings(seeds=(0, 1, 2)):
+    """The readings ``SSD_LOSS_RATIO``, ``SSD_PARITY_TOL`` and
+    ``SSD_TARGET_LIMIT`` were fixed from, made before any card ran the SSD
+    training phases, on the port's CPU path: the loss check's curve for
+    each seed offset, and two parity steps in float32 against float64.
+    Needs no card."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    t0 = time.perf_counter()
+    for k in seeds:
+        curve = ssd_loss_curve(torch, mx, mx.cpu(), SEED + 30 + k)
+        (ce0, loc0), (ce1, loc1) = curve[0], curve[-1]
+        print(f"[ssd-train-cpu] loss check, seed SEED + {30 + k}: cross-"
+              f"entropy {ce0:.4f} -> {ce1:.4f} ({ce1 / ce0:.4f}), loc loss "
+              f"{loc0:.4f} -> {loc1:.4f} ({loc1 / loc0:.4f}); curve "
+              f"{[(round(c, 4), round(lo, 4)) for c, lo in curve]}",
+              flush=True)
+    _sym, args = ssd_numpy(mx, SEED + 40)
+    sym = ssd_train_symbol(mx)
+    dtypes = {"cpu": np.float32, "cpu64": np.float64}
+    sides = {n: ssd_train_module(mx, sym, args, mx.cpu(), SSD_PARITY_BATCH,
+                                 d) for n, d in dtypes.items()}
+    res = ssd_parity_run(torch, mx, sides, dtypes, SEED + 41)
+    lines, _rels, apart = ssd_parity_lines(res, "cpu", "cpu64")
+    for line in lines:
+        print(f"[ssd-train-cpu] {line}")
+    print(f"[ssd-train-cpu] cls_target disagreements float32 vs float64 per "
+          f"step {apart} of {SSD_PARITY_BATCH * SSD_ANCHORS} anchors "
+          f"({torch.get_num_threads()} threads, "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def ssd_train_targets():
+    """The kernel calls recorded in an SSD training step."""
+    from mxnet_tpu_torch.kernels import (
+        l2norm_channel as l2, multibox_decode as dec,
+        multibox_target as mbt, nms, softmax_rows as sm)
+    from mxnet_tpu_torch.ops import defs_nn
+
+    return [("multibox_target", mbt, "multibox_target"),
+            ("l2norm_channel", l2, "l2norm_channel"),
+            ("l2norm_channel_bwd", l2, "l2norm_channel_bwd"),
+            ("softmax_rows", sm, "softmax_rows"),
+            ("softmax_output_bwd", defs_nn, "softmax_output_bwd"),
+            ("multibox_decode", dec, "multibox_decode"), ("nms", nms, "nms")]
+
+
+def phase_ssd_train_kernels(torch, mx):
+    """One SSD-300 training step at batch 32 on the card with its kernel
+    calls recorded; each kernel against its plain version on the step's own
+    tensors (``multibox_target`` and ``nms`` bit for bit), the new kernels
+    also on edge inputs and odd shapes; each timed beside its bound and,
+    where one PyTorch call computes the same function, that call."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.kernels import (
+        l2norm_channel as l2, multibox_decode as dec,
+        multibox_target as mbt, nms, sgd_mom_multi as sg, softmax_rows as sm,
+        softmax_output_bwd as so)
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    _sym, args = ssd_numpy(mx, SEED + 20)
+    x, y = ssd_train_images(SSD_TRAIN_BATCH, SEED + 21)
+    mod = ssd_train_module(mx, ssd_train_symbol(mx), args, mx.gpu(0),
+                           SSD_TRAIN_BATCH)
+    with record_calls(ssd_train_targets()) as rec:
+        mod.forward_backward(ssd_batch(mx, x, y, mx.gpu(0)))
+        torch.cuda.synchronize()
+    # the recorded arguments and results, detached from the step's
+    # autograd graph
+    def detached(v):
+        if isinstance(v, tuple):
+            return tuple(detached(t) for t in v)
+        return v.detach() if isinstance(v, torch.Tensor) else v
+
+    calls = {k: detached(v[0]) for k, v in rec.calls.items()}
+    n_calls = {k: len(v) for k, v in rec.calls.items()}
+    if any(c != 1 for c in n_calls.values()):
+        fail(f"one SSD training step called the kernels {n_calls} times")
+    print(f"[ssd-train-kernels] one SSD-300 training step at batch "
+          f"{SSD_TRAIN_BATCH} recorded ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    rows, extra = [], {}
+
+    # --- multibox_target: bit for bit on the step and on edge inputs
+    (anc, label, cls_pred, *params), got = calls["multibox_target"]
+    if (tuple(cls_pred.shape) != (SSD_TRAIN_BATCH, SSD_CLASSES + 1,
+                                  SSD_ANCHORS) or cls_pred.is_contiguous()):
+        fail(f"multibox_target's cls_pred {tuple(cls_pred.shape)} strides "
+             f"{cls_pred.stride()}: expected the class-major view")
+    want = mbt.multibox_target_plain(anc, label, cls_pred, *params)
+    torch.cuda.synchronize()
+    mbt_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    for what, g, w in zip(("loc_target", "loc_mask", "cls_target"), got,
+                          want):
+        if not torch.equal(g, w):
+            fail(f"multibox_target {what} on the training step: "
+                 f"{int((g != w).sum())} values differ from the plain version")
+    cls_t = got[2]
+    counts = [int((cls_t > 0).sum()), int((cls_t == 0).sum()),
+              int((cls_t == -1).sum())]
+    for name in MBT_CASES:
+        a_np, l_np, c_np, p = mbt_case(name)
+        ins = [torch.from_numpy(t).to(dev) for t in (a_np, l_np, c_np)]
+        g_, w_ = (mbt.multibox_target(*ins, *mbt_args(p)),
+                  mbt.multibox_target_plain(*ins, *mbt_args(p)))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(g_, w_)):
+            fail(f"multibox_target on '{name}' differs from its plain "
+                 f"version")
+    print(f"[ssd-train-kernels] multibox_target equals its plain version "
+          f"bit for bit on the step's own tensors (label "
+          f"{tuple(label.shape)}, cls_pred {tuple(cls_pred.shape)} strides "
+          f"{cls_pred.stride()}: {counts[0]} matched, {counts[1]} mined "
+          f"negatives, {counts[2]} ignored) and on {len(MBT_CASES)} edge "
+          f"inputs", flush=True)
+    n, a, g = label.shape[0], anc.numel() // 4, label.shape[1]
+    ms = cuda_ms(torch, lambda: mbt.multibox_target(anc, label, cls_pred,
+                                                    *params), reps=20)
+    plain = cuda_ms(torch, lambda: mbt.multibox_target_plain(
+        anc, label, cls_pred, *params), reps=3, warmup=1)
+    # bytes: one 32-byte sector per strided background logit, the anchors
+    # and labels once, 9 floats of targets per anchor; operations: the
+    # (A, G) IoUs (~12 flops each) and the encoding (~20 per match)
+    b_ms, b_by = bound(n * a * 32 + a * 16 + label.numel() * 4
+                       + n * a * 9 * 4, n * a * g * 12 + counts[0] * 20)
+    print(f"[ssd-train-kernels] multibox_target at A {a}, G {g}, batch {n}: "
+          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, no library call, "
+          f"bound {b_ms * 1e3:.2f} us ({b_by})", flush=True)
+    rows.append({"name": "multibox_target", "route": "cuda",
+                 "source": "mxnet_tpu_torch/csrc/multibox_target.cu",
+                 "replaces": "mxnet_tpu/ops/defs_contrib.py:150",
+                 "max_abs_err": mbt_err, "ms": ms, "plain_ms": plain,
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+
+    # --- l2norm_channel_bwd: the step's own tensors and odd shapes
+    (xl, gl, eps, scale), _dx = calls["l2norm_channel_bwd"]
+    bwd_err = 0.0
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    cases = [((xl, gl), scale, "the step's conv4_3")]
+    for shape in ((3, 5, 7, 9), (2, 3), (1, 1000, 1, 1), (5, 17, 13, 11)):
+        cases.append(((torch.randn(shape, generator=gen, device=dev),
+                       torch.randn(shape, generator=gen, device=dev)), 20.0,
+                      str(shape)))
+        cases.append((cases[-1][0], 1.0, str(shape)))
+    for (xc, gc), sc, what in cases:
+        want_dx = l2.l2norm_channel_bwd_plain(xc, gc, eps, sc)
+        bwd_err = max(bwd_err, check(
+            torch, f"l2norm_channel_bwd {what} scale {sc}",
+            l2.l2norm_channel_bwd(xc, gc, eps, sc), want_dx, l2.BWD_RTOL,
+            l2.BWD_ATOL * float(want_dx.abs().max())))
+    ms = cuda_ms(torch, lambda: l2.l2norm_channel_bwd(xl, gl, eps, scale),
+                 reps=50)
+    plain = cuda_ms(torch, lambda: l2.l2norm_channel_bwd_plain(
+        xl, gl, eps, scale), reps=20)
+    b_ms, b_by = bound(3 * xl.numel() * 4, 8 * xl.numel())
+    print(f"[ssd-train-kernels] l2norm_channel_bwd matches its plain version "
+          f"at {tuple(xl.shape)} x {scale} and 4 odd shapes x scale 1, 20: "
+          f"max abs err {bwd_err:g} (rtol {l2.BWD_RTOL}, atol {l2.BWD_ATOL} "
+          f"x max|dx|); kernel {ms:.4f} ms, plain {plain:.4f} ms, no "
+          f"library call, bound {b_ms * 1e3:.2f} us ({b_by})", flush=True)
+    rows.append({"name": "l2norm_channel_bwd", "route": "cuda",
+                 "source": "mxnet_tpu_torch/csrc/l2norm_channel_bwd.cu",
+                 "replaces": "mxnet_tpu/ops/defs_nn.py:500",
+                 "max_abs_err": bwd_err, "ms": ms, "plain_ms": plain,
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+
+    # --- the kernels of earlier slices, at this path's shapes
+    def reused(name, err, ms, plain, bnd, lib=None):
+        extra[name] = {"ssd_train_max_abs_err": err, "ssd_train_ms": ms,
+                       "ssd_train_plain_ms": plain,
+                       "ssd_train_bound_ms": bnd[0],
+                       "ssd_train_bound_by": bnd[1],
+                       "ssd_train_library_ms": lib}
+
+    (xf, eps_f, scale_f), yf = calls["l2norm_channel"]
+    err = check(torch, "l2norm_channel at the training step", yf,
+                l2.l2norm_channel_plain(xf, eps_f, scale_f), L2_RTOL,
+                L2_ATOL * scale_f)
+    reused("l2norm_channel", err,
+           cuda_ms(torch, lambda: l2.l2norm_channel(xf, eps_f, scale_f),
+                   reps=50),
+           cuda_ms(torch, lambda: l2.l2norm_channel_plain(xf, eps_f,
+                                                          scale_f), reps=20),
+           bound(2 * xf.numel() * 4, 4 * xf.numel()),
+           cuda_ms(torch, lambda: F.normalize(xf, dim=1) * scale_f, reps=20))
+    (flat,), pr = calls["softmax_rows"]
+    err = check(torch, f"softmax_rows at {tuple(flat.shape)}", pr,
+                sm.softmax_rows_plain(flat), 0.0, SM_ATOL)
+    reused("softmax_rows", err,
+           cuda_ms(torch, lambda: sm.softmax_rows(flat), reps=50),
+           cuda_ms(torch, lambda: sm.softmax_rows_plain(flat), reps=20),
+           bound(2 * flat.numel() * 4, 4 * flat.numel()),
+           cuda_ms(torch, lambda: torch.softmax(flat, 1), reps=50))
+    so_args, gso = calls["softmax_output_bwd"]
+    err = check(torch, "softmax_output_bwd at the training step", gso,
+                so.softmax_output_bwd_plain(*so_args), 0.0, EXACT_ATOL)
+    p_ = so_args[0]
+    ignored = float((so_args[1] == so_args[3]).float().mean())
+    reused("softmax_output_bwd", err,
+           cuda_ms(torch, lambda: so.softmax_output_bwd(*so_args), reps=50),
+           cuda_ms(torch, lambda: so.softmax_output_bwd_plain(*so_args),
+                   reps=20),
+           bound(2 * p_.numel() * 4 + so_args[1].numel() * 4,
+                 2 * p_.numel()))
+    dargs, (dboxes, dscore, did) = calls["multibox_decode"]
+    wb, ws, wid = dec.multibox_decode_plain(*dargs)
+    err = max(check(torch, "multibox_decode boxes without the softmax",
+                    dboxes, wb, DECODE_RTOL, DECODE_ATOL),
+              check(torch, "multibox_decode scores without the softmax",
+                    dscore, ws, DECODE_RTOL, DECODE_ATOL))
+    top2 = torch.topk(dargs[0][:, 1:], 2, dim=1).values
+    clear = top2[:, 0] - top2[:, 1] > DECODE_RTOL * top2[:, 0] + DECODE_ATOL
+    if int(((did != wid) & clear).sum()):
+        fail("multibox_decode class ids without the softmax differ where "
+             "the best class is clear")
+    n_, c1, a_ = dargs[0].shape
+    reused("multibox_decode", err,
+           cuda_ms(torch, lambda: dec.multibox_decode(*dargs), reps=50),
+           cuda_ms(torch, lambda: dec.multibox_decode_plain(*dargs), reps=10),
+           bound(n_ * a_ * (4 * c1 + 16 + 16 + 8) + a_ * 16,
+                 n_ * a_ * (2 * c1 + 20)))
+    nargs, nout = calls["nms"]
+    nplain = nms.nms_plain(*nargs)
+    torch.cuda.synchronize()
+    if not torch.equal(nout, nplain):
+        fail(f"nms at the training step: "
+             f"{int((nout[..., 0] != nplain[..., 0]).sum())} keep decisions "
+             f"differ from the plain version")
+    boxes, score, cls_id, order, thr, nms_thr, force = nargs
+    ious = nms_iou_count(torch, nout, score, cls_id, order, thr, force)
+    t_plain = time.perf_counter()
+    nms.nms_plain(*nargs)
+    torch.cuda.synchronize()
+    reused("nms", 0.0, cuda_ms(torch, lambda: nms.nms(*nargs), reps=10),
+           (time.perf_counter() - t_plain) * 1e3,
+           bound(n_ * a_ * (16 + 4 + 4 + 8 + 24), ious * NMS_IOU_OPS))
+    print(f"[ssd-train-kernels] at the training step: l2norm_channel "
+          f"{tuple(xf.shape)} x {scale_f}, softmax_rows {tuple(flat.shape)}, "
+          f"softmax_output_bwd {tuple(p_.shape)} (multi_output, use_ignore, "
+          f"valid; {100 * ignored:.1f} % of labels ignored), multibox_decode "
+          f"{tuple(dargs[0].shape)} on probabilities, nms "
+          f"{tuple(score.shape)} threshold {nms_thr} ({keep_count(nout)} "
+          f"kept, {ious} same-class IoUs needed) each hold their plain "
+          f"versions (nms bit for bit); times {json.dumps(extra)}",
+          flush=True)
+
+    # --- sgd_mom_multi over SSD's parameters, with the step's gradients
+    exe = mod._exec_group._exec
+    names = sorted(args)
+    ws_ = [exe.arg_dict[k]._data.clone() for k in names]
+    gs_ = [exe.grad_dict[k]._data for k in names]
+    ms_ = [torch.randn(w.shape, generator=gen, device=dev) * 1e-4
+           for w in ws_]
+    lrs = [SSD_TRAIN_OPT["learning_rate"]] * len(names)
+    wds = [SSD_TRAIN_OPT["wd"] if k.endswith("_weight") else 0.0
+           for k in names]
+    w2, m2 = [w.clone() for w in ws_], [m.clone() for m in ms_]
+    sg.sgd_mom_multi(ws_, gs_, ms_, lrs, wds, 0.9, 1 / SSD_TRAIN_BATCH, -1.0)
+    sg.sgd_mom_multi_plain(w2, gs_, m2, lrs, wds, 0.9, 1 / SSD_TRAIN_BATCH,
+                           -1.0)
+    err = max(check(torch, "sgd_mom_multi over SSD's parameters", a_, b_,
+                    0.0, EXACT_ATOL) for a_, b_ in zip(ws_ + ms_, w2 + m2))
+    cache = {}
+    sg_ms = cuda_ms(torch, lambda: sg.sgd_mom_multi(
+        ws_, gs_, ms_, lrs, wds, 0.9, 1 / SSD_TRAIN_BATCH, -1.0,
+        cache=cache), reps=50)
+    sg_plain = cuda_ms(torch, lambda: sg.sgd_mom_multi_plain(
+        ws_, gs_, ms_, lrs, wds, 0.9, 1 / SSD_TRAIN_BATCH, -1.0), reps=5)
+    tparams = [torch.nn.Parameter(w) for w in ws_]
+    for tp, gr in zip(tparams, gs_):
+        tp.grad = gr
+    topt = torch.optim.SGD(tparams, lr=SSD_TRAIN_OPT["learning_rate"],
+                           momentum=0.9, weight_decay=SSD_TRAIN_OPT["wd"],
+                           fused=True)
+    numel = sum(w.numel() for w in ws_)
+    reused("sgd_mom_multi", err, sg_ms, sg_plain,
+           bound(20 * numel, 6 * numel), cuda_ms(torch, topt.step, reps=50))
+    print(f"[ssd-train-kernels] sgd_mom_multi matches its plain version over "
+          f"SSD's {len(names)} tensors ({numel / 1e6:.2f} M values, wd "
+          f"{SSD_TRAIN_OPT['wd']} on the weights): max abs err {err:g}; "
+          f"{json.dumps(extra['sgd_mom_multi'])}", flush=True)
+    del mod, exe, rec, calls
+    return rows, extra
+
+
+def phase_ssd_training(torch, mx, card):
+    """SSD-300 trained by ``Module.fit`` at batch 32 on the card over an
+    ``NDArrayIter`` of painted images: every step's launches exactly
+    ``SSD_TRAIN_LAUNCHES`` and no plain version on data; the loss check;
+    ms per step and images/s of fit's own steps after the first, the
+    compute step by CUDA events, peak memory and a profile of one step."""
+    from mxnet_tpu_torch import telemetry as tm
+    from mxnet_tpu_torch.kernels import sgd_mom_multi
+
+    t0 = time.perf_counter()
+    _sym, args = ssd_numpy(mx, SEED + 20)
+    steps = SSD_FIT_STEPS
+    x, y = ssd_train_images(steps * SSD_TRAIN_BATCH, SEED + 22)
+    it = mx.io.NDArrayIter(x, y, batch_size=SSD_TRAIN_BATCH,
+                           label_name="label")  # on gpu(0)
+    mod = mx.mod.Module(ssd_train_symbol(mx), data_names=("data",),
+                        label_names=("label",))  # on gpu(0)
+    arg_nd = {k: mx.nd.array(v, ctx=mx.cpu()) for k, v in args.items()}
+    kernels = launch_counters()
+    plain_calls = count_plain_calls(torch, kernel_modules())
+    per_step, last, marks = [], {}, {}
+
+    def on_batch(param):
+        now = {k: c.value for k, c in kernels.items()}
+        per_step.append({k: v - last.get(k, 0) for k, v in now.items()})
+        last.update(now)
+        if param.nbatch in (0, steps - 1):
+            torch.cuda.synchronize()
+            marks[param.nbatch] = (time.perf_counter(), tm.histogram(
+                "fit.data_wait").sum, tm.histogram("fit.dispatch").sum)
+
+    # the main path: every count at 0 just before, read just after
+    tm.reset()
+    for k in plain_calls:
+        plain_calls[k] = 0
+    mod.fit(it, num_epoch=1, eval_metric=mx.metric.Loss(name="ssd_loss"),
+            optimizer="sgd", optimizer_params=SSD_TRAIN_OPT,
+            arg_params=arg_nd, batch_end_callback=on_batch)
+    torch.cuda.synchronize()
+    launches = {k: c.value for k, c in kernels.items()}
+    batches = tm.counter("fit.batches").value
+    builds = sgd_mom_multi.TABLE_BUILDS.value
+    plain = dict(plain_calls)
+    fit_s = time.perf_counter() - t0
+
+    want = {k: SSD_TRAIN_LAUNCHES.get(k, 0) for k in kernels}
+    bad = [i for i, st in enumerate(per_step) if st != want]
+    if bad or batches != steps or len(per_step) != steps:
+        fail(f"SSD training launches: steps {bad} of {len(per_step)} off, "
+             f"first {per_step[bad[0]] if bad else None}; expected per step "
+             f"{SSD_TRAIN_LAUNCHES} over {steps} steps, {batches} counted")
+    if any(plain.values()):
+        fail(f"plain versions ran on the card's main path: {plain}")
+    if builds != 1:
+        fail(f"the update kernel's table was built {builds} times over "
+             f"{steps} steps")
+    exe = mod._exec_group._exec
+    if exe.arg_dict["conv4_3_weight"].context != mx.gpu(0):
+        fail("Module.fit did not train SSD on gpu(0)")
+    outs = mod.get_outputs()
+    shapes = [o.shape for o in outs]
+    want_shapes = [(SSD_TRAIN_BATCH, SSD_CLASSES + 1, SSD_ANCHORS),
+                   (SSD_TRAIN_BATCH, 4 * SSD_ANCHORS),
+                   (SSD_TRAIN_BATCH, SSD_ANCHORS),
+                   (SSD_TRAIN_BATCH, SSD_ANCHORS, 6)]
+    finite = all(bool(torch.isfinite(o._data).all()) for o in outs)
+    if shapes != want_shapes or not finite:
+        fail(f"SSD training outputs {shapes} finite {finite}; expected "
+             f"{want_shapes}")
+    print(f"[ssd-training] SSD-300 Module.fit on {mx.current_context()}: "
+          f"{batches} steps at batch {SSD_TRAIN_BATCH} in {fit_s:.1f} s "
+          f"(binding, cuDNN's choices and first launches included); "
+          f"launches exactly {SSD_TRAIN_LAUNCHES} per step, totals "
+          f"{ {k: v for k, v in launches.items() if v} }; no plain version "
+          f"ran; the update's table built once; outputs {shapes}, finite",
+          flush=True)
+    timed = steps - 1
+    fit_ms = (marks[steps - 1][0] - marks[0][0]) / timed * 1e3
+    wait_ms = (marks[steps - 1][1] - marks[0][1]) / timed / 1e3
+    dispatch_ms = (marks[steps - 1][2] - marks[0][2]) / timed / 1e3
+    print(f"[ssd-training] Module.fit at batch {SSD_TRAIN_BATCH} on {card}, "
+          f"steps 2..{steps} by the host's clock: {fit_ms:.2f} ms per step "
+          f"({1e3 / fit_ms:.3f} steps/s, "
+          f"{SSD_TRAIN_BATCH * 1e3 / fit_ms:.1f} images/s); per step "
+          f"fit.data_wait {wait_ms:.2f} ms (the NDArrayIter's batch copied "
+          f"to the card), fit.dispatch {dispatch_ms:.2f} ms", flush=True)
+
+    # the loss check: steps on one fixed batch of SSD_LOSS_BATCH
+    curve = ssd_loss_curve(torch, mx, mx.gpu(0), SEED + 30)
+    ratios = {"ce": curve[-1][0] / curve[0][0],
+              "loc": curve[-1][1] / curve[0][1]}
+    if not all(math.isfinite(v) and v <= SSD_LOSS_RATIO[k]
+               for k, v in ratios.items()):
+        fail(f"SSD loss check: last/first {ratios} over {curve}; limits "
+             f"{SSD_LOSS_RATIO}")
+    print(f"[ssd-training] loss check, {SSD_LOSS_STEPS} steps on one batch "
+          f"of {SSD_LOSS_BATCH}: (cross-entropy, loc loss) "
+          f"{[(round(c, 4), round(lo, 4)) for c, lo in curve]}; last/first "
+          f"{ {k: round(v, 4) for k, v in ratios.items()} } (limits "
+          f"{SSD_LOSS_RATIO})", flush=True)
+
+    # the compute step alone (a batch already on the card, no input
+    # pipeline, no metric): CUDA events around a few steps after one
+    # warm-up step
+    it.reset()
+    batch = next(iter(it))
+
+    def step():
+        mod.forward_backward(batch)
+        mod.update()
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reps = 5
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    w0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        step()
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - w0) / reps * 1e3
+    step_ms = start.elapsed_time(end) / reps
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[ssd-training] SSD-300 compute step (forward_backward + update "
+          f"on a batch on the card) at batch {SSD_TRAIN_BATCH} on {card}: "
+          f"{step_ms:.2f} ms per step by CUDA events "
+          f"({SSD_TRAIN_BATCH * 1e3 / step_ms:.1f} images/s); host wall "
+          f"{wall_ms:.2f} ms per step; peak device memory {peak:.2f} GiB",
+          flush=True)
+    device_ms = profile_step(torch, step, tag="ssd-profile",
+                             what=f"one SSD-300 training step at batch "
+                             f"{SSD_TRAIN_BATCH}")
+    return launches, device_ms
+
+
+def phase_ssd_train_parity(torch, mx):
+    """Two SGD steps of SSD-300 at batch 2 on the card and on the port's
+    CPU path (plain versions), each from the same state, within
+    ``SSD_PARITY_TOL`` in norm, and at most ``SSD_TARGET_LIMIT`` anchors'
+    ``cls_target`` apart per step."""
+    _sym, args = ssd_numpy(mx, SEED + 40)
+    sym = ssd_train_symbol(mx)
+    t0 = time.perf_counter()
+    sides = {"card": ssd_train_module(mx, sym, args, mx.gpu(0),
+                                      SSD_PARITY_BATCH),
+             "cpu": ssd_train_module(mx, sym, args, mx.cpu(),
+                                     SSD_PARITY_BATCH)}
+    res = ssd_parity_run(torch, mx, sides, {"card": np.float32,
+                                            "cpu": np.float32}, SEED + 41)
+    lines, rels, apart = ssd_parity_lines(res, "card", "cpu")
+    bad = [f"step {s + 1} {kind} {rel:.3g} > {SSD_PARITY_TOL[kind][s]}"
+           for (s, kind), rel in rels.items()
+           if not rel <= SSD_PARITY_TOL[kind][s]]
+    bad += [f"step {s + 1}: {n} cls_target values apart > "
+            f"{SSD_TARGET_LIMIT}" for s, n in enumerate(apart)
+            if n > SSD_TARGET_LIMIT]
+    losses = {side: [(float(r["loss"]["ce"][0]), float(r["loss"]["loc"][0]))
+                     for r in res[side]] for side in res}
+    print(f"[ssd-parity] two SGD steps of SSD-300 at batch "
+          f"{SSD_PARITY_BATCH}, card against the port's CPU path "
+          f"({time.perf_counter() - t0:.1f} s): losses (ce, loc) "
+          f"{losses['card']} vs {losses['cpu']}; cls_target apart per step "
+          f"{apart} (limit {SSD_TARGET_LIMIT}); tolerances {SSD_PARITY_TOL}",
+          flush=True)
+    for line in lines:
+        print(f"[ssd-parity]   {line}")
+    if bad:
+        fail(f"SSD training parity: card and CPU differ beyond the limits "
+             f"in {bad}")
+
+
 def main():
     if sys.argv[1:2] == ["--cpu-perplexity"]:
         cpu_perplexity([int(a) for a in sys.argv[2:]])
         return
     if sys.argv[1:2] == ["--cpu-ssd"]:
         ssd_cpu_readings()
+        return
+    if sys.argv[1:2] == ["--cpu-ssd-train"]:
+        ssd_train_cpu_readings()
         return
     import torch
 
@@ -2324,17 +3146,26 @@ def main():
     lstm_trained, lstm_device_ms = phase_lstm_training(torch, mx, card)
     phase_lstm_parity(torch, mx)
     ssd_served, ssd_device_ms = phase_ssd_serving(torch, mx, card, ssd)
+    ssd_train_rows, ssd_train_extra = phase_ssd_train_kernels(torch, mx)
+    kernels += ssd_train_rows
+    for k in kernels:
+        k.update(ssd_train_extra.get(k["name"], {}))
+    ssd_trained, ssd_train_device_ms = phase_ssd_training(torch, mx, card)
+    phase_ssd_train_parity(torch, mx)
     for k in kernels:
         name = k["name"]
         k["launches_serving"] = served.get(name, 0)
         k["launches_training"] = trained.get(name, 0)
         k["launches_lstm"] = lstm_trained.get(name, 0)
         k["launches_ssd"] = ssd_served.get(name, 0)
+        k["launches_ssd_train"] = ssd_trained.get(name, 0)
         k["launches"] = (k["launches_serving"] + k["launches_training"]
-                         + k["launches_lstm"] + k["launches_ssd"])
+                         + k["launches_lstm"] + k["launches_ssd"]
+                         + k["launches_ssd_train"])
         k["step_device_ms"] = device_ms.get(name)
         k["lstm_step_device_ms"] = lstm_device_ms.get(name)
         k["ssd_forward_device_ms"] = ssd_device_ms.get(name)
+        k["ssd_step_device_ms"] = ssd_train_device_ms.get(name)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

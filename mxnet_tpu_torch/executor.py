@@ -36,8 +36,12 @@ consumer is a ``MultiBoxDetection`` runs nothing, and the detection reads
 its logits: one ``multibox_decode`` launch with the softmax inside, a
 stable sort of the scores, and ``nms``. A channel ``L2Normalization`` whose
 only consumer is a ``_mul_scalar`` runs nothing, and the ``_mul_scalar``
-node runs one ``l2norm_channel`` launch with the scale fused. Any other
-graph runs op by op, as written, and the symbol stays as it was built.
+node runs one ``l2norm_channel`` launch with the scale fused (in training,
+and its backward one ``l2norm_channel_bwd``). SSD's training symbol feeds
+``MultiBoxDetection`` the probabilities of a ``SoftmaxOutput``, so the
+detection route does not fire there and the detection reads them
+detached. Any other graph runs op by op, as written, and the symbol stays
+as it was built.
 A ``MultiBoxPrior`` depends only on its input's shape: the graph computes
 its anchors once per shape and device and holds them, unless they are a
 head of the graph (a caller may write to an output).
@@ -55,9 +59,8 @@ from .context import Context
 from .kernels.lstm_cell import LSTMCellFn, lstm_cell
 from .kernels.sgd_mom_multi import Guard
 from .ndarray import NDArray, ones as nd_ones, zeros as nd_zeros
-from .kernels.l2norm_channel import l2norm_channel
 from .ops.defs_contrib import detect
-from .ops.defs_nn import batch_norm, no_kernel_grad
+from .ops.defs_nn import batch_norm, l2norm_channel_op
 from .ops.registry import OpMode
 
 _GRAD_REQ = ("null", "write", "add")
@@ -144,10 +147,10 @@ def _run_detection(params, ins, mode):
 
 def _run_l2norm(eps, scale, ins, mode):
     """``L2Normalization(mode="channel")`` -> ``_mul_scalar`` as one
-    ``l2norm_channel`` launch with the scale fused."""
+    ``l2norm_channel`` launch with the scale fused (in training, its
+    backward one ``l2norm_channel_bwd``)."""
     (x,) = ins
-    no_kernel_grad(x, "L2Normalization(mode='channel')")
-    return [l2norm_channel(x, eps, scale)]
+    return [l2norm_channel_op(x, eps, scale)]
 
 
 def _fused_lstm(topo, consumers):

@@ -8,4 +8,5 @@ Sources are in ``mxnet_tpu_torch/csrc``; :mod:`._lib` builds them.
 
 from . import (  # noqa: F401
     adam_multi, bn_act, bn_act_bwd, bn_stats, l2norm_channel, lstm_cell,
-    multibox_decode, nms, sgd_mom_multi, softmax_output_bwd, softmax_rows)
+    multibox_decode, multibox_target, nms, sgd_mom_multi, softmax_output_bwd,
+    softmax_rows)

@@ -56,6 +56,10 @@ _SIGNATURES = {
     + [ctypes.c_float] * 7 + [_P, _P, _P],
     "mxt_l2norm_channel_f32": [_P, _P, _LL, _LL, _LL, ctypes.c_float,
                                ctypes.c_float, _P],
+    "mxt_l2norm_channel_bwd_f32": [_P, _P, _P, _LL, _LL, _LL,
+                                   ctypes.c_float, ctypes.c_float, _P],
+    "mxt_multibox_target_f32": [_P] * 6 + [_LL] * 6 + [ctypes.c_float] * 8
+    + [_I, _I, _P],
     "mxt_multibox_decode_f32": [_P, _LL, _LL, _LL, _P, _P, _P, _P, _P, _LL,
                                 _I, _LL] + [ctypes.c_float] * 4
     + [_I, _I, _P],

@@ -67,7 +67,9 @@ def softmax_output_bwd(p, label, grad_scale=1.0, ignore_label=-1.0,
     ``p`` is the forward's output in the data's layout: ``(N, C, ...)``
     with the class axis 1 under ``multi_output``, else the class axis last
     (``(N, K)`` or, with ``preserve_shape``, ``(..., K)``); ``label`` has
-    ``p``'s shape without the class axis.
+    ``p``'s shape without the class axis. Under ``multi_output`` ``p`` may
+    also be the class-major view of class-last memory (SSD's transposed
+    class scores); the gradient then comes back in the same layout.
 
     A CPU tensor takes the plain version. A CUDA tensor launches the
     kernel, which takes contiguous float32 ``p`` and ``label`` (other label
@@ -84,6 +86,14 @@ def softmax_output_bwd(p, label, grad_scale=1.0, ignore_label=-1.0,
     if p.device.type != "cuda":
         raise MXNetError(f"softmax_output_bwd: no kernel for device "
                          f"{p.device}")
+    if multi_output and p.dim() > 2 and not p.is_contiguous():
+        moved = p.movedim(1, -1)
+        if moved.is_contiguous():
+            # the class-major view of class-last memory (SSD's cls_prob):
+            # the same function with the class axis last, no copy
+            return softmax_output_bwd(
+                moved, label, grad_scale, ignore_label, use_ignore,
+                normalization, multi_output=False).movedim(-1, 1)
     _lib.check_f32("softmax_output_bwd: p", p, p.device)
     outer, classes, inner = _view(p, multi_output)
     label = label.to(torch.float32).contiguous()

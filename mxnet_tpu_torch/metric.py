@@ -2,7 +2,8 @@
 
 Counterpart of ``mxnet_tpu/metric.py`` (reference ``python/mxnet/metric.py``)
 for ``EvalMetric``, ``CompositeEvalMetric``, ``Accuracy``,
-``TopKAccuracy``, ``CrossEntropy``, ``Perplexity`` and :func:`create`.
+``TopKAccuracy``, ``CrossEntropy``, ``Perplexity``, ``Loss`` and
+:func:`create`.
 Metrics consume (labels, preds) NDArray lists each batch; ``get()``
 returns (name, value).
 
@@ -10,7 +11,7 @@ Device-resident accumulation, as in the JAX package: ``device_update()``
 adds the batch statistic to a device scalar (the kernels stay queued
 behind the training step) and only ``get()`` reads it on the host.
 ``update()`` is the synchronous numpy path. The other metrics of the JAX
-package (F1, MAE, MSE, RMSE, Loss, custom callables) are not yet
+package (F1, MAE, MSE, RMSE, custom callables) are not yet
 ported.
 """
 
@@ -266,6 +267,29 @@ class Perplexity(EvalMetric):
                            torch.zeros_like(loss)), 1
 
 
+class Loss(EvalMetric):
+    """Mean of the raw outputs (for MakeLoss heads, reference ``Loss``):
+    the sum of every element of every output over their count; the labels
+    are unused."""
+
+    def __init__(self, name="loss"):
+        super().__init__(name)
+
+    def update(self, _labels, preds):
+        for pred in preds:
+            self.sum_metric += float(_np.sum(pred.asnumpy()))
+            self.num_inst += pred.size
+
+    def device_update(self, _labels, preds):
+        for pred in preds:
+            p = _dev_val(pred)
+            s = p.sum(dtype=torch.float64)
+            self._dev_sum = s if self._dev_sum is None else self._dev_sum + s
+            self._dev_inst += p.numel()
+        _CNT_DEVICE.inc()
+        return True
+
+
 def create(metric, **kwargs):
     """Create by name or list (reference ``mx.metric.create``)."""
     if isinstance(metric, EvalMetric):
@@ -283,6 +307,7 @@ def create(metric, **kwargs):
         "top_k_accuracy": TopKAccuracy,
         "topkaccuracy": TopKAccuracy,
         "perplexity": Perplexity,
+        "loss": Loss,
     }
     if not isinstance(metric, str) or metric.lower() not in metrics:
         raise MXNetError(f"metric {metric!r} is not ported to "

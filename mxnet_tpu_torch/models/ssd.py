@@ -1,17 +1,16 @@
-"""SSD-VGG16 single-shot detector, inference symbol (a copy of
-``mxnet_tpu/models/ssd.py``).
+"""SSD-VGG16 single-shot detector, inference and training symbols (a copy
+of ``mxnet_tpu/models/ssd.py``).
 
 Reference: ``example/ssd/symbol/symbol_builder.py`` + ``legacy_vgg16_ssd_300``
 — VGG-16-reduced backbone, multi-scale feature layers, per-scale loc/cls
-convolution heads, MultiBoxPrior anchors and MultiBoxDetection. The
-training symbol (MultiBoxTarget, smooth_l1, MakeLoss) raises until SSD
-training is ported (``ROADMAP.md`` queue 1).
+convolution heads, MultiBoxPrior anchors, and MultiBoxDetection
+(inference) or MultiBoxTarget with the SoftmaxOutput and smooth-L1 losses
+(training).
 """
 
 from __future__ import annotations
 
 from .. import symbol as sym
-from ..base import MXNetError
 from .recipe import low_precision_io
 
 
@@ -140,12 +139,40 @@ def _heads(num_classes, data_shape=300, dtype="float32"):
 
 def get_symbol_train(num_classes=20, data_shape=300, dtype="float32",
                      **kwargs):
-    """Training symbol (reference symbol_builder.get_symbol_train): not yet
-    ported — it needs MultiBoxTarget, smooth_l1 and MakeLoss."""
-    raise MXNetError(
-        "models.ssd.get_symbol_train: SSD training (MultiBoxTarget, "
-        "smooth_l1, MakeLoss) is not yet ported to mxnet_tpu_torch "
-        "(ROADMAP.md queue 1, SSD training)")
+    """Training symbol (reference symbol_builder.get_symbol_train)."""
+    label = sym.Variable("label")
+    loc_preds, cls_preds, anchor_boxes = _heads(num_classes, data_shape,
+                                                dtype)
+
+    tmp = sym.MultiBoxTarget(
+        anchor_boxes, label, cls_preds, overlap_threshold=0.5,
+        ignore_label=-1, negative_mining_ratio=3, minimum_negative_samples=0,
+        negative_mining_thresh=0.5, variances=(0.1, 0.1, 0.2, 0.2),
+        name="multibox_target",
+    )
+    loc_target = tmp[0]
+    loc_target_mask = tmp[1]
+    cls_target = tmp[2]
+
+    cls_prob = sym.SoftmaxOutput(
+        cls_preds, cls_target, ignore_label=-1, use_ignore=True,
+        multi_output=True, normalization="valid",
+        name="cls_prob",
+    )
+    loc_loss_ = sym.smooth_l1(
+        loc_target_mask * (loc_preds - loc_target), scalar=1.0,
+        name="loc_loss_",
+    )
+    loc_loss = sym.MakeLoss(loc_loss_, grad_scale=1.0,
+                            normalization="valid", name="loc_loss")
+    cls_label = sym.MakeLoss(cls_target, grad_scale=0.0, name="cls_label")
+    det = sym.MultiBoxDetection(
+        cls_prob, loc_preds, anchor_boxes, name="detection",
+        nms_threshold=0.45, force_suppress=False,
+        variances=(0.1, 0.1, 0.2, 0.2), nms_topk=400,
+    )
+    det = sym.MakeLoss(det, grad_scale=0.0, name="det_out")
+    return sym.Group([cls_prob, loc_loss, cls_label, det])
 
 
 def get_symbol(num_classes=20, nms_thresh=0.5, force_suppress=False,

@@ -10,8 +10,9 @@ constant).
 ``multibox_decode`` (best foreground class, score and decoded box of every
 anchor) and ``nms`` (the greedy suppression and the output rows); the
 executor feeds it the logits of a channel ``SoftmaxActivation`` so the
-softmax runs inside ``multibox_decode``. ``MultiBoxTarget`` belongs to SSD
-training and raises until that slice is ported. ``ROIPooling``,
+softmax runs inside ``multibox_decode``. ``MultiBoxTarget``
+(SSD training) runs the ``multibox_target`` kernel: matching, encoding and
+hard-negative mining in one launch. ``ROIPooling``,
 ``Proposal`` and the other contrib ops are not yet ported.
 """
 
@@ -22,8 +23,9 @@ import math
 
 import torch
 
-from ..base import MXNetError, parse_bool, parse_float, parse_int
+from ..base import parse_bool, parse_float, parse_int
 from ..kernels import multibox_decode as _decode
+from ..kernels import multibox_target as _target
 from ..kernels import nms as _nms
 from .registry import Param, register
 
@@ -88,9 +90,15 @@ register(
 
 # --- MultiBoxTarget --------------------------------------------------------
 def _multibox_target(ins, params, mode):
-    raise MXNetError(
-        "MultiBoxTarget (SSD training targets) is not yet ported to "
-        "mxnet_tpu_torch (ROADMAP.md queue 1, SSD training)")
+    """The ``multibox_target`` kernel. Every output is a selection (by
+    ``where``, ``argmax`` or ``argsort`` in the reference), so none carries
+    a gradient, and ``cls_pred`` is read detached."""
+    anchors, label, cls_pred = ins
+    return list(_target.multibox_target(
+        anchors.detach(), label.detach(), cls_pred.detach(),
+        params["overlap_threshold"], params["ignore_label"],
+        params["negative_mining_ratio"], params["negative_mining_thresh"],
+        params["minimum_negative_samples"], params["variances"]))
 
 
 register(
@@ -125,9 +133,13 @@ def detect(cls, loc_pred, anchors, params, softmax):
 
 
 def _multibox_detection(ins, params, mode):
+    """Read detached: the training symbol's only consumer of the detections
+    is ``MakeLoss(grad_scale=0)``, so the reference's gradient through them
+    is exactly zero."""
     cls_prob, loc_pred, anchors = ins
     # cls_prob (n, num_cls+1, A); loc_pred (n, A*4); anchors (1, A, 4)
-    return detect(cls_prob, loc_pred, anchors, params, softmax=False)
+    return detect(cls_prob.detach(), loc_pred.detach(), anchors.detach(),
+                  params, softmax=False)
 
 
 register(

@@ -1,13 +1,16 @@
-"""Elementwise operators (the subset on the ResNet and LSTM paths).
+"""Elementwise operators (the subset on the ResNet, LSTM and SSD paths).
 
-Counterpart of ``mxnet_tpu/ops/defs_elemwise.py``: the same-shape add and
-multiply, registered under the JAX package's canonical names ``_plus`` and
-``_mul`` with its aliases (``elemwise_add``/``elemwise_mul``, which
-``Symbol.__add__``/``__mul__`` build), so graph JSON names them the same
-way, and every scalar op of the reference's two scalar loops
+Counterpart of ``mxnet_tpu/ops/defs_elemwise.py``: the same-shape add,
+subtract and multiply, registered under the JAX package's canonical names
+``_plus``, ``_minus`` and ``_mul`` with its aliases
+(``elemwise_add``/``elemwise_sub``/``elemwise_mul``, which
+``Symbol.__add__``/``__sub__``/``__mul__`` build), so graph JSON names them
+the same way; ``broadcast_sub`` (alias ``broadcast_minus``); and every
+scalar op of the reference's two scalar loops
 (``_plus_scalar``, ``_rminus_scalar``, ``_greater_scalar``, ...), whose
 scalar takes the array's dtype. The backward is autograd's. The broadcast
-ops, the other same-shape ops and the unary zoo are not yet ported.
+ops other than ``broadcast_sub``, the other same-shape ops and the unary
+zoo are not yet ported.
 """
 
 from __future__ import annotations
@@ -22,6 +25,20 @@ register(
     lambda ins, p, m: torch.add(ins[0], ins[1]),
     arg_names=["lhs", "rhs"],
     aliases=("_Plus", "elemwise_add"),
+)
+
+register(
+    "_minus",
+    lambda ins, p, m: torch.sub(ins[0], ins[1]),
+    arg_names=["lhs", "rhs"],
+    aliases=("_Minus", "elemwise_sub"),
+)
+
+register(
+    "broadcast_sub",
+    lambda ins, p, m: torch.sub(ins[0], ins[1]),
+    arg_names=["lhs", "rhs"],
+    aliases=("broadcast_minus",),
 )
 
 register(

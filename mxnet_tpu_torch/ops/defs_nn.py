@@ -3,8 +3,11 @@
 Counterpart of ``mxnet_tpu/ops/defs_nn.py`` for the ops of the ResNet
 path: FullyConnected, Convolution, Activation, BatchNorm, Pooling and
 SoftmaxOutput, forward and backward; and of the SSD path's
-L2Normalization (its channel mode on the ``l2norm_channel`` kernel) and
-SoftmaxActivation, at inference. Convolution and FullyConnected are
+L2Normalization (its channel mode on the ``l2norm_channel`` kernel, in
+training with the ``l2norm_channel_bwd`` kernel as its backward),
+SoftmaxActivation (at inference), and the loc-loss chain of SSD training:
+``smooth_l1`` and ``MakeLoss`` (plain PyTorch, a loss layer whose backward
+ignores the head gradient). Convolution and FullyConnected are
 cuDNN/cuBLAS calls through torch, as the JAX package leaves them to XLA;
 float32 runs without TF32 (``mxnet_tpu_torch/__init__.py`` clears both
 flags), matching the reference's ``precision=HIGHEST``. BatchNorm (with the ReLU the executor
@@ -35,7 +38,7 @@ from ..kernels.bn_act import bn_act
 from ..kernels.bn_act_bwd import bn_act_bwd
 from ..kernels.bn_stats import bn_stats
 from ..kernels.softmax_output_bwd import softmax_output_bwd
-from ..kernels.l2norm_channel import l2norm_channel
+from ..kernels.l2norm_channel import L2NormChannelFn, l2norm_channel
 from ..kernels.multibox_decode import channel_softmax
 from ..kernels.softmax_rows import softmax, softmax_rows
 from .registry import Param, register
@@ -324,17 +327,26 @@ def no_kernel_grad(x, what):
     none yet (a CUDA tensor recorded for training)."""
     if x.device.type == "cuda" and x.requires_grad and torch.is_grad_enabled():
         raise MXNetError(f"{what}: the backward of its CUDA kernel is not yet "
-                         "ported (ROADMAP.md queue 1, SSD training)")
+                         "ported (ROADMAP.md queue 2b)")
+
+
+def l2norm_channel_op(x, eps, scale=1.0):
+    """The channel L2 normalization with a fused scale: in training (a
+    tensor that needs a gradient, recorded) :class:`L2NormChannelFn`, whose
+    backward is ``l2norm_channel_bwd``; else ``l2norm_channel`` alone."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return L2NormChannelFn.apply(x, eps, scale)
+    return l2norm_channel(x, eps, scale)
 
 
 def _l2_normalization(ins, params, mode):
     """``x / sqrt(sum(x^2) + eps)`` over the mode's axes; ``channel`` runs
-    the ``l2norm_channel`` kernel (scale 1)."""
+    the ``l2norm_channel`` kernel (scale 1), and in training its backward
+    kernel."""
     (x,) = ins
     eps, m = params["eps"], params["mode"]
     if m == "channel":
-        no_kernel_grad(x, "L2Normalization(mode='channel')")
-        return l2norm_channel(x, eps)
+        return l2norm_channel_op(x, eps)
     if m == "instance":
         axes = tuple(range(1, x.dim()))
     elif m == "spatial":
@@ -449,4 +461,67 @@ register(
     fill_in_shapes=_softmax_output_fill,
     aliases=("Softmax",),
     is_loss=True,
+)
+
+
+# --- losses (mxnet_tpu/ops/defs_nn.py:771-807, 915-928) --------------------
+class _MakeLossFn(torch.autograd.Function):
+    """MakeLoss: the identity forward; the backward ignores the head
+    gradient and writes ``grad_scale``, divided under ``"batch"`` by the
+    batch size and under ``"valid"`` by ``max(count(d > valid_thresh), 1)``
+    over the whole tensor."""
+
+    @staticmethod
+    def forward(ctx, d, params):
+        ctx.save_for_backward(d)
+        ctx.params = params
+        return d.view_as(d)
+
+    @staticmethod
+    def backward(ctx, _head_grad):
+        (d,) = ctx.saved_tensors
+        q = ctx.params
+        grad = torch.full_like(d, q["grad_scale"])
+        if q["normalization"] == "batch":
+            grad = grad / d.shape[0]
+        elif q["normalization"] == "valid":
+            valid = torch.sum((d > q["valid_thresh"]).to(d.dtype))
+            grad = grad / torch.clamp_min(valid, 1.0)
+        return grad, None
+
+
+def _make_loss(ins, params, mode):
+    (data,) = ins
+    return _MakeLossFn.apply(data, params)
+
+
+register(
+    "MakeLoss",
+    _make_loss,
+    arg_names=["data"],
+    param_schema={
+        "grad_scale": Param(parse_float, 1.0),
+        "valid_thresh": Param(parse_float, 0.0),
+        "normalization": Param(parse_str, "null"),
+    },
+    aliases=("make_loss",),
+    is_loss=True,
+)
+
+
+def _smooth_l1(ins, params, mode):
+    """``0.5 * s^2 * x^2`` where ``|x| < 1 / s^2``, else ``|x| - 0.5 / s^2``
+    (the reference's formula; the backward is autograd's)."""
+    (x,) = ins
+    s2 = params["scalar"] ** 2
+    ax = torch.abs(x)
+    return torch.where(ax < 1.0 / s2, 0.5 * s2 * torch.square(x),
+                       ax - 0.5 / s2)
+
+
+register(
+    "smooth_l1",
+    _smooth_l1,
+    arg_names=["data"],
+    param_schema={"scalar": Param(parse_float, 1.0)},
 )

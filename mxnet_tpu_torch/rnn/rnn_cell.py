@@ -9,11 +9,12 @@ fused and unfused layouts. The cells only build symbols.
 The port runs every cell as its unrolled graph, as the JAX package does.
 Each step of an ``LSTMCell`` is the gate chain that the executor routes to
 the hand-written ``lstm_cell``/``lstm_cell_bwd`` kernels; ``RNNCell``,
+``GRUCell`` (op by op: its step kernel is ``ROADMAP.md`` 2b item 5),
 ``ResidualCell``, ``BidirectionalCell`` and ``FusedRNNCell`` (unfused into
 the other cells) build from ported ops alone. A cell that needs an op the
-port does not have yet (``GRUCell``: ``elemwise_sub``; ``DropoutCell`` and
-``ZoneoutCell``: ``Dropout``, ...) raises :class:`MXNetError` naming its
-``ROADMAP.md`` item when its symbol is built, before any bind.
+port does not have yet (``DropoutCell`` and ``ZoneoutCell``: ``Dropout``,
+...) raises :class:`MXNetError` naming its ``ROADMAP.md`` item when its
+symbol is built, before any bind.
 """
 
 from __future__ import annotations
@@ -26,8 +27,7 @@ from ..ndarray import NDArray, zeros
 from ..ops import registry as _reg
 
 # ROADMAP.md items of the ops the other cells need
-_ROADMAP = {"elemwise_sub": "queue 1 item 3, the rest of defs_elemwise.py",
-            "Dropout": "queue 1 item 12, defs_random.py",
+_ROADMAP = {"Dropout": "queue 1 item 12, defs_random.py",
             "ones_like": "queue 1 item 3, the rest of defs_tensor.py",
             "zeros_like": "queue 1 item 3, the rest of defs_tensor.py",
             "where": "queue 1 item 3, the rest of defs_tensor.py"}
@@ -322,7 +322,6 @@ class GRUCell(BaseRNNCell):
         return ["_r", "_z", "_o"]
 
     def __call__(self, inputs, states):
-        _require_ops(self, "elemwise_sub")
         self._counter += 1
         seq_idx = self._counter
         name = f"{self._prefix}t{seq_idx}_"

@@ -5,7 +5,7 @@ XLA:CPU) and the port's op (on CPU tensors, where the kernel wrappers take
 their plain versions) with the same parsed parameters; shape inference is
 compared too. Covered: ``transpose``, ``L2Normalization`` (3 modes),
 ``SoftmaxActivation`` (2 modes), ``MultiBoxPrior``, ``MultiBoxDetection``
-and the registration of ``MultiBoxTarget``; then the kernels' plain
+and the registration and a first case of ``MultiBoxTarget``; then the kernels' plain
 versions directly against the reference's ``_iou_matrix``,
 ``_decode_boxes`` and ``_nms_keep``; and, as in
 ``tests/test_torch_parity_limits.py``, three faulty NMS versions that these
@@ -38,7 +38,6 @@ from mxnet_tpu.ops import registry as jreg
 from mxnet_tpu.ops.registry import OpMode as JOpMode
 
 import mxnet_tpu_torch as pmx
-from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.kernels import l2norm_channel as l2_mod
 from mxnet_tpu_torch.kernels import multibox_decode as dec_mod
 from mxnet_tpu_torch.kernels import nms as nms_mod
@@ -160,13 +159,29 @@ def test_multibox_prior_is_held_by_its_bound_graph(monkeypatch):
 
 
 def test_multibox_target_is_registered_and_raises():
+    """MultiBoxTarget is ported now (the name dates from when it raised): its
+    schema and aliases are the reference's, and it computes the
+    reference's targets (the edge cases are in
+    ``tests/test_torch_ssd_train_ops.py``)."""
     jop, pop = jreg.get("MultiBoxTarget"), preg.get("MultiBoxTarget")
     assert ({k: v.default for k, v in pop.param_schema.items()}
             == {k: v.default for k, v in jop.param_schema.items()})
     assert preg.get("_contrib_MultiBoxTarget") is pop
-    with pytest.raises(MXNetError, match="SSD training"):
-        pop.apply([torch.zeros(1, 4, 4), torch.zeros(1, 2, 5),
-                   torch.zeros(1, 3, 4)], pop.parse_params({}), POpMode())
+    assert preg.get("multibox_target") is pop
+    anchors = np.array([[[0.0, 0.0, 0.5, 0.5], [0.5, 0.5, 1.0, 1.0],
+                         [0.0, 0.5, 0.5, 1.0], [0.5, 0.0, 1.0, 0.5]]],
+                       np.float32)
+    label = np.array([[[1.0, 0.0, 0.0, 0.4, 0.5], [-1.0] * 5]], np.float32)
+    cls_pred = np.linspace(-1, 1, 12, dtype=np.float32).reshape(1, 3, 4)
+    ins = [anchors, label, cls_pred]
+    raw = {"negative_mining_ratio": 1}
+    jouts, _ = jop.apply([jnp.asarray(t) for t in ins], jop.parse_params(raw),
+                         JOpMode(is_train=False))
+    pouts, _ = pop.apply([torch.from_numpy(t) for t in ins],
+                         pop.parse_params(raw), POpMode())
+    for j, p in zip(jouts, pouts):
+        np.testing.assert_allclose(p.numpy(), np.asarray(j), rtol=1e-6)
+    np.testing.assert_array_equal(pouts[2].numpy(), [[2.0, 0.0, -1.0, -1.0]])
 
 
 # --- MultiBoxDetection ------------------------------------------------------

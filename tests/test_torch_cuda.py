@@ -24,7 +24,11 @@ same IoU arithmetic and comparisons); ``multibox_decode``'s boxes and
 scores to rtol 1e-6 / atol 1e-7 (the softmax's sum runs in another order)
 and its class ids exactly wherever the two best probabilities are further
 apart than that; ``l2norm_channel`` to rtol 1e-5 / atol 1e-6 times the
-scale (the channel sum runs in another order).
+scale (the channel sum runs in another order). The SSD training kernels:
+``multibox_target`` is held bit for bit (the same IoU, encoding and
+comparisons, and the same mining order); ``l2norm_channel_bwd`` to rtol
+1e-5 of each value plus 1e-6 of the largest (its sums run in another
+order, and two terms cancel where the gradient lies along the input).
 """
 
 import numpy as np
@@ -39,6 +43,7 @@ from mxnet_tpu_torch.kernels import bn_stats as stats_mod
 from mxnet_tpu_torch.kernels import l2norm_channel as l2_mod
 from mxnet_tpu_torch.kernels import lstm_cell as lstm_mod
 from mxnet_tpu_torch.kernels import multibox_decode as dec_mod
+from mxnet_tpu_torch.kernels import multibox_target as mbt_mod
 from mxnet_tpu_torch.kernels import nms as nms_mod
 from mxnet_tpu_torch.kernels import sgd_mom_multi as sgd_mod
 from mxnet_tpu_torch.kernels import softmax_output_bwd as sob_mod
@@ -493,3 +498,112 @@ def test_ssd_kernels_raise_on_what_they_do_not_take(card):
     with pytest.raises(MXNetError):
         l2_mod.l2norm_channel(torch.randn(2, 3, 4, device=card).transpose(
             1, 2), 1e-10)
+
+
+# -- SSD training kernels ----------------------------------------------------
+@pytest.mark.parametrize("name", [
+    "random", "padded rows and an image without objects",
+    "grid: IoU at the threshold, shared best anchors",
+    "tied and signed-zero logits at the mining boundary",
+    "a padded row after an object whose best anchor is anchor 0",
+    "mining off", "minimum negative samples"])
+def test_multibox_target_kernel_matches_plain_bit_for_bit(card, name):
+    """chip_smoke.py's edge inputs (the same sets the CPU tests hold the
+    plain version to the reference on)."""
+    cs = _chip_smoke()
+    anc, label, cls_pred, params = cs.mbt_case(name)
+    ins = [torch.from_numpy(t).to(card) for t in (anc, label, cls_pred)]
+    before = mbt_mod.LAUNCHES.value
+    got = mbt_mod.multibox_target(*ins, *cs.mbt_args(params))
+    want = mbt_mod.multibox_target_plain(*ins, *cs.mbt_args(params))
+    assert mbt_mod.LAUNCHES.value == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("a, g", [(8096, 16), (1, 1), (1025, 3),
+                                  (20000, 40)])
+def test_multibox_target_kernel_on_the_class_major_view(card, a, g):
+    """Random anchors and objects, the mining keys read through the
+    transposed view of class-last scores, as the SSD head hands them."""
+    rng = np.random.default_rng(a + g)
+    lo = rng.uniform(0, 0.8, (1, a, 2))
+    anc = np.concatenate([lo, lo + rng.uniform(0.02, 0.3, (1, a, 2))], 2)
+    label = np.full((5, g, 5), -1.0)
+    for b in range(4):  # the last image has no object
+        for j in range(rng.integers(1, g + 1)):
+            x1 = rng.uniform(0, 0.6, 2)
+            label[b, j] = [rng.integers(0, 20), *x1,
+                           *(x1 + rng.uniform(0.05, 0.4, 2))]
+    scores = torch.from_numpy(rng.standard_normal((5, a, 21)).astype(
+        np.float32)).to(card)
+    args = [torch.from_numpy(anc.astype(np.float32)).to(card),
+            torch.from_numpy(label.astype(np.float32)).to(card),
+            scores.transpose(1, 2), 0.5, -1.0, 3.0, 0.5, 0,
+            (0.1, 0.1, 0.2, 0.2)]
+    got = mbt_mod.multibox_target(*args)
+    want = mbt_mod.multibox_target_plain(*args)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("shape", [(32, 512, 37, 37), (3, 5, 7, 9), (2, 3),
+                                   (1, 1000, 1, 1)])
+@pytest.mark.parametrize("scale", [1.0, 20.0])
+def test_l2norm_channel_bwd_kernel_matches_plain(card, shape, scale):
+    x = torch.randn(shape, device=card)
+    g = torch.randn(shape, device=card)
+    before = l2_mod.BWD_LAUNCHES.value
+    got = l2_mod.l2norm_channel_bwd(x, g, 1e-10, scale)
+    want = l2_mod.l2norm_channel_bwd_plain(x, g, 1e-10, scale)
+    torch.testing.assert_close(got, want, rtol=l2_mod.BWD_RTOL,
+                               atol=l2_mod.BWD_ATOL * float(want.abs().max()))
+    assert l2_mod.BWD_LAUNCHES.value == before + 1
+    # through autograd: the Function launches both kernels
+    xr = x.clone().requires_grad_(True)
+    l2_mod.L2NormChannelFn.apply(xr, 1e-10, scale).backward(g)
+    torch.testing.assert_close(xr.grad, want, rtol=l2_mod.BWD_RTOL,
+                               atol=l2_mod.BWD_ATOL * float(want.abs().max()))
+
+
+def test_softmax_output_bwd_on_the_class_major_view(card):
+    """SSD's SoftmaxOutput: multi_output over the transposed view of
+    class-last probabilities, use_ignore, normalization 'valid', about 3/4
+    of the labels ignored; the gradient comes back in the same layout."""
+    rng = np.random.default_rng(11)
+    logits = torch.from_numpy(rng.standard_normal((4, 300, 21)).astype(
+        np.float32)).to(card)
+    p = torch.softmax(logits, -1).transpose(1, 2)
+    label = rng.integers(0, 21, (4, 300)).astype(np.float32)
+    label[rng.uniform(size=label.shape) < 0.75] = -1
+    label = torch.from_numpy(label).to(card)
+    got = sob_mod.softmax_output_bwd(p, label, 1.0, -1.0, True, "valid",
+                                     True)
+    want = sob_mod.softmax_output_bwd_plain(p, label, 1.0, -1.0, True,
+                                            "valid", True)
+    assert got.shape == p.shape and got.stride() == p.stride()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+def test_ssd_train_kernels_raise_on_what_they_do_not_take(card):
+    cs = _chip_smoke()
+    anc, label, cls_pred, params = cs.mbt_case("random")
+    ins = [torch.from_numpy(t).to(card) for t in (anc, label, cls_pred)]
+    args = cs.mbt_args(params)
+    with pytest.raises(MXNetError):
+        mbt_mod.multibox_target(ins[0], ins[1].double(), ins[2], *args)
+    with pytest.raises(MXNetError):
+        mbt_mod.multibox_target(ins[0].transpose(1, 2).contiguous()
+                                .transpose(1, 2), ins[1], ins[2], *args)
+    with pytest.raises(MXNetError):
+        mbt_mod.multibox_target(ins[0], ins[1][:, :, :4].contiguous(),
+                                ins[2], *args)
+    with pytest.raises(MXNetError):
+        mbt_mod.multibox_target(ins[0], ins[1], ins[2].cpu(), *args)
+    x = torch.randn(2, 8, 3, 3, device=card)
+    with pytest.raises(MXNetError):
+        l2_mod.l2norm_channel_bwd(x, x.double(), 1e-10)
+    with pytest.raises(MXNetError):
+        l2_mod.l2norm_channel_bwd(x.transpose(2, 3), x, 1e-10)
+    with pytest.raises(MXNetError):
+        l2_mod.l2norm_channel_bwd(x, x[:1], 1e-10)

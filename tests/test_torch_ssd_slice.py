@@ -24,7 +24,7 @@ one image to be held so. The port's ``ModelServer`` answers exactly as its
 Also: the two executor routes (``SoftmaxActivation`` -> ``MultiBoxDetection``
 and ``L2Normalization`` -> ``_mul_scalar``) fire on the SSD graph and
 neither fires when its intermediate has an outside consumer, with the same
-answers either way; the unported training symbol raises.
+answers either way; the training symbol builds and binds.
 """
 
 import json
@@ -39,7 +39,6 @@ from mxnet_tpu.models import ssd as jssd
 from mxnet_tpu.ops import defs_contrib as jcontrib
 
 import mxnet_tpu_torch as pmx
-from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.kernels import l2norm_channel as l2_mod
 from mxnet_tpu_torch.kernels import multibox_decode as dec_mod
 from mxnet_tpu_torch.kernels import nms as nms_mod
@@ -211,8 +210,18 @@ def test_symbol_json_and_shapes_match_reference(data_shape, batch):
 
 
 def test_training_symbol_is_not_yet_ported():
-    with pytest.raises(MXNetError, match="SSD training"):
-        pssd.get_symbol_train(num_classes=20)
+    """The training symbol is ported now (the name dates from before): it
+    builds as the reference's does and binds for training on the CPU."""
+    with jmx.name.NameManager():
+        jsym = jssd.get_symbol_train(num_classes=3, data_shape=64)
+    with pmx.NameManager():
+        psym = pssd.get_symbol_train(num_classes=3, data_shape=64)
+    assert psym.tojson() == jsym.tojson()
+    exe = psym.simple_bind(pmx.cpu(), grad_req="write", data=(2, 3, 64, 64),
+                           label=(2, 4, 5))
+    assert [o.shape for o in exe.arg_arrays[:1]] == [(2, 3, 64, 64)]
+    assert exe.grad_dict["label"] is not None and \
+        "conv4_3_weight" in exe.grad_dict
 
 
 # --- Predictor and ModelServer --------------------------------------------
