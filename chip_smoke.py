@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one CUDA card: ResNet-50
-serving and training, LSTM-PTB training, and SSD-VGG16 serving and
-training.
+serving and training, LSTM-PTB training, SSD-VGG16 serving and training,
+and DCGAN training.
 
     python3 chip_smoke.py
 
@@ -122,7 +122,42 @@ Run from the root of a checkout. Phases, each printing its own lines:
     share, top kernels);
 15. SSD training parity — two SGD steps at batch 2 on the card and on the
     port's CPU path, each from the same state, within ``SSD_PARITY_TOL``
-    in norm and at most ``SSD_TARGET_LIMIT`` cls_target values apart.
+    in norm and at most ``SSD_TARGET_LIMIT`` cls_target values apart;
+16. DCGAN kernels — ``bn_act`` and ``bn_act_bwd`` with the LeakyReLU
+    slope 0.2 at the discriminator's three BatchNorm shapes at batch 64
+    and with slope 0 (the ReLU) at the generator's four, over given and
+    batch statistics, against their plain versions (``BN_RTOL``/
+    ``BN_ATOL``, ``FWD_RTOL``/``FWD_ATOL``, ``DX_RTOL``/``DX_ATOL``), plus
+    pre-activations exactly +0.0 and -0.0 (signed zeros as the plain
+    version's, +0.0 from the ReLU for a negative input) and a constant
+    channel; ``bn_stats`` at all seven shapes (mean, variance, moving
+    statistics, ``kvar`` exactly) and ``adam_multi`` over G's and D's
+    parameters with beta1 0.5, steps 1 and 2, against their plain versions;
+    per D pass the kernel by CUDA events, its device time under
+    ``torch.profiler`` in a loop over the three tensors, the plain version,
+    ``F.batch_norm`` + ``F.leaky_relu`` (backward: ATen's
+    ``native_batch_norm_backward`` + ``leaky_relu_backward``) and the bound
+    by bytes;
+17. DCGAN training — ``GANModule`` (``examples/train_dcgan.py``'s
+    defaults: ngf = ndf = 64, batch 64, z 100, Adam lr 2e-4 beta1 0.5,
+    random N(0, 0.02) weights from the seed) trained by ``train_window``
+    on ``gpu(0)``: ``DCGAN_WARMUP`` windows of ``DCGAN_K`` steps, then
+    ``DCGAN_WINDOWS`` timed ones over the example's synthetic reals, the
+    ``CustomMetric(facc)`` read two windows behind as the example does;
+    every window's launches exactly ``DCGAN_K`` x ``DCGAN_LAUNCHES`` and
+    no plain version on data; D's real accuracy finite; ms per step by the
+    host's clock (card drained at both ends) and by CUDA events, samples/s,
+    peak memory; the serial loop's rate (``_serial_window``); generation
+    through ``Module(g_sym).forward(is_train=False)`` at batch 64; the loss
+    check (``DCGAN_LOSS_STEPS`` steps on one batch of ``DCGAN_LOSS_BATCH``
+    bring D's logistic loss to ``DCGAN_LOSS_RATIO`` of its first value);
+    the same windows without the metric's reads; a profile of one step;
+18. DCGAN parity — two steps at full width and batch 8 on the card and on
+    the port's CPU path from the same weights, latents and reals: G's and
+    D's parameters, BatchNorm statistics, Adam states and the published
+    outputs within ``DCGAN_PARITY_TOL`` in norm, and at most a share
+    ``DCGAN_FLIP_SHARE`` of the weights whose first update took the other
+    sign.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. Any failed phase exits non-zero before the result
@@ -148,8 +183,17 @@ seeds and phase 15's two parity steps in float32 and in float64, and
 prints the readings ``SSD_LOSS_RATIO``, ``SSD_PARITY_TOL`` and
 ``SSD_TARGET_LIMIT`` were fixed from (SSD-300 at batches 4 and 2: run it on
 a machine with many cores, ~3 minutes on 8); it needs no card.
+
+    python3 chip_smoke.py --cpu-dcgan
+
+runs phase 17's loss check on the port's CPU path for three parameter
+seeds and phase 18's two parity steps in float32 and in float64 at full
+width, and prints the readings ``DCGAN_LOSS_RATIO``, ``DCGAN_PARITY_TOL``
+and ``DCGAN_FLIP_SHARE`` were fixed from, and the readings of the
+``DCGAN_FAULTS`` that those limits must catch; it needs no card.
 """
 
+import contextlib
 import json
 import math
 import subprocess
@@ -182,7 +226,7 @@ PATH_SOFTMAX = (32, 1000)
 TRAIN_BATCH = 32
 FIT_STEPS = 12  # Module.fit's steps on the main path; 2..12 are timed
 # each port kernel's CUDA function names, as torch.profiler reports them
-PORT_KERNELS = {"bn_stats": "bn_stats_kernel", "bn_act": "bn_act_kernel",
+PORT_KERNELS = {"bn_stats": "bn_stats_kernel", "bn_act": "bn_act_",
                 "bn_act_bwd": "bn_bwd_", "softmax_rows": "softmax_rows_kernel",
                 "softmax_output_bwd": "softmax_output_bwd_kernel",
                 "sgd_mom_multi": "sgd_mom_multi_kernel",
@@ -418,8 +462,9 @@ def phase_kernels(torch):
                 0.5 + torch.rand(c, generator=gen, device=dev),
                 0.1 * torch.randn(c, generator=gen, device=dev))
 
-    # --- bn_act: correctness at every path shape, relu and fix_gamma both
-    # ways, plus tails where H*W is odd and planes start unaligned
+    # --- bn_act: correctness at every path shape, with the ReLU (slope 0)
+    # and without, fix_gamma both ways, plus tails where H*W is odd and
+    # planes start unaligned
     bn_err = 0.0
     tensors = {}
     shapes = [s for s, _ in PATH_BN] + [(1, 64, 56, 56), (3, 5, 7, 9),
@@ -427,18 +472,18 @@ def phase_kernels(torch):
     for shape in shapes:
         ins = bn_inputs(shape)
         tensors[shape] = ins
-        for relu in (True, False):
+        for slope in (0.0, None):
             for fix_gamma in (False, True):
-                got = bn_act(*ins, BN_EPS, fix_gamma, relu)
-                want = bn_act_plain(*ins, BN_EPS, fix_gamma, relu)
+                got = bn_act(*ins, BN_EPS, fix_gamma, slope)
+                want = bn_act_plain(*ins, BN_EPS, fix_gamma, slope)
                 err, ok = max_err(torch, got, want, BN_RTOL, BN_ATOL)
                 bn_err = max(bn_err, err)
                 if not ok:
-                    fail(f"bn_act {shape} relu={relu} fix_gamma={fix_gamma}: "
+                    fail(f"bn_act {shape} slope={slope} fix_gamma={fix_gamma}: "
                          f"max abs err {err:g} over rtol {BN_RTOL} atol "
                          f"{BN_ATOL}")
     print(f"[kernels] bn_act matches its plain version at {len(shapes)} "
-          f"shapes x relu x fix_gamma: max abs err {bn_err:g} "
+          f"shapes x ReLU or none x fix_gamma: max abs err {bn_err:g} "
           f"(rtol {BN_RTOL}, atol {BN_ATOL})", flush=True)
 
     # --- bn_act timing: one forward's 17 launches at batch 32
@@ -450,9 +495,9 @@ def phase_kernels(torch):
                     fn(x, mean, var, gamma, beta)
         return run
 
-    bn_ms = cuda_ms(torch, seq(lambda *t: bn_act(*t, BN_EPS, False, True)))
+    bn_ms = cuda_ms(torch, seq(lambda *t: bn_act(*t, BN_EPS, False, 0.0)))
     bn_plain_ms = cuda_ms(
-        torch, seq(lambda *t: bn_act_plain(*t, BN_EPS, False, True)))
+        torch, seq(lambda *t: bn_act_plain(*t, BN_EPS, False, 0.0)))
     bn_lib_ms = cuda_ms(torch, seq(lambda x, m, v, g, b: F.batch_norm(
         x, m, v, g, b, training=False, eps=BN_EPS).relu_()))
     nbytes = sum(mult * (2 * math.prod(s) + 4 * s[1]) * 4 for s, mult in PATH_BN)
@@ -739,10 +784,10 @@ def phase_train_kernels(torch, mx):
         gamma = 0.5 + torch.rand(c, generator=gen, device=dev)
         beta = 0.1 * randn(c)
         mean, var, kvar = bs.bn_stats(x, mm.clone(), mv.clone(), 0.9)
-        y = ba.bn_act(x, mean, var, gamma, beta, BN_EPS, False, True)
+        y = ba.bn_act(x, mean, var, gamma, beta, BN_EPS, False, 0.0)
         ba_err = max(ba_err, check(
             torch, f"bn_act {s} (training shape)", y,
-            ba.bn_act_plain(x, mean, var, gamma, beta, BN_EPS, False, True),
+            ba.bn_act_plain(x, mean, var, gamma, beta, BN_EPS, False, 0.0),
             BN_RTOL, BN_ATOL))
         T[s] = dict(x=x, mm=mm, mv=mv, gamma=gamma, beta=beta, mean=mean,
                     var=var, kvar=kvar, y=y, dy=randn(*s),
@@ -773,12 +818,12 @@ def phase_train_kernels(torch, mx):
     def fwd_kernel(t):
         mean, var, _k = bs.bn_stats(t["x"], t["mm"], t["mv"], 0.9)
         return ba.bn_act(t["x"], mean, var, t["gamma"], t["beta"], BN_EPS,
-                         False, True)
+                         False, 0.0)
 
     def fwd_plain(t):
         mean, var, _k = bs.bn_stats_plain(t["x"], t["mm"], t["mv"], 0.9)
         return ba.bn_act_plain(t["x"], mean, var, t["gamma"], t["beta"],
-                               BN_EPS, False, True)
+                               BN_EPS, False, 0.0)
 
     # the training forward against its plain version at every shape, each
     # side from the same moving statistics
@@ -833,7 +878,7 @@ def phase_train_kernels(torch, mx):
                      y=torch.relu(x), dy=randn(*s))
         args = (t["dy"], t["y"] if relu else None, t["x"], t["mean"],
                 t["var"], t["gamma"], t["kvar"] if batch_stats else None,
-                BN_EPS, fix_gamma, relu)
+                BN_EPS, fix_gamma, 0.0 if relu else None)
         got, want = bb.bn_act_bwd(*args), bb.bn_act_bwd_plain(*args)
         n = math.prod(s) // s[1]
         what = f"bn_act_bwd {s} relu={relu} fix_gamma={fix_gamma} " \
@@ -855,10 +900,10 @@ def phase_train_kernels(torch, mx):
 
     bw_ms = cuda_ms(torch, per_step(lambda t: bb.bn_act_bwd(
         t["dy"], t["y"], t["x"], t["mean"], t["var"], t["gamma"], t["kvar"],
-        BN_EPS, False, True)), reps=10)
+        BN_EPS, False, 0.0)), reps=10)
     bw_plain = cuda_ms(torch, per_step(lambda t: bb.bn_act_bwd_plain(
         t["dy"], t["y"], t["x"], t["mean"], t["var"], t["gamma"], t["kvar"],
-        BN_EPS, False, True)), reps=5)
+        BN_EPS, False, 0.0)), reps=5)
     bw_lib = cuda_ms(torch, per_step(bwd_lib), reps=10)
     bw_bound, bw_by = bound(n_elems * 16, 12 * n_elems)
     print(f"[train-kernels] bn_act_bwd per step ({2 * n_bn} launches; one-pass "
@@ -1073,7 +1118,7 @@ def profile_step(torch, step, reps=2, tag="profile",
     # launch path that the CUDA-event times above include
     ours = {}
     for us, count, key in rows:
-        for kernel, mark in PORT_KERNELS.items():
+        for kernel, mark in {**PORT_KERNELS, **LEAKY_MARKS}.items():
             if mark in key:
                 ms, n = ours.get(kernel, (0.0, 0))
                 ours[kernel] = (ms + us / 1e3, n + count)
@@ -1614,7 +1659,7 @@ def launch_counters():
 
     counters = {name: getattr(K, name).LAUNCHES for name in PORT_KERNELS
                 if name not in BWD_COUNTERS}
-    for name, (mod, attr) in BWD_COUNTERS.items():
+    for name, (mod, attr) in {**BWD_COUNTERS, **LEAKY_COUNTERS}.items():
         counters[name] = getattr(getattr(K, mod), attr)
     return counters
 
@@ -3110,6 +3155,785 @@ def phase_ssd_train_parity(torch, mx):
              f"in {bad}")
 
 
+# ---------------------------------------------------------------------------
+# DCGAN (examples/train_dcgan.py's defaults, which are the reference MXNet
+# example/gan/dcgan.py's): GANModule over models.dcgan_generator(ngf=64,
+# nc=3) and models.dcgan_discriminator(ndf=64), batch 64, latents (100, 1,
+# 1), 64x64x3 images, init.Normal(0.02), Adam lr 2e-4 beta1 0.5 for both
+# networks, float32 with TF32 off, over the example's synthetic reals
+# (rand * 2 - 1)
+# ---------------------------------------------------------------------------
+DCGAN_BATCH = 64
+DCGAN_Z = 100
+DCGAN_NF = 64
+DCGAN_OPT = {"learning_rate": 0.0002, "beta1": 0.5}
+DCGAN_EPS = 1e-5 + 1e-12  # models/dcgan.py's BatchNorm eps
+DCGAN_SLOPE = 0.2
+DCGAN_K = 4  # steps per window: the example's --window
+DCGAN_WARMUP = 2  # windows before the timed ones
+DCGAN_WINDOWS = 10  # timed windows
+DCGAN_SERIAL_WINDOWS = 5  # windows of the serial loop, timed the same way
+# the BatchNorm inputs at batch 64: D's three (each BatchNorm ->
+# LeakyReLU(0.2), 3 passes forward and backward per step) and G's four
+# (BatchNorm -> ReLU, one pass)
+DCGAN_D_BN = [(64, 128, 16, 16), (64, 256, 8, 8), (64, 512, 4, 4)]
+DCGAN_G_BN = [(64, 512, 4, 4), (64, 256, 8, 8), (64, 128, 16, 16),
+              (64, 64, 32, 32)]
+# launches per GANModule step: G 4 BatchNorms once, D 3 BatchNorms in 3
+# passes; bn_act_bwd launches twice per call; the leaky launches count
+# under bn_act/bn_act_bwd too; one Adam per network
+DCGAN_LAUNCHES = {"bn_stats": 13, "bn_act": 13, "bn_act_leaky": 9,
+                  "bn_act_bwd": 26, "bn_act_bwd_leaky": 18, "adam_multi": 2}
+LEAKY_COUNTERS = {"bn_act_leaky": ("bn_act", "LEAKY_LAUNCHES"),
+                  "bn_act_bwd_leaky": ("bn_act_bwd", "LEAKY_LAUNCHES")}
+# the leaky routes' CUDA function names (they count under bn_act's and
+# bn_act_bwd's marks too, as their launches do)
+LEAKY_MARKS = {"bn_act_leaky": "bn_act_leaky_kernel",
+               "bn_act_bwd_leaky": "bn_bwd_leaky_"}
+# the loss check: DCGAN_LOSS_STEPS GANModule steps on one fixed batch of
+# DCGAN_LOSS_BATCH reals, with latents drawn by numpy from the seed, must
+# bring D's logistic loss on that batch (its real-pass output, read before
+# each step's update) to at most DCGAN_LOSS_RATIO of its first value.
+# Fixed from ``--cpu-dcgan`` on the card machine's CPU before any card ran
+# the phase: over the parameter seeds SEED + 60, 61, 62 the last/first
+# ratios read 0.0274, 0.0535 and 0.0271 (D wins the first steps on these
+# synthetic reals; the curves fall in one or two steps and then wander
+# between 0.01 and 0.14). The card starts from SEED + 60's numpy state, so
+# it should read near 0.0274; the limit leaves room for the other seeds'
+# spread and for the wandering
+DCGAN_LOSS_BATCH = 16
+DCGAN_LOSS_STEPS = 10
+DCGAN_LOSS_RATIO = 0.2
+# card against the port's CPU path, two GANModule steps at batch 8 from
+# the same weights, latents and reals, in norm over all tensors of a kind
+# after each step, |card - cpu| <= rtol * |cpu| (after step 1, after step
+# 2); and what share of the weights' first updates may take the other
+# sign. Adam's first step moves a weight by about +-lr whatever its
+# gradient's size, so a gradient near 0 whose sign differs moves that
+# weight 2 * lr apart, and the second step's gradients then differ through
+# those weights. Fixed from ``--cpu-dcgan`` on the card machine's CPU
+# before any card ran the phase: the port's CPU path in float32 against
+# float64 read, after steps 1 and 2, parameters 6.1e-5 / 2.7e-4, BatchNorm
+# statistics 7.6e-8 / 1.4e-5, Adam means 1.7e-4 / 2.6e-2, Adam variances
+# 4.1e-5 / 1.9e-2, outputs 3.0e-7 / 2.2e-6, and 137 of 6342272 first
+# updates of another sign. The card sums in other orders and cuDNN picks
+# other algorithms, so each limit sits 15-100x above its reading; the sign
+# limit is 6000 of those 6342272 weights, kept as a share so that a narrow
+# run applies it too. The faults of DCGAN_FAULTS, planted in the leaky
+# route's plain versions, must each break a limit (``--cpu-dcgan`` at full
+# width, tests/test_torch_parity_limits.py at ngf = ndf = 8): a wrong
+# slope, in both directions or in the backward only, down to 0.201 for
+# 0.2, and the backward's mask without its slope; a 0.2002 shows only at
+# full width
+DCGAN_PARITY_BATCH = 8
+DCGAN_PARITY_TOL = {"param": (1e-3, 3e-3), "aux": (1e-4, 1e-3),
+                    "adam_mean": (1e-2, 0.25), "adam_var": (1e-2, 0.25),
+                    "output": (1e-4, 1e-3)}
+DCGAN_FLIP_SHARE = 6000 / 6342272
+DCGAN_FAULTS = ("slope 0.25", "backward slope 0.25", "backward slope 0.201",
+                "backward slope dropped")
+# a finer fault that ``--cpu-dcgan`` also reads: at full width it breaks
+# the step-1 Adam limits and the sign limit, at ngf = ndf = 8 none
+DCGAN_FAULT_FINE = "backward slope 0.2002"
+
+
+def facc(label, pred):
+    """The example's metric: D's accuracy at threshold 0.5."""
+    pred = pred.ravel()
+    label = label.ravel()
+    return ((pred > 0.5) == label).mean()
+
+
+def dcgan_numpy(mx, seed):
+    """``((g_args, g_aux), (d_args, d_aux))`` as numpy from ``seed``, as
+    ``init.Normal(0.02)`` makes them: weights N(0, 0.02), gamma 1, beta 0,
+    moving mean 0, moving variance 1."""
+    rng = np.random.RandomState(seed)
+    nf, z = DCGAN_NF, DCGAN_Z
+    out = []
+    for sym, shapes in (
+            (mx.models.dcgan_generator(ngf=nf, nc=3), {"rand": (1, z, 1, 1)}),
+            (mx.models.dcgan_discriminator(ndf=nf),
+             {"data": (1, 3, 64, 64), "label": (1,)})):
+        arg_shapes, _out, aux_shapes = sym.infer_shape(**shapes)
+        args = {}
+        for n, s in zip(sym.list_arguments(), arg_shapes):
+            if n in shapes:
+                continue
+            if n.endswith("_gamma"):
+                args[n] = np.ones(s, np.float32)
+            elif n.endswith("_beta"):
+                args[n] = np.zeros(s, np.float32)
+            else:
+                args[n] = (0.02 * rng.standard_normal(s)).astype(np.float32)
+        auxs = {n: (np.ones if n.endswith("_var") else np.zeros)(
+            s, np.float32) for n, s in zip(sym.list_auxiliary_states(),
+                                          aux_shapes)}
+        out.append((args, auxs))
+    return tuple(out)
+
+
+def dcgan_module(mx, ctx, batch, params, dtype=np.float32):
+    """A bound ``GANModule`` on ``ctx`` at ``batch`` holding ``params``
+    (cast to ``dtype``), with Adam as ``DCGAN_OPT`` for both networks."""
+    from mxnet_tpu_torch.convert import gan_params_from_numpy
+
+    nf, z = DCGAN_NF, DCGAN_Z
+    gan = mx.mod.GANModule(
+        mx.models.dcgan_generator(ngf=nf, nc=3),
+        mx.models.dcgan_discriminator(ndf=nf), context=ctx,
+        batch_size=batch, code_shape=(z, 1, 1), data_shape=(3, 64, 64))
+    gan.mod_g.bind(data_shapes=[mx.io.DataDesc("rand", (batch, z, 1, 1),
+                                               dtype)])
+    gan.mod_d.bind(data_shapes=[mx.io.DataDesc("data", (batch, 3, 64, 64),
+                                               dtype)],
+                   label_shapes=[mx.io.DataDesc("label", (batch,), dtype)],
+                   inputs_need_grad=True)
+    gan_params_from_numpy(gan, *[tuple({k: v.astype(dtype) for k, v in
+                                        d.items()} for d in p)
+                                 for p in params])
+    gan.init_optimizer(optimizer="adam", optimizer_params=DCGAN_OPT)
+    return gan
+
+
+def dcgan_reals(n, batch, seed):
+    """``n`` batches of the example's synthetic reals (``rand * 2 - 1``)."""
+    rs = np.random.RandomState(seed)
+    return [rs.rand(batch, 3, 64, 64).astype(np.float32) * 2 - 1
+            for _ in range(n)]
+
+
+def dcgan_latents(n, batch, seed):
+    rng = np.random.RandomState(seed)
+    return [rng.standard_normal((batch, DCGAN_Z, 1, 1)).astype(np.float32)
+            for _ in range(n)]
+
+
+def dcgan_loss(out):
+    """D's logistic loss on the real batch from its real-pass output."""
+    p = out.asnumpy().astype(np.float64)
+    return float(np.mean(-np.log(np.maximum(p, 1e-12))))
+
+
+def dcgan_loss_curve(mx, ctx, seed):
+    """D's logistic loss on one fixed batch over ``DCGAN_LOSS_STEPS``
+    steps (parameters, reals and latents from ``seed``)."""
+    gan = dcgan_module(mx, ctx, DCGAN_LOSS_BATCH, dcgan_numpy(mx, seed))
+    real = mx.nd.array(dcgan_reals(1, DCGAN_LOSS_BATCH, seed + 1)[0],
+                       ctx=ctx)
+    lats = dcgan_latents(DCGAN_LOSS_STEPS, DCGAN_LOSS_BATCH, seed + 2)
+    return [dcgan_loss(gan.train_window(real, latents=[z]).outputs[0])
+            for z in lats]
+
+
+def dcgan_state(gan):
+    """After a step: the kinds of ``DCGAN_PARITY_TOL`` as float64 numpy
+    arrays by name."""
+    st = {"param": {}, "aux": {}, "adam_mean": {}, "adam_var": {}}
+    for tag, mod in (("g", gan.mod_g), ("d", gan.mod_d)):
+        arg, aux = mod.get_params()
+        for n, v in arg.items():
+            st["param"][f"{tag}.{n}"] = v.asnumpy().astype(np.float64)
+        for n, v in aux.items():
+            st["aux"][f"{tag}.{n}"] = v.asnumpy().astype(np.float64)
+        names = mod._exec_group.param_names
+        for i, (mean, var) in mod._updater.states.items():
+            st["adam_mean"][f"{tag}.{names[i]}"] = \
+                mean.asnumpy().astype(np.float64)
+            st["adam_var"][f"{tag}.{names[i]}"] = \
+                var.asnumpy().astype(np.float64)
+    return st
+
+
+def dcgan_parity_run(mx, sides, seed):
+    """Two ``train_window`` steps of each side (name -> GANModule) at
+    ``DCGAN_PARITY_BATCH`` on the same reals and latents from ``seed``.
+    Returns ``{name: [state after step 1, after step 2]}``, each state with
+    the step's published ``output``, and the initial parameters."""
+    reals = dcgan_reals(2, DCGAN_PARITY_BATCH, seed)
+    lats = dcgan_latents(2, DCGAN_PARITY_BATCH, seed + 1)
+    init = dcgan_state(next(iter(sides.values())))["param"]
+    res = {}
+    for name, gan in sides.items():
+        ctx = gan.mod_g._context[0]
+        res[name] = []
+        for real, z in zip(reals, lats):
+            b = gan.train_window(mx.nd.array(real, ctx=ctx), latents=[z])
+            st = dcgan_state(gan)
+            st["output"] = {"d_real": b.outputs[0].asnumpy().astype(
+                np.float64)}
+            res[name].append(st)
+    return res, init
+
+
+def dcgan_parity_lines(res, init, got, want):
+    """``(lines, {(step, kind): relative difference}, first-step weights
+    whose update took the other sign, weights)`` of side ``got`` against
+    side ``want``."""
+    lines, rels = [], {}
+    for s in range(2):
+        for kind in ("param", "aux", "adam_mean", "adam_var", "output"):
+            rel, worst, worst_rel = parity_diff(res[got][s][kind],
+                                                res[want][s][kind])
+            rels[(s, kind)] = rel
+            lines.append(f"step {s + 1} {kind}: |{got} - {want}| / |{want}| "
+                         f"= {rel:.3g}; worst tensor {worst} {worst_rel:.3g}")
+    flips = total = 0
+    for n, w0 in init.items():
+        a = np.sign(res[got][0]["param"][n] - w0)
+        b = np.sign(res[want][0]["param"][n] - w0)
+        flips += int((a != b).sum())
+        total += w0.size
+    return lines, rels, flips, total
+
+
+@contextlib.contextmanager
+def dcgan_fault(fault):
+    """While open, the port's plain ``bn_act``/``bn_act_bwd`` (the CPU
+    side of a parity run) carry ``fault`` in their leaky route (slope > 0):
+    ``"slope s"`` puts the slope s in place of the model's in both
+    directions, ``"backward slope s"`` in the backward only, and
+    ``"backward slope dropped"`` gives the backward the ReLU's mask."""
+    from mxnet_tpu_torch.kernels import bn_act as ba, bn_act_bwd as bb
+
+    fwd, bwd = ba.bn_act_plain, bb.bn_act_bwd_plain
+    words = fault.split()
+    b_slope = 0.0 if words[-1] == "dropped" else float(words[-1])
+    f_slope = b_slope if words[0] == "slope" else None
+
+    def fwd_fault(x, mean, var, gamma, beta, eps, fix_gamma, slope=None):
+        if slope and f_slope is not None:
+            slope = f_slope
+        return fwd(x, mean, var, gamma, beta, eps, fix_gamma, slope)
+
+    def bwd_fault(dy, y, x, mean, var, gamma, kvar, eps, fix_gamma,
+                  slope=None):
+        return bwd(dy, y, x, mean, var, gamma, kvar, eps, fix_gamma,
+                   b_slope if slope else slope)
+
+    ba.bn_act_plain, bb.bn_act_bwd_plain = fwd_fault, bwd_fault
+    try:
+        yield
+    finally:
+        ba.bn_act_plain, bb.bn_act_bwd_plain = fwd, bwd
+
+
+def dcgan_parity_breaches(rels, flips, total):
+    """The limits of ``DCGAN_PARITY_TOL`` and ``DCGAN_FLIP_SHARE`` that the
+    readings of ``dcgan_parity_lines`` break (empty when none)."""
+    bad = [f"step {s + 1} {kind} {rel:.3g} > {DCGAN_PARITY_TOL[kind][s]}"
+           for (s, kind), rel in rels.items()
+           if not rel <= DCGAN_PARITY_TOL[kind][s]]
+    if flips > DCGAN_FLIP_SHARE * total:
+        bad.append(f"{flips} first-step updates of another sign > "
+                   f"{DCGAN_FLIP_SHARE} x {total}")
+    return bad
+
+
+def dcgan_fault_run(mx, params, want, init, fault):
+    """Two parity steps of a CPU ``GANModule`` under ``fault`` against the
+    correct CPU run ``want`` (``dcgan_parity_run``'s result and initial
+    parameters): ``(readings, limits broken)``."""
+    with dcgan_fault(fault):
+        got, _init = dcgan_parity_run(mx, {"fault": dcgan_module(
+            mx, mx.cpu(), DCGAN_PARITY_BATCH, params)}, SEED + 71)
+    res = {"fault": got["fault"], "cpu": want["cpu"]}
+    _lines, rels, flips, total = dcgan_parity_lines(res, init, "fault", "cpu")
+    readings = {f"step {s + 1} {kind}": rel for (s, kind), rel in
+                rels.items()}
+    readings["flips"] = flips
+    readings["weights"] = total
+    return readings, dcgan_parity_breaches(rels, flips, total)
+
+
+def dcgan_cpu_readings(seeds=(0, 1, 2)):
+    """The readings ``DCGAN_LOSS_RATIO``, ``DCGAN_PARITY_TOL`` and
+    ``DCGAN_FLIP_SHARE`` were fixed from, made before any card ran the
+    DCGAN phases, on the port's CPU path at full width: the loss check's
+    curve for each seed offset, and the two parity steps in float32
+    against float64. Needs no card."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    t0 = time.perf_counter()
+    for k in seeds:
+        curve = dcgan_loss_curve(mx, mx.cpu(), SEED + 60 + k)
+        print(f"[dcgan-cpu] loss check, seed SEED + {60 + k}: D's logistic "
+              f"loss on the fixed batch {curve[0]:.4f} -> {curve[-1]:.4f} "
+              f"({curve[-1] / curve[0]:.4f}); curve "
+              f"{[round(v, 4) for v in curve]}", flush=True)
+    params = dcgan_numpy(mx, SEED + 70)
+    sides = {n: dcgan_module(mx, mx.cpu(), DCGAN_PARITY_BATCH, params, d)
+             for n, d in (("cpu", np.float32), ("cpu64", np.float64))}
+    res, init = dcgan_parity_run(mx, sides, SEED + 71)
+    lines, _rels, flips, total = dcgan_parity_lines(res, init, "cpu",
+                                                    "cpu64")
+    for line in lines:
+        print(f"[dcgan-cpu] {line}")
+    print(f"[dcgan-cpu] first-step updates of another sign, float32 vs "
+          f"float64: {flips} of {total} weights "
+          f"({torch.get_num_threads()} threads, "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    # the limits against planted faults of the leaky route: the float32
+    # CPU path with the fault against the one without
+    for fault in DCGAN_FAULTS + (DCGAN_FAULT_FINE,):
+        readings, bad = dcgan_fault_run(mx, params, res, init, fault)
+        print(f"[dcgan-cpu] fault {fault!r}: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in readings.items())
+              + f"; {'caught by ' + '; '.join(bad) if bad else 'NOT CAUGHT'}",
+              flush=True)
+
+
+def bn_leaky_inputs(torch, gen, dev, shape, edge=False):
+    """x, moving mean and variance, gamma, beta and a head gradient for a
+    BatchNorm input of ``shape``; with ``edge`` channel 0 holds exact
+    zeros of both signs with mean 0 and beta -0.0 (pre-activations exactly
+    +0.0 and -0.0) and channel 1 is constant at its mean."""
+    c = shape[1]
+    x = torch.randn(shape, generator=gen, device=dev)
+    mean = 0.1 * torch.randn(c, generator=gen, device=dev)
+    var = 0.5 + torch.rand(c, generator=gen, device=dev)
+    gamma = 0.5 + torch.rand(c, generator=gen, device=dev)
+    beta = 0.1 * torch.randn(c, generator=gen, device=dev)
+    if edge:
+        x0 = x[:, 0].reshape(-1)
+        x0[0::3] = 0.0
+        x0[1::3] = -0.0
+        x[:, 0] = x0.reshape(x[:, 0].shape)
+        x[:, 1] = 0.75
+        mean[0], beta[0], mean[1] = 0.0, -0.0, 0.75
+    return dict(x=x, mean=mean, var=var, gamma=gamma, beta=beta,
+                dy=torch.randn(shape, generator=gen, device=dev))
+
+
+def phase_dcgan_kernels(torch, mx):
+    """``bn_act`` and ``bn_act_bwd`` with the LeakyReLU slope 0.2 at D's
+    three BatchNorm shapes at batch 64, and with slope 0 at G's four,
+    against their plain versions, plus edge inputs (pre-activations
+    exactly +-0.0, a constant channel); ``bn_stats`` at all seven shapes
+    and ``adam_multi`` over G's and D's parameters as the GANModule step
+    calls them, against their plain versions; per D shape the kernel by
+    CUDA events, the plain version, the PyTorch library calls and the
+    bound. Returns the leaky rows of the kernels line and each kernel's
+    largest error here."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxnet_tpu_torch.kernels import (
+        adam_multi as am, bn_act as ba, bn_act_bwd as bb, bn_stats as bs)
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    errs = {0.0: [0.0, 0.0], DCGAN_SLOPE: [0.0, 0.0]}  # (fwd, dx)
+    cases = [(s, DCGAN_SLOPE, False) for s in DCGAN_D_BN] + \
+        [(s, 0.0, False) for s in DCGAN_G_BN] + \
+        [(DCGAN_D_BN[0], DCGAN_SLOPE, True), (DCGAN_G_BN[0], 0.0, True),
+         ((3, 5, 7, 9), DCGAN_SLOPE, True)]
+    for shape, slope, edge in cases:
+        t = bn_leaky_inputs(torch, gen, dev, shape, edge)
+        what = f"slope {slope} {shape}{' edge' if edge else ''}"
+        # over given statistics (fix_gamma, as models/dcgan.py)
+        args = (t["x"], t["mean"], t["var"], t["gamma"], t["beta"],
+                DCGAN_EPS, True, slope)
+        got, want = ba.bn_act(*args), ba.bn_act_plain(*args)
+        errs[slope][0] = max(errs[slope][0], check(
+            torch, f"bn_act {what}", got, want, BN_RTOL, BN_ATOL))
+        pre = ba.bn_act_plain(*args[:7])  # no activation
+        if edge:
+            signs = torch.signbit(pre[pre == 0])
+            if not (signs.any() and not signs.all()):
+                fail(f"bn_act {what}: the edge inputs lack a +0.0 or a -0.0 "
+                     f"pre-activation")
+            # the slope keeps each zero's sign
+            if slope and not (
+                    torch.equal(torch.signbit(want[pre == 0]), signs)
+                    and torch.equal(torch.signbit(got[pre == 0]), signs)):
+                fail(f"bn_act {what}: signed zeros differ from the plain "
+                     f"version's")
+        if not slope and torch.signbit(got[pre < 0]).any():
+            fail(f"bn_act {what}: the ReLU gave -0.0 for a negative input")
+        # the training forward: bn_stats, then bn_act with the batch stats
+        mm, mv = t["mean"].clone(), t["var"].clone()
+        mean, var, kvar = bs.bn_stats(t["x"], mm, mv, 0.9)
+        y = ba.bn_act(t["x"], mean, var, t["gamma"], t["beta"], DCGAN_EPS,
+                      True, slope)
+        mean_p, var_p, _kvar_p = bs.bn_stats_plain(
+            t["x"], t["mean"].clone(), t["var"].clone(), 0.9)
+        y_p = ba.bn_act_plain(t["x"], mean_p, var_p, t["gamma"], t["beta"],
+                              DCGAN_EPS, True, slope)
+        errs[slope][0] = max(errs[slope][0], check(
+            torch, f"training forward {what}", y, y_p, FWD_RTOL, FWD_ATOL))
+        # the backward over the kernel's own forward (bn_stats is held
+        # against its plain version, kvar exactly, below)
+        bargs = (t["dy"], y, t["x"], mean, var, t["gamma"], kvar, DCGAN_EPS,
+                 True, slope)
+        got, want = bb.bn_act_bwd(*bargs), bb.bn_act_bwd_plain(*bargs)
+        errs[slope][1] = max(errs[slope][1], check(
+            torch, f"bn_act_bwd {what} dx", got[0], want[0], DX_RTOL,
+            DX_ATOL))
+        n = math.prod(shape) // shape[1]
+        check(torch, f"bn_act_bwd {what} dbeta", got[2], want[2], DX_RTOL,
+              n * 2.0 ** -24)
+        t.clear()
+    print(f"[dcgan-kernels] bn_act and bn_act_bwd with slope {DCGAN_SLOPE} "
+          f"at D's {DCGAN_D_BN} and slope 0 at G's {DCGAN_G_BN}, plus edge "
+          f"inputs (pre-activations exactly +0.0 and -0.0, a constant "
+          f"channel), match their plain versions: bn_act max abs err "
+          f"{errs[DCGAN_SLOPE][0]:g} (leaky) / {errs[0.0][0]:g} (ReLU) "
+          f"(rtol {BN_RTOL}, atol {BN_ATOL}; the training forward rtol "
+          f"{FWD_RTOL}, atol {FWD_ATOL}); bn_act_bwd dx "
+          f"{errs[DCGAN_SLOPE][1]:g} / {errs[0.0][1]:g} (rtol {DX_RTOL}, "
+          f"atol {DX_ATOL}); signed zeros as the plain version's", flush=True)
+
+    # --- bn_stats at the seven BatchNorm shapes (G's 4x4 plane included),
+    # as phase 2 holds it at ResNet's
+    st_err = 0.0
+    for shape in DCGAN_D_BN + DCGAN_G_BN:
+        for offset in (0.0, 30.0):
+            c = shape[1]
+            x = torch.randn(shape, generator=gen, device=dev) + offset
+            mm = 0.1 * torch.randn(c, generator=gen, device=dev)
+            mv = 0.5 + torch.rand(c, generator=gen, device=dev)
+            mm2, mv2, anchor = mm.clone(), mv.clone(), mm.clone()
+            got = bs.bn_stats(x, mm, mv, 0.9)
+            want = bs.bn_stats_plain(x, mm2, mv2, 0.9)
+            cancel = 8 * 2.0 ** -23 * float(
+                (want[0] - anchor).abs().max()) ** 2
+            what = f"bn_stats {shape} offset {offset}"
+            st_err = max(st_err,
+                         check(torch, what + " mean", got[0], want[0],
+                               STAT_RTOL, STAT_ATOL),
+                         check(torch, what + " var", got[1], want[1],
+                               STAT_RTOL, STAT_ATOL + cancel),
+                         check(torch, what + " moving_mean", mm, mm2,
+                               STAT_RTOL, STAT_ATOL),
+                         check(torch, what + " moving_var", mv, mv2,
+                               STAT_RTOL, STAT_ATOL + cancel))
+            if not offset and not torch.equal(got[2], want[2]):
+                fail(f"{what}: the clamp derivative kvar differs")
+    print(f"[dcgan-kernels] bn_stats matches its plain version at D's and "
+          f"G's {len(DCGAN_D_BN + DCGAN_G_BN)} shapes x anchor offsets 0 "
+          f"and 30: max abs err {st_err:g} (rtol {STAT_RTOL}, atol "
+          f"{STAT_ATOL} + 8*2^-23*dmean^2 on the variance), kvar exactly",
+          flush=True)
+
+    # --- adam_multi over each network's parameters, as Module.update calls
+    # it: states from 0, DCGAN_OPT's rate and beta1, no wd, no clip,
+    # rescale_grad 1/batch, steps t = 1 and 2
+    opt = mx.optimizer.Adam(**DCGAN_OPT)
+    ad_err, numel = 0.0, 0
+    for net, (args, _auxs) in zip("GD", dcgan_numpy(mx, SEED + 51)):
+        shapes = [a.shape for a in args.values()]
+        numel += sum(math.prod(s) for s in shapes)
+        ws_ = [torch.from_numpy(a).to(dev) for a in args.values()]
+        ms = [torch.zeros(s, device=dev) for s in shapes]
+        vs = [torch.zeros(s, device=dev) for s in shapes]
+        ref = [[t.clone() for t in x] for x in (ws_, ms, vs)]
+        for step in (1, 2):
+            gs = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+            lrs = [opt.lr_t(DCGAN_OPT["learning_rate"], step)] * len(shapes)
+            wds = [0.0] * len(shapes)
+            am.adam_multi(ws_, gs, ms, vs, lrs, wds, opt.beta1, opt.beta2,
+                          opt.epsilon, 1 / DCGAN_BATCH, -1.0)
+            am.adam_multi_plain(ref[0], gs, ref[1], ref[2], lrs, wds,
+                                opt.beta1, opt.beta2, opt.epsilon,
+                                1 / DCGAN_BATCH, -1.0)
+        for kind, got, want in (("weight", ws_, ref[0]), ("mean", ms, ref[1]),
+                                ("variance", vs, ref[2])):
+            for name, g, w in zip(args, got, want):
+                ad_err = max(ad_err, check(
+                    torch, f"adam_multi {net} {name} {kind}", g, w,
+                    LSTM_RTOL, LSTM_ATOL))
+    print(f"[dcgan-kernels] adam_multi matches its plain version over G's "
+          f"and D's parameters ({numel / 1e6:.2f} M values, one call per "
+          f"network), beta1 {opt.beta1}, steps 1 and 2 from zero states: "
+          f"max abs err {ad_err:g} on weights and both states (rtol "
+          f"{LSTM_RTOL}, atol {LSTM_ATOL})", flush=True)
+
+    # --- timing at D's shapes: one D pass's three launches
+    T = []
+    for shape in DCGAN_D_BN:
+        t = bn_leaky_inputs(torch, gen, dev, shape)
+        mean, var, kvar = bs.bn_stats(t["x"], t["mean"].clone(),
+                                      t["var"].clone(), 0.9)
+        t.update(bmean=mean, bvar=var, kvar=kvar,
+                 invstd=torch.rsqrt(var + DCGAN_EPS))
+        t["y"] = ba.bn_act(t["x"], mean, var, t["gamma"], t["beta"],
+                           DCGAN_EPS, True, DCGAN_SLOPE)
+        T.append(t)
+
+    def each(fn):
+        def run():
+            for t in T:
+                fn(t)
+        return run
+
+    def fwd(t):
+        return ba.bn_act(t["x"], t["bmean"], t["bvar"], t["gamma"],
+                         t["beta"], DCGAN_EPS, True, DCGAN_SLOPE)
+
+    def fwd_plain(t):
+        return ba.bn_act_plain(t["x"], t["bmean"], t["bvar"], t["gamma"],
+                               t["beta"], DCGAN_EPS, True, DCGAN_SLOPE)
+
+    def fwd_lib(t):
+        return F.leaky_relu(F.batch_norm(
+            t["x"], t["bmean"], t["bvar"], t["gamma"], t["beta"],
+            training=False, eps=DCGAN_EPS), DCGAN_SLOPE, inplace=True)
+
+    def bwd(t):
+        return bb.bn_act_bwd(t["dy"], t["y"], t["x"], t["bmean"], t["bvar"],
+                             t["gamma"], t["kvar"], DCGAN_EPS, True,
+                             DCGAN_SLOPE)
+
+    def bwd_plain(t):
+        return bb.bn_act_bwd_plain(t["dy"], t["y"], t["x"], t["bmean"],
+                                   t["bvar"], t["gamma"], t["kvar"],
+                                   DCGAN_EPS, True, DCGAN_SLOPE)
+
+    def bwd_lib(t):
+        dyp = torch.ops.aten.leaky_relu_backward(t["dy"], t["y"],
+                                                 DCGAN_SLOPE, True)
+        return torch.ops.aten.native_batch_norm_backward(
+            dyp, t["x"], t["gamma"], None, None, t["bmean"], t["invstd"],
+            True, DCGAN_EPS, [True, True, True])
+
+    def device_ms(fn, mark, reps=10):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                 if ev.device_type == DeviceType.CUDA and mark in ev.key)
+        return us / reps / 1e3
+
+    n_el = sum(math.prod(s) for s in DCGAN_D_BN)
+    c_sum = sum(s[1] for s in DCGAN_D_BN)
+    rows = []
+    for name, k, p, lib, nbytes, flops, lib_name in (
+            ("bn_act_leaky", fwd, fwd_plain, fwd_lib,
+             n_el * 8 + c_sum * 16, 6 * n_el, "F.batch_norm + F.leaky_relu"),
+            ("bn_act_bwd_leaky", bwd, bwd_plain, bwd_lib,
+             n_el * 16 + c_sum * 24, 13 * n_el,
+             "native_batch_norm_backward + leaky_relu_backward")):
+        k_ms = cuda_ms(torch, each(k), reps=20)
+        p_ms = cuda_ms(torch, each(p), reps=5)
+        lib_ms = cuda_ms(torch, each(lib), reps=20)
+        pass_ms = device_ms(each(k), LEAKY_MARKS[name])
+        b_ms, b_by = bound(nbytes, flops)
+        per_shape = []
+        for t in T:
+            one = cuda_ms(torch, lambda t=t: k(t), reps=20)
+            per_shape.append(f"{tuple(t['x'].shape)} {one:.4f}")
+        print(f"[dcgan-kernels] {name} per D pass (3 launches"
+              f"{' x 2' if 'bwd' in name else ''}, {nbytes / 1e6:.2f} MB "
+              f"one-pass): kernel {k_ms:.4f} ms (by shape: "
+              f"{'; '.join(per_shape)}), device {pass_ms:.4f} ms in a loop "
+              f"over these three tensors, plain {p_ms:.4f} ms, {lib_name} "
+              f"{lib_ms:.4f} ms, bound {b_ms * 1e3:.2f} us ({b_by})",
+              flush=True)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "mxnet_tpu_torch/csrc/" + (
+                         "bn_act_bwd.cu" if "bwd" in name else "bn_act.cu"),
+                     "replaces": "mxnet_tpu/ops/defs_nn.py:" + (
+                         "380" if "bwd" in name else "394") + "+336",
+                     "max_abs_err": errs[DCGAN_SLOPE][1 if "bwd" in name
+                                                      else 0],
+                     "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib_ms,
+                     "d_pass_loop_device_ms": pass_ms})
+    T.clear()
+    return rows, {"bn_act": errs[0.0][0], "bn_act_bwd": errs[0.0][1],
+                  "bn_stats": st_err, "adam_multi": ad_err}
+
+
+def phase_dcgan_training(torch, mx, card):
+    """DCGAN trained by ``GANModule.train_window`` at full width on the
+    card: ``DCGAN_WARMUP`` windows of ``DCGAN_K`` steps, then
+    ``DCGAN_WINDOWS`` timed ones over the example's synthetic reals, the
+    metric read ``depth = 2`` windows behind as the example does; every
+    window's launches exactly ``DCGAN_K`` x ``DCGAN_LAUNCHES`` and no plain
+    version on data; the metric finite; the loss check; ms per step by the
+    host's clock and by CUDA events, peak memory, a profile of one step,
+    the serial loop's rate and the generator's inference rate."""
+    from collections import deque
+
+    from mxnet_tpu_torch import telemetry as tm
+
+    t0 = time.perf_counter()
+    b, k = DCGAN_BATCH, DCGAN_K
+    n_win = DCGAN_WARMUP + DCGAN_WINDOWS
+    gan = dcgan_module(mx, mx.gpu(0), b, dcgan_numpy(mx, SEED + 52))
+    reals = [mx.nd.array(r) for r in dcgan_reals(n_win * k, b, SEED + 53)]
+    metric = mx.metric.CustomMetric(facc)
+    ones = mx.nd.ones((b,))
+    kernels = launch_counters()
+    plain_calls = count_plain_calls(torch, kernel_modules())
+    per_window, last = [], {}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: every count at 0 just before, read just after
+    tm.reset()
+    for c in plain_calls:
+        plain_calls[c] = 0
+    inflight = deque()
+    for w in range(n_win):
+        if w == DCGAN_WARMUP:
+            while inflight:
+                metric.update([ones], inflight.popleft().outputs)
+            torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            start.record()
+        boundary = gan.train_window(None, batches=reals[w * k:(w + 1) * k])
+        now = {n: c.value for n, c in kernels.items()}
+        per_window.append({n: v - last.get(n, 0) for n, v in now.items()})
+        last.update(now)
+        inflight.append(boundary)
+        while len(inflight) >= 2:
+            metric.update([ones], inflight.popleft().outputs)
+    end.record()
+    while inflight:
+        metric.update([ones], inflight.popleft().outputs)
+    torch.cuda.synchronize()
+    h1 = time.perf_counter()
+    launches = {n: c.value for n, c in kernels.items()}
+    plain = dict(plain_calls)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _name, acc = metric.get()
+
+    want = {n: k * DCGAN_LAUNCHES.get(n, 0) for n in kernels}
+    bad = [i for i, st in enumerate(per_window) if st != want]
+    if bad:
+        fail(f"DCGAN launches: windows {bad} of {len(per_window)} off, "
+             f"first {per_window[bad[0]]}; expected per window {want}")
+    if any(plain.values()):
+        fail(f"plain versions ran on the card's DCGAN path: {plain}")
+    if not math.isfinite(acc):
+        fail(f"DCGAN: D's real accuracy is {acc}")
+    exe = gan.mod_d._exec_group._exec
+    if exe.arg_dict["d2_weight"].context != mx.gpu(0):
+        fail("GANModule did not train on gpu(0)")
+    steps = DCGAN_WINDOWS * k
+    host_ms = (h1 - h0) / steps * 1e3
+    event_ms = start.elapsed_time(end) / steps
+    print(f"[dcgan-training] GANModule.train_window on {card}: "
+          f"{n_win} windows of {k} steps at batch {b} "
+          f"({time.perf_counter() - t0:.1f} s with binding); launches "
+          f"exactly {k} x {DCGAN_LAUNCHES} per window, totals "
+          f"{ {n: v for n, v in launches.items() if v} }; no plain version "
+          f"ran; D's real-acc (CustomMetric(facc)) {acc:.4f}", flush=True)
+    print(f"[dcgan-training] timed windows {DCGAN_WARMUP + 1}..{n_win} "
+          f"({steps} steps): {host_ms:.3f} ms per step by the host's clock, "
+          f"card drained at both ends ({b * 1e3 / host_ms:.1f} samples/s); "
+          f"{event_ms:.3f} ms per step by CUDA events; peak device memory "
+          f"{peak:.2f} GiB", flush=True)
+
+    # the same windows without the metric: each read of a boundary's
+    # outputs is a copy on the card's stream, so it also waits for the
+    # window dispatched after that boundary
+    torch.cuda.synchronize()
+    f0 = time.perf_counter()
+    for w in range(DCGAN_WARMUP, n_win):
+        boundary = gan.train_window(None, batches=reals[w * k:(w + 1) * k])
+    boundary.wait()
+    torch.cuda.synchronize()
+    free_ms = (time.perf_counter() - f0) / steps * 1e3
+    print(f"[dcgan-training] the same {DCGAN_WINDOWS} windows without the "
+          f"metric's reads: {free_ms:.3f} ms per step "
+          f"({b * 1e3 / free_ms:.1f} samples/s)", flush=True)
+
+    # the serial loop (the example's --legacy) on the same steps
+    torch.cuda.synchronize()
+    s0 = time.perf_counter()
+    for w in range(DCGAN_SERIAL_WINDOWS):
+        gan._serial_window(reals[w * k:(w + 1) * k], None)
+    torch.cuda.synchronize()
+    serial_ms = (time.perf_counter() - s0) / (DCGAN_SERIAL_WINDOWS * k) * 1e3
+    print(f"[dcgan-training] the serial loop (_serial_window, the "
+          f"example's --legacy) on {DCGAN_SERIAL_WINDOWS * k} steps: "
+          f"{serial_ms:.3f} ms per step ({b * 1e3 / serial_ms:.1f} "
+          f"samples/s)", flush=True)
+
+    # generation: Module(g_sym).forward(is_train=False) at batch 64
+    from mxnet_tpu_torch.kernels import bn_act as ba
+
+    imod = mx.mod.Module(mx.models.dcgan_generator(ngf=DCGAN_NF, nc=3),
+                         data_names=("rand",), label_names=None)
+    imod.bind(data_shapes=[mx.io.DataDesc("rand", (b, DCGAN_Z, 1, 1))],
+              for_training=False)
+    imod.set_params(*gan.mod_g.get_params())
+    noise = mx.nd.random_normal(loc=0, scale=1, shape=(b, DCGAN_Z, 1, 1))
+    batch = mx.io.DataBatch(data=[noise], label=[])
+    imod.forward(batch, is_train=False)
+    torch.cuda.synchronize()
+    before = ba.LAUNCHES.value
+    iters = 20
+    g0 = time.perf_counter()
+    for _ in range(iters):
+        imod.forward(batch, is_train=False)
+    torch.cuda.synchronize()
+    infer_ms = (time.perf_counter() - g0) / iters * 1e3
+    img = imod.get_outputs()[0]
+    per_fwd = (ba.LAUNCHES.value - before) / iters
+    ok = (img.shape == (b, 3, 64, 64) and bool(torch.isfinite(
+        img._data).all()) and float(img._data.abs().max()) <= 1.0)
+    if not ok or per_fwd != len(DCGAN_G_BN):
+        fail(f"DCGAN generation: shape {img.shape}, finite in [-1, 1] {ok}, "
+             f"bn_act launches per forward {per_fwd} (expected "
+             f"{len(DCGAN_G_BN)})")
+    print(f"[dcgan-training] generation (Module(g_sym).forward(is_train="
+          f"False)) at batch {b}: {infer_ms:.3f} ms per forward "
+          f"({b * 1e3 / infer_ms:.1f} samples/s), {per_fwd:g} bn_act "
+          f"launches per forward, images in [-1, 1]", flush=True)
+
+    # the loss check
+    curve = dcgan_loss_curve(mx, mx.gpu(0), SEED + 60)
+    ratio = curve[-1] / curve[0]
+    if not (math.isfinite(ratio) and ratio <= DCGAN_LOSS_RATIO):
+        fail(f"DCGAN loss check: last/first {ratio} over {curve}; limit "
+             f"{DCGAN_LOSS_RATIO}")
+    print(f"[dcgan-training] loss check, {DCGAN_LOSS_STEPS} steps on one "
+          f"batch of {DCGAN_LOSS_BATCH}: D's logistic loss "
+          f"{[round(v, 4) for v in curve]}; last/first {ratio:.4f} (limit "
+          f"{DCGAN_LOSS_RATIO})", flush=True)
+
+    device_ms = profile_step(torch, lambda: gan.train_window(reals[0]),
+                             reps=4, tag="dcgan-profile",
+                             what=f"one GANModule step at batch {b}")
+    return launches, device_ms
+
+
+def phase_dcgan_parity(torch, mx):
+    """Two GANModule steps at full width and batch 8 on the card and on
+    the port's CPU path from the same weights, latents and reals, within
+    ``DCGAN_PARITY_TOL`` in norm and with at most a share
+    ``DCGAN_FLIP_SHARE`` of the first-step updates of another sign."""
+    t0 = time.perf_counter()
+    params = dcgan_numpy(mx, SEED + 70)
+    sides = {"card": dcgan_module(mx, mx.gpu(0), DCGAN_PARITY_BATCH, params),
+             "cpu": dcgan_module(mx, mx.cpu(), DCGAN_PARITY_BATCH, params)}
+    res, init = dcgan_parity_run(mx, sides, SEED + 71)
+    lines, rels, flips, total = dcgan_parity_lines(res, init, "card", "cpu")
+    bad = dcgan_parity_breaches(rels, flips, total)
+    print(f"[dcgan-parity] two GANModule steps at batch "
+          f"{DCGAN_PARITY_BATCH}, card against the port's CPU path "
+          f"({time.perf_counter() - t0:.1f} s): first-step updates of "
+          f"another sign {flips} of {total} weights (limit "
+          f"{DCGAN_FLIP_SHARE} x {total} = {DCGAN_FLIP_SHARE * total:.0f}); "
+          f"tolerances {DCGAN_PARITY_TOL}", flush=True)
+    for line in lines:
+        print(f"[dcgan-parity]   {line}")
+    if bad:
+        fail(f"DCGAN parity: card and CPU differ beyond the limits in {bad}")
+
+
 def main():
     if sys.argv[1:2] == ["--cpu-perplexity"]:
         cpu_perplexity([int(a) for a in sys.argv[2:]])
@@ -3119,6 +3943,9 @@ def main():
         return
     if sys.argv[1:2] == ["--cpu-ssd-train"]:
         ssd_train_cpu_readings()
+        return
+    if sys.argv[1:2] == ["--cpu-dcgan"]:
+        dcgan_cpu_readings()
         return
     import torch
 
@@ -3152,6 +3979,13 @@ def main():
         k.update(ssd_train_extra.get(k["name"], {}))
     ssd_trained, ssd_train_device_ms = phase_ssd_training(torch, mx, card)
     phase_ssd_train_parity(torch, mx)
+    dcgan_rows, dcgan_errs = phase_dcgan_kernels(torch, mx)
+    for k in kernels:
+        if k["name"] in dcgan_errs:
+            k["max_abs_err"] = max(k["max_abs_err"], dcgan_errs[k["name"]])
+    kernels += dcgan_rows
+    dcgan_trained, dcgan_device_ms = phase_dcgan_training(torch, mx, card)
+    phase_dcgan_parity(torch, mx)
     for k in kernels:
         name = k["name"]
         k["launches_serving"] = served.get(name, 0)
@@ -3159,13 +3993,15 @@ def main():
         k["launches_lstm"] = lstm_trained.get(name, 0)
         k["launches_ssd"] = ssd_served.get(name, 0)
         k["launches_ssd_train"] = ssd_trained.get(name, 0)
+        k["launches_dcgan"] = dcgan_trained.get(name, 0)
         k["launches"] = (k["launches_serving"] + k["launches_training"]
                          + k["launches_lstm"] + k["launches_ssd"]
-                         + k["launches_ssd_train"])
+                         + k["launches_ssd_train"] + k["launches_dcgan"])
         k["step_device_ms"] = device_ms.get(name)
         k["lstm_step_device_ms"] = lstm_device_ms.get(name)
         k["ssd_forward_device_ms"] = ssd_device_ms.get(name)
         k["ssd_step_device_ms"] = ssd_train_device_ms.get(name)
+        k["dcgan_step_device_ms"] = dcgan_device_ms.get(name)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,10 +6,11 @@ numpy, never ``jax`` and nothing from ``mxnet_tpu``. It trains and serves
 models end to end: Symbol graphs (JSON and ``.params`` compatible with the
 JAX package), an eager executor with backward and a fused update,
 ``Module.fit`` and ``BucketingModule.fit`` with SGD and Adam, RNN cells and
-``BucketSentenceIter``, initializers, metrics and ``NDArrayIter``,
-``Predictor`` and ``ModelServer`` (ResNet classification and SSD
-detection). Entry points run on the card (``gpu(0)``) unless the caller
-asks for the CPU. BatchNorm (+ReLU) forward and backward, the SoftmaxOutput
+``BucketSentenceIter``, ``GANModule`` (DCGAN), initializers, metrics and
+``NDArrayIter``, ``Predictor`` and ``ModelServer`` (ResNet classification
+and SSD detection). Entry points run on the card (``gpu(0)``) unless the
+caller asks for the CPU. BatchNorm (+ReLU or LeakyReLU) forward and
+backward, the SoftmaxOutput
 forward and loss backward, the LSTM cell step forward and backward, the
 multi-tensor SGD and Adam updates, and SSD's channel L2 normalization,
 per-anchor decode and NMS run hand-written CUDA kernels (:mod:`.kernels`);
@@ -27,15 +28,19 @@ torch.backends.cudnn.allow_tf32 = False
 
 from .base import MXNetError, __version__  # noqa: E402
 from . import base, context, env, telemetry  # noqa: E402
-from .context import Context, cpu, gpu, current_context, num_gpus  # noqa: E402
+from .context import (Context, cpu, gpu, cpu_pinned,  # noqa: E402
+                      current_context, num_gpus)
 from . import ops  # noqa: E402
 from . import kernels  # noqa: E402
 from . import ndarray  # noqa: E402
 from . import ndarray as nd  # noqa: E402
+from .ndarray import NDArray  # noqa: E402
 from . import symbol  # noqa: E402
 from . import symbol as sym  # noqa: E402
+from .symbol import Symbol, Variable  # noqa: E402
 from .executor import Executor  # noqa: E402
 from . import random  # noqa: E402
+from . import random as rnd  # noqa: E402
 from . import initializer  # noqa: E402
 from . import initializer as init  # noqa: E402
 from . import lr_scheduler, optimizer  # noqa: E402
@@ -50,10 +55,11 @@ from .attribute import AttrScope  # noqa: E402
 from .name import NameManager  # noqa: E402
 
 __all__ = [
-    "MXNetError", "Context", "cpu", "gpu", "current_context", "num_gpus",
-    "nd", "ndarray", "sym", "symbol", "Executor", "contrib", "convert",
+    "MXNetError", "Context", "cpu", "gpu", "cpu_pinned", "current_context",
+    "num_gpus", "nd", "ndarray", "NDArray", "sym", "symbol", "Symbol",
+    "Variable", "Executor", "contrib", "convert",
     "models", "predictor", "serving", "kernels", "ops", "base", "context",
-    "env", "telemetry", "AttrScope", "NameManager", "random", "init",
+    "env", "telemetry", "AttrScope", "NameManager", "random", "rnd", "init",
     "initializer", "lr_scheduler", "optimizer", "opt", "Optimizer", "metric",
     "io", "callback", "model", "module", "mod", "rnn",
 ]

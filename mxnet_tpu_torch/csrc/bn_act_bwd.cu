@@ -1,27 +1,37 @@
-// BatchNorm backward with the following ReLU's mask fused, NCHW float32.
+// BatchNorm backward with the following (leaky) ReLU's mask fused, NCHW
+// float32.
 //
 // Replaces the VJP of mxnet_tpu/ops/defs_nn.py _batch_norm (training
 // branch, the anchor m0 under stop_gradient) composed with the
-// Activation(relu) after it; see mxnet_tpu_torch/kernels/bn_act_bwd.py for
-// the wrapper and the plain version. With dy' = dy * (y > 0) (relu) or dy,
-// x^ = (x - mean) * invstd, invstd = 1 / sqrt(var + eps), g = gamma (1 under
-// fix_gamma) and n = N*H*W, per channel:
+// Activation(relu) or LeakyReLU(act_type="leaky") after it; see
+// mxnet_tpu_torch/kernels/bn_act_bwd.py for the wrapper and the plain
+// version. With dy' = y > 0 ? dy : slope * dy (slope >= 0; the ReLU is
+// slope 0, and then dy' is +0.0 where y <= 0) or dy (a negative or NaN
+// slope: no activation), x^ = (x - mean) * invstd,
+// invstd = 1 / sqrt(var + eps), g = gamma (1 under fix_gamma) and
+// n = N*H*W, per channel:
 //
 //   dbeta  = sum(dy')        dgamma = sum(dy' * x^)   (0 under fix_gamma)
 //   dx     = g * invstd * (dy' - km * dbeta / n - kvar * x^ * sum(dy' x^) / n)
 //
 // km = 1 and kvar from bn_stats.cu (1, 0.5 or 0: the clamp's derivative)
 // for batch statistics; km = kvar = 0 for use_global_stats, where mean and
-// var are the moving statistics and do not depend on x.
+// var are the moving statistics and do not depend on x. The mask reads the
+// sign from the output y, whose sign is t's for slope >= 0; at t == 0 it
+// gives slope * dy, the gradient of the reference's where(t > 0, ...). The
+// leaky route (slope > 0) runs under its own kernel names,
+// bn_bwd_leaky_reduce_kernel and bn_bwd_leaky_dx_kernel, so that a profile
+// tells it from the ReLU's.
 //
 // Bound: device-memory bandwidth. Two phases, two launches: the reduction
-// reads dy, y and x (12 bytes per element, 8 without the ReLU), the dx pass
-// reads them again and writes dx (16 bytes), against the one-pass minimum
-// of 16. The reduction walks planes as bn_stats.cu does: block (c, s) gives
-// its warps whole (n, c) planes, and the last block of a channel (atomic
-// ticket) adds the partials in a fixed order. The dx pass gives one warp to
-// each plane, as bn_act.cu does. Both read with 4-byte loads, coalesced
-// across the warp; 16-byte loads are left for a later change.
+// reads dy, y and x (12 bytes per element, 8 without the activation), the
+// dx pass reads them again and writes dx (16 bytes), against the one-pass
+// minimum of 16. The reduction walks planes as bn_stats.cu does: block
+// (c, s) gives its warps whole (n, c) planes, and the last block of a
+// channel (atomic ticket) adds the partials in a fixed order. The dx pass
+// gives one warp to each plane, as bn_act.cu does. Both read with 4-byte
+// loads, coalesced across the warp; 16-byte loads are left for a later
+// change.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -32,8 +42,10 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 
-__device__ __forceinline__ float masked(float dy, float y, int relu) {
-  return (relu && !(y > 0.f)) ? 0.f : dy;
+__device__ __forceinline__ float masked(float dy, float y, int act,
+                                        float slope) {
+  if (!act || y > 0.f) return dy;
+  return slope == 0.f ? 0.f : __fmul_rn(slope, dy);
 }
 
 __device__ __forceinline__ float invstd_of(float var, float eps) {
@@ -51,15 +63,13 @@ __device__ __forceinline__ float block_sum(float a, float* scratch) {
   return s;
 }
 
-__global__ void __launch_bounds__(kThreads)
-bn_bwd_reduce_kernel(const float* __restrict__ dy, const float* __restrict__ y,
-                     const float* __restrict__ x,
-                     const float* __restrict__ mean,
-                     const float* __restrict__ var, float* __restrict__ sums,
-                     float* __restrict__ dgamma, float* __restrict__ dbeta,
-                     float* partial, unsigned int* ticket, int n_batch,
-                     int channels, long long hw, int splits, float eps,
-                     int fix_gamma, int relu) {
+__device__ __forceinline__ void bwd_reduce(
+    const float* __restrict__ dy, const float* __restrict__ y,
+    const float* __restrict__ x, const float* __restrict__ mean,
+    const float* __restrict__ var, float* __restrict__ sums,
+    float* __restrict__ dgamma, float* __restrict__ dbeta, float* partial,
+    unsigned int* ticket, int n_batch, int channels, long long hw, int splits,
+    float eps, int fix_gamma, int act, float slope) {
   __shared__ float scratch[kWarps];
   __shared__ bool last;
   const int c = blockIdx.x / splits;
@@ -73,9 +83,9 @@ bn_bwd_reduce_kernel(const float* __restrict__ dy, const float* __restrict__ y,
     const long long base = ((long long)n * channels + c) * hw;
     const float* dp = dy + base;
     const float* xp = x + base;
-    const float* yp = relu ? y + base : dp;  // y only read under relu
+    const float* yp = act ? y + base : dp;  // y only read under act
     for (long long i = lane; i < hw; i += 32) {
-      const float d = masked(dp[i], yp[i], relu);
+      const float d = masked(dp[i], yp[i], act, slope);
       sd += d;
       sdx = fmaf(d, __fmul_rn(__fsub_rn(xp[i], m), inv), sdx);
     }
@@ -103,15 +113,14 @@ bn_bwd_reduce_kernel(const float* __restrict__ dy, const float* __restrict__ y,
   ticket[c] = 0u;
 }
 
-__global__ void __launch_bounds__(kThreads)
-bn_bwd_dx_kernel(const float* __restrict__ dy, const float* __restrict__ y,
-                 const float* __restrict__ x, const float* __restrict__ mean,
-                 const float* __restrict__ var,
-                 const float* __restrict__ gamma,
-                 const float* __restrict__ kvar,
-                 const float* __restrict__ sums, float* __restrict__ dx,
-                 long long planes, int channels, long long hw, float count,
-                 float eps, int fix_gamma, int relu, int batch_stats) {
+__device__ __forceinline__ void bwd_dx(
+    const float* __restrict__ dy, const float* __restrict__ y,
+    const float* __restrict__ x, const float* __restrict__ mean,
+    const float* __restrict__ var, const float* __restrict__ gamma,
+    const float* __restrict__ kvar, const float* __restrict__ sums,
+    float* __restrict__ dx, long long planes, int channels, long long hw,
+    float count, float eps, int fix_gamma, int act, float slope,
+    int batch_stats) {
   const int lane = threadIdx.x & 31;
   const long long plane = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (plane >= planes) return;
@@ -124,13 +133,65 @@ bn_bwd_dx_kernel(const float* __restrict__ dy, const float* __restrict__ y,
   const long long base = plane * hw;
   const float* dp = dy + base;
   const float* xp = x + base;
-  const float* yp = relu ? y + base : dp;
+  const float* yp = act ? y + base : dp;
   float* op = dx + base;
   for (long long i = lane; i < hw; i += 32) {
-    const float d = masked(dp[i], yp[i], relu);
+    const float d = masked(dp[i], yp[i], act, slope);
     const float xh = __fmul_rn(__fsub_rn(xp[i], m), inv);
     op[i] = scale * (d - a - xh * b);
   }
+}
+
+// no activation (act 0) or the ReLU (act 1)
+__global__ void __launch_bounds__(kThreads)
+bn_bwd_reduce_kernel(const float* __restrict__ dy, const float* __restrict__ y,
+                     const float* __restrict__ x,
+                     const float* __restrict__ mean,
+                     const float* __restrict__ var, float* __restrict__ sums,
+                     float* __restrict__ dgamma, float* __restrict__ dbeta,
+                     float* partial, unsigned int* ticket, int n_batch,
+                     int channels, long long hw, int splits, float eps,
+                     int fix_gamma, int act) {
+  bwd_reduce(dy, y, x, mean, var, sums, dgamma, dbeta, partial, ticket,
+             n_batch, channels, hw, splits, eps, fix_gamma, act, 0.f);
+}
+
+// the leaky ReLU, slope > 0
+__global__ void __launch_bounds__(kThreads)
+bn_bwd_leaky_reduce_kernel(
+    const float* __restrict__ dy, const float* __restrict__ y,
+    const float* __restrict__ x, const float* __restrict__ mean,
+    const float* __restrict__ var, float* __restrict__ sums,
+    float* __restrict__ dgamma, float* __restrict__ dbeta, float* partial,
+    unsigned int* ticket, int n_batch, int channels, long long hw, int splits,
+    float eps, int fix_gamma, float slope) {
+  bwd_reduce(dy, y, x, mean, var, sums, dgamma, dbeta, partial, ticket,
+             n_batch, channels, hw, splits, eps, fix_gamma, 1, slope);
+}
+
+__global__ void __launch_bounds__(kThreads)
+bn_bwd_dx_kernel(const float* __restrict__ dy, const float* __restrict__ y,
+                 const float* __restrict__ x, const float* __restrict__ mean,
+                 const float* __restrict__ var,
+                 const float* __restrict__ gamma,
+                 const float* __restrict__ kvar,
+                 const float* __restrict__ sums, float* __restrict__ dx,
+                 long long planes, int channels, long long hw, float count,
+                 float eps, int fix_gamma, int act, int batch_stats) {
+  bwd_dx(dy, y, x, mean, var, gamma, kvar, sums, dx, planes, channels, hw,
+         count, eps, fix_gamma, act, 0.f, batch_stats);
+}
+
+__global__ void __launch_bounds__(kThreads)
+bn_bwd_leaky_dx_kernel(
+    const float* __restrict__ dy, const float* __restrict__ y,
+    const float* __restrict__ x, const float* __restrict__ mean,
+    const float* __restrict__ var, const float* __restrict__ gamma,
+    const float* __restrict__ kvar, const float* __restrict__ sums,
+    float* __restrict__ dx, long long planes, int channels, long long hw,
+    float count, float eps, int fix_gamma, float slope, int batch_stats) {
+  bwd_dx(dy, y, x, mean, var, gamma, kvar, sums, dx, planes, channels, hw,
+         count, eps, fix_gamma, 1, slope, batch_stats);
 }
 
 }  // namespace
@@ -141,14 +202,25 @@ extern "C" int mxt_bn_bwd_reduce_f32(const void* dy, const void* y,
                                      void* dgamma, void* dbeta, void* partial,
                                      void* ticket, long long n, long long c,
                                      long long hw, int splits, float eps,
-                                     int fix_gamma, int relu, void* stream) {
+                                     int fix_gamma, float slope,
+                                     void* stream) {
   if (n > 0 && c > 0 && hw > 0) {
-    bn_bwd_reduce_kernel<<<(unsigned)(c * splits), kThreads, 0,
-                           (cudaStream_t)stream>>>(
-        (const float*)dy, (const float*)y, (const float*)x,
-        (const float*)mean, (const float*)var, (float*)sums, (float*)dgamma,
-        (float*)dbeta, (float*)partial, (unsigned int*)ticket, (int)n,
-        (int)c, hw, splits, eps, fix_gamma, relu);
+    const unsigned blocks = (unsigned)(c * splits);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (slope > 0.f)
+      bn_bwd_leaky_reduce_kernel<<<blocks, kThreads, 0, st>>>(
+          (const float*)dy, (const float*)y, (const float*)x,
+          (const float*)mean, (const float*)var, (float*)sums,
+          (float*)dgamma, (float*)dbeta, (float*)partial,
+          (unsigned int*)ticket, (int)n, (int)c, hw, splits, eps, fix_gamma,
+          slope);
+    else
+      bn_bwd_reduce_kernel<<<blocks, kThreads, 0, st>>>(
+          (const float*)dy, (const float*)y, (const float*)x,
+          (const float*)mean, (const float*)var, (float*)sums,
+          (float*)dgamma, (float*)dbeta, (float*)partial,
+          (unsigned int*)ticket, (int)n, (int)c, hw, splits, eps, fix_gamma,
+          slope == 0.f ? 1 : 0);
   }
   return (int)cudaGetLastError();
 }
@@ -158,16 +230,25 @@ extern "C" int mxt_bn_bwd_dx_f32(const void* dy, const void* y, const void* x,
                                  const void* gamma, const void* kvar,
                                  const void* sums, void* dx, long long n,
                                  long long c, long long hw, float eps,
-                                 int fix_gamma, int relu, int batch_stats,
-                                 void* stream) {
+                                 int fix_gamma, float slope,
+                                 int batch_stats, void* stream) {
   const long long planes = n * c;
   if (planes > 0 && hw > 0) {
-    const long long blocks = (planes + kWarps - 1) / kWarps;
-    bn_bwd_dx_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)dy, (const float*)y, (const float*)x,
-        (const float*)mean, (const float*)var, (const float*)gamma,
-        (const float*)kvar, (const float*)sums, (float*)dx, planes, (int)c,
-        hw, (float)(n * hw), eps, fix_gamma, relu, batch_stats);
+    const unsigned blocks = (unsigned)((planes + kWarps - 1) / kWarps);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (slope > 0.f)
+      bn_bwd_leaky_dx_kernel<<<blocks, kThreads, 0, st>>>(
+          (const float*)dy, (const float*)y, (const float*)x,
+          (const float*)mean, (const float*)var, (const float*)gamma,
+          (const float*)kvar, (const float*)sums, (float*)dx, planes, (int)c,
+          hw, (float)(n * hw), eps, fix_gamma, slope, batch_stats);
+    else
+      bn_bwd_dx_kernel<<<blocks, kThreads, 0, st>>>(
+          (const float*)dy, (const float*)y, (const float*)x,
+          (const float*)mean, (const float*)var, (const float*)gamma,
+          (const float*)kvar, (const float*)sums, (float*)dx, planes, (int)c,
+          hw, (float)(n * hw), eps, fix_gamma, slope == 0.f ? 1 : 0,
+          batch_stats);
   }
   return (int)cudaGetLastError();
 }

@@ -16,12 +16,16 @@ rematerialisation, device-placement and rng branches of the reference
 interpreter, training windows (``n_steps > 1``), small-parameter packing
 and CUDA-graph capture of the step are not yet ported.
 
-Where XLA would fuse a BatchNorm into the ReLU that consumes it, the
-interpreter routes the pair to the ``bn_act`` kernel (and in training its
-backward to ``bn_act_bwd``) with the ReLU fused: a BatchNorm whose visible
-output has exactly one consumer, an ``Activation(act_type="relu")``, runs
-with ``relu=True`` and the Activation passes that value through. Any other
-BatchNorm runs with ``relu=False`` and its consumers run as written.
+Where XLA would fuse a BatchNorm into the (leaky) ReLU that consumes it,
+the interpreter routes the pair to the ``bn_act`` kernel (and in training
+its backward to ``bn_act_bwd``) with the activation fused: a BatchNorm
+whose visible output has exactly one consumer, an
+``Activation(act_type="relu")`` (slope 0) or a
+``LeakyReLU(act_type="leaky", slope=s)`` with ``s >= 0``, runs with
+the activation at that slope and the activation passes that value through.
+A negative slope keeps the two ops apart (the backward reads the sign from
+the output, which a negative slope flips). Any other BatchNorm runs
+without an activation and its consumers run as written.
 
 In the same way the gate chain of an LSTM cell step (``LSTMCell.__call__``
 unrolled: ``_plus(FC, FC)`` -> ``SliceChannel(4)`` -> three sigmoids and a
@@ -81,20 +85,30 @@ def _consumers(symbol, topo):
     return consumers
 
 
+def _fused_slope(node):
+    """The slope of a fusable activation node (0.0 for the ReLU), or None
+    when ``node`` is neither a ReLU nor a LeakyReLU with a slope >= 0."""
+    if _is_op(node, "Activation", act_type="relu"):
+        return 0.0
+    if _is_op(node, "LeakyReLU", act_type="leaky"):
+        slope = node.params()["slope"]
+        return slope if slope >= 0 else None
+    return None
+
+
 def _fused_bn_relu(topo, consumers):
-    """``{id(relu node): bn node}`` for every BatchNorm -> Activation(relu)
-    pair the interpreter may fuse."""
+    """``{id(activation node): (bn node, slope)}`` for every BatchNorm ->
+    Activation(relu) or LeakyReLU(leaky, slope >= 0) pair the interpreter
+    may fuse."""
     fused = {}
     for node in topo:
-        if node.is_variable or node.op.name != "Activation":
-            continue
-        if node.params()["act_type"] != "relu":
+        slope = _fused_slope(node)
+        if slope is None:
             continue
         bn, idx = node.inputs[0]
-        if (idx == 0 and not bn.is_variable and bn.op.name == "BatchNorm"
-                and not bn.params()["output_mean_var"]
+        if (idx == 0 and _is_op(bn, "BatchNorm", output_mean_var=False)
                 and consumers.get((id(bn), 0)) == [node]):
-            fused[id(node)] = bn
+            fused[id(node)] = (bn, slope)
     return fused
 
 
@@ -264,7 +278,7 @@ class _Graph:
         self.heads = symbol._outputs
         consumers = _consumers(symbol, self.topo)
         self.fused = _fused_bn_relu(self.topo, consumers)
-        self._fused_bns = {id(bn) for bn in self.fused.values()}
+        self._fused_bns = {id(bn): slope for bn, slope in self.fused.values()}
         self.lstm = _fused_lstm(self.topo, consumers)
         self.detection = _fused_producers(
             self.topo, consumers, "MultiBoxDetection", "SoftmaxActivation",
@@ -316,9 +330,10 @@ class _Graph:
         for (node, _idx) in self.heads:
             self._last_use[id(node)] = len(self.topo)
 
-    def evaluate(self, arg_vals, aux_vals, is_train):
-        """Run the graph. Returns the head outputs."""
-        mode = OpMode(is_train=is_train)
+    def evaluate(self, arg_vals, aux_vals, is_train, device=None):
+        """Run the graph on ``device`` (where an op without inputs places
+        its output). Returns the head outputs."""
+        mode = OpMode(is_train=is_train, device=device)
         env = {}
         for pos, node in enumerate(self.topo):
             if node.is_variable:
@@ -337,7 +352,7 @@ class _Graph:
                 outs, new_aux = ins, []  # its BatchNorm applied the ReLU
             elif id(node) in self._fused_bns:
                 outs, new_aux = batch_norm(ins, node.params(), mode,
-                                           relu=True)
+                                           slope=self._fused_bns[id(node)])
             elif id(node) in self._shape_consts:
                 outs, new_aux = self._shape_const(node, ins, mode), []
             else:
@@ -414,6 +429,7 @@ class Executor:
         self._aux_snapshot = None  # (flat copy, restore pairs) for the guard
         self._guard_dev = None  # device int32 [total, consecutive] skips
         self._update_cache = {}  # the update kernel's device table
+        self._torch_device = None
 
     @staticmethod
     def _norm_arrays(arrays, names, what, allow_missing=False):
@@ -486,7 +502,7 @@ class Executor:
             with torch.inference_mode():
                 outs = self.graph.evaluate(
                     [self.arg_dict[n]._data for n in self.arg_names],
-                    aux_vals, is_train=False)
+                    aux_vals, is_train=False, device=self._device())
             self._outputs = [NDArray(o) for o in outs]
             return list(self._outputs)
         if nonfinite_guard_on():
@@ -502,10 +518,17 @@ class Executor:
                 leaves[n] = t
             arg_vals.append(t)
         with torch.enable_grad():
-            outs = self.graph.evaluate(arg_vals, aux_vals, is_train=True)
+            outs = self.graph.evaluate(arg_vals, aux_vals, is_train=True,
+                                       device=self._device())
         self._recorded = (outs, leaves)
         self._outputs = [NDArray(o.detach()) for o in outs]
         return list(self._outputs)
+
+    def _device(self):
+        """The ``torch.device`` of the bound context."""
+        if self._torch_device is None:
+            self._torch_device = self._ctx.torch_device()
+        return self._torch_device
 
     def _snapshot_aux(self):
         """Copy the aux arrays (BatchNorm moving statistics) into one flat

@@ -34,14 +34,15 @@ _I = ctypes.c_int
 # C entry -> argtypes; every pointer and the stream pass as c_void_p
 _SIGNATURES = {
     "mxt_bn_act_f32": [_P, _P, _P, _P, _P, _P, _LL, _LL, _LL,
-                       ctypes.c_float, _I, _I, _P],
+                       ctypes.c_float, _I, ctypes.c_float, _P],
     "mxt_softmax_rows_f32": [_P, _P, _LL, _LL, _P],
     "mxt_bn_stats_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I,
                          ctypes.c_float, ctypes.c_float, _P],
     "mxt_bn_bwd_reduce_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL,
-                              _LL, _LL, _I, ctypes.c_float, _I, _I, _P],
+                              _LL, _LL, _I, ctypes.c_float, _I,
+                              ctypes.c_float, _P],
     "mxt_bn_bwd_dx_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL,
-                          ctypes.c_float, _I, _I, _I, _P],
+                          ctypes.c_float, _I, ctypes.c_float, _I, _P],
     "mxt_softmax_output_bwd_f32": [_P, _P, _P, _P, _LL, _LL, _LL,
                                    ctypes.c_float, ctypes.c_float, _I, _I,
                                    ctypes.c_float, _P],
@@ -177,6 +178,12 @@ def stream_of(t):
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def c_slope(slope):
+    """The activation argument of the BatchNorm kernels' C entries: the
+    slope (0 for the ReLU), or -1 for ``slope=None``, no activation."""
+    return -1.0 if slope is None else float(slope)
 
 
 def check_f32(name, t, device, shape=None):

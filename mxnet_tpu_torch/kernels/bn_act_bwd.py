@@ -1,9 +1,11 @@
-"""``bn_act_bwd``: the BatchNorm backward with the ReLU mask fused.
+"""``bn_act_bwd``: the BatchNorm backward with the (leaky) ReLU mask fused.
 
 Replaces the VJP of ``mxnet_tpu/ops/defs_nn.py`` ``_batch_norm``
-(:380-442) composed with the ``Activation(relu)`` after it, which
-``jax.grad`` derives and XLA fuses. With ``dy' = dy * (y > 0)`` (``relu``)
-or ``dy``, ``x^ = (x - mean) * invstd`` and ``n`` elements per channel:
+(:380-442) composed with the ``Activation(relu)`` or
+``LeakyReLU(act_type="leaky", slope=s)`` after it, which ``jax.grad``
+derives and XLA fuses. With ``dy' = where(y > 0, dy, slope * dy)``
+(slope 0 is the ReLU's ``dy * (y > 0)``) or, with ``slope=None``, ``dy``,
+``x^ = (x - mean) * invstd`` and ``n`` elements per channel:
 
 * ``dbeta = sum(dy')``, ``dgamma = sum(dy' * x^)`` (0 under ``fix_gamma``);
 * ``dx = gamma * invstd * (dy' - sum(dy')/n - kvar * x^ * sum(dy' x^)/n)``
@@ -12,6 +14,11 @@ or ``dy``, ``x^ = (x - mean) * invstd`` and ``n`` elements per channel:
   :func:`.bn_stats.bn_stats` (0 where the clamp holds the variance at 0);
 * ``dx = gamma * invstd * dy'`` for ``use_global_stats`` (``kvar=None``),
   where mean and variance are the moving statistics.
+
+The mask reads the sign from the output ``y``, which has ``t``'s sign for
+a slope >= 0; at ``t == 0`` it gives ``slope * dy``, the gradient of the
+reference's ``where``. A negative slope flips the sign and is refused. The
+leaky route (slope > 0) runs under its own kernel names.
 
 Bound on the H100: device-memory bandwidth. ``csrc/bn_act_bwd.cu`` runs
 two phases, two launches per call (100 per ResNet-50 step for its 50
@@ -30,18 +37,25 @@ from .. import telemetry as _tm
 from ..base import MXNetError
 from . import _lib
 
-# counts kernel launches only (never the plain version): two per call
+# counts kernel launches only (never the plain version): two per call; the
+# leaky ones (slope > 0) count in both
 LAUNCHES = _tm.counter("kernel.bn_act_bwd.launches")
+LEAKY_LAUNCHES = _tm.counter("kernel.bn_act_bwd_leaky.launches")
 _WARPS = 8  # warps per block in csrc/bn_act_bwd.cu
 
 
 def bn_act_bwd_plain(dy, y, x, mean, var, gamma, kvar, eps, fix_gamma,
-                     relu):
+                     slope=None):
     """The plain PyTorch version of the formulas above."""
     axes = (0,) + tuple(range(2, x.dim()))
     bshape = (1, -1) + (1,) * (x.dim() - 2)
     n = float(math.prod(x.shape[i] for i in axes))
-    d = torch.where(y > 0, dy, 0.0) if relu else dy
+    if slope is None:
+        d = dy
+    elif slope:
+        d = torch.where(y > 0, dy, slope * dy)
+    else:
+        d = torch.where(y > 0, dy, 0.0)
     inv = torch.rsqrt(var.to(torch.float32) + eps)
     xhat = (x - mean.reshape(bshape)) * inv.reshape(bshape)
     sdy = d.sum(dim=axes)
@@ -56,18 +70,23 @@ def bn_act_bwd_plain(dy, y, x, mean, var, gamma, kvar, eps, fix_gamma,
     return dx, dgamma, sdy
 
 
-def bn_act_bwd(dy, y, x, mean, var, gamma, kvar, eps, fix_gamma, relu):
-    """``(dx, dgamma, dbeta)`` of ``y = [relu](bn(x))`` for the head
-    gradient ``dy``; ``y`` is read only under ``relu`` (pass None without).
+def bn_act_bwd(dy, y, x, mean, var, gamma, kvar, eps, fix_gamma,
+               slope=None):
+    """``(dx, dgamma, dbeta)`` of ``y = [leaky_relu(slope)](bn(x))`` for
+    the head gradient ``dy``; ``y`` is read only with a ``slope`` (pass None
+    without). ``slope`` must be None or >= 0.
 
     A CPU tensor takes the plain version. A CUDA tensor launches the
     kernels, which take contiguous float32 ``dy``/``y``/``x`` of one shape
     (rank >= 2) and contiguous float32 ``(C,)`` statistics on the same
     device; anything else raises :class:`MXNetError`.
     """
+    if slope is not None and not slope >= 0:
+        raise MXNetError(
+            f"bn_act_bwd: slope must be None or >= 0, got {slope}")
     if x.device.type == "cpu":
         return bn_act_bwd_plain(dy, y, x, mean, var, gamma, kvar, eps,
-                                fix_gamma, relu)
+                                fix_gamma, slope)
     if x.device.type != "cuda":
         raise MXNetError(f"bn_act_bwd: no kernel for device {x.device}")
     if x.dim() < 2:
@@ -75,7 +94,7 @@ def bn_act_bwd(dy, y, x, mean, var, gamma, kvar, eps, fix_gamma, relu):
     dev = x.device
     _lib.check_f32("bn_act_bwd: x", x, dev)
     _lib.check_f32("bn_act_bwd: dy", dy, dev, x.shape)
-    if relu:
+    if slope is not None:
         _lib.check_f32("bn_act_bwd: y", y, dev, x.shape)
     n, c = x.shape[0], x.shape[1]
     stats = [("mean", mean), ("var", var), ("gamma", gamma)]
@@ -91,7 +110,8 @@ def bn_act_bwd(dy, y, x, mean, var, gamma, kvar, eps, fix_gamma, relu):
     dgamma, dbeta = torch.empty(c, device=dev), torch.empty(c, device=dev)
     sums = torch.empty(2 * c, device=dev)
     partial = torch.empty(2 * c * splits, device=dev)
-    yp = y.data_ptr() if relu else 0
+    yp = y.data_ptr() if slope is not None else 0
+    c_slope = _lib.c_slope(slope)
     lib = _lib.library()
     stream = _lib.stream_of(x)
     with torch.cuda.device(dev):
@@ -99,16 +119,18 @@ def bn_act_bwd(dy, y, x, mean, var, gamma, kvar, eps, fix_gamma, relu):
             dy.data_ptr(), yp, x.data_ptr(), mean.data_ptr(), var.data_ptr(),
             sums.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
             partial.data_ptr(), _lib.tickets(dev, c).data_ptr(), n, c, hw,
-            splits, float(eps), int(bool(fix_gamma)), int(bool(relu)),
-            stream)
+            splits, float(eps), int(bool(fix_gamma)), c_slope, stream)
         _lib.check(err, "bn_act_bwd (reduce)")
         LAUNCHES.inc()
+        if slope:
+            LEAKY_LAUNCHES.inc()
         err = lib.mxt_bn_bwd_dx_f32(
             dy.data_ptr(), yp, x.data_ptr(), mean.data_ptr(), var.data_ptr(),
             gamma.data_ptr(), kvar.data_ptr() if kvar is not None else 0,
             sums.data_ptr(), dx.data_ptr(), n, c, hw, float(eps),
-            int(bool(fix_gamma)), int(bool(relu)), int(kvar is not None),
-            stream)
+            int(bool(fix_gamma)), c_slope, int(kvar is not None), stream)
         _lib.check(err, "bn_act_bwd (dx)")
         LAUNCHES.inc()
+        if slope:
+            LEAKY_LAUNCHES.inc()
     return dx, dgamma, dbeta

@@ -2,16 +2,17 @@
 
 Counterpart of ``mxnet_tpu/metric.py`` (reference ``python/mxnet/metric.py``)
 for ``EvalMetric``, ``CompositeEvalMetric``, ``Accuracy``,
-``TopKAccuracy``, ``CrossEntropy``, ``Perplexity``, ``Loss`` and
-:func:`create`.
+``TopKAccuracy``, ``CrossEntropy``, ``Perplexity``, ``Loss``,
+``CustomMetric`` with :func:`np`, and :func:`create`.
 Metrics consume (labels, preds) NDArray lists each batch; ``get()``
 returns (name, value).
 
 Device-resident accumulation, as in the JAX package: ``device_update()``
 adds the batch statistic to a device scalar (the kernels stay queued
 behind the training step) and only ``get()`` reads it on the host.
-``update()`` is the synchronous numpy path. The other metrics of the JAX
-package (F1, MAE, MSE, RMSE, custom callables) are not yet
+``update()`` is the synchronous numpy path; a ``CustomMetric`` (a numpy
+callable) has no device formula, so its ``device_update`` takes that path.
+The other metrics of the JAX package (F1, MAE, MSE, RMSE) are not yet
 ported.
 """
 
@@ -290,8 +291,55 @@ class Loss(EvalMetric):
         return True
 
 
+class CustomMetric(EvalMetric):
+    """A metric from ``feval(label, pred)`` over numpy arrays, returning a
+    value or ``(sum_metric, num_inst)`` (reference ``CustomMetric``)."""
+
+    def __init__(self, feval, name=None, allow_extra_outputs=False):
+        if name is None:
+            name = feval.__name__
+            if name.find("<") != -1:
+                name = f"custom({name})"
+        super().__init__(name)
+        self._feval = feval
+        self._allow_extra_outputs = allow_extra_outputs
+
+    def update(self, labels, preds):
+        if not self._allow_extra_outputs:
+            check_label_shapes(labels, preds)
+        for pred, label in zip(preds, labels):
+            reval = self._feval(label.asnumpy(), pred.asnumpy())
+            if isinstance(reval, tuple):
+                (sum_metric, num_inst) = reval
+                self.sum_metric += sum_metric
+                self.num_inst += num_inst
+            else:
+                self.sum_metric += reval
+                self.num_inst += 1
+
+    def device_update(self, labels, preds):
+        """No device formula: the numpy ``update`` (a host sync), as the
+        reference falls back; returns False."""
+        self._drain_device()
+        self.update(labels, preds)
+        return False
+
+
+def np(numpy_feval, name=None, allow_extra_outputs=False):
+    """Wrap a numpy eval function into a CustomMetric (reference
+    ``mx.metric.np``)."""
+
+    def feval(label, pred):
+        return numpy_feval(label, pred)
+
+    feval.__name__ = numpy_feval.__name__
+    return CustomMetric(feval, name, allow_extra_outputs)
+
+
 def create(metric, **kwargs):
-    """Create by name or list (reference ``mx.metric.create``)."""
+    """Create by name, callable or list (reference ``mx.metric.create``)."""
+    if callable(metric) and not isinstance(metric, EvalMetric):
+        return CustomMetric(metric)
     if isinstance(metric, EvalMetric):
         return metric
     if isinstance(metric, list):

@@ -10,8 +10,10 @@ end reads it, and the non-finite guard's counters are read there too.
 
 Not yet ported, and raising where a caller asks for them: training windows
 (``MXNET_TRAIN_WINDOW``), checkpoint directories with auto-resume
-(``fit(checkpoint=...)``), monitors, device prefetch and the I/O retry
-wrapper.
+(``fit(checkpoint=...)``, ``MXNET_CHECKPOINT_*``), monitors, the I/O retry
+wrapper (``MXNET_IO_RETRY``) and the other variables of subsystems not yet
+ported (``env.check_unported("fit")``). Device prefetch is a performance
+knob and ``MXNET_DEVICE_PREFETCH`` is accepted and ignored.
 """
 
 from __future__ import annotations
@@ -211,6 +213,7 @@ class BaseModule:
         if monitor is not None:
             raise MXNetError("monitors are not yet ported to mxnet_tpu_torch")
         _train_window_unset()
+        _env.check_unported("fit")
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)

@@ -11,7 +11,9 @@ symbol, the parameters and the optimizer states.
 
 The module runs on ``context`` (default: the current context, ``gpu(0)``;
 the JAX package defaults to ``cpu()``). Several contexts, kvstores and
-training windows (``train_window``) are not yet ported.
+training windows (``train_window``) are not yet ported;
+:class:`WindowBoundary`, the handle a window returns, is (``GANModule``
+returns one).
 """
 
 from __future__ import annotations
@@ -35,6 +37,49 @@ from ..model import (
 )
 from .base_module import BaseModule, _check_input_names
 from .executor_group import DataParallelExecutorGroup
+
+
+class WindowBoundary:
+    """Deferred handle to a dispatched training window's boundary state
+    (reference ``mxnet_tpu/module/module.py:37-90``).
+
+    - :meth:`wait` blocks until the window's work on the card has retired:
+      a CUDA event recorded on the stream when the window was enqueued,
+      so it is a stream fence, never a device-to-host copy (a window on
+      the CPU has nothing to wait for).
+    - :attr:`outputs` wrap the last iteration's output tensors, captured
+      at dispatch (a later window writing the executor's outputs cannot
+      change them).
+
+    The reference's ``grads()`` (gradients a window published) is not
+    ported: no window of the port publishes them.
+    """
+
+    __slots__ = ("n_steps", "_outs", "_event")
+
+    def __init__(self, n_steps, outs):
+        self.n_steps = n_steps
+        self._outs = list(outs or [])
+        self._event = None
+        dev = next((t.device for t in self._outs
+                    if t.device.type == "cuda"), None)
+        if dev is not None:
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(dev))
+
+    def wait(self):
+        """Block until the window's execution retired (backpressure
+        fence); returns self."""
+        if self._event is not None:
+            self._event.synchronize()
+        return self
+
+    @property
+    def outputs(self):
+        """The window's last-iteration outputs as NDArrays."""
+        from ..ndarray import NDArray
+
+        return [NDArray(o) for o in self._outs]
 
 
 class Module(BaseModule):

@@ -19,6 +19,17 @@ hold pointers to parameters stay valid.
 Creation without a ``ctx`` places the array on the current context, which
 defaults to ``gpu(0)``; :func:`load` places arrays on the CPU, as the
 reference's loader does, and callers move them.
+
+Types: the JAX package runs without 64-bit types, so it narrows int64 to
+int32 and float64 to float32 wherever an array is made, with a warning
+where a creation function (``zeros``, ``ones``, ``astype``) was asked for
+the wide type. The port narrows int64 to int32 the same way (and warns the
+same way), and float64 to float32 where the
+caller named no dtype; it keeps float64 where the caller asks for it
+(``dtype="float64"``, or an NDArray that already holds it), because the
+port's float32-against-float64 readings of its own rounding (the CPU
+yardsticks of ``chip_smoke.py``) need it. ``.params`` files load in both
+directions: an int64 record loads as int32, as in the reference.
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ from __future__ import annotations
 import io
 import struct
 import sys
+import warnings
 
 import numpy as np
 import torch
@@ -121,10 +133,18 @@ class NDArray:
         return self.asnumpy().reshape(-1)[0]
 
     def astype(self, dtype):
-        return NDArray(self._data.to(torch_dtype(dtype)))
+        return NDArray(self._data.to(torch_dtype(_narrow(dtype, "astype"))))
 
-    def reshape(self, shape):
-        return NDArray(self._data.reshape(tuple(shape)))
+    def reshape(self, shape, reverse=False):
+        """A view of another shape: an int or a tuple with MXNet's codes
+        (0 copies a dimension, -1 infers one, -2 copies the rest, -3 merges
+        two, -4 splits one), read right to left under ``reverse``."""
+        from .ops.defs_tensor import infer_reshape
+
+        if isinstance(shape, int):
+            shape = (shape,)
+        return NDArray(self._data.reshape(
+            infer_reshape(self.shape, tuple(shape), reverse)))
 
     @property
     def T(self):
@@ -139,6 +159,17 @@ class NDArray:
         if not self.shape:
             raise TypeError("len() of unsized object")
         return self.shape[0]
+
+    def __bool__(self):
+        if self.size == 1:
+            return bool(self.asscalar())
+        raise ValueError("ambiguous truth value of multi-element NDArray")
+
+    def __float__(self):
+        return float(self.asscalar())
+
+    def __int__(self):
+        return int(self.asscalar())
 
     def __getitem__(self, key):
         return NDArray(self._data[key])
@@ -182,6 +213,44 @@ class NDArray:
     def __neg__(self):
         return NDArray(-self._data)
 
+    def __mod__(self, o):
+        # jnp.mod is the floor modulo, with the sign of the divisor
+        return NDArray(torch.remainder(self._data, self._operand(o)))
+
+    def __pow__(self, o):
+        return NDArray(torch.pow(self._data, self._operand(o)))
+
+    def __abs__(self):
+        return NDArray(torch.abs(self._data))
+
+    # --- comparisons: 0/1 in this array's dtype, as the reference's _cmp
+    def _cmp(self, o, fn):
+        return NDArray(fn(self._data, self._operand(o)).to(self._data.dtype))
+
+    def __eq__(self, o):
+        if o is None:
+            return False
+        return self._cmp(o, torch.eq)
+
+    def __ne__(self, o):
+        if o is None:
+            return True
+        return self._cmp(o, torch.ne)
+
+    def __gt__(self, o):
+        return self._cmp(o, torch.gt)
+
+    def __ge__(self, o):
+        return self._cmp(o, torch.ge)
+
+    def __lt__(self, o):
+        return self._cmp(o, torch.lt)
+
+    def __le__(self, o):
+        return self._cmp(o, torch.le)
+
+    __hash__ = object.__hash__
+
     def __iadd__(self, o):
         self._data.add_(self._operand(o))
         return self
@@ -211,39 +280,58 @@ class NDArray:
                 f"@{self.context}>")
 
 
+def _narrow(dtype, fn=None):
+    """``dtype`` with int64 narrowed to int32, warning as the reference
+    does where a creation function ``fn`` was asked for int64 (``array``
+    narrows silently, as ``jnp.asarray`` does; see the module docstring)."""
+    if dtype is not None and np_dtype(dtype) == np.int64:
+        if fn is not None:
+            warnings.warn(f"Explicitly requested dtype int64 requested in "
+                          f"{fn} is not available, and will be truncated to "
+                          "dtype int32.", UserWarning, stacklevel=3)
+        return np.dtype(np.int32)
+    return dtype
+
+
 def array(source_array, ctx=None, dtype=None):
     """An NDArray from an NDArray, numpy array or nested list (float32
-    unless ``dtype``, as in the reference)."""
+    unless ``dtype``, as in the reference; int64 narrows to int32)."""
     device = (ctx or current_context()).torch_device()
+    dtype = _narrow(dtype)
     if isinstance(source_array, NDArray):
         t = source_array._data
         if dtype is not None:
             t = t.to(torch_dtype(dtype))
+        elif t.dtype == torch.int64:
+            t = t.to(torch.int32)
         return NDArray(t.to(device, copy=True))
     arr = np.asarray(source_array, dtype=np_dtype(dtype) if dtype else None)
     if dtype is None and (arr.dtype == np.float64 or (
             arr.dtype == np.int64 and not isinstance(source_array, np.ndarray))):
         arr = arr.astype(np.float32)  # mxnet default dtype is float32
+    elif arr.dtype == np.int64:  # a numpy int64 array: JAX keeps 32 bits
+        arr = arr.astype(np.int32)
     return NDArray(_to_tensor(arr, device))
 
 
-def _filled(fill, shape, ctx, dtype):
+def _filled(fill, shape, ctx, dtype, fn):
     if isinstance(shape, int):
         shape = (shape,)
     device = (ctx or current_context()).torch_device()
-    return NDArray(fill(tuple(shape), dtype=torch_dtype(dtype), device=device))
+    return NDArray(fill(tuple(shape), dtype=torch_dtype(_narrow(dtype, fn)),
+                        device=device))
 
 
 def zeros(shape, ctx=None, dtype=None):
-    return _filled(torch.zeros, shape, ctx, dtype)
+    return _filled(torch.zeros, shape, ctx, dtype, "zeros")
 
 
 def ones(shape, ctx=None, dtype=None):
-    return _filled(torch.ones, shape, ctx, dtype)
+    return _filled(torch.ones, shape, ctx, dtype, "ones")
 
 
 def empty(shape, ctx=None, dtype=None):
-    return _filled(torch.empty, shape, ctx, dtype)
+    return _filled(torch.empty, shape, ctx, dtype, "empty")
 
 
 def clip(data, a_min, a_max, out=None):

@@ -1,6 +1,6 @@
 """Operator registry and definitions of the port (the subset of
-``mxnet_tpu/ops`` that ResNet training and serving, LSTM training and SSD
-serving run)."""
+``mxnet_tpu/ops`` that ResNet training and serving, LSTM training, SSD
+serving and training and DCGAN training run)."""
 
 from . import registry
 from .registry import OpDef, OpMode, Param, register, get, exists, list_ops
@@ -11,3 +11,4 @@ from . import defs_tensor  # noqa: F401
 from . import defs_nn  # noqa: F401
 from . import defs_optimizer  # noqa: F401
 from . import defs_contrib  # noqa: F401
+from . import defs_random  # noqa: F401

@@ -8,9 +8,11 @@ subtract and multiply, registered under the JAX package's canonical names
 the same way; ``broadcast_sub`` (alias ``broadcast_minus``); and every
 scalar op of the reference's two scalar loops
 (``_plus_scalar``, ``_rminus_scalar``, ``_greater_scalar``, ...), whose
-scalar takes the array's dtype. The backward is autograd's. The broadcast
-ops other than ``broadcast_sub``, the other same-shape ops and the unary
-zoo are not yet ported.
+scalar takes the array's dtype; and the comparisons ``_equal``,
+``_not_equal``, ``_greater``, ``_greater_equal``, ``_lesser`` and
+``_lesser_equal`` with their ``broadcast_*`` forms, which return 0/1 in
+the first input's dtype. The backward is autograd's. The other broadcast
+ops, the other same-shape ops and the unary zoo are not yet ported.
 """
 
 from __future__ import annotations
@@ -72,6 +74,11 @@ _BINARY_CMP = {
 }
 
 
+def _cmp_op(f):
+    """A comparison's body: 0/1 in the first input's dtype."""
+    return lambda ins, p, m: f(ins[0], ins[1]).to(ins[0].dtype)
+
+
 def _scalar_op(f, reverse=False):
     """The op body: the scalar as a 0-d tensor of the array's dtype (the
     reference's ``jnp.asarray(scalar, dtype=a.dtype)``), kept on the host
@@ -103,4 +110,6 @@ for _n, _f in _BINARY.items():
                   "mod": "rmod"}[_n]
         _register_scalar(f"_{_rname}_scalar", _f, reverse=True)
 for _n, _f in _BINARY_CMP.items():
+    register(f"_{_n}", _cmp_op(_f), arg_names=["lhs", "rhs"])
+    register(f"broadcast_{_n}", _cmp_op(_f), arg_names=["lhs", "rhs"])
     _register_scalar(f"_{_n}_scalar", _f)

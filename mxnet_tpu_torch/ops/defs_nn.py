@@ -2,7 +2,10 @@
 
 Counterpart of ``mxnet_tpu/ops/defs_nn.py`` for the ops of the ResNet
 path: FullyConnected, Convolution, Activation, BatchNorm, Pooling and
-SoftmaxOutput, forward and backward; and of the SSD path's
+SoftmaxOutput, forward and backward; of the DCGAN path: Deconvolution
+(cuDNN through ``conv_transpose``), LeakyReLU (every ``act_type``) and the
+regression loss heads (Linear/MAE/LogisticRegressionOutput); and of the
+SSD path's
 L2Normalization (its channel mode on the ``l2norm_channel`` kernel, in
 training with the ``l2norm_channel_bwd`` kernel as its backward),
 SoftmaxActivation (at inference), and the loc-loss chain of SSD training:
@@ -128,25 +131,89 @@ def _conv_fill(shapes, params):
     return shapes
 
 
+_CONV_SCHEMA = {
+    "kernel": Param(parse_shape),
+    "stride": Param(parse_shape, None),
+    "dilate": Param(parse_shape, None),
+    "pad": Param(parse_shape, None),
+    "num_filter": Param(parse_int),
+    "num_group": Param(parse_int, 1),
+    "no_bias": Param(parse_bool, False),
+    "workspace": Param(parse_int, 1024),  # reference knob, unused
+    "cudnn_tune": Param(parse_str, None),  # accepted for parity, unused
+    "cudnn_off": Param(parse_bool, False),
+    "layout": Param(parse_str, None),
+}
+
 register(
     "Convolution",
     _conv,
     arg_names=lambda p: ["data", "weight"] + ([] if p["no_bias"] else ["bias"]),
-    param_schema={
-        "kernel": Param(parse_shape),
-        "stride": Param(parse_shape, None),
-        "dilate": Param(parse_shape, None),
-        "pad": Param(parse_shape, None),
-        "num_filter": Param(parse_int),
-        "num_group": Param(parse_int, 1),
-        "no_bias": Param(parse_bool, False),
-        "workspace": Param(parse_int, 1024),  # reference knob, unused
-        "cudnn_tune": Param(parse_str, None),  # accepted for parity, unused
-        "cudnn_off": Param(parse_bool, False),
-        "layout": Param(parse_str, None),
-    },
+    param_schema=dict(_CONV_SCHEMA),
     fill_in_shapes=_conv_fill,
     aliases=("Convolution_v1",),
+)
+
+
+# --- Deconvolution (mxnet_tpu/ops/defs_nn.py:238-311) ----------------------
+_DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def _deconv(ins, params, mode):
+    """The transposed convolution, on cuDNN through ``conv_transpose``.
+    MXNet's weight layout ``(C_in, num_filter // num_group, *kernel)`` is
+    torch's, so the weight goes in as it is (the reference flips and swaps
+    it only to lower the op as an lhs-dilated convolution); ``adj`` is
+    ``output_padding``. ``target_shape`` is parsed and unused, as in the
+    reference. Torch refuses an ``adj`` that is not smaller than the
+    stride or the dilation, which XLA takes: that raises."""
+    if params["no_bias"]:
+        data, weight = ins
+        bias = None
+    else:
+        data, weight, bias = ins
+    weight, bias = _castp(weight, data), _castp(bias, data)
+    k = params["kernel"]
+    nsp = len(k)
+    if nsp not in _DECONV:
+        raise MXNetError(f"Deconvolution: {nsp}-D kernels are not supported")
+    stride = params["stride"] or (1,) * nsp
+    dilate = params["dilate"] or (1,) * nsp
+    adj = params["adj"] or (0,) * nsp
+    if any(a >= max(s, d) for a, s, d in zip(adj, stride, dilate)):
+        raise MXNetError(
+            f"Deconvolution: adj {tuple(adj)} must be smaller than the "
+            f"stride {tuple(stride)} or the dilation {tuple(dilate)} in "
+            "every axis (torch's conv_transpose refuses it)")
+    return _DECONV[nsp](
+        data, weight, bias, stride=stride,
+        padding=params["pad"] or (0,) * nsp, output_padding=adj,
+        groups=params["num_group"], dilation=dilate)
+
+
+def _deconv_fill(shapes, params):
+    data = shapes[0]
+    k = params["kernel"]
+    nf = params["num_filter"]
+    ng = params["num_group"]
+    if data is not None and shapes[1] is None:
+        shapes[1] = (data[1], nf // ng) + tuple(k)
+    if not params["no_bias"] and shapes[2] is None:
+        shapes[2] = (nf,)
+    return shapes
+
+
+register(
+    "Deconvolution",
+    _deconv,
+    arg_names=lambda p: ["data", "weight"] + ([] if p["no_bias"] else ["bias"]),
+    param_schema={
+        **_CONV_SCHEMA,
+        "adj": Param(parse_shape, None),
+        "target_shape": Param(parse_shape, None),
+    },
+    fill_in_shapes=_deconv_fill,
 )
 
 
@@ -172,43 +239,94 @@ register(
 )
 
 
+# --- LeakyReLU (mxnet_tpu/ops/defs_nn.py:336-375) --------------------------
+def _leaky_relu(ins, params, mode):
+    """``leaky``/``elu``/``prelu``/``rrelu`` as ``where(x > 0, ...)``, so
+    the gradient at 0 is the slope's. ``rrelu`` in training draws its
+    slopes from the port's seeded generator of x's device (it agrees with
+    the reference in distribution only); at inference it takes the fixed
+    slope ``(lower_bound + upper_bound) / 2``."""
+    act = params["act_type"]
+    x = ins[0]
+    if act == "prelu":
+        gamma = ins[1].reshape((1, -1) + (1,) * (x.dim() - 2))
+        return torch.where(x > 0, x, gamma * x)
+    if act == "leaky":
+        return torch.where(x > 0, x, params["slope"] * x)
+    if act == "elu":
+        return torch.where(x > 0, x, params["slope"] * torch.expm1(x))
+    if act == "rrelu":
+        lo, hi = params["lower_bound"], params["upper_bound"]
+        if mode.is_train and x.device.type != "meta":
+            from ..random import generator
+
+            slope = torch.empty_like(x).uniform_(lo, hi,
+                                                 generator=generator(x.device))
+        else:
+            slope = (lo + hi) / 2.0
+        return torch.where(x > 0, x, slope * x)
+    raise MXNetError(f"LeakyReLU: unknown act_type {act}")
+
+
+register(
+    "LeakyReLU",
+    _leaky_relu,
+    arg_names=lambda p: ["data", "gamma"] if p["act_type"] == "prelu"
+    else ["data"],
+    param_schema={
+        "act_type": Param(parse_str, "leaky"),
+        "slope": Param(parse_float, 0.25),
+        "lower_bound": Param(parse_float, 0.125),
+        "upper_bound": Param(parse_float, 0.334),
+    },
+    fill_in_shapes=lambda shapes, p: (
+        [shapes[0], shapes[1] or ((shapes[0][1],) if shapes[0] else None)]
+        if p["act_type"] == "prelu" else shapes),
+)
+
+
 # --- BatchNorm -------------------------------------------------------------
 class _BatchNormAct(torch.autograd.Function):
-    """Training BatchNorm (+ the fused ReLU) over given statistics: the
-    forward is ``bn_act``, the backward ``bn_act_bwd``. ``kvar`` (the clamp
-    derivative from ``bn_stats``) marks batch statistics; None means the
-    moving statistics (``use_global_stats``), which do not depend on x."""
+    """Training BatchNorm (+ the fused (leaky) ReLU at ``slope``, None for
+    none) over given statistics:
+    the forward is ``bn_act``, the backward ``bn_act_bwd``. ``kvar`` (the
+    clamp derivative from ``bn_stats``) marks batch statistics; None means
+    the moving statistics (``use_global_stats``), which do not depend on
+    x."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, mean, var, kvar, eps, fix_gamma, relu):
-        y = bn_act(x, mean, var, gamma, beta, eps, fix_gamma, relu)
-        ctx.save_for_backward(x, y if relu else None, mean, var, gamma, kvar)
-        ctx.cfg = (eps, fix_gamma, relu)
+    def forward(ctx, x, gamma, beta, mean, var, kvar, eps, fix_gamma, slope):
+        y = bn_act(x, mean, var, gamma, beta, eps, fix_gamma, slope)
+        ctx.save_for_backward(x, None if slope is None else y, mean, var,
+                              gamma, kvar)
+        ctx.cfg = (eps, fix_gamma, slope)
         return y
 
     @staticmethod
     def backward(ctx, dy):
         x, y, mean, var, gamma, kvar = ctx.saved_tensors
-        eps, fix_gamma, relu = ctx.cfg
+        eps, fix_gamma, slope = ctx.cfg
         dx, dgamma, dbeta = bn_act_bwd(dy.contiguous(), y, x, mean, var,
-                                       gamma, kvar, eps, fix_gamma, relu)
+                                       gamma, kvar, eps, fix_gamma, slope)
         return dx, dgamma, dbeta, None, None, None, None, None, None
 
 
-def batch_norm(ins, params, mode, relu=False):
-    """BatchNorm, with the following ReLU fused in when ``relu`` (the
-    executor's BatchNorm -> Activation route). At inference it normalizes
-    over the moving statistics. In training it takes the anchored batch
-    statistics (``bn_stats``, which updates the moving statistics in place
-    — once per forward, as the reference does) unless
-    ``use_global_stats``. Returns the op protocol's ``(outputs, new_aux)``."""
+def batch_norm(ins, params, mode, slope=None):
+    """BatchNorm, with the following activation fused in unless ``slope``
+    is None: ``where(t > 0, t, slope * t)``, the ReLU at slope 0 (the
+    executor's BatchNorm -> Activation(relu) and BatchNorm ->
+    LeakyReLU(leaky) routes). At inference it normalizes over the moving
+    statistics. In training it takes the anchored batch statistics
+    (``bn_stats``, which updates the moving statistics in place — once per
+    forward, as the reference does) unless ``use_global_stats``. Returns
+    the op protocol's ``(outputs, new_aux)``."""
     data, gamma, beta, moving_mean, moving_var = ins
     if params["axis"] != 1:
         raise MXNetError("BatchNorm: only axis=1 is ported")
     eps, fix_gamma = params["eps"], params["fix_gamma"]
     if not mode.is_train:
         out = bn_act(data, moving_mean, moving_var, gamma, beta, eps,
-                     fix_gamma, relu)
+                     fix_gamma, slope)
         return [out, moving_mean, moving_var], [moving_mean, moving_var]
     if params["output_mean_var"]:
         raise MXNetError("BatchNorm: output_mean_var=True in training is not "
@@ -220,7 +338,7 @@ def batch_norm(ins, params, mode, relu=False):
             mean, var, kvar = bn_stats(data.detach(), moving_mean,
                                        moving_var, params["momentum"])
     out = _BatchNormAct.apply(data, gamma, beta, mean, var, kvar, eps,
-                              fix_gamma, relu)
+                              fix_gamma, slope)
     return [out, mean, var], [moving_mean, moving_var]
 
 
@@ -525,3 +643,56 @@ register(
     arg_names=["data"],
     param_schema={"scalar": Param(parse_float, 1.0)},
 )
+
+
+# --- regression outputs (mxnet_tpu/ops/defs_nn.py:811-870) -----------------
+class _RegressionOutputFn(torch.autograd.Function):
+    """A regression loss head: the forward is ``transform(data)``; the
+    backward ignores the head gradient and writes
+    ``grad_fn(out, label.reshape(out.shape)) * grad_scale /
+    prod(out.shape[1:])``, and zero for the label."""
+
+    @staticmethod
+    def forward(ctx, data, label, transform, grad_fn, grad_scale):
+        out = transform(data)
+        ctx.save_for_backward(out, label)
+        ctx.cfg = (grad_fn, grad_scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, _head_grad):
+        out, label = ctx.saved_tensors
+        grad_fn, grad_scale = ctx.cfg
+        num = float(math.prod(out.shape[1:])) or 1.0
+        grad = grad_fn(out, label.reshape(out.shape)) * (grad_scale / num)
+        return grad, torch.zeros_like(label), None, None, None
+
+
+def _identity(d):
+    return d
+
+
+def _regression_output(transform, grad_fn):
+    def op(ins, params, mode):
+        data, label = ins
+        if mode.is_train:
+            return _RegressionOutputFn.apply(data, label, transform, grad_fn,
+                                             params["grad_scale"])
+        return transform(data)
+
+    return op
+
+
+for _name, _transform, _grad in (
+        ("LinearRegressionOutput", _identity, lambda o, lab: o - lab),
+        ("MAERegressionOutput", _identity,
+         lambda o, lab: torch.sign(o - lab)),
+        ("LogisticRegressionOutput", torch.sigmoid, lambda o, lab: o - lab)):
+    register(
+        _name,
+        _regression_output(_transform, _grad),
+        arg_names=["data", "label"],
+        param_schema={"grad_scale": Param(parse_float, 1.0)},
+        fill_in_shapes=lambda shapes, p: [shapes[0], shapes[1] or shapes[0]],
+        is_loss=True,
+    )

@@ -43,9 +43,13 @@ _GRAPH_ATTRS = {"ctx_group", "lr_mult", "wd_mult", "force_mirroring",
 class OpMode:
     """Execution-time context handed to every op ``fn``: ``is_train``
     selects the training forward (batch statistics, the loss-layer
-    backward)."""
+    backward); ``device`` is where an op without inputs (a sampler)
+    places its output: the executor's device, ``meta`` during shape
+    inference, None for an imperative call (the op's ``ctx`` parameter or
+    the current context)."""
 
     is_train: bool = False
+    device: Optional[torch.device] = None
 
 
 class Param:
@@ -89,6 +93,7 @@ class OpDef:
         is_loss: bool = False,
         mutate: Sequence = (),
         doc: str = "",
+        infer_dtype: Optional[Callable] = None,
     ):
         self.name = name
         self.fn = fn
@@ -104,6 +109,8 @@ class OpDef:
         # back into the input's array (optimizer state)
         self.mutate = list(mutate)
         self.doc = doc
+        # (params) -> output dtype, for ops whose inputs do not decide it
+        self._infer_dtype = infer_dtype
 
     # --- introspection ---------------------------------------------------
     def arg_names(self, params) -> list:
@@ -196,7 +203,9 @@ class OpDef:
         metas = [torch.empty(tuple(s), dtype=torch_dtype(d), device="meta")
                  for s, d in zip(shapes, dtypes)]
         try:
-            outs, _new_aux = self.apply(metas, params, OpMode(is_train=False))
+            outs, _new_aux = self.apply(
+                metas, params,
+                OpMode(is_train=False, device=torch.device("meta")))
         except Exception as e:
             raise MXNetError(
                 f"op {self.name}: shape inference failed for inputs "
@@ -209,11 +218,15 @@ class OpDef:
         return arg_shapes, out_shapes, aux_shapes
 
     def infer_dtype(self, in_dtypes, params):
-        """Every op of the slice keeps its inputs' dtype: unknown inputs
-        take the first known one, outputs take the first input's."""
+        """Ops keep their inputs' dtype: unknown inputs take the first
+        known one, outputs take the first input's (or the op's own
+        ``infer_dtype``, a sampler's ``dtype`` parameter)."""
         dtypes = self._complete_dtypes(list(in_dtypes))
-        out_dtypes = [dtypes[0] if dtypes else np_dtype("float32")] \
-            * self.num_outputs(params)
+        if self._infer_dtype is not None:
+            out = np_dtype(self._infer_dtype(params))
+        else:
+            out = dtypes[0] if dtypes else np_dtype("float32")
+        out_dtypes = [out] * self.num_outputs(params)
         n_args = len(self.arg_names(params))
         return dtypes[:n_args], out_dtypes, dtypes[n_args:]
 

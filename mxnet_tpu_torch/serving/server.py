@@ -97,6 +97,7 @@ class ServingConfig:
                  max_retries=None, hedge_ms=None, cb_errors=None,
                  cb_probe_ms=None, cb_slow_ms=None, max_body_bytes=None,
                  mesh=None, seq_buckets=None, seq_axis=None):
+        _env.check_unported("serving")
         if mesh is None:
             mesh = _env.get("MXNET_SERVING_MESH")
         if str(mesh or "auto").strip().lower() not in ("", "auto"):

@@ -28,7 +28,11 @@ scale (the channel sum runs in another order). The SSD training kernels:
 ``multibox_target`` is held bit for bit (the same IoU, encoding and
 comparisons, and the same mining order); ``l2norm_channel_bwd`` to rtol
 1e-5 of each value plus 1e-6 of the largest (its sums run in another
-order, and two terms cancel where the gradient lies along the input).
+order, and two terms cancel where the gradient lies along the input). The
+DCGAN route: ``bn_act`` and ``bn_act_bwd`` with a LeakyReLU slope, at the
+discriminator's shapes and on pre-activations exactly +-0 and a constant
+channel, to the same tolerances; at slope 0 the kernels' ReLU (+0.0 for
+negative values, a zero gradient at 0) exactly.
 """
 
 import numpy as np
@@ -75,8 +79,9 @@ def _bn_inputs(shape, device):
 def test_bn_act_kernel_matches_plain(card, shape, relu, fix_gamma):
     ins = _bn_inputs(shape, card)
     before = bn_mod.LAUNCHES.value
-    got = bn_mod.bn_act(*ins, 2e-5, fix_gamma, relu)
-    want = bn_mod.bn_act_plain(*ins, 2e-5, fix_gamma, relu)
+    slope = 0.0 if relu else None
+    got = bn_mod.bn_act(*ins, 2e-5, fix_gamma, slope)
+    want = bn_mod.bn_act_plain(*ins, 2e-5, fix_gamma, slope)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
     assert bn_mod.LAUNCHES.value == before + 1
 
@@ -96,11 +101,11 @@ def test_kernels_raise_on_what_they_do_not_take(card):
     stats = [torch.ones(3, device=card) for _ in range(4)]
     with pytest.raises(MXNetError):
         bn_mod.bn_act(x.double(), *[s.double() for s in stats], 1e-5,
-                      False, True)
+                      False, 0.0)
     with pytest.raises(MXNetError):
-        bn_mod.bn_act(x.transpose(2, 3), *stats, 1e-5, False, True)
+        bn_mod.bn_act(x.transpose(2, 3), *stats, 1e-5, False, 0.0)
     with pytest.raises(MXNetError):
-        bn_mod.bn_act(x, *stats[:3], stats[3].cpu(), 1e-5, False, True)
+        bn_mod.bn_act(x, *stats[:3], stats[3].cpu(), 1e-5, False, 0.0)
     with pytest.raises(MXNetError):
         sm_mod.softmax_rows(x[:, :, 0, :].transpose(0, 1))
     with pytest.raises(MXNetError):
@@ -164,10 +169,11 @@ def test_bn_act_bwd_kernel_matches_plain(card, shape, relu, fix_gamma,
     kvar = kvar if batch_stats else None
     y = y if relu else None
     before = bwd_mod.LAUNCHES.value
+    slope = 0.0 if relu else None
     got = bwd_mod.bn_act_bwd(dy, y, x, mean, var, gamma, kvar, 2e-5,
-                             fix_gamma, relu)
+                             fix_gamma, slope)
     want = bwd_mod.bn_act_bwd_plain(dy, y, x, mean, var, gamma, kvar, 2e-5,
-                                    fix_gamma, relu)
+                                    fix_gamma, slope)
     assert bwd_mod.LAUNCHES.value == before + 2
     torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-5)
     for g, w in zip(got[1:], want[1:]):
@@ -607,3 +613,76 @@ def test_ssd_train_kernels_raise_on_what_they_do_not_take(card):
         l2_mod.l2norm_channel_bwd(x.transpose(2, 3), x, 1e-10)
     with pytest.raises(MXNetError):
         l2_mod.l2norm_channel_bwd(x, x[:1], 1e-10)
+
+
+# -- DCGAN: the leaky route of bn_act / bn_act_bwd --------------------------
+DCGAN_D_SHAPES = [(64, 128, 16, 16), (64, 256, 8, 8), (64, 512, 4, 4)]
+
+
+def _edge_bn_inputs(shape, device):
+    """Inputs whose pre-activations are exactly 0 and -0.0 (mean 0, inverse
+    std 1, gamma 1, beta -0.0: x = +0.0 gives +0.0 and x = -0.0 gives -0.0)
+    in channel 0 and constant in channel 1."""
+    x, mean, var, gamma, beta = (t.cpu() for t in _bn_inputs(shape, "cpu"))
+    x0 = x[:, 0].reshape(-1)
+    x0[::3] = 0.0
+    x0[1::3] = -0.0
+    x[:, 0] = x0.reshape(x[:, 0].shape)
+    x[:, 1] = 0.75
+    mean[0], var[0], gamma[0], beta[0] = 0.0, 1.0 - 2e-5, 1.0, -0.0
+    mean[1] = 0.75
+    return [t.to(device) for t in (x, mean, var, gamma, beta)]
+
+
+@pytest.mark.parametrize("shape", DCGAN_D_SHAPES + [(3, 5, 7, 9), (2, 3)])
+@pytest.mark.parametrize("slope", [0.2, 0.0])
+@pytest.mark.parametrize("edge", [False, True])
+def test_bn_act_leaky_kernel_matches_plain(card, shape, slope, edge):
+    ins = (_edge_bn_inputs if edge else _bn_inputs)(shape, card)
+    before = bn_mod.LAUNCHES.value, bn_mod.LEAKY_LAUNCHES.value
+    got = bn_mod.bn_act(*ins, 2e-5, True, slope)
+    want = bn_mod.bn_act_plain(*ins, 2e-5, True, slope)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert bn_mod.LAUNCHES.value == before[0] + 1
+    assert bn_mod.LEAKY_LAUNCHES.value == before[1] + (1 if slope else 0)
+    if edge and slope:  # exact zeros keep their sign under the slope
+        zeros = want[:, 0] == 0
+        assert torch.signbit(want[:, 0][zeros]).unique().tolist() == [
+            False, True]  # both signs are there to compare
+        assert torch.equal(torch.signbit(got[:, 0][zeros]),
+                           torch.signbit(want[:, 0][zeros]))
+    if not slope:  # the ReLU: +0.0 for every negative pre-activation
+        t = bn_mod.bn_act_plain(*ins, 2e-5, True)
+        assert not torch.signbit(got[t < 0]).any()
+
+
+@pytest.mark.parametrize("shape", DCGAN_D_SHAPES + [(9, 4, 3, 3), (5, 3)])
+@pytest.mark.parametrize("slope", [0.2, 0.0])
+@pytest.mark.parametrize("batch_stats", [True, False])
+def test_bn_act_bwd_leaky_kernel_matches_plain(card, shape, slope,
+                                               batch_stats):
+    dy, _y, x, mean, var, gamma, kvar = _bwd_inputs(shape, card)
+    t = x - 0.1
+    t.view(-1)[::5] = 0.0  # the gradient at t == 0 is the slope's
+    y = torch.where(t > 0, t, slope * t)
+    kvar = kvar if batch_stats else None
+    before = bwd_mod.LAUNCHES.value, bwd_mod.LEAKY_LAUNCHES.value
+    got = bwd_mod.bn_act_bwd(dy, y, x, mean, var, gamma, kvar, 2e-5, False,
+                             slope)
+    want = bwd_mod.bn_act_bwd_plain(dy, y, x, mean, var, gamma, kvar, 2e-5,
+                                    False, slope)
+    assert bwd_mod.LAUNCHES.value == before[0] + 2
+    assert bwd_mod.LEAKY_LAUNCHES.value == before[1] + (2 if slope else 0)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-5)
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-3)
+
+
+def test_leaky_kernels_refuse_a_negative_slope(card):
+    ins = _bn_inputs((2, 3, 4, 4), card)
+    with pytest.raises(MXNetError):
+        bn_mod.bn_act(*ins, 2e-5, False, -0.2)
+    dy, y, x, mean, var, gamma, kvar = _bwd_inputs((2, 3, 4, 4), card)
+    with pytest.raises(MXNetError):
+        bwd_mod.bn_act_bwd(dy, y, x, mean, var, gamma, kvar, 2e-5, False,
+                           -0.2)

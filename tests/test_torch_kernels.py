@@ -55,7 +55,7 @@ def test_bn_act_plain_matches_reference(shape, relu, fix_gamma):
     want = _jax_bn_act(x, mean, var, gamma, beta, 2e-5, fix_gamma, relu)
     got = bn_mod.bn_act(*(torch.from_numpy(a) for a in
                           (x, mean, var, gamma, beta)),
-                        2e-5, fix_gamma, relu)
+                        2e-5, fix_gamma, 0.0 if relu else None)
     np.testing.assert_allclose(got.numpy(), want, **BN_TOL)
     assert bn_mod.LAUNCHES.value == before  # the plain version never counts
 

@@ -80,13 +80,13 @@ def _faulty(fault):
     """``bn_act_bwd_plain`` with one fault put in."""
     plain = bwd_mod.bn_act_bwd_plain
 
-    def bwd(dy, y, x, mean, var, gamma, kvar, eps, fix_gamma, relu):
+    def bwd(dy, y, x, mean, var, gamma, kvar, eps, fix_gamma, slope=None):
         dx, dgamma, dbeta = plain(dy, y, x, mean, var, gamma, kvar, eps,
-                                  fix_gamma, relu)
+                                  fix_gamma, slope)
         axes = (0,) + tuple(range(2, x.dim()))
         bshape = (1, -1) + (1,) * (x.dim() - 2)
         n = float(math.prod(x.shape[i] for i in axes))
-        d = torch.where(y > 0, dy, 0.0) if relu else dy
+        d = dy if slope is None else torch.where(y > 0, dy, slope * dy)
         inv = torch.rsqrt(var + eps)
         xhat = (x - mean.reshape(bshape)) * inv.reshape(bshape)
         scale = (inv if fix_gamma else gamma * inv).reshape(bshape)
@@ -114,3 +114,34 @@ def test_parity_limits_catch_bn_backward_fault(setup, fault, monkeypatch):
                                      for k, v in readings.items()))
     kind = FAULTS[fault]
     assert readings[kind] > cs.PARITY_TOL[kind][0], readings
+
+
+# -- DCGAN --------------------------------------------------------------------
+# chip_smoke's DCGAN parity (two GANModule steps, DCGAN_PARITY_TOL in norm
+# and DCGAN_FLIP_SHARE on the first updates' signs) at a narrow width: the
+# generator and discriminator at ngf = ndf = 8 with 16 latents, batch
+# DCGAN_PARITY_BATCH (8), 64x64 images as at full width
+DCGAN_NARROW = {"DCGAN_NF": 8, "DCGAN_Z": 16}
+
+
+@pytest.fixture(scope="module")
+def dcgan_setup():
+    """(chip_smoke module at the narrow width, numpy parameters, the
+    correct CPU run's states, the initial parameters)."""
+    cs = _chip_smoke()
+    for name, value in DCGAN_NARROW.items():
+        setattr(cs, name, value)
+    params = cs.dcgan_numpy(pmx, cs.SEED + 70)
+    want, init = cs.dcgan_parity_run(pmx, {"cpu": cs.dcgan_module(
+        pmx, pmx.cpu(), cs.DCGAN_PARITY_BATCH, params)}, cs.SEED + 71)
+    return cs, params, want, init
+
+
+@pytest.mark.parametrize("fault", _chip_smoke().DCGAN_FAULTS)
+def test_dcgan_parity_limits_catch_leaky_fault(dcgan_setup, fault):
+    """Each planted fault of the leaky route breaks at least one limit."""
+    cs, params, want, init = dcgan_setup
+    readings, bad = cs.dcgan_fault_run(pmx, params, want, init, fault)
+    print(f"\n{fault}: " + ", ".join(f"{k} {v:.3g}"
+                                     for k, v in readings.items()))
+    assert bad, readings

@@ -67,7 +67,8 @@ def _vjp_both(op_name, raw, inputs, n_wrt, head_seed=0, relu=False):
         t.requires_grad_(True)
     mode = POpMode(is_train=True)
     if op_name == "BatchNorm":
-        pouts, _ = pbatch_norm(pins, pparams, mode, relu=relu)
+        pouts, _ = pbatch_norm(pins, pparams, mode,
+                               slope=0.0 if relu else None)
     else:
         pouts, _ = pop.apply(pins, pparams, mode)
     pgrads = torch.autograd.grad(pouts[0], pins[:n_wrt],
@@ -178,7 +179,7 @@ def test_bn_act_bwd_plain_counts_nothing():
     dx, dgamma, dbeta = bwd_mod.bn_act_bwd(dy, torch.relu(x), x,
                                            torch.zeros(3), torch.ones(3),
                                            torch.ones(3), torch.ones(3),
-                                           1e-5, False, True)
+                                           1e-5, False, 0.0)
     assert bwd_mod.LAUNCHES.value == before
     assert not dx.any() and not dbeta.any()  # the ReLU masked every element
 
