@@ -33,6 +33,20 @@ Run from the root of a checkout. Phases, each printing its own lines:
    ``use_ignore``, a NaN gradient under the guard), with CUDA-event times
    of the kernel, the plain version and the PyTorch library call for the
    same function, beside the bound;
+5b. redesigned kernels — ``softmax_rows`` at every regime border of its
+   source (``SM_BORDERS``: narrow <= 32 < middle <= 4096 < wide, and a
+   row past the card's shared memory) and at the three path shapes
+   (``SM_PATHS``), on aligned rows and on views at a float offset of 1-3,
+   with inputs at scale 4 and, once per regime, at scale 1 (``SM_ATOL``
+   and ``SM_RTOL``); ``sgd_mom_multi`` bit for bit over sizes no multiple
+   of 4, over views one float off alignment, over ``CAP`` + 37 tensors (two
+   launches) with the guard's skip and restore, and with no host-to-device
+   copy in a call (``torch.profiler``); then, at the path shapes
+   (ResNet-50's and SSD's parameters for the update), the kernel back to
+   back, single launches with the L2 cache cold (``FLUSH_BYTES``
+   overwritten before each), the plain version, the PyTorch call for the
+   same function (``torch.softmax``, ``torch.optim.SGD(fused=True)``) both
+   ways, the bound, and each wrapper's host microseconds per call;
 6. training — full ResNet-50 (random He-normal weights from the seed)
    trained by ``Module.fit`` over an ``NDArrayIter`` of synthetic data on
    ``gpu(0)``, SGD with momentum 0.9, wd 1e-4, ``rescale_grad`` 1/32, at
@@ -184,6 +198,13 @@ prints the readings ``SSD_LOSS_RATIO``, ``SSD_PARITY_TOL`` and
 ``SSD_TARGET_LIMIT`` were fixed from (SSD-300 at batches 4 and 2: run it on
 a machine with many cores, ~3 minutes on 8); it needs no card.
 
+    python3 chip_smoke.py --kernel-times [ROOT]
+
+prints phase 5b's times alone (after phases 1-2), for the package of the
+checkout at ``ROOT`` when given (say, the parent commit unpacked under
+``build/``), else for this one's: run both in one call, in turns, to
+compare two versions on one card.
+
     python3 chip_smoke.py --cpu-dcgan
 
 runs phase 17's loss check on the port's CPU path for three parameter
@@ -210,6 +231,10 @@ PEAK_F32_S = 67e12
 BN_EPS = 2e-5  # the BatchNorm eps of models/resnet.py
 BN_RTOL, BN_ATOL = 1e-5, 1e-6  # float32; rsqrt and division may differ by an ulp
 SM_ATOL = 1e-6  # float32 probabilities; the sum is reduced in another order
+# and, beside it, relative to each probability: at C = 10000 a typical one
+# is 3e-8, far below SM_ATOL. A sum in another order moves a float32
+# quotient by about 1e-6 of itself.
+SM_RTOL = 1e-5
 SERVE_ATOL = 1e-4  # probabilities, card vs CPU: 50 conv layers summed in other orders
 # At its initial statistics every BatchNorm is the identity and every bias
 # is 0, so the network is positively homogeneous: logits scale with the
@@ -227,7 +252,7 @@ TRAIN_BATCH = 32
 FIT_STEPS = 12  # Module.fit's steps on the main path; 2..12 are timed
 # each port kernel's CUDA function names, as torch.profiler reports them
 PORT_KERNELS = {"bn_stats": "bn_stats_kernel", "bn_act": "bn_act_",
-                "bn_act_bwd": "bn_bwd_", "softmax_rows": "softmax_rows_kernel",
+                "bn_act_bwd": "bn_bwd_", "softmax_rows": "softmax_rows_",
                 "softmax_output_bwd": "softmax_output_bwd_kernel",
                 "sgd_mom_multi": "sgd_mom_multi_kernel",
                 "lstm_cell": "lstm_cell_kernel",
@@ -417,6 +442,19 @@ def max_err(torch, got, want, rtol, atol):
     return float(err.max()), ok
 
 
+def sm_check(torch, what, got, want):
+    """``softmax_rows`` against its plain version: within ``SM_ATOL`` and
+    within ``SM_RTOL`` of each probability. Returns the largest absolute
+    and relative errors."""
+    err, ok = max_err(torch, got, want, 0.0, SM_ATOL)
+    _, rel_ok = max_err(torch, got, want, SM_RTOL, 1e-30)
+    rel = float(((got - want).abs() / (want.abs() + 1e-30)).max())
+    if not (ok and rel_ok):
+        fail(f"{what}: max abs err {err:g} (atol {SM_ATOL}), max rel err "
+             f"{rel:g} (rtol {SM_RTOL})")
+    return err, rel
+
+
 def phase_device(torch):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -510,15 +548,12 @@ def phase_kernels(torch):
           f"{nbytes / (bn_ms * 1e-3) / 1e12:.2f} TB/s achieved", flush=True)
 
     # --- softmax_rows
-    sm_err = 0.0
+    sm_err, sm_rel = 0.0, 0.0
     for shape in (PATH_SOFTMAX, (1, 1000), (7, 1001)):
         x = 4.0 * torch.randn(shape, generator=gen, device=dev)
-        got, want = softmax_rows(x), softmax_rows_plain(x)
-        err, ok = max_err(torch, got, want, 0.0, SM_ATOL)
-        sm_err = max(sm_err, err)
-        if not ok:
-            fail(f"softmax_rows {shape}: max abs err {err:g} over atol "
-                 f"{SM_ATOL}")
+        err, rel = sm_check(torch, f"softmax_rows {shape}", softmax_rows(x),
+                            softmax_rows_plain(x))
+        sm_err, sm_rel = max(sm_err, err), max(sm_rel, rel)
     x = 4.0 * torch.randn(PATH_SOFTMAX, generator=gen, device=dev)
     sm_ms = cuda_ms(torch, lambda: softmax_rows(x), reps=100)
     sm_plain_ms = cuda_ms(torch, lambda: softmax_rows_plain(x), reps=100)
@@ -526,7 +561,8 @@ def phase_kernels(torch):
     n = math.prod(PATH_SOFTMAX)
     sm_bound, sm_by = bound(2 * n * 4, 7 * n)
     print(f"[kernels] softmax_rows matches its plain version at 3 shapes: "
-          f"max abs err {sm_err:g} (atol {SM_ATOL}); at {PATH_SOFTMAX}: "
+          f"max abs err {sm_err:g} (atol {SM_ATOL}), max rel err {sm_rel:g} "
+          f"(rtol {SM_RTOL}); at {PATH_SOFTMAX}: "
           f"kernel {sm_ms:.4f} ms, plain {sm_plain_ms:.4f} ms, torch.softmax "
           f"{sm_lib_ms:.4f} ms, bound {sm_bound * 1e3:.3f} us ({sm_by})",
           flush=True)
@@ -992,12 +1028,12 @@ def phase_train_kernels(torch, mx):
         fail(f"sgd_mom_multi guard after a finite step: counters "
              f"{guard.counters.tolist()}")
     cache = {}
-    builds = sg.TABLE_BUILDS.value
+    builds = sg.PACK_BUILDS.value
     sg_ms = cuda_ms(torch, lambda: sg.sgd_mom_multi(
         ws, gs, ms, lrs, wds, 0.9, 1 / 32, -1.0, cache=cache), reps=50)
-    if sg.TABLE_BUILDS.value != builds + 1:
-        fail(f"sgd_mom_multi rebuilt its table "
-             f"{sg.TABLE_BUILDS.value - builds} times for unmoved tensors")
+    if sg.PACK_BUILDS.value != builds + 1:
+        fail(f"sgd_mom_multi packed its launch parameters "
+             f"{sg.PACK_BUILDS.value - builds} times for unmoved tensors")
     sg_plain = cuda_ms(torch, lambda: sg.sgd_mom_multi_plain(
         ws, gs, ms, lrs, wds, 0.9, 1 / 32, -1.0), reps=5)
     tparams = [torch.nn.Parameter(w) for w in ws]
@@ -1013,7 +1049,7 @@ def phase_train_kernels(torch, mx):
           f"max abs err {sg_err:g} (atol {EXACT_ATOL}); a NaN gradient under "
           f"the guard skips the step and restores the statistics, counters "
           f"[1, 1] then [1, 0]; per step: kernel {sg_ms:.4f} ms (1 launch, "
-          f"table built once), plain {sg_plain:.4f} ms, "
+          f"packed once), plain {sg_plain:.4f} ms, "
           f"torch.optim.SGD(fused=True).step {sg_lib:.4f} ms (other "
           f"semantics, a yardstick), bound {sg_bound:.4f} ms ({sg_by})",
           flush=True)
@@ -1043,6 +1079,276 @@ def phase_train_kernels(torch, mx):
          "max_abs_err": sg_err, "ms": sg_ms, "plain_ms": sg_plain,
          "bound_ms": sg_bound, "bound_by": sg_by, "library_ms": sg_lib},
     ], ba_err
+
+
+# the redesigned kernels' shapes on the main paths
+SM_PATHS = {"ssd_train": (259072, 21), "lstm_head": (1024, 10000),
+            "resnet": PATH_SOFTMAX}
+# softmax_rows' regime borders (narrow <= 32 < middle <= 4096 < wide), a
+# row past 48 KB and one past the card's shared memory (the loop)
+SM_BORDERS = (1, 2, 21, 31, 32, 33, 1000, 4096, 4097, 10000, 14000, 60000)
+FLUSH_BYTES = 256 << 20  # overwritten between cold launches (L2: 50 MB)
+
+
+def cold_ms(torch, fn, flush, reps=15):
+    """Median ms of single calls of ``fn``, each after ``flush`` was
+    overwritten (the L2 cache cold), each timed by its own CUDA events.
+    The overwrite keeps the card busy ~80 us, so a wrapper whose host path
+    is shorter enqueues the timed call behind it; a longer host path shows
+    in the reading as a gap."""
+    import statistics
+
+    fn()
+    torch.cuda.synchronize()
+    marks = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in marks)
+
+
+def host_us(torch, fn, reps=100):
+    """Host microseconds per call of ``fn`` back to back with no
+    synchronisation: the wrapper's launch path on the host, the card's work
+    left queued."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def ssd_param_shapes(mx):
+    """The 70 parameter shapes of SSD-VGG16 (20 classes, 300x300)."""
+    sym = mx.models.ssd.get_symbol(num_classes=SSD_CLASSES,
+                                   data_shape=SSD_SHAPE)
+    shapes, _, _ = sym.infer_shape(data=(1, 3, SSD_SHAPE, SSD_SHAPE))
+    return [s for n, s in zip(sym.list_arguments(), shapes) if n != "data"]
+
+
+def sgd_inputs(torch, gen, dev, shapes):
+    """Weights, gradients and momenta of ``shapes``; lr 0.1, wd 1e-4 on
+    the tensors of rank > 1."""
+    def randn(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    ws = [randn(s, 0.05) for s in shapes]
+    gs = [randn(s, 0.01) for s in shapes]
+    ms = [randn(s, 0.001) for s in shapes]
+    return ws, gs, ms, [0.1] * len(shapes), [
+        1e-4 if len(s) > 1 else 0.0 for s in shapes]
+
+
+def kernel_times(torch, mx):
+    """Both redesigned kernels at their main-path shapes: the kernel back
+    to back by CUDA events (warm), single launches with the L2 cache cold
+    (median), the plain version, one PyTorch call for the same function,
+    the bound, and the wrapper's host microseconds per call. Returns
+    ``{"softmax_rows": {path: readings}, "sgd_mom_multi": {...}}``. Uses
+    only the wrappers' public calls, so it times any checkout's package
+    (``--kernel-times``)."""
+    from mxnet_tpu_torch.kernels import sgd_mom_multi as sg
+    from mxnet_tpu_torch.kernels import softmax_rows as sm
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
+    out = {"softmax_rows": {}, "sgd_mom_multi": {}}
+    for path, shape in SM_PATHS.items():
+        x = 4.0 * torch.randn(shape, generator=gen, device=dev)
+        n = math.prod(shape)
+        b_ms, b_by = bound(2 * n * 4, 4 * n)
+        reps = 200 if n < 1e6 else 50
+        out["softmax_rows"][path] = {
+            "shape": list(shape),
+            "ms": cuda_ms(torch, lambda: sm.softmax_rows(x), reps=reps),
+            "cold_ms": cold_ms(torch, lambda: sm.softmax_rows(x), flush),
+            "plain_ms": cuda_ms(torch, lambda: sm.softmax_rows_plain(x),
+                                reps=20),
+            "library_ms": cuda_ms(torch, lambda: torch.softmax(x, 1),
+                                  reps=reps),
+            "library_cold_ms": cold_ms(torch, lambda: torch.softmax(x, 1),
+                                       flush),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "host_us": host_us(torch, lambda: sm.softmax_rows(x))}
+        del x
+    _sym, _bn, rparams = resnet50_shapes(mx, TRAIN_BATCH)
+    for path, shapes in (("resnet", [s for _n, s in rparams]),
+                         ("ssd_train", ssd_param_shapes(mx))):
+        ws, gs, ms, lrs, wds = sgd_inputs(torch, gen, dev, shapes)
+        cache = {}
+
+        def run():
+            sg.sgd_mom_multi(ws, gs, ms, lrs, wds, 0.9, 1 / 32, -1.0,
+                             cache=cache)
+
+        tparams = [torch.nn.Parameter(w) for w in ws]
+        for tp, g in zip(tparams, gs):
+            tp.grad = g
+        topt = torch.optim.SGD(tparams, lr=0.1, momentum=0.9,
+                               weight_decay=1e-4, fused=True)
+        numel = sum(w.numel() for w in ws)
+        b_ms, b_by = bound(20 * numel, 6 * numel)
+        out["sgd_mom_multi"][path] = {
+            "tensors": len(ws), "values": numel,
+            "ms": cuda_ms(torch, run, reps=50),
+            "cold_ms": cold_ms(torch, run, flush),
+            "plain_ms": cuda_ms(torch, lambda: sg.sgd_mom_multi_plain(
+                ws, gs, ms, lrs, wds, 0.9, 1 / 32, -1.0), reps=3, warmup=1),
+            "library_ms": cuda_ms(torch, topt.step, reps=50),
+            "library_cold_ms": cold_ms(torch, topt.step, flush),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "host_us": host_us(torch, run)}
+        del ws, gs, ms, tparams, topt
+    del flush
+    return out
+
+
+def print_kernel_times(times, card, tag):
+    for name, paths in times.items():
+        for path, r in paths.items():
+            what = (f"{tuple(r['shape'])}" if "shape" in r else
+                    f"{r['tensors']} tensors, {r['values'] / 1e6:.2f} M "
+                    f"values")
+            lib = ("torch.softmax" if name == "softmax_rows"
+                   else "torch.optim.SGD(fused=True).step")
+            print(f"[{tag}] {name} {path} {what} on {card}: kernel "
+                  f"{r['ms']:.4f} ms warm, {r['cold_ms']:.4f} ms cold "
+                  f"({100 * r['bound_ms'] / r['cold_ms']:.0f}% of the "
+                  f"bound); plain {r['plain_ms']:.4f} ms; {lib} "
+                  f"{r['library_ms']:.4f} ms warm, {r['library_cold_ms']:.4f}"
+                  f" ms cold; bound {r['bound_ms']:.5f} ms ({r['bound_by']}); "
+                  f"wrapper host {r['host_us']:.1f} us per call", flush=True)
+
+
+def phase_redesign(torch, mx, card):
+    """The redesigned ``softmax_rows`` and ``sgd_mom_multi`` against their
+    plain versions on their edges: ``softmax_rows`` at every regime border
+    and the three path shapes, on aligned tensors and on views at a float
+    offset of 1, 2 and 3, each value within ``SM_ATOL`` and ``SM_RTOL``,
+    also on unit-scale inputs once per regime; ``sgd_mom_multi`` bit for
+    bit over
+    sizes that are no multiple of 4, over views whose offset breaks the
+    16-byte alignment, over a list longer than one launch holds, and under
+    the guard's skip and restore; no host-to-device copy in a call; then
+    :func:`kernel_times`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxnet_tpu_torch.kernels import sgd_mom_multi as sg
+    from mxnet_tpu_torch.kernels import softmax_rows as sm
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    t0 = time.perf_counter()
+    sm_err, sm_rel, cases = 0.0, 0.0, 0
+    shapes = [(5, c) for c in SM_BORDERS] + [(517, c) for c in (2, 21, 32)] \
+        + list(SM_PATHS.values())
+    # scale 4 spreads each row's probabilities over decades; scale 1 keeps
+    # them near 1/C, one case per regime
+    cases_ = [(rows, cols, offset, 4.0) for rows, cols in shapes
+              for offset in (0, 1, 2, 3) if not offset or rows * cols <= 4e6]
+    cases_ += [(rows, cols, offset, 1.0) for rows, cols in
+               ((517, 21), (64, 1000), (8, 10000), (2, 60000))
+               for offset in (0, 1)]
+    for rows, cols, offset, scale in cases_:
+        base = scale * torch.randn(rows * cols + offset, generator=gen,
+                                   device=dev)
+        x = base[offset:].view(rows, cols)
+        err, rel = sm_check(torch, f"softmax_rows ({rows}, {cols}) at a float "
+                            f"offset of {offset}, scale {scale}",
+                            sm.softmax_rows(x), sm.softmax_rows_plain(x))
+        sm_err, sm_rel = max(sm_err, err), max(sm_rel, rel)
+        cases += 1
+    print(f"[redesign] softmax_rows matches its plain version in {cases} "
+          f"cases (columns {SM_BORDERS}, the path shapes, float offsets "
+          f"0-3, inputs at scale 4 and 1): max abs err {sm_err:g} (atol "
+          f"{SM_ATOL}), max rel err {sm_rel:g} (rtol {SM_RTOL})", flush=True)
+
+    def equal(what, got, want):
+        torch.cuda.synchronize()
+        if any(not torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"sgd_mom_multi {what}: not bit for bit its plain version")
+
+    sizes = [1, 3, 5, 4097, 70001, 8191, 2, 40000]
+    for momentum, clip in ((0.9, -1.0), (0.9, 0.005), (0.0, -1.0)):
+        for offset in (0, 1):
+            # offset 1: every tensor a view one float past an aligned start
+            def make(scale):
+                return [(torch.randn(n + offset, generator=gen, device=dev)
+                         * scale)[offset:] for n in sizes]
+
+            ws, gs, ms = make(0.05), make(0.01), make(0.001)
+            moms = ms if momentum else None
+            lrs, wds = [0.1, 0.05] * 4, [1e-4, 0.0] * 4
+            w2, m2 = [t.clone() for t in ws], [t.clone() for t in ms]
+            sg.sgd_mom_multi(ws, gs, moms, lrs, wds, momentum, 1 / 32, clip)
+            sg.sgd_mom_multi_plain(w2, gs, m2 if momentum else None, lrs,
+                                   wds, momentum, 1 / 32, clip)
+            equal(f"momentum {momentum} clip {clip} offset {offset}",
+                  ws + ms, w2 + m2)
+    # a list longer than one launch's parameters hold, under the guard
+    n = sg.CAP + 37
+    ws = [torch.randn(100 + i, generator=gen, device=dev) for i in range(n)]
+    gs = [torch.randn(100 + i, generator=gen, device=dev) for i in range(n)]
+    ms = [torch.randn(100 + i, generator=gen, device=dev) for i in range(n)]
+    aux = [torch.ones(600 + i, device=dev) for i in range(5)]
+    snap = [torch.zeros_like(a) for a in aux]
+    guard = sg.Guard(torch.zeros(2, dtype=torch.int32, device=dev),
+                     list(zip(aux, snap)))
+    lrs, wds = [0.1] * n, [1e-4] * n
+    w2, m2 = [t.clone() for t in ws], [t.clone() for t in ms]
+    before = sg.LAUNCHES.value
+    sg.sgd_mom_multi(ws, gs, ms, lrs, wds, 0.9, 1.0, -1.0, guard=guard)
+    launches = sg.LAUNCHES.value - before
+    sg.sgd_mom_multi_plain(w2, gs, m2, lrs, wds, 0.9, 1.0, -1.0)
+    equal(f"over {n} tensors", ws + ms, w2 + m2)
+    if launches != 4 or guard.counters.tolist() != [0, 0]:
+        fail(f"sgd_mom_multi over {n} tensors under the guard: {launches} "
+             f"launches (expected 2 probes and 2 updates), counters "
+             f"{guard.counters.tolist()}")
+    w0, m0 = [t.clone() for t in ws], [t.clone() for t in ms]
+    gs[-1][7] = float("nan")
+    sg.sgd_mom_multi(ws, gs, ms, lrs, wds, 0.9, 1.0, -1.0, guard=guard)
+    torch.cuda.synchronize()
+    if guard.counters.tolist() != [1, 1] or any(
+            not torch.equal(a, b) for a, b in zip(ws + ms + aux,
+                                                  w0 + m0 + snap)):
+        fail(f"sgd_mom_multi over {n} tensors: a NaN in the last launch's "
+             f"gradients did not skip the step and restore the statistics "
+             f"(counters {guard.counters.tolist()})")
+    # no host-to-device copy of metadata in a call
+    ws, gs, ms, lrs, wds = sgd_inputs(torch, gen, dev,
+                                      [(64, 3, 7, 7), (64,), (1000, 2048)])
+    cache = {}
+    sg.sgd_mom_multi(ws, gs, ms, lrs, wds, 0.9, 1 / 32, -1.0, cache=cache)
+    gs = [g.clone() for g in gs]  # new gradients, as every step has
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            sg.sgd_mom_multi(ws, gs, ms, lrs, wds, 0.9, 1 / 32, -1.0,
+                             cache=cache)
+        torch.cuda.synchronize()
+    copies = sum(ev.count for ev in prof.key_averages() if "HtoD" in ev.key)
+    if copies:
+        fail(f"sgd_mom_multi copied to the device {copies} times in 3 calls")
+    print(f"[redesign] sgd_mom_multi matches its plain version bit for bit "
+          f"over sizes {sizes} (aligned and one float off, momentum/clip), "
+          f"over {n} tensors in 2 launches with the guard's skip and "
+          f"restore, counters [0, 0] then [1, 1]; 0 host-to-device copies "
+          f"in 3 calls ({time.perf_counter() - t0:.1f} s)", flush=True)
+    times = kernel_times(torch, mx)
+    print_kernel_times(times, card, "redesign")
+    return times
 
 
 def resnet50_numpy(mx, seed):
@@ -1173,7 +1479,7 @@ def phase_training(torch, mx, card):
     torch.cuda.synchronize()
     launches = {k: m.LAUNCHES.value for k, m in kernels.items()}
     batches = tm.counter("fit.batches").value
-    builds = sgd_mom_multi.TABLE_BUILDS.value
+    builds = sgd_mom_multi.PACK_BUILDS.value
     if batches != steps or launches != {k: v * steps
                                         for k, v in per_step.items()}:
         fail(f"training launch counters {launches} over {batches} steps; "
@@ -1181,15 +1487,15 @@ def phase_training(torch, mx, card):
     if mod._exec_group._exec.arg_dict["conv0_weight"].context != mx.gpu(0):
         fail("Module.fit did not train on gpu(0)")
     if builds != 1:
-        fail(f"the update kernel's table was built {builds} times over "
-             f"{steps} steps; its weights and momenta never move")
-    uploads = sgd_mom_multi.GRAD_UPLOADS.value
+        fail(f"the update kernel's launch parameters were validated and "
+             f"packed {builds} times over {steps} steps; its weights and "
+             f"momenta never move")
     print(f"[training] ResNet-50 Module.fit on {mx.current_context()}: "
           f"{batches} steps at batch {TRAIN_BATCH} in "
           f"{time.perf_counter() - t0:.1f} s (set-up, cuDNN's choices and "
           f"first launches included); launches {launches} = per step "
-          f"{per_step}; the update's table built {builds} time(s), the "
-          f"gradient pointers uploaded {uploads} time(s)", flush=True)
+          f"{per_step}; the update's launch parameters packed {builds} "
+          f"time(s), no metadata copied to the device", flush=True)
     timed = steps - 1
     fit_ms = (marks[steps - 1][0] - marks[0][0]) / timed * 1e3
     wait_ms = (marks[steps - 1][1] - marks[0][1]) / timed / 1e3
@@ -1539,8 +1845,8 @@ def phase_lstm_kernels(torch, mx):
     # --- the head's softmax kernels at (32 x 32, 10000)
     rows, vocab = LSTM_BATCH * max(LSTM_BUCKETS), LSTM["vocab_size"]
     x = 4.0 * randn(rows, vocab)
-    sm_err = check(torch, "softmax_rows (1024, 10000)", sr.softmax_rows(x),
-                   sr.softmax_rows_plain(x), 0.0, SM_ATOL)
+    sm_err, sm_rel = sm_check(torch, "softmax_rows (1024, 10000)",
+                              sr.softmax_rows(x), sr.softmax_rows_plain(x))
     sm_ms = cuda_ms(torch, lambda: sr.softmax_rows(x), reps=50)
     sm_plain = cuda_ms(torch, lambda: sr.softmax_rows_plain(x), reps=50)
     sm_lib = cuda_ms(torch, lambda: torch.softmax(x, dim=1), reps=50)
@@ -1558,7 +1864,8 @@ def phase_lstm_kernels(torch, mx):
         p, label, 1.0, -1.0, False, "null", False), reps=50)
     so_bound, so_by = bound(2 * p.numel() * 4 + rows * 4, 2 * p.numel())
     print(f"[lstm-kernels] at the head's ({rows}, {vocab}): softmax_rows "
-          f"max abs err {sm_err:g} (atol {SM_ATOL}), kernel {sm_ms:.4f} ms, "
+          f"max abs err {sm_err:g} (atol {SM_ATOL}), max rel err {sm_rel:g} "
+          f"(rtol {SM_RTOL}), kernel {sm_ms:.4f} ms, "
           f"plain {sm_plain:.4f} ms, torch.softmax {sm_lib:.4f} ms, bound "
           f"{sm_bound:.4f} ms ({sm_by}); softmax_output_bwd max abs err "
           f"{so_err:g} (atol {EXACT_ATOL}), kernel {so_ms:.4f} ms, plain "
@@ -2882,8 +3189,8 @@ def phase_ssd_train_kernels(torch, mx):
            bound(2 * xf.numel() * 4, 4 * xf.numel()),
            cuda_ms(torch, lambda: F.normalize(xf, dim=1) * scale_f, reps=20))
     (flat,), pr = calls["softmax_rows"]
-    err = check(torch, f"softmax_rows at {tuple(flat.shape)}", pr,
-                sm.softmax_rows_plain(flat), 0.0, SM_ATOL)
+    err, _ = sm_check(torch, f"softmax_rows at {tuple(flat.shape)}", pr,
+                      sm.softmax_rows_plain(flat))
     reused("softmax_rows", err,
            cuda_ms(torch, lambda: sm.softmax_rows(flat), reps=50),
            cuda_ms(torch, lambda: sm.softmax_rows_plain(flat), reps=20),
@@ -3022,7 +3329,7 @@ def phase_ssd_training(torch, mx, card):
     torch.cuda.synchronize()
     launches = {k: c.value for k, c in kernels.items()}
     batches = tm.counter("fit.batches").value
-    builds = sgd_mom_multi.TABLE_BUILDS.value
+    builds = sgd_mom_multi.PACK_BUILDS.value
     plain = dict(plain_calls)
     fit_s = time.perf_counter() - t0
 
@@ -3035,8 +3342,8 @@ def phase_ssd_training(torch, mx, card):
     if any(plain.values()):
         fail(f"plain versions ran on the card's main path: {plain}")
     if builds != 1:
-        fail(f"the update kernel's table was built {builds} times over "
-             f"{steps} steps")
+        fail(f"the update kernel's launch parameters were packed {builds} "
+             f"times over {steps} steps")
     exe = mod._exec_group._exec
     if exe.arg_dict["conv4_3_weight"].context != mx.gpu(0):
         fail("Module.fit did not train SSD on gpu(0)")
@@ -3055,7 +3362,8 @@ def phase_ssd_training(torch, mx, card):
           f"(binding, cuDNN's choices and first launches included); "
           f"launches exactly {SSD_TRAIN_LAUNCHES} per step, totals "
           f"{ {k: v for k, v in launches.items() if v} }; no plain version "
-          f"ran; the update's table built once; outputs {shapes}, finite",
+          f"ran; the update's launch parameters packed once; outputs "
+          f"{shapes}, finite",
           flush=True)
     timed = steps - 1
     fit_ms = (marks[steps - 1][0] - marks[0][0]) / timed * 1e3
@@ -3947,6 +4255,9 @@ def main():
     if sys.argv[1:2] == ["--cpu-dcgan"]:
         dcgan_cpu_readings()
         return
+    if sys.argv[1:2] == ["--kernel-times"]:
+        # time the package of another checkout (its root first on the path)
+        sys.path[:0] = sys.argv[2:3]
     import torch
 
     if not torch.cuda.is_available():
@@ -3957,10 +4268,20 @@ def main():
         fail("the port imported jax or mxnet_tpu")
     card = phase_device(torch)
     phase_build()
+    if sys.argv[1:2] == ["--kernel-times"]:
+        print(f"[kernel-times] {mx.__file__}", flush=True)
+        times = kernel_times(torch, mx)
+        print_kernel_times(times, card, "kernel-times")
+        print(json.dumps({"kernel_times": times}))
+        return
     kernels = phase_kernels(torch)
     trained_kernels, bn_act_err = phase_train_kernels(torch, mx)
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], bn_act_err)
     kernels += trained_kernels
+    redesign = phase_redesign(torch, mx, card)
+    for k in kernels:
+        if k["name"] in redesign:
+            k["paths"] = redesign[k["name"]]
     lstm_kernels, head = phase_lstm_kernels(torch, mx)
     kernels += lstm_kernels
     for k in kernels:

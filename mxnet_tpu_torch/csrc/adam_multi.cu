@@ -15,9 +15,9 @@
 //   var = beta2 * var + (1 - beta2) * (g * g)
 //   w = w - (lr_e * mean) / (sqrt(var) + eps)
 //
-// Under the guard the probe of sgd_mom_multi.cu (mxt_sgd_probe_f32, which
-// reads the same (weight, mean, numel) table) first adds every gradient
-// element into one device float; when it is not finite this launch writes
+// Under the guard a probe launch (mxt_adam_probe_f32, over the same
+// (weight, mean, numel) table) first adds every gradient element into one
+// device float; when it is not finite this launch writes
 // no weight, mean or variance, copies each restore entry's source back over
 // its destination, and block 0 advances the [total, consecutive] skip
 // counters: no host synchronisation per step.
@@ -47,6 +47,30 @@ struct Restore {     // one guarded restore (int64 x 3)
 __device__ __forceinline__ float clip_nan(float g, float clip) {
   // jnp.clip lets NaN through
   return g < -clip ? -clip : (g > clip ? clip : g);
+}
+
+__global__ void __launch_bounds__(kThreads)
+adam_probe_kernel(const Entry* __restrict__ entries,
+                  const long long* __restrict__ grads,
+                  const long long* __restrict__ blocks, int n_entries,
+                  long long chunk, float* probe) {
+  __shared__ float scratch[kThreads / 32];
+  const long long e = blocks[2 * blockIdx.x];
+  if (e >= n_entries) return;  // a restore block
+  const long long start = blocks[2 * blockIdx.x + 1];
+  const Entry en = entries[e];
+  const long long end = start + chunk < en.numel ? start + chunk : en.numel;
+  const float* g = reinterpret_cast<const float*>(grads[e]);
+  float s = 0.f;
+  for (long long i = start + threadIdx.x; i < end; i += kThreads) s += g[i];
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t = 0.f;
+    for (int w = 0; w < kThreads / 32; ++w) t += scratch[w];
+    atomicAdd(probe, t);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -104,6 +128,21 @@ adam_multi_kernel(const Entry* __restrict__ entries,
 }
 
 }  // namespace
+
+// Zero the probe and add every gradient into it (one launch).
+extern "C" int mxt_adam_probe_f32(const void* entries, const void* grads,
+                                  const void* blocks, int n_blocks,
+                                  int n_entries, long long chunk, void* probe,
+                                  void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaMemsetAsync(probe, 0, sizeof(float), s);
+  if (n_blocks > 0) {
+    adam_probe_kernel<<<(unsigned)n_blocks, kThreads, 0, s>>>(
+        (const Entry*)entries, (const long long*)grads,
+        (const long long*)blocks, n_entries, chunk, (float*)probe);
+  }
+  return (int)cudaGetLastError();
+}
 
 // probe and counters are null without the guard.
 extern "C" int mxt_adam_multi_f32(const void* entries, const void* vars,

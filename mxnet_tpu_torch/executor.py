@@ -428,7 +428,7 @@ class Executor:
         self._grads_fresh = False  # a backward no update has consumed yet
         self._aux_snapshot = None  # (flat copy, restore pairs) for the guard
         self._guard_dev = None  # device int32 [total, consecutive] skips
-        self._update_cache = {}  # the update kernel's device table
+        self._update_cache = {}  # the update kernel's packs or table
         self._torch_device = None
 
     @staticmethod
@@ -593,8 +593,8 @@ class Executor:
         for n in names:
             if self.grad_req[n] == "write":
                 # release last step's gradient first, so the allocator can
-                # hand its memory to this step's (stable addresses keep the
-                # update kernel's cached table valid)
+                # hand its memory to this step's (stable addresses keep
+                # adam_multi's uploaded gradient pointers valid)
                 self.grad_dict[n]._data = None
         grads = [None] * len(names)
         if heads:

@@ -46,10 +46,11 @@ _SIGNATURES = {
     "mxt_softmax_output_bwd_f32": [_P, _P, _P, _P, _LL, _LL, _LL,
                                    ctypes.c_float, ctypes.c_float, _I, _I,
                                    ctypes.c_float, _P],
-    "mxt_sgd_probe_f32": [_P, _P, _P, _I, _I, _LL, _P, _P],
-    "mxt_sgd_mom_multi_f32": [_P, _P, _P, _P, _P, _I, _I, _LL,
-                              ctypes.c_float, _I, ctypes.c_float,
+    "mxt_sgd_pack_bytes": [],
+    "mxt_sgd_probe_f32": [_P, _P, _I, _P],
+    "mxt_sgd_mom_multi_f32": [_P, ctypes.c_float, _I, ctypes.c_float,
                               ctypes.c_float, _P, _P, _P],
+    "mxt_adam_probe_f32": [_P, _P, _P, _I, _I, _LL, _P, _P],
     "mxt_lstm_cell_f32": [_P, _P, _P, _P, _P, _P, _LL, _I, ctypes.c_float,
                           _P],
     "mxt_lstm_cell_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _P],
@@ -178,6 +179,20 @@ def stream_of(t):
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(t, entry, *args):
+    """``entry(*args, stream)`` on the current stream of CUDA tensor
+    ``t``'s device, with no ``Stream`` object built: the light launch path.
+    The current device changes for the call only when ``t``'s is not
+    current. Returns the entry's CUDA error code."""
+    import torch
+
+    dev = t.get_device()
+    if torch._C._cuda_getDevice() == dev:
+        return entry(*args, torch._C._cuda_getCurrentRawStream(dev))
+    with torch.cuda.device(dev):
+        return entry(*args, torch._C._cuda_getCurrentRawStream(dev))
 
 
 def c_slope(slope):

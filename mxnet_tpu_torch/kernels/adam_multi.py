@@ -18,11 +18,11 @@ with ``lr_t`` the caller's bias-corrected rate (``Adam.torch_apply``).
 
 Bound on the H100: device-memory bandwidth, 28 bytes per parameter element
 (the LSTM-PTB model's 4.65 M values: 130 MB, 0.039 ms). ``csrc/adam_multi.cu``
-runs one launch over all tensors (two under the guard: the probe of
-``sgd_mom_multi``, then the update) from a device table of ``(weight,
-mean, numel)`` entries — the probe's layout — with the variances' pointers
-beside it, a ``(lr_t, wd)`` row per entry and a block map of ``CHUNK``
-elements per block. The caller passes a ``cache`` dict (one per executor:
+runs one launch over all tensors (two under the guard: a probe over the
+same table, then the update) from a device table of ``(weight, mean,
+numel)`` entries with the variances' pointers beside it, a ``(lr_t, wd)``
+row per entry and a block map of ``CHUNK`` elements per block. The caller
+passes a ``cache`` dict (one per executor:
 every bucket of a ``BucketingModule`` has its own, over the same weights
 and states); the table is built only when a weight, mean or variance
 moves. The gradients' pointers and the ``(lr_t, wd)`` rows, which change
@@ -38,7 +38,6 @@ import torch
 from .. import telemetry as _tm
 from ..base import MXNetError
 from . import _lib
-from .sgd_mom_multi import block_map, grad_ptrs, hyper_rows
 
 # counts kernel launches only (never the plain version): one per call, two
 # under the guard
@@ -46,6 +45,44 @@ LAUNCHES = _tm.counter("kernel.adam_multi.launches")
 TABLE_BUILDS = _tm.counter("kernel.adam_multi.table_builds")
 GRAD_UPLOADS = _tm.counter("kernel.adam_multi.grad_uploads")
 CHUNK = 8192  # elements per block: ~570 blocks for the LSTM-PTB model
+
+
+def block_map(sizes, chunk, name):
+    """``(blocks, n_blocks)``: one ``(entry, start)`` row per block of
+    ``chunk`` elements over tensors of ``sizes`` (update entries first,
+    then restore entries)."""
+    blocks = np.array([(e, s) for e, size in enumerate(sizes)
+                       for s in range(0, size, chunk)] or [[0, 0]], np.int64)
+    n_blocks = sum(-(-size // chunk) for size in sizes)
+    if n_blocks >= 2 ** 31:
+        raise MXNetError(f"{name}: {n_blocks} blocks exceed the grid")
+    return blocks, n_blocks
+
+
+def grad_ptrs(grads, device, cache):
+    """The gradients' pointers on the device, uploaded (from pinned memory,
+    without a host wait) only when they moved; :data:`GRAD_UPLOADS` counts
+    them."""
+    key = tuple(g.data_ptr() for g in grads)
+    if cache.get("grad_key") != key:
+        host = torch.tensor(key, dtype=torch.int64).pin_memory()
+        cache["grads"] = host.to(device, non_blocking=True)
+        cache["grad_key"] = key
+        GRAD_UPLOADS.inc()
+    return cache["grads"]
+
+
+def hyper_rows(lrs, wds, device, cache):
+    """The ``(lr, wd)`` rows on the device, uploaded (from pinned memory,
+    without a host wait) only when they changed."""
+    host = np.array([lrs, wds], np.float32).T.copy()
+    old = cache.get("hyper_host")
+    if old is None or old.shape != host.shape or not np.array_equal(old, host):
+        cache["hyper_host"] = host
+        cache["hyper"] = torch.from_numpy(host).pin_memory().to(
+            device, non_blocking=True)
+    return cache["hyper"]
+
 
 def adam_step_plain(w, g, m, v, lr, wd, beta1, beta2, epsilon, rescale_grad,
                     clip_gradient):
@@ -162,12 +199,12 @@ def adam_multi(weights, grads, means, variances, lrs, wds, beta1, beta2,
     cache = {} if cache is None else cache
     table = _table(weights, means, variances, restores, dev, cache)
     hyper = hyper_rows(lrs, wds, dev, cache)
-    gptrs = grad_ptrs(grads, dev, cache, GRAD_UPLOADS)
+    gptrs = grad_ptrs(grads, dev, cache)
     lib = _lib.library()
     stream = _lib.stream_of(weights[0])
     with torch.cuda.device(dev):
         if guard is not None:
-            err = lib.mxt_sgd_probe_f32(
+            err = lib.mxt_adam_probe_f32(
                 table["entries"].data_ptr(), gptrs.data_ptr(),
                 table["blocks"].data_ptr(), table["n_blocks"],
                 table["n_entries"], CHUNK, guard.probe.data_ptr(), stream)

@@ -5,9 +5,9 @@ Replaces the optimizer step inside ``mxnet_tpu/executor.py``
 ``fused_train_update`` (:1381): ``SGD.jax_apply`` over ``_prep_grad`` and
 ``_sgd_mom_update`` (``mxnet_tpu/ops/defs_optimizer.py:34-72``) unrolled
 over every parameter, and the ``MXNET_NONFINITE_GUARD`` select
-(:1614-1652), which XLA fuses into the training step and eager PyTorch
-would run as about eight launches per parameter (155 parameters for
-ResNet-50). Per parameter, in place, following ``_prep_grad`` exactly::
+(:1606,1614-1652), which XLA fuses into the training step and eager
+PyTorch would run as about eight launches per parameter (155 parameters
+for ResNet-50). Per parameter, in place, following ``_prep_grad`` exactly::
 
     g = grad * rescale_grad; g = clip(g, -c, c) if c >= 0; g = g + wd * w
     mom = momentum * mom - lr * g; w = w + mom     (w = w - lr * g without)
@@ -20,19 +20,27 @@ and advances the ``[total, consecutive]`` skip counters — all on the
 device, with no host synchronisation.
 
 Bound on the H100: device-memory bandwidth, 20 bytes per parameter element
-(25.55 M for ResNet-50: 511 MB, 0.153 ms). ``csrc/sgd_mom_multi.cu`` runs
-one launch over all tensors (two with the guard: the probe, then the
-update) from a device table of ``(weight, mom, numel)`` entries, a
-``(lr, wd)`` row per entry and a block map that cuts every tensor into
-chunks of ``CHUNK`` elements. The caller passes a ``cache`` dict (one per
-executor); the table is rebuilt only when a weight or momentum moves, the
-``(lr, wd)`` rows are uploaded only when they change. Autograd allocates
-the gradients anew each step, so their pointers are one int64 per tensor
-beside the table. Both uploads go from pinned memory, without a host
-wait. The kernel writes through raw pointers, outside autograd.
+(25.55 M for ResNet-50: 511 MB, 0.153 ms). ``csrc/sgd_mom_multi.cu`` takes
+all per-step metadata in its launch parameters: a pack of up to
+:data:`CAP` entries (14 KB), each the pointers of a weight, its gradient
+and its momentum (or a restore's destination and source), its size, its
+``(lr, wd)`` and the cumulative count of :data:`CHUNK`-element chunks
+before it. Longer lists take several launches (:func:`plan_launches`).
+The gradients are checked on every call, by C-level passes over the
+list, as the plain version takes them: float32, contiguous, on the
+weights' device, of the weight's shape. The packs live in host memory in
+the caller's ``cache`` dict (one per executor); the weights, momenta and
+restores are validated and packed only when their identity changes
+(:data:`PACK_BUILDS`), and each call rewrites the gradients' pointers
+(autograd allocates the gradients anew each step) and, when they change,
+the ``(lr, wd)`` pairs. Nothing is copied to the device. The kernel writes
+through raw pointers, outside autograd.
 """
 
 from __future__ import annotations
+
+import operator
+from operator import attrgetter
 
 import numpy as np
 import torch
@@ -41,12 +49,17 @@ from .. import telemetry as _tm
 from ..base import MXNetError
 from . import _lib
 
-# counts kernel launches only (never the plain version): one per call, two
-# under the guard
+# counts kernel launches only (never the plain version): one per pack, two
+# under the guard (probe, update)
 LAUNCHES = _tm.counter("kernel.sgd_mom_multi.launches")
-TABLE_BUILDS = _tm.counter("kernel.sgd_mom_multi.table_builds")
-GRAD_UPLOADS = _tm.counter("kernel.sgd_mom_multi.grad_uploads")
-CHUNK = 32768  # elements per block
+# validations and packings of the weights, momenta and restores: one per
+# identity change, none per step
+PACK_BUILDS = _tm.counter("kernel.sgd_mom_multi.pack_builds")
+CHUNK = 4096  # elements per chunk (kChunk in the source)
+CAP = 320  # entries per launch (kCap in the source)
+_DTYPE = attrgetter("dtype")
+_SHAPE = attrgetter("shape")
+_F32 = {torch.float32}
 
 
 class Guard:
@@ -107,63 +120,118 @@ def sgd_mom_multi_plain(weights, grads, moms, lrs, wds, momentum,
         c.copy_(torch.stack([c[0] + miss, (c[1] + miss) * miss]))
 
 
-def block_map(sizes, chunk, name):
-    """``(blocks, n_blocks)``: one ``(entry, start)`` row per block of
-    ``chunk`` elements over tensors of ``sizes`` (update entries first,
-    then restore entries)."""
-    blocks = np.array([(e, s) for e, size in enumerate(sizes)
-                       for s in range(0, size, chunk)] or [[0, 0]], np.int64)
-    n_blocks = sum(-(-size // chunk) for size in sizes)
-    if n_blocks >= 2 ** 31:
-        raise MXNetError(f"{name}: {n_blocks} blocks exceed the grid")
-    return blocks, n_blocks
+def pack_layout(cap=CAP):
+    """``(offsets, nbytes)`` of the C ``Pack`` of ``cap`` entries: byte
+    offsets of the int64 rows ``p0, p1, p2, numel`` (one block of
+    ``4 * cap``), the float32 rows ``lr, wd`` and the int32
+    ``first[cap + 1], n_update, n_entries``; ``nbytes`` is the struct's
+    size (8-byte aligned)."""
+    ints = 40 * cap
+    end = ints + 4 * (cap + 3)
+    return {"ptrs": 0, "hyper": 32 * cap, "ints": ints}, (end + 7) // 8 * 8
 
 
-def _table(weights, moms, restores, device, cache):
-    """The device table of ``(weight, mom, numel)`` entries, restore
-    entries and the block map; rebuilt only when a tensor moved."""
-    key = tuple((w.data_ptr(), moms[i].data_ptr() if moms is not None else 0,
-                 w.numel()) for i, w in enumerate(weights))
-    key += tuple((d.data_ptr(), s.data_ptr(), d.numel()) for d, s in restores)
-    if cache.get("key") == key:
-        return cache["table"]
-    n_entries = len(weights)
-    entries = np.array([list(k) for k in key[:n_entries]], np.int64)
-    rest = np.array([list(k) for k in key[n_entries:]] or [[0, 0, 0]],
-                    np.int64)
-    blocks, n_blocks = block_map([k[2] for k in key], CHUNK, "sgd_mom_multi")
-    table = {"entries": torch.from_numpy(entries).to(device),
-             "restores": torch.from_numpy(rest).to(device),
-             "blocks": torch.from_numpy(blocks).to(device),
-             "n_blocks": n_blocks, "n_entries": n_entries}
+def plan_launches(sizes, n_update, cap=CAP, chunk=CHUNK):
+    """Cut entries of ``sizes`` (the ``n_update`` update tensors first, then
+    the restores) into launches of at most ``cap`` entries. Returns one
+    ``(lo, hi, first)`` per launch: entries ``[lo, hi)`` and the cumulative
+    chunk counts ``first`` (``hi - lo + 1`` of them, from 0), each entry
+    taking ``ceil(size / chunk)`` chunks."""
+    plans = []
+    for lo in range(0, len(sizes), cap):
+        hi = min(lo + cap, len(sizes))
+        first = [0]
+        for size in sizes[lo:hi]:
+            first.append(first[-1] + -(-int(size) // chunk))
+        if first[-1] >= 2 ** 31:
+            raise MXNetError(f"sgd_mom_multi: {first[-1]} chunks in one "
+                             "launch exceed its int32 counts")
+        plans.append((lo, hi, first))
+    return plans
+
+
+class _Pack:
+    """One launch's parameters in host memory (the C ``Pack``)."""
+
+    def __init__(self, lo, hi, first, n_update):
+        cap = CAP
+        offsets, nbytes = pack_layout(cap)
+        self.lo, self.hi = lo, hi
+        self.buf = np.zeros(nbytes, np.uint8)
+        self.ptrs = self.buf[:32 * cap].view(np.int64).reshape(4, cap)
+        self.hyper = self.buf[offsets["hyper"]:offsets["ints"]].view(
+            np.float32).reshape(2, cap)
+        ints = self.buf[offsets["ints"]:offsets["ints"] + 4 * (cap + 3)].view(
+            np.int32)
+        ints[:len(first)] = first
+        self.n_update = max(0, min(hi, n_update) - lo)  # updates in [lo, hi)
+        ints[cap + 1] = self.n_update
+        ints[cap + 2] = hi - lo
+        self.address = self.buf.ctypes.data
+
+
+def _validate(weights, moms, restores, dev):
+    for i, w in enumerate(weights):
+        _lib.check_f32(f"sgd_mom_multi: weights[{i}]", w, dev)
+        if moms is not None:
+            _lib.check_f32(f"sgd_mom_multi: moms[{i}]", moms[i], dev, w.shape)
+    for dst, src in restores:
+        _lib.check_f32("sgd_mom_multi: restore target", dst, dev)
+        _lib.check_f32("sgd_mom_multi: restore source", src, dev, dst.shape)
+
+
+def _packs(weights, moms, restores, dev, cache):
+    """The launch packs for these weights, momenta and restores: validated
+    and built only when one of them changed identity (another tensor, or
+    the same tensor over other memory)."""
+    wptrs = list(map(torch.Tensor.data_ptr, weights))
+    mptrs = (list(map(torch.Tensor.data_ptr, moms)) if moms is not None
+             else None)
+    rkey = [(d.data_ptr(), s.data_ptr(), d.numel()) for d, s in restores]
+    same = cache.get("wptrs") == wptrs and cache.get("mptrs") == mptrs \
+        and cache.get("rkey") == rkey \
+        and all(map(operator.is_, weights, cache["weights"])) \
+        and (moms is None or all(map(operator.is_, moms, cache["moms"])))
+    if same:
+        return cache["packs"]
+    _validate(weights, moms, restores, dev)
+    nbytes = _lib.library().mxt_sgd_pack_bytes()
+    if nbytes != pack_layout()[1]:
+        raise MXNetError(f"sgd_mom_multi: the kernel's Pack is {nbytes} "
+                         f"bytes, the wrapper packs {pack_layout()[1]}")
+    n = len(weights)
+    sizes = [w.numel() for w in weights] + [d.numel() for d, _s in restores]
+    p0 = wptrs + [k[0] for k in rkey]
+    p1 = [0] * n + [k[1] for k in rkey]
+    p2 = (mptrs if moms is not None else [0] * n) + [0] * len(rkey)
+    packs = []
+    for lo, hi, first in plan_launches(sizes, n):
+        pk = _Pack(lo, hi, first, n)
+        pk.ptrs[0, :hi - lo] = p0[lo:hi]
+        pk.ptrs[1, :hi - lo] = p1[lo:hi]
+        pk.ptrs[2, :hi - lo] = p2[lo:hi]
+        pk.ptrs[3, :hi - lo] = sizes[lo:hi]
+        packs.append(pk)
     cache.clear()
-    cache.update(key=key, table=table)
-    TABLE_BUILDS.inc()
-    return table
+    cache.update(weights=list(weights),
+                 moms=list(moms) if moms is not None else None,
+                 wptrs=wptrs, mptrs=mptrs, rkey=rkey, packs=packs,
+                 shapes=list(map(_SHAPE, weights)), lrs=None, wds=None)
+    PACK_BUILDS.inc()
+    return packs
 
 
-def grad_ptrs(grads, device, cache, uploads=GRAD_UPLOADS):
-    """The gradients' pointers on the device, uploaded (from pinned memory,
-    without a host wait) only when they moved; ``uploads`` counts them."""
-    key = tuple(g.data_ptr() for g in grads)
-    if cache.get("grad_key") != key:
-        host = torch.tensor(key, dtype=torch.int64).pin_memory()
-        cache["grads"] = host.to(device, non_blocking=True)
-        cache["grad_key"] = key
-        uploads.inc()
-    return cache["grads"]
-
-
-def hyper_rows(lrs, wds, device, cache):
-    """The ``(lr, wd)`` rows on the device, uploaded (from pinned memory,
-    without a host wait) only when they changed."""
-    host = np.array([lrs, wds], np.float32).T.copy()
-    old = cache.get("hyper_host")
-    if old is None or old.shape != host.shape or not np.array_equal(old, host):
-        cache["hyper_host"] = host
-        cache["hyper"] = torch.from_numpy(host).pin_memory().to(
-            device, non_blocking=True)
-    return cache["hyper"]
+def _check_grads(grads, dev, shapes):
+    """Every gradient a contiguous float32 tensor on ``dev`` of its
+    weight's shape (one of ``shapes``): C-level maps over the list, the
+    per-tensor message only when one fails."""
+    if (set(map(_DTYPE, grads)) == _F32
+            and set(map(torch.Tensor.get_device, grads)) == {dev.index}
+            and all(map(torch.Tensor.is_contiguous, grads))
+            and list(map(_SHAPE, grads)) == shapes):
+        return
+    for i, (g, shape) in enumerate(zip(grads, shapes)):
+        _lib.check_f32(f"sgd_mom_multi: grads[{i}]", g, dev, shape)
 
 
 def sgd_mom_multi(weights, grads, moms, lrs, wds, momentum, rescale_grad,
@@ -172,7 +240,7 @@ def sgd_mom_multi(weights, grads, moms, lrs, wds, momentum, rescale_grad,
     ``grads[i]`` with learning rate ``lrs[i]`` and weight decay ``wds[i]``;
     ``moms`` is None for SGD without momentum, ``clip_gradient < 0`` turns
     clipping off. ``guard`` (a :class:`Guard`) skips a non-finite step.
-    ``cache`` (a dict the caller keeps) holds the device table between
+    ``cache`` (a dict the caller keeps) holds the launch packs between
     calls.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel,
@@ -181,26 +249,20 @@ def sgd_mom_multi(weights, grads, moms, lrs, wds, momentum, rescale_grad,
     """
     if not weights:
         return
-    if len(grads) != len(weights) or len(lrs) != len(weights) or \
-            len(wds) != len(weights) or \
-            (moms is not None and len(moms) != len(weights)):
+    n = len(weights)
+    if len(grads) != n or len(lrs) != n or len(wds) != n or \
+            (moms is not None and len(moms) != n):
         raise MXNetError("sgd_mom_multi: weights, grads, moms, lrs and wds "
                          "must have one entry per parameter")
-    dev = weights[0].device
-    if dev.type in ("cpu", "meta"):
-        return sgd_mom_multi_plain(weights, grads, moms, lrs, wds, momentum,
-                                   rescale_grad, clip_gradient, guard)
-    if dev.type != "cuda":
-        raise MXNetError(f"sgd_mom_multi: no kernel for device {dev}")
-    for i, (w, g) in enumerate(zip(weights, grads)):
-        _lib.check_f32(f"sgd_mom_multi: weights[{i}]", w, dev)
-        _lib.check_f32(f"sgd_mom_multi: grads[{i}]", g, dev, w.shape)
-        if moms is not None:
-            _lib.check_f32(f"sgd_mom_multi: moms[{i}]", moms[i], dev, w.shape)
-    restores = guard.restores if guard is not None else []
-    for dst, src in restores:
-        _lib.check_f32("sgd_mom_multi: restore target", dst, dev)
-        _lib.check_f32("sgd_mom_multi: restore source", src, dev, dst.shape)
+    w0 = weights[0]
+    if not w0.is_cuda:
+        if w0.device.type in ("cpu", "meta"):
+            return sgd_mom_multi_plain(weights, grads, moms, lrs, wds,
+                                       momentum, rescale_grad, clip_gradient,
+                                       guard)
+        raise MXNetError(f"sgd_mom_multi: no kernel for device {w0.device}")
+    dev = w0.device
+    restores = guard.restores if guard is not None else ()
     if guard is not None:
         if (guard.counters.dtype != torch.int32 or guard.counters.device != dev
                 or guard.counters.numel() != 2):
@@ -209,26 +271,32 @@ def sgd_mom_multi(weights, grads, moms, lrs, wds, momentum, rescale_grad,
         if guard.probe is None:
             guard.probe = torch.empty(1, device=dev)
     cache = {} if cache is None else cache
-    table = _table(weights, moms, restores, dev, cache)
-    hyper = hyper_rows(lrs, wds, dev, cache)
-    gptrs = grad_ptrs(grads, dev, cache)
+    packs = _packs(weights, moms, restores, dev, cache)
+    _check_grads(grads, dev, cache["shapes"])
+    gptrs = list(map(torch.Tensor.data_ptr, grads))
+    fresh = cache["lrs"] != lrs or cache["wds"] != wds
+    if fresh:
+        cache["lrs"], cache["wds"] = list(lrs), list(wds)
+    for pk in packs:
+        k = pk.n_update
+        if k:
+            pk.ptrs[1, :k] = gptrs[pk.lo:pk.lo + k]
+            if fresh:
+                pk.hyper[0, :k] = lrs[pk.lo:pk.lo + k]
+                pk.hyper[1, :k] = wds[pk.lo:pk.lo + k]
     lib = _lib.library()
-    stream = _lib.stream_of(weights[0])
-    with torch.cuda.device(dev):
-        if guard is not None:
-            err = lib.mxt_sgd_probe_f32(
-                table["entries"].data_ptr(), gptrs.data_ptr(),
-                table["blocks"].data_ptr(),
-                table["n_blocks"], table["n_entries"], CHUNK,
-                guard.probe.data_ptr(), stream)
-            _lib.check(err, "sgd_mom_multi (probe)")
+    if guard is not None:
+        probe = guard.probe.data_ptr()
+        for i, pk in enumerate(p for p in packs if p.n_update):
+            _lib.check(_lib.launch(w0, lib.mxt_sgd_probe_f32, pk.address,
+                                   probe, int(i == 0)),
+                       "sgd_mom_multi (probe)")
             LAUNCHES.inc()
-        err = lib.mxt_sgd_mom_multi_f32(
-            table["entries"].data_ptr(), gptrs.data_ptr(), hyper.data_ptr(),
-            table["restores"].data_ptr(), table["blocks"].data_ptr(),
-            table["n_blocks"], table["n_entries"], CHUNK, float(momentum),
+    counters = guard.counters.data_ptr() if guard is not None else 0
+    for pk in packs:
+        _lib.check(_lib.launch(
+            w0, lib.mxt_sgd_mom_multi_f32, pk.address, float(momentum),
             int(moms is not None), float(rescale_grad), float(clip_gradient),
-            guard.probe.data_ptr() if guard is not None else 0,
-            guard.counters.data_ptr() if guard is not None else 0, stream)
-        _lib.check(err, "sgd_mom_multi")
+            probe if guard is not None else 0, counters), "sgd_mom_multi")
+        counters = 0  # the first launch advances them
         LAUNCHES.inc()

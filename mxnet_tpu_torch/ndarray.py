@@ -13,8 +13,8 @@ list container magic 0x112). Legacy V0/V1 array records, sparse storage and
 
 Assignment (``a[:] = v``), ``copyto`` an NDArray, ``out=`` and the in-place
 operators write into the array's existing tensor, where the JAX package
-rebinds its immutable buffer: the storage stays put, so device tables that
-hold pointers to parameters stay valid.
+rebinds its immutable buffer: the storage stays put, so device tables and
+launch parameters that hold pointers to parameters stay valid.
 
 Creation without a ``ctx`` places the array on the current context, which
 defaults to ``gpu(0)``; :func:`load` places arrays on the CPU, as the

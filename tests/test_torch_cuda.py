@@ -32,7 +32,12 @@ order, and two terms cancel where the gradient lies along the input). The
 DCGAN route: ``bn_act`` and ``bn_act_bwd`` with a LeakyReLU slope, at the
 discriminator's shapes and on pre-activations exactly +-0 and a constant
 channel, to the same tolerances; at slope 0 the kernels' ReLU (+0.0 for
-negative values, a zero gradient at 0) exactly.
+negative values, a zero gradient at 0) exactly. The redesigned kernels:
+``softmax_rows`` at each of its regime borders and on views at a float
+offset (1e-6 absolute); ``sgd_mom_multi`` bit for bit on sizes no
+multiple of 4, on views off the 16-byte alignment, over more tensors than
+one launch holds and under the guard; ``adam_multi`` bit for bit under
+the guard.
 """
 
 import numpy as np
@@ -86,13 +91,24 @@ def test_bn_act_kernel_matches_plain(card, shape, relu, fix_gamma):
     assert bn_mod.LAUNCHES.value == before + 1
 
 
+# softmax_rows against its plain version: 1e-6 absolute and, beside it,
+# 1e-5 of each probability (at C = 10000 a typical one is 3e-8, far below
+# the absolute bound; a sum in another order moves a float32 quotient by
+# about 1e-6 of itself)
+SM_ATOL, SM_RTOL = 1e-6, 1e-5
+
+
+def _assert_softmax(got, want):
+    torch.testing.assert_close(got, want, rtol=0, atol=SM_ATOL)
+    torch.testing.assert_close(got, want, rtol=SM_RTOL, atol=1e-30)
+
+
 @pytest.mark.parametrize("shape", [(32, 1000), (1, 1000), (7, 1001)])
 def test_softmax_rows_kernel_matches_plain(card, shape):
     x = torch.randn(shape, device=card) * 4
     before = sm_mod.LAUNCHES.value
     got = sm_mod.softmax_rows(x)
-    torch.testing.assert_close(got, sm_mod.softmax_rows_plain(x),
-                               rtol=0, atol=1e-6)
+    _assert_softmax(got, sm_mod.softmax_rows_plain(x))
     assert sm_mod.LAUNCHES.value == before + 1
 
 
@@ -226,14 +242,14 @@ def test_sgd_mom_multi_kernel_matches_plain(card, momentum, clip):
     ref = [[t.clone() for t in ws], [t.clone() for t in ms]]
     cache = {}
     before = sgd_mod.LAUNCHES.value
-    builds = sgd_mod.TABLE_BUILDS.value
+    builds = sgd_mod.PACK_BUILDS.value
     for _ in range(2):
         sgd_mod.sgd_mom_multi(ws, gs, moms, lrs, wds, momentum, 1 / 32, clip,
                               cache=cache)
         sgd_mod.sgd_mom_multi_plain(ref[0], gs, ref[1] if moms else None,
                                     lrs, wds, momentum, 1 / 32, clip)
     assert sgd_mod.LAUNCHES.value == before + 2
-    assert sgd_mod.TABLE_BUILDS.value == builds + 1  # cached between steps
+    assert sgd_mod.PACK_BUILDS.value == builds + 1  # cached between steps
     for got, want in zip(ws + (ms if moms else []),
                          ref[0] + (ref[1] if moms else [])):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
@@ -686,3 +702,181 @@ def test_leaky_kernels_refuse_a_negative_slope(card):
     with pytest.raises(MXNetError):
         bwd_mod.bn_act_bwd(dy, y, x, mean, var, gamma, kvar, 2e-5, False,
                            -0.2)
+
+
+# -- the redesigned softmax_rows and sgd_mom_multi ---------------------------
+SM_BORDER_COLS = [1, 2, 21, 31, 32, 33, 1000, 4096, 4097, 10000, 14000,
+                  60000]
+
+
+@pytest.mark.parametrize("cols", SM_BORDER_COLS)
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_softmax_rows_at_the_regime_borders(card, cols, offset):
+    """Each regime (narrow <= 32 < middle <= 4096 < wide, and the loop past
+    the card's shared memory) on aligned rows and on a view at a float
+    offset, which the narrow tile loads as a ragged head and tail beside
+    its bulk copy and stores with 4-byte stores; 1e-6 absolute and 1e-5
+    relative."""
+    rows = 517 if cols <= 32 else 5  # a partial last tile of 256 rows
+    rng = np.random.default_rng(cols + offset)
+    base = torch.from_numpy((rng.standard_normal(rows * cols + offset) * 4)
+                            .astype(np.float32)).to(card)
+    x = base[offset:].view(rows, cols)
+    before = sm_mod.LAUNCHES.value
+    got = sm_mod.softmax_rows(x)
+    assert sm_mod.LAUNCHES.value == before + 1
+    _assert_softmax(got, sm_mod.softmax_rows_plain(x))
+
+
+@pytest.mark.parametrize("shape", [(517, 21), (64, 1000), (8, 10000),
+                                   (2, 60000)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_softmax_rows_on_unit_scale_inputs(card, shape, offset):
+    """One case per regime on unit-scale inputs, where every probability
+    lies near 1/C: each is held to 1e-5 of itself, the head and tail
+    columns of a view included."""
+    rows, cols = shape
+    rng = np.random.default_rng(cols + offset)
+    base = torch.from_numpy(rng.standard_normal(rows * cols + offset)
+                            .astype(np.float32)).to(card)
+    x = base[offset:].view(rows, cols)
+    _assert_softmax(sm_mod.softmax_rows(x), sm_mod.softmax_rows_plain(x))
+
+
+@pytest.mark.parametrize("shape", [(259072, 21), (1024, 10000), (32, 1000)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_softmax_rows_at_the_path_shapes(card, shape, offset):
+    rows, cols = shape
+    base = torch.randn(rows * cols + offset, device=card) * 4
+    x = base[offset:].view(rows, cols)
+    _assert_softmax(sm_mod.softmax_rows(x), sm_mod.softmax_rows_plain(x))
+
+
+def _views(rng, sizes, offset, scale, device):
+    """Tensors of ``sizes``, each a view ``offset`` floats into its storage
+    (1: no tensor 16-byte aligned)."""
+    return [torch.from_numpy((rng.standard_normal(n + offset) * scale)
+                             .astype(np.float32)).to(device)[offset:]
+            for n in sizes]
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2])
+@pytest.mark.parametrize("momentum, clip", [(0.9, -1.0), (0.9, 0.005),
+                                            (0.0, -1.0)])
+def test_sgd_mom_multi_bit_for_bit_on_odd_sizes_and_views(card, offset,
+                                                          momentum, clip):
+    """Sizes that are no multiple of 4 (the scalar tail), whole and partial
+    4096-element chunks, aligned tensors (16-byte accesses) and views that
+    break the alignment (the scalar path): bit for bit."""
+    rng = np.random.default_rng(20 + offset)
+    sizes = [1, 3, 5, 4096, 4097, 70001, 8191, 2]
+    ws, gs, ms = (_views(rng, sizes, offset, s, card)
+                  for s in (0.05, 0.01, 0.001))
+    moms = ms if momentum else None
+    lrs, wds = [0.1, 0.05] * 4, [1e-4, 0.0] * 4
+    w2, m2 = [t.clone() for t in ws], [t.clone() for t in ms]
+    sgd_mod.sgd_mom_multi(ws, gs, moms, lrs, wds, momentum, 1 / 32, clip)
+    sgd_mod.sgd_mom_multi_plain(w2, gs, m2 if moms else None, lrs, wds,
+                                momentum, 1 / 32, clip)
+    for got, want in zip(ws + ms, w2 + m2):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("guarded", [False, True])
+def test_sgd_mom_multi_over_more_tensors_than_one_launch_holds(card,
+                                                               guarded):
+    """CAP + 37 tensors (plus restores under the guard) take two launches
+    (four under the guard): bit for bit; then a NaN in the second launch's
+    gradients skips the whole step and restores every statistic."""
+    rng = np.random.default_rng(21)
+    n = sgd_mod.CAP + 37
+    sizes = [100 + i for i in range(n)]
+    ws, gs, ms = (_views(rng, sizes, 0, 1.0, card) for _ in range(3))
+    aux = [torch.ones(600 + i, device=card) for i in range(5)]
+    snap = [torch.zeros_like(a) for a in aux]
+    guard = (sgd_mod.Guard(torch.zeros(2, dtype=torch.int32, device=card),
+                           list(zip(aux, snap))) if guarded else None)
+    lrs, wds = [0.1] * n, [1e-4] * n
+    w2, m2 = [t.clone() for t in ws], [t.clone() for t in ms]
+    before = sgd_mod.LAUNCHES.value
+    sgd_mod.sgd_mom_multi(ws, gs, ms, lrs, wds, 0.9, 1.0, -1.0, guard=guard)
+    assert sgd_mod.LAUNCHES.value == before + (4 if guarded else 2)
+    sgd_mod.sgd_mom_multi_plain(w2, gs, m2, lrs, wds, 0.9, 1.0, -1.0)
+    for got, want in zip(ws + ms, w2 + m2):
+        assert torch.equal(got, want)
+    if not guarded:
+        return
+    assert guard.counters.tolist() == [0, 0]
+    gs[-1][7] = float("nan")
+    sgd_mod.sgd_mom_multi(ws, gs, ms, lrs, wds, 0.9, 1.0, -1.0, guard=guard)
+    assert guard.counters.tolist() == [1, 1]
+    for got, want in zip(ws + ms + aux, w2 + m2 + snap):
+        assert torch.equal(got, want)
+
+
+def test_sgd_mom_multi_packs_once_and_rechecks_the_gradients(card):
+    """The weights and momenta are validated and packed once; new gradient
+    tensors each call are still checked, and a weight that moved is
+    packed anew."""
+    rng = np.random.default_rng(22)
+    ws, gs, ms = (_views(rng, [10, 4099], 0, 1.0, card) for _ in range(3))
+    cache = {}
+    builds = sgd_mod.PACK_BUILDS.value
+    for _ in range(3):
+        gs = [g.clone() for g in gs]
+        sgd_mod.sgd_mom_multi(ws, gs, ms, [0.1] * 2, [0.0] * 2, 0.9, 1.0,
+                              -1.0, cache=cache)
+    assert sgd_mod.PACK_BUILDS.value == builds + 1
+    with pytest.raises(MXNetError):
+        sgd_mod.sgd_mom_multi(ws, [gs[0].double(), gs[1]], ms, [0.1] * 2,
+                              [0.0] * 2, 0.9, 1.0, -1.0, cache=cache)
+    with pytest.raises(MXNetError):  # strided: not the flat layout
+        sgd_mod.sgd_mom_multi(ws, [gs[0], torch.zeros(2 * 4099,
+                                                       device=card)[::2]],
+                              ms, [0.1] * 2, [0.0] * 2, 0.9, 1.0, -1.0,
+                              cache=cache)
+    with pytest.raises(MXNetError):
+        sgd_mod.sgd_mom_multi(ws, [gs[0], gs[1][:4098]], ms, [0.1] * 2,
+                              [0.0] * 2, 0.9, 1.0, -1.0, cache=cache)
+    ws[1] = ws[1].clone()
+    sgd_mod.sgd_mom_multi(ws, gs, ms, [0.1] * 2, [0.0] * 2, 0.9, 1.0, -1.0,
+                          cache=cache)
+    assert sgd_mod.PACK_BUILDS.value == builds + 2
+    with pytest.raises(MXNetError):
+        sgd_mod.sgd_mom_multi([ws[0].double(), ws[1]], gs, ms, [0.1] * 2,
+                              [0.0] * 2, 0.9, 1.0, -1.0, cache=cache)
+
+
+def test_sgd_mom_multi_raises_on_a_gradient_of_another_shape(card):
+    """A contiguous gradient with the weight's size but not its shape, a
+    (b, a) gradient for an (a, b) weight, raises as the plain version
+    does: the kernel's flat view would apply it in the wrong order."""
+    ws = [torch.zeros(3, 5, device=card), torch.zeros(7, device=card)]
+    ms = [torch.zeros_like(w) for w in ws]
+    gs = [torch.ones(3, 5, device=card), torch.ones(7, device=card)]
+    cache = {}
+    sgd_mod.sgd_mom_multi(ws, gs, ms, [0.1] * 2, [0.0] * 2, 0.9, 1.0, -1.0,
+                          cache=cache)
+    with pytest.raises(MXNetError):
+        sgd_mod.sgd_mom_multi(ws, [torch.ones(5, 3, device=card), gs[1]],
+                              ms, [0.1] * 2, [0.0] * 2, 0.9, 1.0, -1.0,
+                              cache=cache)
+    with pytest.raises(MXNetError):
+        sgd_mod.sgd_mom_multi(ws, [gs[0].reshape(15), gs[1]], ms, [0.1] * 2,
+                              [0.0] * 2, 0.9, 1.0, -1.0, cache=cache)
+
+
+def test_adam_multi_unchanged_bit_for_bit(card):
+    """adam_multi keeps its own table and probe: under the guard its update
+    is still the plain version's, bit for bit."""
+    ws, gs, ms, vs = _adam_inputs(card)
+    aux, snap = torch.ones(9000, device=card), torch.zeros(9000, device=card)
+    guard = sgd_mod.Guard(torch.zeros(2, dtype=torch.int32, device=card),
+                          [(aux, snap)])
+    ref = [[t.clone() for t in x] for x in (ws, ms, vs)]
+    args = ([3e-3] * 5, [1e-4] * 5, 0.9, 0.999, 1e-8, 1 / 32, -1.0)
+    adam_mod.adam_multi(ws, gs, ms, vs, *args, guard=guard)
+    adam_mod.adam_multi_plain(ref[0], gs, ref[1], ref[2], *args)
+    assert guard.counters.tolist() == [0, 0]
+    for got, want in zip(ws + ms + vs, ref[0] + ref[1] + ref[2]):
+        assert torch.equal(got, want)
