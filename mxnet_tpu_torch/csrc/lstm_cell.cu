@@ -26,6 +26,7 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -106,40 +107,63 @@ unsigned blocks_for(long long total) {
   return (unsigned)((total + kThreads - 1) / kThreads);
 }
 
+// The entries take their arguments packed in one struct of 8-byte fields
+// (the wrapper packs them with struct.pack): one ctypes argument costs
+// less host time than ten. Pointers and the stream are addresses; a
+// pointer of 0 is null.
+struct CellArgs {
+  unsigned long long i2h, h2h, c_prev, next_h, next_c, act;
+  long long rows, hidden;
+  double forget_bias;
+  unsigned long long stream;
+};
+
+struct CellBwdArgs {
+  unsigned long long dnext_h, dnext_c, act, c_prev, next_c, dgates, dc_prev;
+  long long rows, hidden;
+  unsigned long long stream;
+};
+
+// the wrapper's struct formats "=6Q2qdQ" and "=7Q2qQ"
+static_assert(sizeof(CellArgs) == 10 * 8, "CellArgs: 10 fields of 8 bytes");
+static_assert(sizeof(CellBwdArgs) == 10 * 8,
+              "CellBwdArgs: 10 fields of 8 bytes");
+
+template <typename T>
+T* ptr(unsigned long long p) {
+  return reinterpret_cast<T*>(static_cast<uintptr_t>(p));
+}
+
 }  // namespace
 
 // act is null when no backward follows (inference): the gates are then not
 // written.
-extern "C" int mxt_lstm_cell_f32(const void* i2h, const void* h2h,
-                                 const void* c_prev, void* next_h,
-                                 void* next_c, void* act, long long rows,
-                                 int hidden, float forget_bias,
-                                 void* stream) {
-  const long long total = rows * hidden;
+extern "C" int mxt_lstm_cell_f32(const void* packed) {
+  const CellArgs& a = *static_cast<const CellArgs*>(packed);
+  const long long total = a.rows * a.hidden;
   if (total > 0) {
     lstm_cell_kernel<<<blocks_for(total), kThreads, 0,
-                       (cudaStream_t)stream>>>(
-        (const float*)i2h, (const float*)h2h, (const float*)c_prev,
-        (float*)next_h, (float*)next_c, (float*)act, total, hidden,
-        forget_bias);
+                       ptr<CUstream_st>(a.stream)>>>(
+        ptr<const float>(a.i2h), ptr<const float>(a.h2h),
+        ptr<const float>(a.c_prev), ptr<float>(a.next_h),
+        ptr<float>(a.next_c), ptr<float>(a.act), total, (int)a.hidden,
+        (float)a.forget_bias);
   }
   return (int)cudaGetLastError();
 }
 
 // dnext_h and dnext_c may be null: a state no later step consumes has no
 // gradient, which counts as zero.
-extern "C" int mxt_lstm_cell_bwd_f32(const void* dnext_h, const void* dnext_c,
-                                     const void* act, const void* c_prev,
-                                     const void* next_c, void* dgates,
-                                     void* dc_prev, long long rows,
-                                     int hidden, void* stream) {
-  const long long total = rows * hidden;
+extern "C" int mxt_lstm_cell_bwd_f32(const void* packed) {
+  const CellBwdArgs& a = *static_cast<const CellBwdArgs*>(packed);
+  const long long total = a.rows * a.hidden;
   if (total > 0) {
     lstm_cell_bwd_kernel<<<blocks_for(total), kThreads, 0,
-                           (cudaStream_t)stream>>>(
-        (const float*)dnext_h, (const float*)dnext_c, (const float*)act,
-        (const float*)c_prev, (const float*)next_c, (float*)dgates,
-        (float*)dc_prev, total, hidden);
+                           ptr<CUstream_st>(a.stream)>>>(
+        ptr<const float>(a.dnext_h), ptr<const float>(a.dnext_c),
+        ptr<const float>(a.act), ptr<const float>(a.c_prev),
+        ptr<const float>(a.next_c), ptr<float>(a.dgates),
+        ptr<float>(a.dc_prev), total, (int)a.hidden);
   }
   return (int)cudaGetLastError();
 }

@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
-# C entry -> argtypes; every pointer and the stream pass as c_void_p
+# C entry -> argtypes; every pointer and the stream pass as c_void_p (a
+# packed argument struct too: see launch_packed)
 _SIGNATURES = {
     "mxt_bn_act_f32": [_P, _P, _P, _P, _P, _P, _LL, _LL, _LL,
                        ctypes.c_float, _I, ctypes.c_float, _P],
@@ -43,6 +44,8 @@ _SIGNATURES = {
                               ctypes.c_float, _P],
     "mxt_bn_bwd_dx_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL,
                           ctypes.c_float, _I, ctypes.c_float, _I, _P],
+    "mxt_bn_bwd_caps": [_P, _P],
+    "mxt_bn_bwd_onepass_f32": [_P],
     "mxt_softmax_output_bwd_f32": [_P, _P, _P, _P, _LL, _LL, _LL,
                                    ctypes.c_float, ctypes.c_float, _I, _I,
                                    ctypes.c_float, _P],
@@ -51,9 +54,8 @@ _SIGNATURES = {
     "mxt_sgd_mom_multi_f32": [_P, ctypes.c_float, _I, ctypes.c_float,
                               ctypes.c_float, _P, _P, _P],
     "mxt_adam_probe_f32": [_P, _P, _P, _I, _I, _LL, _P, _P],
-    "mxt_lstm_cell_f32": [_P, _P, _P, _P, _P, _P, _LL, _I, ctypes.c_float,
-                          _P],
-    "mxt_lstm_cell_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _P],
+    "mxt_lstm_cell_f32": [_P],
+    "mxt_lstm_cell_bwd_f32": [_P],
     "mxt_adam_multi_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _LL]
     + [ctypes.c_float] * 7 + [_P, _P, _P],
     "mxt_l2norm_channel_f32": [_P, _P, _LL, _LL, _LL, ctypes.c_float,
@@ -140,6 +142,8 @@ def build():
 def library():
     """The loaded kernel library (built on first use)."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             path, _log = build()
@@ -195,6 +199,20 @@ def launch(t, entry, *args):
         return entry(*args, torch._C._cuda_getCurrentRawStream(dev))
 
 
+def launch_packed(t, entry, pack, *args):
+    """``entry(pack(*args, stream))``: :func:`launch` for a C entry that
+    takes its arguments as one struct of 8-byte fields, ``pack`` the
+    ``struct.Struct(...).pack`` of that struct (the stream its last field).
+    One ctypes argument costs less host time than a dozen."""
+    import torch
+
+    dev = t.get_device()
+    if torch._C._cuda_getDevice() == dev:
+        return entry(pack(*args, torch._C._cuda_getCurrentRawStream(dev)))
+    with torch.cuda.device(dev):
+        return entry(pack(*args, torch._C._cuda_getCurrentRawStream(dev)))
+
+
 def c_slope(slope):
     """The activation argument of the BatchNorm kernels' C entries: the
     slope (0 for the ReLU), or -1 for ``slope=None``, no activation."""
@@ -214,3 +232,21 @@ def check_f32(name, t, device, shape=None):
             f"{name} must be a contiguous float32 {want}tensor on {device}, "
             f"got {t.dtype} {tuple(t.shape)} on {t.device} "
             f"contiguous={t.is_contiguous()}")
+
+
+def refusal(name, args, device):
+    """The :class:`MXNetError` for inputs a kernel does not take, naming
+    the first of ``args`` (``(argument, tensor or None, shape)``) that is
+    not a contiguous float32 tensor of its shape on ``device``: what a
+    wrapper raises after its one compound check failed."""
+    import torch
+
+    for arg, t, shape in args:
+        if t is not None and (t.dtype != torch.float32
+                              or not t.is_contiguous() or t.device != device
+                              or t.shape != shape):
+            return MXNetError(
+                f"{name}: {arg} must be a contiguous float32 {tuple(shape)} "
+                f"tensor on {device}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device} contiguous={t.is_contiguous()}")
+    return MXNetError(f"{name}: inputs the kernel does not take")
