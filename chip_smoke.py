@@ -118,8 +118,9 @@ Run from the root of a checkout. Phases, each printing its own lines:
     normalization, ``F.normalize * 20``;
 12. SSD serving — the same model behind ``ModelServer(ServingConfig(
     buckets=(1, 8)))``: 9 requests (a wave of 8, then 1), each served
-    batch launching exactly 1 ``multibox_decode``, 2 ``nms`` (mask and
-    scan) and 1 ``l2norm_channel`` and no plain version on data; the plain
+    batch launching exactly 1 ``multibox_decode``, ``nms`` as its plan
+    gives (2 on the H100: the segment and large kernels) and 1
+    ``l2norm_channel`` and no plain version on data; the plain
     NMS on the CPU fed the card's own bucket-8 head tensors gives the
     card's rows bit for bit; every answer against the port's CPU
     ``Predictor`` (scores and boxes within ``SSD_SERVE_TOL`` for every
@@ -141,6 +142,25 @@ Run from the root of a checkout. Phases, each printing its own lines:
     ``sgd_mom_multi`` over SSD's parameters with wd 5e-4 at this path's
     shapes; each timed beside its bound and, where there is one, a
     PyTorch call for the same function;
+13b. redesigned ``nms`` and ``bn_stats`` — the per-image distribution of
+    the (image, class) segment lengths at the serving and training heads
+    (largest, median, how many exceed L_max); ``nms`` bit for bit against
+    its plain version on both heads by class (the path), with force, as
+    whole images and with one class holding every anchor, on a batch at
+    the plan's borders (a class of L_max - 1, L_max and L_max + 1 boxes,
+    class ids out of range both ways, images taking different routes) and
+    at A = 1, 65 and 1000, each call's launches as planned and two calls
+    bit for bit; ``bn_stats`` at every regime border and path shape,
+    aligned and on views at a float offset of 1 and 3, within
+    ``STAT_RTOL``/``STAT_ATOL`` and the variance's cancellation term,
+    ``kvar`` exactly (0.5 on a constant channel), one launch a call, two
+    calls bit for bit; neither wrapper copies to or from the host or
+    synchronises in a call (``host_syncs``); then their times
+    (``kernel_times_nms_bn_stats``: ``nms`` on both heads with its device
+    time by kernel, ``bn_stats`` over a ResNet-50 step's 50 inputs and a
+    DCGAN step's 13 beside ``torch.var_mean`` and
+    ``torch.batch_norm_stats``) and ``bn_stats``' host path piece by
+    piece;
 14. SSD training — the same model trained by ``Module.fit`` on ``gpu(0)``
     over an ``NDArrayIter`` of painted-rectangle images (20 classes, 1..6
     objects, mean subtracted) at batch 32, SGD lr 0.002, momentum 0.9, wd
@@ -217,7 +237,8 @@ a machine with many cores, ~3 minutes on 8); it needs no card.
 
     python3 chip_smoke.py --kernel-times [ROOT]
 
-prints phase 5b's times alone (after phases 1-2), for the package of the
+prints phase 5b's times and phase 13b's (on the SSD heads recorded by
+``ssd_nms_heads``) alone (after phases 1-2), for the package of the
 checkout at ``ROOT`` when given (say, the parent commit unpacked under
 ``build/``), else for this one's: run both in one call, in turns, to
 compare two versions on one card.
@@ -228,6 +249,18 @@ prints ``bn_act_bwd``'s device time at every ResNet-50 and DCGAN shape for
 each planner setting of ``PLAN_TARGETS`` x ``PLAN_PER_THREAD`` (the
 readings ``BLOCK_TARGET``, ``ELEMS_PER_THREAD`` and ``GROUP_CAP`` of
 ``kernels/bn_act_bwd.py`` were chosen from), after phases 1-2.
+
+    python3 chip_smoke.py --nms-plans
+
+prints ``nms``'s device time by kernel on the SSD heads at batches 8 and
+32 for each L_max of ``NMS_ONCHIP`` (the readings ``ONCHIP`` of
+``kernels/nms.py`` was chosen from), after phases 1-2.
+
+    python3 chip_smoke.py --bn-stats-plans
+
+prints ``bn_stats``' device time at every ResNet-50 and DCGAN shape for
+each planner setting of ``STATS_TARGETS`` x ``STATS_PER_THREAD``, and its
+wrapper's host path piece by piece, after phases 1-2.
 
     python3 chip_smoke.py --l2norm-bwd-sweep N
 
@@ -400,11 +433,12 @@ SSD_MEAN = (123.0, 117.0, 104.0)  # the example iterator's mean_r/g/b
 SSD_INPUT_SCALE = 1.0 / 58
 # launches per SSD training step: softmax_output_bwd under
 # normalization="valid" launches twice per call (the count of valid labels,
-# then the gradient), nms twice (mask and scan)
+# then the gradient); nms as its plan gives them on the card (None here:
+# ssd_nms_launches, two on the H100, where A = 8096 exceeds L_max)
 SSD_TRAIN_LAUNCHES = {"multibox_target": 1, "l2norm_channel": 1,
                       "l2norm_channel_bwd": 1, "softmax_rows": 1,
                       "softmax_output_bwd": 2, "multibox_decode": 1,
-                      "nms": 2, "sgd_mom_multi": 1}
+                      "nms": None, "sgd_mom_multi": 1}
 # the loss check: SSD_LOSS_STEPS steps on one fixed batch of
 # SSD_LOSS_BATCH must bring the class cross-entropy over the anchors whose
 # target is not ignored, and the loc loss per matched anchor, to at most
@@ -874,15 +908,19 @@ def phase_train_kernels(torch, mx):
         t["x"], t["mm"], t["mv"], 0.9)), reps=10)
     st_plain = cuda_ms(torch, per_step(lambda t: bs.bn_stats_plain(
         t["x"], t["mm"], t["mv"], 0.9)), reps=5)
-    st_lib = cuda_ms(torch, per_step(lambda t: torch.var_mean(
+    st_var_mean = cuda_ms(torch, per_step(lambda t: torch.var_mean(
         t["x"], (0, 2, 3), correction=0)), reps=10)
+    # the one ATen call that computes a channel's mean and inverse
+    # deviation in one pass (Welford): the closest yardstick
+    st_lib = cuda_ms(torch, per_step(lambda t: torch.batch_norm_stats(
+        t["x"], BN_EPS)), reps=10)
     st_bound, st_by = bound(n_elems * 4, 4 * n_elems)
     n_bn = len(bn_shapes)
     print(f"[train-kernels] bn_stats per step ({n_bn} launches, "
           f"{n_elems * 4 / 1e9:.3f} GB): kernel {st_ms:.4f} ms, plain "
-          f"{st_plain:.4f} ms, torch.var_mean {st_lib:.4f} ms, bound "
-          f"{st_bound:.4f} ms ({st_by}), {n_elems * 4 / st_ms / 1e9:.2f} TB/s",
-          flush=True)
+          f"{st_plain:.4f} ms, torch.batch_norm_stats {st_lib:.4f} ms, "
+          f"torch.var_mean {st_var_mean:.4f} ms, bound {st_bound:.4f} ms "
+          f"({st_by}), {n_elems * 4 / st_ms / 1e9:.2f} TB/s", flush=True)
 
     def fwd_kernel(t):
         mean, var, _k = bs.bn_stats(t["x"], t["mm"], t["mv"], 0.9)
@@ -1095,6 +1133,8 @@ def phase_train_kernels(torch, mx):
          "replaces": "mxnet_tpu/ops/defs_nn.py:425",
          "max_abs_err": st_err, "ms": st_ms, "plain_ms": st_plain,
          "bound_ms": st_bound, "bound_by": st_by, "library_ms": st_lib,
+         "library": "torch.batch_norm_stats",
+         "library_var_mean_ms": st_var_mean,
          "train_forward_max_abs_err": fw_err,
          "train_forward_ms": fw_ms, "train_forward_plain_ms": fw_plain,
          "train_forward_library_ms": fw_lib,
@@ -1188,20 +1228,7 @@ def sgd_inputs(torch, gen, dev, shapes):
 def device_ms(torch, fn, marks, reps=10):
     """Device milliseconds per call of ``fn`` under ``torch.profiler``:
     the self time of the kernels whose names hold one of ``marks``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA
-             and any(m in ev.key for m in marks))
-    return us / reps / 1e3
+    return sum(kernel_split(torch, fn, marks, reps).values())
 
 
 def timed(torch, fn, plain, library, flush, marks, reps, plain_reps=10):
@@ -1766,6 +1793,449 @@ def phase_redesign(torch, mx, card):
     times["lstm_cell"]["lstm_ptb"]["host_breakdown_us"] = breakdown
     print_kernel_times(times, card, "redesign")
     return times, bn_err
+
+
+# --- the redesigned nms and bn_stats (phase 13b and --kernel-times) -------
+NMS_MARKS = ("nms_",)  # every nms kernel's name, the parent's and this one's
+
+
+def kernel_split(torch, fn, marks, reps=10):
+    """Device milliseconds per call of ``fn`` under ``torch.profiler``, by
+    kernel name, for the kernels whose names hold one of ``marks``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and any(m in ev.key
+                                                      for m in marks):
+            name = ev.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("::")[-1].split(" ")[-1]
+            split[name] = split.get(name, 0.0) + \
+                ev.self_device_time_total / reps / 1e3
+    return split
+
+
+HOST_SYNC_MARKS = ("DtoH", "Synchronize", "_local_scalar_dense", "HtoD")
+
+
+def host_syncs(torch, fn, reps=3):
+    """Device-to-host (and host-to-device) copies, scalar reads and
+    synchronisations that ``reps`` calls of ``fn`` add under
+    ``torch.profiler``, beyond what an empty window records (the
+    profiler's own)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def count(body):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            body()
+        return sum(ev.count for ev in prof.key_averages()
+                   if any(m in ev.key for m in HOST_SYNC_MARKS))
+
+    fn()
+    return count(lambda: [fn() for _ in range(reps)]) - count(lambda: None)
+
+
+def nms_segments(torch, score, cls_id, threshold, classes):
+    """The (image, class) segment lengths: valid anchors of each class."""
+    valid = score > torch.tensor(threshold, dtype=score.dtype)
+    ones = torch.nn.functional.one_hot(cls_id.long().clamp(0, classes - 1),
+                                       classes)
+    return (ones * valid[..., None]).sum(1)
+
+
+def nms_border_inputs(torch, dev, lmax, seed, classes=3):
+    """Six images of A = L_max + 130 grid boxes (as ``nms_grid_inputs``),
+    every score valid: class 0 holding exactly L_max - 1, L_max and
+    L_max + 1 valid anchors in the first three (short, short, long), the
+    rest spread over classes 1 and 2; then a valid anchor of class id
+    ``classes`` (out of range: the whole image, long), of class id -1 with
+    only L_max - 12 valid anchors (the whole image, short), and an image
+    of short segments."""
+    rng = np.random.default_rng(seed)
+    n, a = 6, lmax + 130
+    x1 = rng.integers(0, 10, (n, a, 2)) / 16
+    wh = rng.integers(1, 6, (n, a, 2)) / 16
+    boxes = np.concatenate([x1, x1 + wh], 2).astype(np.float32)
+    score = np.asarray([0.2, 0.4, 0.6, 0.8], np.float32)[
+        rng.integers(0, 4, (n, a))]
+    cls_id = rng.integers(1, classes, (n, a)).astype(np.int32)
+    for i, length in enumerate((lmax - 1, lmax, lmax + 1)):
+        cls_id[i, rng.permutation(a)[:length]] = 0
+    cls_id[3, 17] = classes
+    score[4, lmax - 12:] = np.float32(0.01)
+    cls_id[4, 7] = -1
+    cls_id[5] = rng.integers(0, classes, a)
+    return nms_tensors(torch, dev, boxes, score, cls_id)
+
+
+def bn_stats_borders(bs, dev):
+    """``bn_stats``' regime borders on this card: each side of a block's
+    target, of a two-block cluster and of the largest cluster at the
+    target (N = 1, C = 3, the plane m long), a channel past the largest
+    cluster's target (1024-thread blocks), planes of 49 and 16, C = 3 with
+    N = 1, H*W = 1 and rank 2."""
+    t, k = bs.BLOCK_TARGET, bs.device_limits(dev.index or 0)
+    return [(1, 3, t - 1), (1, 3, t), (1, 3, t + 1), (1, 3, 2 * t + 1),
+            (1, 3, k * t), (1, 3, k * t + 1), (1, 3, 2 * k * t + 4),
+            (2, 3, 7, 7), (4, 5, 4, 4), (1, 3, 5, 5), (3, 7, 1, 1), (5, 3),
+            (9, 4, 3, 3)]
+
+
+def check_bn_stats(torch, bs, what, x, gen):
+    """``bn_stats`` on ``x`` against its plain version from the same moving
+    statistics (``STAT_RTOL``/``STAT_ATOL``, the variance's cancellation
+    term), ``kvar`` exactly, one launch as planned, and a second call on
+    the same inputs bit for bit; channel 0 is made constant (1.5 over an
+    anchor of 1: every partial sum exact, raw == 0, ``kvar`` 0.5). Returns
+    the largest error."""
+    c = x.shape[1]
+    dev = x.device
+    x[:, 0] = 1.5
+    mm = 0.1 * torch.randn(c, generator=gen, device=dev)
+    mm[0] = 1.0
+    mv = 0.5 + torch.rand(c, generator=gen, device=dev)
+    mm2, mv2, mm3, mv3 = mm.clone(), mv.clone(), mm.clone(), mv.clone()
+    p = bs.plan_for(x)
+    before = bs.LAUNCHES.value
+    got = bs.bn_stats(x, mm, mv, 0.9)
+    if bs.LAUNCHES.value - before != 1 or p.launches != 1:
+        fail(f"{what}: {bs.LAUNCHES.value - before} launches, planned "
+             f"{p.launches}")
+    again = bs.bn_stats(x, mm3, mv3, 0.9)
+    anchor = mm2.clone()
+    want = bs.bn_stats_plain(x, mm2, mv2, 0.9)
+    dmean = float((want[0] - anchor).abs().max())
+    cancel = 8 * 2.0 ** -23 * dmean ** 2
+    err = max(check(torch, what + " mean", got[0], want[0], STAT_RTOL,
+                    STAT_ATOL),
+              check(torch, what + " var", got[1], want[1], STAT_RTOL,
+                    STAT_ATOL + cancel),
+              check(torch, what + " moving_mean", mm, mm2, STAT_RTOL,
+                    STAT_ATOL),
+              check(torch, what + " moving_var", mv, mv2, STAT_RTOL,
+                    STAT_ATOL + cancel))
+    if not torch.equal(got[2], want[2]) or float(got[2][0]) != 0.5:
+        fail(f"{what}: kvar {got[2][:4].tolist()} against the plain "
+             f"version's {want[2][:4].tolist()}")
+    if any(not torch.equal(a, b) for a, b in zip(got + (mm, mv),
+                                                 again + (mm3, mv3))):
+        fail(f"{what}: two calls on the same inputs differ")
+    return err, p.regime
+
+
+def ssd_nms_heads(torch, mx):
+    """The ``nms`` inputs of the SSD path, recorded: SSD-300's detection at
+    serving batch 8 (phase 11's weights and images, nms_threshold 0.5) and
+    one training forward at batch 32 (phase 13's, 0.45). Returns ``{path:
+    (boxes, score, cls_id, order, threshold, nms_threshold)}``."""
+    from mxnet_tpu_torch.kernels import nms
+
+    sym, args = ssd_numpy(mx, SEED + 10)
+    pred = mx.predictor.Predictor(sym, ssd_params(mx, args, "cuda:0"),
+                                  {"data": (SSD_BATCH, 3, SSD_SHAPE,
+                                            SSD_SHAPE)})
+    heads = {}
+    with record_calls([("nms", nms, "nms")]) as rec:
+        pred.forward(data=ssd_images(SSD_BATCH))
+        torch.cuda.synchronize()
+    heads["serve"] = rec.calls["nms"][0][0][:6]
+    del pred
+    _sym, args = ssd_numpy(mx, SEED + 20)
+    x, y = ssd_train_images(SSD_TRAIN_BATCH, SEED + 21)
+    mod = ssd_train_module(mx, ssd_train_symbol(mx), args, mx.gpu(0),
+                           SSD_TRAIN_BATCH)
+    with record_calls([("nms", nms, "nms")]) as rec:
+        mod.forward(ssd_batch(mx, x, y, mx.gpu(0)), is_train=True)
+        torch.cuda.synchronize()
+    a = rec.calls["nms"][0][0]
+    heads["train"] = tuple(t.detach() if isinstance(t, torch.Tensor) else t
+                           for t in a[:6])
+    del mod
+    torch.cuda.empty_cache()
+    return heads
+
+
+def print_segments(torch, nms, heads, lmax):
+    """The per-image distribution of segment lengths at each head."""
+    out = {}
+    for path, (boxes, score, cls_id, order, thr, nms_thr) in heads.items():
+        seg = nms_segments(torch, score, cls_id, thr, SSD_CLASSES)
+        big = seg.max(1).values
+        valid = seg.sum(1)
+        out[path] = {"largest": int(seg.max()),
+                     "median": float(seg.float().median()),
+                     "over_lmax": int((seg > lmax).sum()),
+                     "valid_per_image": [int(v) for v in valid],
+                     "largest_per_image": [int(v) for v in big]}
+        print(f"[redesign-nms] segment lengths at the {path} head "
+              f"{tuple(score.shape)} (threshold {thr}): per (image, class) "
+              f"largest {out[path]['largest']}, median "
+              f"{out[path]['median']:g}, {out[path]['over_lmax']} over "
+              f"L_max {lmax}; per image valid {valid.min().item()}.."
+              f"{valid.max().item()}, largest segment {big.min().item()}.."
+              f"{big.max().item()}", flush=True)
+    return out
+
+
+def phase_redesign_nms_bn_stats(torch, mx, card, heads):
+    """The redesigned ``nms`` and ``bn_stats`` on the card. ``nms``: the
+    segment lengths at the serving and training heads; bit for bit against
+    its plain version on both heads (by class as the path runs it, force,
+    whole images, one class holding every anchor), at the plan's borders
+    (a class of L_max - 1, L_max and L_max + 1 valid anchors, class ids
+    out of range both ways, a batch whose images take different routes),
+    at A = 1, 65 and 1000; launches as planned and two calls bit for bit.
+    ``bn_stats``: at every regime border (:func:`bn_stats_borders`) and
+    path shape, aligned and on views at a float offset of 1 and 3
+    (:func:`check_bn_stats`). Both: no device-to-host copy or
+    synchronisation in a call (``torch.profiler``). Then
+    :func:`kernel_times_nms_bn_stats`."""
+    from mxnet_tpu_torch.kernels import bn_stats as bs
+    from mxnet_tpu_torch.kernels import nms
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    t0 = time.perf_counter()
+    lmax = nms.plan(1, SSD_ANCHORS, SSD_CLASSES, False,
+                    nms.device_limits(0)).lmax
+    segments = print_segments(torch, nms, heads, lmax)
+    routes = {}
+
+    def held(what, ins, thr, nms_thr, force, classes):
+        p = nms.plan_for(ins[1], classes, force)
+        before = nms.LAUNCHES.value
+        got = nms.nms(*ins, thr, nms_thr, force, classes)
+        launches = nms.LAUNCHES.value - before
+        again = nms.nms(*ins, thr, nms_thr, force, classes)
+        want = nms.nms_plain(*ins, thr, nms_thr, force)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"nms on {what} (force {force}, classes {classes}): "
+                 f"{int((got[..., 0] != want[..., 0]).sum())} ids/keep "
+                 f"decisions differ from the plain version")
+        if not torch.equal(got, again) or launches != p.launches:
+            fail(f"nms on {what}: two calls differ, or {launches} launches "
+                 f"against the plan's {p.launches}")
+        key = f"{p.launches} launch{'es' if p.launches > 1 else ''}"
+        routes[key] = routes.get(key, 0) + 1
+        return keep_count(got)
+
+    cases = 0
+    for path, (boxes, score, cls_id, order, thr, nms_thr) in heads.items():
+        ins = (boxes, score, cls_id, order)
+        one = (boxes, score, torch.full_like(cls_id, 7), order)
+        kept = [held(f"the {path} head", ins, thr, nms_thr, False,
+                     SSD_CLASSES),
+                held(f"the {path} head", ins, thr, nms_thr, True,
+                     SSD_CLASSES),
+                held(f"the {path} head", ins, thr, nms_thr, False, None),
+                held(f"the {path} head, one class holding every anchor",
+                     one, thr, nms_thr, False, SSD_CLASSES)]
+        cases += 4
+        print(f"[redesign-nms] nms equals its plain version bit for bit on "
+              f"the {path} head {tuple(score.shape)}: kept {kept} (by "
+              f"class, force, whole images, one class holding every "
+              f"anchor)", flush=True)
+    border = nms_border_inputs(torch, dev, lmax, SEED + 51)
+    for force in (False, True):
+        for classes in (3, None):
+            held("the border batch", border, 0.01, 0.5, force, classes)
+            cases += 1
+    for a in (1, 65, 1000):
+        ins = nms_grid_inputs(torch, dev, SEED + 52 + a, n=3, a=a)
+        for force, classes in ((False, 3), (True, 3), (False, None)):
+            held(f"grid boxes at A = {a}", ins, 0.01, 0.5, force, classes)
+            cases += 1
+    boxes, score, cls_id, order, thr, nms_thr = heads["train"]
+    syncs = host_syncs(torch, lambda: nms.nms(
+        boxes, score, cls_id, order, thr, nms_thr, False, SSD_CLASSES))
+    if syncs:
+        fail(f"nms copied to or from the host or synchronised {syncs} "
+             f"times in 3 calls")
+    print(f"[redesign-nms] nms matches its plain version bit for bit in "
+          f"{cases} cases (the two heads, the border batch: a class of "
+          f"L_max - 1 = {lmax - 1}, L_max, L_max + 1 valid boxes, class ids "
+          f"{{3, -1}} out of range, mixed routes; A = 1, 65, 1000), launches "
+          f"as planned {routes}, two calls bit for bit; 0 host copies or "
+          f"synchronisations in 3 calls ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+    # --- bn_stats
+    t0 = time.perf_counter()
+    _sym, bn_shapes, _params = resnet50_shapes(mx, TRAIN_BATCH)
+    path_shapes = list(dict.fromkeys(bn_shapes + DCGAN_D_BN + DCGAN_G_BN))
+    err, regimes, n = 0.0, {}, 0
+    for shape in bn_stats_borders(bs, dev) + path_shapes:
+        x = torch.randn(shape, generator=gen, device=dev) + 0.3
+        e, regime = check_bn_stats(torch, bs, f"bn_stats {shape}", x, gen)
+        err, n = max(err, e), n + 1
+        regimes[regime] = regimes.get(regime, 0) + 1
+    t = bs.BLOCK_TARGET
+    for shape in ((4, 6, 8, 8), (1, 3, 3 * t), (2, 3, 7, 7),
+                  (8, 64, 16, 16)):
+        for offset in (1, 3):
+            flat = torch.randn(math.prod(shape) + offset, generator=gen,
+                               device=dev)
+            x = flat[offset:].view(shape)
+            e, _regime = check_bn_stats(
+                torch, bs, f"bn_stats {shape} at a float offset of {offset}",
+                x, gen)
+            err, n = max(err, e), n + 1
+    x = torch.randn(32, 256, 56, 56, generator=gen, device=dev)
+    mm, mv = torch.zeros(256, device=dev), torch.ones(256, device=dev)
+    syncs = host_syncs(torch, lambda: bs.bn_stats(x, mm, mv, 0.9))
+    if syncs:
+        fail(f"bn_stats copied to or from the host or synchronised {syncs} "
+             f"times in 3 calls")
+    plans = {s: bs.plan(s[0], s[1], math.prod(s[2:]),
+                        bs.device_limits(0)).launches for s in path_shapes}
+    if set(plans.values()) != {1}:
+        fail(f"bn_stats plans more than one launch at a path shape: {plans}")
+    print(f"[redesign-bn-stats] bn_stats matches its plain version in {n} "
+          f"cases ({len(bn_stats_borders(bs, dev))} regime borders, "
+          f"{len(path_shapes)} ResNet-50 and DCGAN shapes, views at float "
+          f"offsets 1 and 3; plans {regimes}): max abs err {err:g} (rtol "
+          f"{STAT_RTOL}, atol {STAT_ATOL} + 8*2^-23*dmean^2 on the "
+          f"variance), kvar exactly (0.5 on a constant channel), one launch "
+          f"a call, two calls bit for bit; 0 host copies or "
+          f"synchronisations in 3 calls ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    del x
+    times = kernel_times_nms_bn_stats(torch, mx, heads)
+    times["nms"]["segments"] = segments
+    times["bn_stats"]["dcgan"]["host_breakdown_us"] = \
+        host_breakdown_bn_stats(torch)
+    print_nms_bn_stats_times(times, card, "redesign")
+    return times, err
+
+
+def kernel_times_nms_bn_stats(torch, mx, heads):
+    """``nms`` on the SSD path's heads and ``bn_stats`` over a ResNet-50
+    step's 50 inputs and a DCGAN step's 13: the kernel back to back by CUDA
+    events (warm), single calls with the L2 cache cold (median), its
+    device time under the profiler split by kernel name, the launches per
+    call, the wrapper's host microseconds per call, the bound and the
+    library calls (``bn_stats``: ``torch.var_mean`` and
+    ``torch.batch_norm_stats``; ``nms``: none). Uses only the wrappers'
+    public calls (``classes`` where ``nms`` takes it), so it times any
+    checkout's package (``--kernel-times``)."""
+    import inspect
+
+    from mxnet_tpu_torch.kernels import bn_stats as bs
+    from mxnet_tpu_torch.kernels import nms
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 53)
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
+    takes = "classes" in inspect.signature(nms.nms).parameters
+    out = {"nms": {}, "bn_stats": {}}
+    # beside the heads: 64 classes over grid boxes at (32, 8096), every
+    # segment short, so that the long route's launches find no work
+    cases = [(path, head, SSD_CLASSES) for path, head in heads.items()]
+    cases.append(("short_only", nms_grid_inputs(
+        torch, dev, SEED + 55, n=SSD_TRAIN_BATCH, a=SSD_ANCHORS,
+        classes=64) + (0.01, 0.45), 64))
+    for path, (boxes, score, cls_id, order, thr, nms_thr), classes in cases:
+        kw = {"classes": classes} if takes else {}
+
+        def run(boxes=boxes, score=score, cls_id=cls_id, order=order,
+                thr=thr, nms_thr=nms_thr, kw=kw):
+            return nms.nms(boxes, score, cls_id, order, thr, nms_thr, False,
+                           **kw)
+
+        got = run()
+        ious = nms_iou_count(torch, got, score, cls_id, order, thr, False)
+        n, a = score.shape
+        b_ms, b_by = bound(n * a * (16 + 4 + 4 + 8 + 24), ious * NMS_IOU_OPS)
+        before = nms.LAUNCHES.value
+        run()
+        launches = nms.LAUNCHES.value - before
+        split = kernel_split(torch, run, NMS_MARKS)
+        out["nms"][path] = {
+            "what": f"({n}, {a}), nms_threshold {nms_thr}, "
+                    f"{keep_count(got)} kept, {ious} same-class IoUs",
+            "ms": cuda_ms(torch, run, reps=20),
+            "cold_ms": cold_ms(torch, run, flush),
+            "device_ms": sum(split.values()), "device_by_kernel": split,
+            "launches": launches, "bound_ms": b_ms, "bound_by": b_by,
+            "library": None, "library_ms": None,
+            "host_us": host_us(torch, run, reps=50)}
+    _sym, bn_shapes, _params = resnet50_shapes(mx, TRAIN_BATCH)
+    for path, shapes in (("resnet", bn_shapes),
+                         ("dcgan", DCGAN_D_BN * 3 + DCGAN_G_BN)):
+        T = {}
+        for s in shapes:
+            if s not in T:
+                c = s[1]
+                T[s] = (torch.randn(s, generator=gen, device=dev),
+                        0.1 * torch.randn(c, generator=gen, device=dev),
+                        0.5 + torch.rand(c, generator=gen, device=dev))
+
+        def each(fn, shapes=shapes, T=T):
+            def go():
+                for s in shapes:
+                    fn(*T[s])
+            return go
+
+        n_el = sum(math.prod(s) for s in shapes)
+        c_sum = sum(s[1] for s in shapes)
+        b_ms, b_by = bound(n_el * 4 + c_sum * 28, 3 * n_el)
+        kern = each(lambda x, mm, mv: bs.bn_stats(x, mm, mv, 0.9))
+        before = bs.LAUNCHES.value
+        kern()
+        launches = bs.LAUNCHES.value - before
+        bns = each(lambda x, mm, mv: torch.batch_norm_stats(x, BN_EPS))
+        r = out["bn_stats"][path] = {
+            "what": f"{len(shapes)} calls over {len(T)} shapes, "
+                    f"{n_el / 1e6:.2f} M elements",
+            "library": "torch.var_mean", "launches": launches,
+            "bound_ms": b_ms, "bound_by": b_by, **timed(
+                torch, kern,
+                each(lambda x, mm, mv: bs.bn_stats_plain(x, mm, mv, 0.9)),
+                each(lambda x, mm, mv: torch.var_mean(
+                    x, (0,) + tuple(range(2, x.dim())), correction=0)),
+                flush, ("bn_stats_kernel",), reps=10, plain_reps=3),
+            "batch_norm_stats_ms": cuda_ms(torch, bns, reps=10),
+            "batch_norm_stats_cold_ms": cold_ms(torch, bns, flush)}
+        r["host_us"] /= len(shapes)  # per wrapper call; times are per set
+        T.clear()
+    del flush
+    return out
+
+
+def print_nms_bn_stats_times(times, card, tag):
+    for path, r in times["nms"].items():
+        if path == "segments":
+            continue
+        split = ", ".join(f"{k} {v:.4f}" for k, v in
+                          r["device_by_kernel"].items())
+        print(f"[{tag}] nms {path} {r['what']} on {card}: kernel "
+              f"{r['ms']:.4f} ms warm, {r['cold_ms']:.4f} ms cold; device "
+              f"{r['device_ms']:.4f} ms ({split}); {r['launches']} launches "
+              f"a call; bound {r['bound_ms']:.5f} ms ({r['bound_by']}); "
+              f"wrapper host {r['host_us']:.1f} us per call", flush=True)
+    for path, r in times["bn_stats"].items():
+        print(f"[{tag}] bn_stats {path} {r['what']} on {card}: kernel "
+              f"{r['ms']:.4f} ms warm, {r['cold_ms']:.4f} ms cold "
+              f"({100 * r['bound_ms'] / r['cold_ms']:.0f}% of the bound); "
+              f"device {r['device_ms']:.4f} ms; {r['launches']} launches; "
+              f"plain {r['plain_ms']:.4f} ms; torch.var_mean "
+              f"{r['library_ms']:.4f} ms warm, {r['library_cold_ms']:.4f} "
+              f"ms cold; torch.batch_norm_stats "
+              f"{r['batch_norm_stats_ms']:.4f} ms warm, "
+              f"{r['batch_norm_stats_cold_ms']:.4f} ms cold; bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}); wrapper host "
+              f"{r['host_us']:.1f} us per call", flush=True)
 
 
 def resnet50_numpy(mx, seed):
@@ -2717,7 +3187,9 @@ def ssd_images(n, dtype=np.float32):
 class record_calls:
     """Within the block, keep the arguments and result of every call of
     each ``(key, module, attribute)`` target, by key (the tensors
-    themselves; nothing is copied or launched)."""
+    themselves; nothing is copied or launched). Keyword arguments are kept
+    after the positional ones, in the call's order (``nms``'s ``classes``
+    is its eighth parameter)."""
 
     def __init__(self, targets):
         self.targets = targets
@@ -2728,9 +3200,9 @@ class record_calls:
         for key, mod, attr in self.targets:
             fn = getattr(mod, attr)
 
-            def rec(*a, _fn=fn, _key=key):
-                out = _fn(*a)
-                self.calls[_key].append((a, out))
+            def rec(*a, _fn=fn, _key=key, **kw):
+                out = _fn(*a, **kw)
+                self.calls[_key].append((a + tuple(kw.values()), out))
                 return out
             self.saved.append((mod, attr, fn))
             setattr(mod, attr, rec)
@@ -2748,6 +3220,15 @@ def record_detection():
 
     return record_calls([("multibox_decode", dec, "multibox_decode"),
                          ("nms", nms, "nms")])
+
+
+def ssd_nms_launches(n):
+    """``nms``'s launches per detection step of SSD-300 at batch ``n`` on
+    this card, as its plan gives them (segments by class)."""
+    from mxnet_tpu_torch.kernels import nms
+
+    return nms.plan(n, SSD_ANCHORS, SSD_CLASSES, False,
+                    nms.device_limits(0)).launches
 
 
 def nms_grid_inputs(torch, dev, seed, n=4, a=1000, classes=3):
@@ -2833,8 +3314,8 @@ def phase_ssd_kernels(torch, mx, ssd):
         torch.cuda.synchronize()
     (logits, loc, anchors, var, clip, softmax), _ = rec.calls[
         "multibox_decode"][0]
-    (boxes, score, cls_id, order, thr, nms_thr, force), head_out = rec.calls[
-        "nms"][0]
+    (boxes, score, cls_id, order, thr, nms_thr, force, classes), head_out = \
+        rec.calls["nms"][0]
     print(f"[ssd-kernels] SSD-300 head at batch {SSD_BATCH} "
           f"({time.perf_counter() - t0:.1f} s): logits {tuple(logits.shape)} "
           f"strides {logits.stride()}, loc {tuple(loc.shape)}, anchors "
@@ -2844,26 +3325,33 @@ def phase_ssd_kernels(torch, mx, ssd):
             or not softmax):
         fail(f"SSD head: logits {tuple(logits.shape)} softmax={softmax}")
 
-    # --- nms: bit for bit on three sets of inputs
+    # --- nms: bit for bit on three sets of inputs, split by class (the
+    # path's route) and as whole images
+    if classes != SSD_CLASSES:
+        fail(f"the detection step passed nms classes={classes}")
     sets = [("SSD-300 head", (boxes, score, cls_id, order), thr,
-             [(nms_thr, False), (nms_thr, True)]),
+             [(nms_thr, False, SSD_CLASSES), (nms_thr, True, SSD_CLASSES),
+              (nms_thr, False, None)]),
             ("grid boxes, IoU at the threshold",
              nms_grid_inputs(torch, dev, SEED + 12), 0.01,
-             [(0.5, False), (0.25, False), (0.5, True)]),
+             [(0.5, False, 3), (0.25, False, 3), (0.5, True, 3),
+              (0.5, False, None)]),
             ("ties, force, an invalid image",
              nms_tie_inputs(torch, dev, SEED + 13), 0.01,
-             [(0.5, False), (0.5, True), (0.3, False)])]
+             [(0.5, False, 3), (0.5, True, 3), (0.3, False, 3),
+              (0.3, False, None)])]
     nms_err = 0.0
     for what, ins, t, cases in sets:
         kept = []
-        for nt, fs in cases:
-            got = nms.nms(*ins, t, nt, fs)
+        for nt, fs, cl in cases:
+            got = nms.nms(*ins, t, nt, fs, cl)
             want = nms.nms_plain(*ins, t, nt, fs)
             torch.cuda.synchronize()
             nms_err = max(nms_err, float((got - want).abs().max()))
             if not torch.equal(got, want):
                 diff = int((got[..., 0] != want[..., 0]).sum())
-                fail(f"nms on {what} (nms_threshold {nt}, force {fs}): "
+                fail(f"nms on {what} (nms_threshold {nt}, force {fs}, "
+                     f"classes {cl}): "
                      f"{diff} ids/keep decisions differ from the plain "
                      f"version")
             kept.append(keep_count(got))
@@ -2872,7 +3360,8 @@ def phase_ssd_kernels(torch, mx, ssd):
             fail("nms in the detection step differs from its plain version")
         print(f"[ssd-kernels] nms equals its plain version bit for bit on "
               f"{what} {tuple(ins[0].shape[:2])}: kept {kept} of "
-              f"{ins[1].numel()} for (nms_threshold, force) {cases}",
+              f"{ins[1].numel()} for (nms_threshold, force, classes) "
+              f"{cases}",
               flush=True)
 
     # --- multibox_decode: softmax on the logits, and on probabilities
@@ -2924,7 +3413,7 @@ def phase_ssd_kernels(torch, mx, ssd):
     dec_bound, dec_by = bound(n * a * (4 * c1 + 16 + 16 + 8) + a * 16,
                               n * a * (5 * c1 + 20))
     nms_ms = cuda_ms(torch, lambda: nms.nms(boxes, score, cls_id, order, thr,
-                                            nms_thr, False), reps=20)
+                                            nms_thr, False, classes), reps=20)
     nms_plain = cuda_ms(torch, lambda: nms.nms_plain(
         boxes, score, cls_id, order, thr, nms_thr, False), reps=1, warmup=0)
     ious = nms_iou_count(torch, head_out, score, cls_id, order, thr, False)
@@ -2940,7 +3429,7 @@ def phase_ssd_kernels(torch, mx, ssd):
     print(f"[ssd-kernels] multibox_decode at {tuple(logits.shape)}: kernel "
           f"{dec_ms:.4f} ms, plain {dec_plain:.4f} ms, bound "
           f"{dec_bound * 1e3:.2f} us ({dec_by}); nms at {(n, a)}: kernel "
-          f"(mask + scan) {nms_ms:.4f} ms, plain {nms_plain:.1f} ms, "
+          f"{nms_ms:.4f} ms, plain {nms_plain:.1f} ms, "
           f"{keep_count(head_out)} kept, {ious} same-class IoUs needed, bound "
           f"{nms_bound * 1e3:.2f} us ({nms_by}); l2norm_channel at "
           f"{SSD_CONV4_3} x 20: kernel {l2_ms:.4f} ms, plain {l2_plain:.4f} "
@@ -2963,7 +3452,7 @@ def phase_ssd_kernels(torch, mx, ssd):
          "replaces": "mxnet_tpu/ops/defs_nn.py:500",
          "max_abs_err": l2_err, "ms": l2_ms, "plain_ms": l2_plain,
          "bound_ms": l2_bound, "bound_by": l2_by, "library_ms": l2_lib},
-    ]
+    ], (boxes, score, cls_id, order, thr, nms_thr)
 
 
 def ssd_cpu_answers(mx, sym, args, x, dtype=np.float32):
@@ -3078,17 +3567,21 @@ def phase_ssd_serving(torch, mx, card, ssd):
             got = {buckets[i] for i in idx}
             if got != {want}:
                 fail(f"requests {idx} ran in buckets {got}, expected {want}")
-        want_launches = {"multibox_decode": batches, "nms": 2 * batches,
-                         "l2norm_channel": batches}
+        per_nms = ssd_nms_launches(SSD_BATCH)
+        want_launches = {"multibox_decode": batches,
+                         "nms": per_nms * batches, "l2norm_channel": batches}
         if (batches != len(waves) or launches != want_launches
-                or any(others.values()) or any(plain.values())):
+                or any(others.values()) or any(plain.values())
+                or ssd_nms_launches(1) != per_nms):
             fail(f"SSD launches {launches} (others {others}) over {batches} "
                  f"served batches, plain calls {plain}; expected per batch 1 "
-                 f"multibox_decode, 2 nms, 1 l2norm_channel and nothing else")
+                 f"multibox_decode, {per_nms} nms (its plan), 1 "
+                 f"l2norm_channel and nothing else")
         print(f"[ssd-serving] {SSD_REQUESTS} requests served in buckets 8, 1 "
               f"({batches} batches): launches {launches} = 1 "
-              f"multibox_decode, 2 nms, 1 l2norm_channel per batch; plain "
-              f"versions on data {sum(plain.values())}", flush=True)
+              f"multibox_decode, {per_nms} nms (its plan), 1 l2norm_channel "
+              f"per batch; plain versions on data {sum(plain.values())}",
+              flush=True)
 
         # the card's own head tensors through the plain NMS on the CPU
         pred = srv.predictor(SSD_BATCH)
@@ -3662,7 +4155,7 @@ def phase_ssd_train_kernels(torch, mx):
         fail(f"nms at the training step: "
              f"{int((nout[..., 0] != nplain[..., 0]).sum())} keep decisions "
              f"differ from the plain version")
-    boxes, score, cls_id, order, thr, nms_thr, force = nargs
+    boxes, score, cls_id, order, thr, nms_thr, force, _classes = nargs
     ious = nms_iou_count(torch, nout, score, cls_id, order, thr, force)
     t_plain = time.perf_counter()
     nms.nms_plain(*nargs)
@@ -3716,7 +4209,7 @@ def phase_ssd_train_kernels(torch, mx):
           f"{SSD_TRAIN_OPT['wd']} on the weights): max abs err {err:g}; "
           f"{json.dumps(extra['sgd_mom_multi'])}", flush=True)
     del mod, exe, rec, calls
-    return rows, extra
+    return rows, extra, nargs[:6]
 
 
 def phase_ssd_training(torch, mx, card):
@@ -3764,12 +4257,14 @@ def phase_ssd_training(torch, mx, card):
     plain = dict(plain_calls)
     fit_s = time.perf_counter() - t0
 
-    want = {k: SSD_TRAIN_LAUNCHES.get(k, 0) for k in kernels}
+    per_plan = dict(SSD_TRAIN_LAUNCHES,
+                    nms=ssd_nms_launches(SSD_TRAIN_BATCH))
+    want = {k: per_plan.get(k, 0) for k in kernels}
     bad = [i for i, st in enumerate(per_step) if st != want]
     if bad or batches != steps or len(per_step) != steps:
         fail(f"SSD training launches: steps {bad} of {len(per_step)} off, "
              f"first {per_step[bad[0]] if bad else None}; expected per step "
-             f"{SSD_TRAIN_LAUNCHES} over {steps} steps, {batches} counted")
+             f"{per_plan} over {steps} steps, {batches} counted")
     if any(plain.values()):
         fail(f"plain versions ran on the card's main path: {plain}")
     if builds != 1:
@@ -3791,7 +4286,7 @@ def phase_ssd_training(torch, mx, card):
     print(f"[ssd-training] SSD-300 Module.fit on {mx.current_context()}: "
           f"{batches} steps at batch {SSD_TRAIN_BATCH} in {fit_s:.1f} s "
           f"(binding, cuDNN's choices and first launches included); "
-          f"launches exactly {SSD_TRAIN_LAUNCHES} per step, totals "
+          f"launches exactly {per_plan} per step, totals "
           f"{ {k: v for k, v in launches.items() if v} }; no plain version "
           f"ran; the update's launch parameters packed once; outputs "
           f"{shapes}, finite",
@@ -4735,6 +5230,132 @@ def bn_bwd_plan_sweep(torch, mx):
     return out
 
 
+STATS_TARGETS = (16384, 32768, 65536, 131072, 262144)
+STATS_PER_THREAD = (16, 32, 64)
+
+
+def bn_stats_plan_sweep(torch, mx):
+    """``bn_stats``' device time under ``torch.profiler`` at every
+    ResNet-50 training shape (batch 32) and every DCGAN BatchNorm shape
+    (batch 64), for each planner setting of ``STATS_TARGETS`` x
+    ``STATS_PER_THREAD`` (each plan's mean checked against the plain
+    version), and per setting a ResNet step's total (each shape as often as
+    a step runs it) and a DCGAN step's (D's three shapes three times, G's
+    four once). Returns ``{setting: {shape: ms}}``."""
+    from mxnet_tpu_torch.kernels import bn_stats as bs
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 54)
+    cluster = bs.device_limits(0)
+    resnet, dcgan = {}, {}
+    for s in resnet50_shapes(mx, TRAIN_BATCH)[1]:
+        resnet[s] = resnet.get(s, 0) + 1
+    for s in DCGAN_D_BN * 3 + DCGAN_G_BN:
+        dcgan[s] = dcgan.get(s, 0) + 1
+    out = {}
+    for shape in dict.fromkeys(list(resnet) + list(dcgan)):
+        c = shape[1]
+        x = torch.randn(shape, generator=gen, device=dev)
+        mm, mv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+        want = bs.bn_stats_plain(x, mm.clone(), mv.clone(), 0.9)
+        n, hw = shape[0], math.prod(shape[2:])
+        for target in STATS_TARGETS:
+            for per_thread in STATS_PER_THREAD:
+                key = f"target {target}, {per_thread}/thread"
+                p = bs.plan(n, c, hw, cluster, target, per_thread)
+                res = torch.empty(3, c, device=dev)
+
+                def run(p=p, res=res, x=x):
+                    bs.run_plan(p, x, mm.clone(), mv.clone(), 0.9, res)
+
+                run()
+                check(torch, f"bn_stats {shape} {key}", res[0], want[0],
+                      STAT_RTOL, STAT_ATOL)
+                out.setdefault(key, {})[shape] = (
+                    device_ms(torch, run, ("bn_stats_kernel",), reps=5),
+                    f"{p.regime} k={p.cluster} cpb={p.channels_per_block} "
+                    f"group={p.group} chunk={p.chunk}")
+        del x
+    for key, by_shape in out.items():
+        step = sum(by_shape[s][0] * k for s, k in resnet.items())
+        gan = sum(by_shape[s][0] * k for s, k in dcgan.items())
+        print(f"[bn-stats-plans] {key}: ResNet step {step:.4f} ms, DCGAN "
+              f"step {gan:.4f} ms; by shape " + "; ".join(
+                  f"{s} {ms:.4f} ({what})" for s, (ms, what) in
+                  by_shape.items()), flush=True)
+    return out
+
+
+NMS_ONCHIP = (256, 384, 512, 768, 1024)
+
+
+def nms_plan_sweep(torch, mx):
+    """``nms``'s device time under ``torch.profiler`` by kernel on the SSD
+    path's heads (:func:`ssd_nms_heads`) for each L_max of ``NMS_ONCHIP``
+    (each plan's rows checked against the default plan's, bit for bit).
+    Returns ``{onchip: {path: {kernel: ms}}}``."""
+    from mxnet_tpu_torch.kernels import nms
+
+    heads = ssd_nms_heads(torch, mx)
+    smem = nms.device_limits(0)
+    out = {}
+    for path, (boxes, score, cls_id, order, thr, nms_thr) in heads.items():
+        ins = (boxes, score, cls_id, order, thr, nms_thr, False, SSD_CLASSES)
+        want = nms.nms(*ins)
+        for onchip in NMS_ONCHIP:
+            p = nms.plan(*score.shape, SSD_CLASSES, False, smem, onchip)
+
+            def run(p=p):
+                return nms.run_plan(p, *ins)
+
+            if not torch.equal(run(), want):
+                fail(f"nms at L_max {onchip} on the {path} head differs")
+            split = kernel_split(torch, run, NMS_MARKS)
+            out.setdefault(onchip, {})[path] = split
+            print(f"[nms-plans] L_max {onchip}, {path} "
+                  f"{tuple(score.shape)}: device {sum(split.values()):.4f} "
+                  f"ms (" + ", ".join(f"{k} {v:.4f}" for k, v in
+                                      split.items()) + ")", flush=True)
+    return out
+
+
+def host_breakdown_bn_stats(torch):
+    """Host microseconds of each piece of ``bn_stats``' launch path at
+    DCGAN's (64, 512, 4, 4), each timed alone over many repetitions: the
+    compound check, the (3, C) allocation, its three views, the plan
+    lookup, the packed launch with its counter, and the whole wrapper."""
+    from mxnet_tpu_torch.kernels import bn_stats as bs
+
+    dev = torch.device("cuda", 0)
+    x = torch.randn(DCGAN_D_BN[-1], device=dev)
+    c = x.shape[1]
+    mm, mv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+    res = x.new_empty((3, c))
+    f32 = torch.float32
+    p = bs.plan_for(x)
+
+    def checks():
+        d = x.get_device()
+        ok = x.dim() >= 2 and x.dtype is f32 and x.is_contiguous()
+        for t in (mm, mv):
+            ok = ok and (t.dtype is f32 and t.is_contiguous()
+                         and t.get_device() == d and t.shape == (c,))
+        return ok
+
+    pieces = {"compound check": checks,
+              "allocation (3, C)": lambda: x.new_empty((3, c)),
+              "three views (unbind)": res.unbind,
+              "plan lookup": lambda: bs._plan_of(x.shape, 0),
+              "packed launch + counter (run_plan)":
+                  lambda: bs.run_plan(p, x, mm, mv, 0.9, res),
+              "the wrapper bn_stats": lambda: bs.bn_stats(x, mm, mv, 0.9)}
+    out = {k: host_us(torch, fn, reps=2000) for k, fn in pieces.items()}
+    print(f"[redesign-bn-stats] bn_stats' host path at {tuple(x.shape)}, "
+          f"us per call: " + "; ".join(f"{k} {v:.2f}" for k, v in
+                                        out.items()), flush=True)
+    return out
+
+
 # the l2norm_channel_bwd sweep: the shape whose unseeded test case once
 # failed its limit on the card, and the scales it runs at
 L2_SWEEP_SHAPE = (2, 3)
@@ -4843,6 +5464,13 @@ def main():
     if sys.argv[1:2] == ["--bn-bwd-plans"]:
         bn_bwd_plan_sweep(torch, mx)
         return
+    if sys.argv[1:2] == ["--nms-plans"]:
+        nms_plan_sweep(torch, mx)
+        return
+    if sys.argv[1:2] == ["--bn-stats-plans"]:
+        bn_stats_plan_sweep(torch, mx)
+        host_breakdown_bn_stats(torch)
+        return
     if sys.argv[1:2] == ["--l2norm-bwd-sweep"]:
         sweep = l2norm_bwd_sweep(torch, range(int(sys.argv[2])))
         print(json.dumps({"l2norm_bwd_sweep": sweep}))
@@ -4851,7 +5479,9 @@ def main():
         print(f"[kernel-times] {mx.__file__}", flush=True)
         times = kernel_times(torch, mx)
         print_kernel_times(times, card, "kernel-times")
-        print(json.dumps({"kernel_times": times}))
+        more = kernel_times_nms_bn_stats(torch, mx, ssd_nms_heads(torch, mx))
+        print_nms_bn_stats_times(more, card, "kernel-times")
+        print(json.dumps({"kernel_times": {**times, **more}}))
         return
     kernels = phase_kernels(torch)
     trained_kernels, bn_act_err = phase_train_kernels(torch, mx)
@@ -4868,17 +5498,26 @@ def main():
     for k in kernels:
         k.update(head.get(k["name"], {}))
     ssd = ssd_numpy(mx, SEED + 10)
-    kernels += phase_ssd_kernels(torch, mx, ssd)
+    ssd_rows, serve_head = phase_ssd_kernels(torch, mx, ssd)
+    kernels += ssd_rows
     served = phase_serving(torch, mx, card)
     trained, device_ms = phase_training(torch, mx, card)
     phase_train_parity(torch, mx)
     lstm_trained, lstm_device_ms = phase_lstm_training(torch, mx, card)
     phase_lstm_parity(torch, mx)
     ssd_served, ssd_device_ms = phase_ssd_serving(torch, mx, card, ssd)
-    ssd_train_rows, ssd_train_extra = phase_ssd_train_kernels(torch, mx)
+    ssd_train_rows, ssd_train_extra, train_head = phase_ssd_train_kernels(
+        torch, mx)
     kernels += ssd_train_rows
     for k in kernels:
         k.update(ssd_train_extra.get(k["name"], {}))
+    redesigned, stats_err = phase_redesign_nms_bn_stats(
+        torch, mx, card, {"serve": serve_head, "train": train_head})
+    for k in kernels:
+        if k["name"] in redesigned:
+            k["paths"] = redesigned[k["name"]]
+        if k["name"] == "bn_stats":
+            k["max_abs_err"] = max(k["max_abs_err"], stats_err)
     ssd_trained, ssd_train_device_ms = phase_ssd_training(torch, mx, card)
     phase_ssd_train_parity(torch, mx)
     dcgan_rows, dcgan_errs = phase_dcgan_kernels(torch, mx)

@@ -37,8 +37,8 @@ _SIGNATURES = {
     "mxt_bn_act_f32": [_P, _P, _P, _P, _P, _P, _LL, _LL, _LL,
                        ctypes.c_float, _I, ctypes.c_float, _P],
     "mxt_softmax_rows_f32": [_P, _P, _LL, _LL, _P],
-    "mxt_bn_stats_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I,
-                         ctypes.c_float, ctypes.c_float, _P],
+    "mxt_bn_stats_caps": [_P, _P],
+    "mxt_bn_stats_f32": [_P],
     "mxt_bn_bwd_reduce_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL,
                               _LL, _LL, _I, ctypes.c_float, _I,
                               ctypes.c_float, _P],
@@ -67,10 +67,8 @@ _SIGNATURES = {
     "mxt_multibox_decode_f32": [_P, _LL, _LL, _LL, _P, _P, _P, _P, _P, _LL,
                                 _I, _LL] + [ctypes.c_float] * 4
     + [_I, _I, _P],
-    "mxt_nms_mask_f32": [_P, _P, _P, _P, _P, _LL, _LL, ctypes.c_float,
-                         ctypes.c_float, _I, _P],
-    "mxt_nms_scan_f32": [_P, _P, _P, _P, _P, _P, _LL, _LL, ctypes.c_float,
-                         _P],
+    "mxt_nms_caps": [_P, _P],
+    "mxt_nms_f32": [_P],
 }
 
 _lock = threading.Lock()
@@ -164,10 +162,10 @@ def check(err, name):
 
 def tickets(device, n):
     """A zeroed uint32 buffer of at least ``n`` per-channel tickets on
-    ``device``, shared by the reductions that finish in their last block
-    (bn_stats, bn_act_bwd). Each such kernel returns every ticket it takes
-    to 0, so the buffer stays zeroed between launches; launches that share
-    it run in order on one stream."""
+    ``device``, for the reduction that finishes in its last block
+    (bn_act_bwd's two-phase regime). The kernel returns every ticket it
+    takes to 0, so the buffer stays zeroed between launches; launches that
+    share it run in order on one stream."""
     with _lock:
         buf = _tickets.get(device)
         if buf is None or buf.numel() < n:

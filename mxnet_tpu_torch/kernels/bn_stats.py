@@ -16,25 +16,99 @@ variance the function returns ``kvar``, the derivative of the clamp
 the backward (:mod:`.bn_act_bwd`) multiplies it into the variance term.
 
 Bound on the H100: device-memory bandwidth, one read of ``x`` (4 bytes per
-element). ``csrc/bn_stats.cu`` gives each block's warps whole planes, reads
-them with 16-byte loads, and the last block of each channel adds the
-partial sums in a fixed order (no atomics on the sums, so the result does
-not depend on scheduling).
+element). ``csrc/bn_stats.cu`` runs one launch per call, planned by
+:func:`plan` (``bn_act_bwd``'s one-pass planner, with no shared-memory
+limit: the statistics keep only two sums on chip): small channels several
+to a block, middle ones a block each, large ones a cluster of up to 16
+blocks that add their partial sums through distributed shared memory in
+rank order. A channel is walked flat, image by image, with 16-byte loads
+where the planes allow them. Every sum runs in a fixed order, so two
+calls on the same inputs give the same bits. The wrapper takes the light
+launch path (:func:`_lib.launch_packed`, one compound check, one (3, C)
+allocation for the three results).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
+import struct
 
 import torch
 
 from .. import telemetry as _tm
 from ..base import MXNetError
 from . import _lib
+from . import bn_act_bwd as _bwd
 
-# counts kernel launches only (never the plain version)
+# counts kernel launches only (never the plain version): one per call
 LAUNCHES = _tm.counter("kernel.bn_stats.launches")
-_WARPS = 8  # warps per block in csrc/bn_stats.cu
+# the C entry's packed arguments (csrc/bn_stats.cu Packed): four pointers,
+# n, c, hw, momentum and 1 - momentum, the plan's five fields, the stream
+_PACK = struct.Struct("=4Q3q2d5qQ").pack
+# no shared memory bounds a block: bn_act_bwd's planner with a block
+# capacity of 2**31 elements, so that only m >= 2**31 leaves one launch
+_NO_SMEM_LIMIT = 2 ** 31 * _bwd.ELEM_BYTES
+# The planner's two settings, from ``chip_smoke.py --bn-stats-plans`` on
+# the H100 (PERF.md): blocks of up to 65536 elements, groups of threads
+# aimed at 32 elements each, ran ResNet-50's 50 inputs in the least device
+# time; smaller blocks pay a cluster's partial sums and barriers for too
+# little streaming each.
+BLOCK_TARGET = 65536  # elements a block takes before a cluster splits them
+ELEMS_PER_THREAD = 32  # a group's size aims at this many each
+
+
+def plan(n, c, hw, cluster_limit, target=BLOCK_TARGET,
+         per_thread=ELEMS_PER_THREAD):
+    """The :class:`.bn_act_bwd.Plan` of a call on ``(n, c, hw)`` inputs on
+    a card that runs clusters of up to ``cluster_limit`` blocks: a channel
+    of ``m = n * hw`` elements takes a block up to ``target`` elements
+    (several channels to a block when small) and a cluster of
+    ``min(cluster_limit, ceil(m / target))`` blocks beyond, one launch at
+    any ``m < 2**31`` (the ``two_phase`` regime past that, which this
+    kernel does not have)."""
+    return _bwd.plan(n, c, hw, _NO_SMEM_LIMIT, cluster_limit, target,
+                     per_thread)
+
+
+_caps = {}
+
+
+def device_limits(index):
+    """The largest cluster the statistics kernel runs on CUDA device
+    ``index``, as the C side finds it (once per device)."""
+    got = _caps.get(index)
+    if got is None:
+        out = (ctypes.c_int * 1)()
+        with torch.cuda.device(index):
+            err = _lib.library().mxt_bn_stats_caps(out, None)
+        _lib.check(err, "bn_stats (device limits)")
+        got = _caps[index] = out[0]
+    return got
+
+
+def plan_for(x):
+    """The plan of a call on CUDA tensor ``x`` (rank >= 2)."""
+    return plan(x.shape[0], x.shape[1], math.prod(x.shape[2:]),
+                device_limits(x.get_device()))
+
+
+_plans = {}
+
+
+def _plan_of(shape, dev):
+    """:func:`plan` for ``shape`` on device ``dev``, kept per shape: the
+    wrapper's hot path looks it up by one dictionary access."""
+    got = _plans.get((shape, dev))
+    if got is None:
+        got = plan(shape[0], shape[1], math.prod(shape[2:]),
+                   device_limits(dev))
+        if got.regime == "two_phase" or got.grid >= 2 ** 31:
+            raise MXNetError(f"bn_stats: channels of "
+                             f"{shape[0] * math.prod(shape[2:])} elements "
+                             "exceed the kernel")
+        _plans[(shape, dev)] = got
+    return got
 
 
 def _axes(x):
@@ -66,32 +140,44 @@ def bn_stats(x, moving_mean, moving_var, momentum):
     A CPU tensor takes the plain version. A CUDA tensor launches the
     kernel, which takes a contiguous float32 ``x`` of rank >= 2 and
     contiguous float32 ``(C,)`` moving statistics on the same device;
-    anything else raises :class:`MXNetError`.
+    anything else raises :class:`MXNetError`. On the card the three results
+    are views of one (3, C) allocation.
     """
-    if x.device.type == "cpu":
-        return bn_stats_plain(x, moving_mean, moving_var, momentum)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return bn_stats_plain(x, moving_mean, moving_var, momentum)
         raise MXNetError(f"bn_stats: no kernel for device {x.device}")
-    if x.dim() < 2:
-        raise MXNetError(f"bn_stats: x must have rank >= 2, got {x.dim()}")
-    _lib.check_f32("bn_stats: x", x, x.device)
+    dev = x.get_device()
+    f32 = torch.float32
+    ok = x.dim() >= 2 and x.dtype is f32 and x.is_contiguous()
+    c = x.shape[1] if ok else 0
+    for t in (moving_mean, moving_var):
+        ok = ok and (t.dtype is f32 and t.is_contiguous()
+                     and t.get_device() == dev and t.shape == (c,))
+    if not ok:
+        if x.dim() < 2:
+            raise MXNetError(
+                f"bn_stats: x must have rank >= 2, got {x.dim()}")
+        c = x.shape[1]
+        raise _lib.refusal("bn_stats", [
+            ("x", x, x.shape), ("moving_mean", moving_mean, (c,)),
+            ("moving_var", moving_var, (c,))], x.device)
+    if not x.numel():
+        raise MXNetError(f"bn_stats: x {tuple(x.shape)} has no elements")
+    out = x.new_empty((3, c))
+    run_plan(_plan_of(x.shape, dev), x, moving_mean, moving_var, momentum,
+             out)
+    return out.unbind(0)
+
+
+def run_plan(p, x, moving_mean, moving_var, momentum, out):
+    """Launch plan ``p`` on checked CUDA inputs, writing ``(mean, var,
+    kvar)`` into the rows of ``out`` (3, C)."""
     n, c = x.shape[0], x.shape[1]
-    for name, t in (("moving_mean", moving_mean), ("moving_var", moving_var)):
-        _lib.check_f32(f"bn_stats: {name}", t, x.device, (c,))
-    hw = math.prod(x.shape[2:])
-    splits = max(1, -(-n // _WARPS))
-    if c * splits >= 2 ** 31:
-        raise MXNetError(f"bn_stats: {c} channels exceed the kernel's grid")
-    mean, var, kvar = (torch.empty(c, device=x.device) for _ in range(3))
-    partial = torch.empty(2 * c * splits, device=x.device)
-    lib = _lib.library()
-    with torch.cuda.device(x.device):
-        err = lib.mxt_bn_stats_f32(
-            x.data_ptr(), moving_mean.data_ptr(), moving_var.data_ptr(),
-            mean.data_ptr(), var.data_ptr(), kvar.data_ptr(),
-            partial.data_ptr(), _lib.tickets(x.device, c).data_ptr(),
-            n, c, hw, splits, float(momentum), float(1 - momentum),
-            _lib.stream_of(x))
+    err = _lib.launch_packed(
+        x, _lib.library().mxt_bn_stats_f32, _PACK, x.data_ptr(),
+        moving_mean.data_ptr(), moving_var.data_ptr(), out.data_ptr(), n, c,
+        x.numel() // (n * c), float(momentum), float(1 - momentum), p.grid,
+        p.cluster, p.channels_per_block, p.group, p.chunk)
     _lib.check(err, "bn_stats")
     LAUNCHES.inc()
-    return mean, var, kvar

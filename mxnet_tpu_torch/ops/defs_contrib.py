@@ -122,14 +122,16 @@ register(
 def detect(cls, loc_pred, anchors, params, softmax):
     """One detection step: ``multibox_decode`` (with the class softmax when
     ``softmax``, on logits), the stable descending sort of the scores, then
-    ``nms``. Returns the (n, A, 6) rows ``(id, score, xmin, ymin, xmax,
-    ymax)``, id -1 where the anchor is not kept."""
+    ``nms`` over the ``cls.shape[1] - 1`` foreground classes (the decode's
+    argmax gives ids in that range). Returns the (n, A, 6) rows ``(id,
+    score, xmin, ymin, xmax, ymax)``, id -1 where the anchor is not kept."""
     boxes, score, cls_id = _decode.multibox_decode(
         cls, loc_pred.contiguous(), anchors.contiguous(),
         params["variances"], params["clip"], softmax)
     order = torch.argsort(-score, dim=1, stable=True)
     return _nms.nms(boxes, score, cls_id, order, params["threshold"],
-                    params["nms_threshold"], params["force_suppress"])
+                    params["nms_threshold"], params["force_suppress"],
+                    classes=cls.shape[1] - 1)
 
 
 def _multibox_detection(ins, params, mode):

@@ -42,8 +42,17 @@ the guard; ``bn_act_bwd`` on each side of its block and cluster limits,
 at planes of 49 and 16 and on views at a float offset, for all three
 activations (its tolerances above, launches as planned, two calls bit for
 bit); ``lstm_cell``'s outputs as views of one allocation, and the backward
-through them.
+through them; ``nms`` by class segments bit for bit at each border of its
+plan (a class of L_max - 1, L_max and L_max + 1 boxes, force and one class
+holding all 8096 anchors: the long route, class ids out of range, A = 1
+and A not a multiple of 64, a batch whose images take different routes);
+``bn_stats`` at each regime border and path shape, aligned and at float
+offsets 1 and 3 (its tolerances above, ``kvar`` exactly, launches as
+planned, two calls bit for bit); neither wrapper copies to or from the host
+or synchronises in a call (``torch.profiler``).
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -492,7 +501,9 @@ def test_nms_kernel_matches_plain_bit_for_bit(card, a, nms_threshold, force):
     before = nms_mod.LAUNCHES.value
     got = nms_mod.nms(*ins, 0.01, nms_threshold, force)
     want = nms_mod.nms_plain(*ins, 0.01, nms_threshold, force)
-    assert nms_mod.LAUNCHES.value == before + 2  # mask and scan
+    # as planned: one launch while no segment can exceed L_max
+    assert nms_mod.LAUNCHES.value == before + nms_mod.plan_for(
+        ins[1], None, force).launches
     assert torch.equal(got, want)
 
 
@@ -1010,3 +1021,130 @@ def test_lstm_cell_outputs_share_one_allocation(card):
     (rh.sum() + 2 * rc.sum()).backward()
     for a, b in zip(ins, ref):
         torch.testing.assert_close(a.grad, b.grad, **LSTM_TOL)
+
+
+# -- the redesigned nms and bn_stats -----------------------------------------
+@pytest.mark.parametrize("force, classes", [(False, 3), (True, 3),
+                                            (False, None)])
+def test_nms_at_the_plan_borders(card, force, classes):
+    """Six images of L_max + 130 anchors: a class of L_max - 1, L_max and
+    L_max + 1 valid boxes (short, short, long), a class id past the last
+    one on an image too long for a segment block, a class id of -1 on one
+    that fits, and an image of short segments: bit for bit, the plan's
+    launches, two calls the same."""
+    cs = _chip_smoke()
+    ins = cs.nms_border_inputs(torch, card, nms_mod.plan_for(
+        torch.empty(1, 8096, device=card), 20).lmax, 51)
+    p = nms_mod.plan_for(ins[1], classes, force)
+    assert p.launches == 3
+    before = nms_mod.LAUNCHES.value
+    got = nms_mod.nms(*ins, 0.01, 0.5, force, classes)
+    assert nms_mod.LAUNCHES.value == before + p.launches
+    assert torch.equal(got, nms_mod.nms_plain(*ins, 0.01, 0.5, force))
+    assert torch.equal(got, nms_mod.nms(*ins, 0.01, 0.5, force, classes))
+
+
+@pytest.mark.parametrize("a, classes, one_class, force", [
+    (8096, 20, True, False), (8096, 20, False, True), (1, 20, False, False),
+    (65, 3, False, False), (1000, 3, True, False), (7000, 20, False, True)])
+def test_nms_on_long_segments_and_odd_sizes(card, a, classes, one_class,
+                                            force):
+    """One class holding all 8096 anchors, or force on them (long
+    segments: the mask and chain kernels), A = 1, A not a multiple of 64:
+    bit for bit."""
+    ins = list(_chip_smoke().nms_grid_inputs(torch, card, seed=a, n=2, a=a,
+                                             classes=classes))
+    if one_class:
+        ins[2] = torch.full_like(ins[2], classes - 1)
+    got = nms_mod.nms(*ins, 0.01, 0.45, force, classes)
+    assert torch.equal(got, nms_mod.nms_plain(*ins, 0.01, 0.45, force))
+
+
+def test_nms_with_class_ids_out_of_range(card):
+    """A valid anchor of class id -1 or ``classes`` makes its image one
+    segment (the class test in the IoU test), so the rows stay the plain
+    version's, whose class test compares the ids as they are."""
+    ins = list(_chip_smoke().nms_grid_inputs(torch, card, seed=9, n=3,
+                                             a=1000))
+    cls_id = ins[2].cpu()
+    cls_id[0, 3], cls_id[1, 5] = 3, -1
+    ins[2] = cls_id.to(card)
+    score = ins[1].cpu()
+    score[0, 3] = score[1, 5] = 0.8
+    ins[1] = score.to(card)
+    ins[3] = torch.argsort(-ins[1], dim=1, stable=True)
+    got = nms_mod.nms(*ins, 0.01, 0.5, False, 3)
+    assert torch.equal(got, nms_mod.nms_plain(*ins, 0.01, 0.5, False))
+    assert float(got[0, 3, 0]) in (3.0, -1.0)
+
+
+_T = stats_mod.BLOCK_TARGET  # each side of a block, 2 and 16 blocks
+STATS_BORDERS = [(1, 3, _T - 1), (1, 3, _T), (1, 3, _T + 1),
+                 (1, 3, 2 * _T + 1), (1, 3, 16 * _T), (1, 3, 16 * _T + 1),
+                 (1, 3, 32 * _T + 4), (2, 3, 7, 7), (4, 5, 4, 4), (1, 3, 5, 5),
+                 (3, 7, 1, 1), (5, 3), (32, 64, 112, 112), (32, 256, 56, 56),
+                 (32, 128, 28, 28), (32, 1024, 14, 14), (32, 2048, 7, 7),
+                 (64, 64, 32, 32), (64, 128, 16, 16), (64, 512, 4, 4)]
+
+
+def _check_stats(x, offset=0):
+    """bn_stats against its plain version (mean rtol 1e-5 / atol 1e-6, the
+    variance also the anchored formula's cancellation), kvar exactly (0.5
+    on the constant channel 0: 1.5 over an anchor of 1, so every partial
+    sum is exact), the plan's one launch, two calls bit for bit."""
+    c = x.shape[1]
+    rng = np.random.default_rng(c + offset)
+    x[:, 0] = 1.5
+    mm = torch.from_numpy(rng.uniform(-0.1, 0.1, c).astype(np.float32))
+    mm[0] = 1.0
+    mv = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32))
+    mm, mv = mm.to(x.device), mv.to(x.device)
+    mm2, mv2, mm3, mv3 = (t.clone() for t in (mm, mv, mm, mv))
+    assert stats_mod.plan_for(x).launches == 1
+    before = stats_mod.LAUNCHES.value
+    got = stats_mod.bn_stats(x, mm, mv, 0.9)
+    assert stats_mod.LAUNCHES.value == before + 1
+    again = stats_mod.bn_stats(x, mm3, mv3, 0.9)
+    anchor = mm2.clone()
+    want = stats_mod.bn_stats_plain(x, mm2, mv2, 0.9)
+    cancel = 8 * 2.0 ** -23 * float((want[0] - anchor).abs().max()) ** 2
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6 + cancel)
+    torch.testing.assert_close(mm, mm2, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(mv, mv2, rtol=1e-5, atol=1e-6 + cancel)
+    assert torch.equal(got[2], want[2]) and float(got[2][0]) == 0.5
+    for a_, b_ in zip(got + (mm, mv), again + (mm3, mv3)):
+        assert torch.equal(a_, b_)
+
+
+@pytest.mark.parametrize("shape", STATS_BORDERS)
+def test_bn_stats_at_the_regime_borders_and_path_shapes(card, shape):
+    x = torch.from_numpy(np.random.default_rng(sum(shape)).standard_normal(
+        shape).astype(np.float32) + 0.3).to(card)
+    _check_stats(x)
+
+
+@pytest.mark.parametrize("shape", [(4, 6, 8, 8), (1, 3, 3 * _T),
+                                   (2, 3, 7, 7), (8, 64, 16, 16)])
+@pytest.mark.parametrize("offset", [1, 3])
+def test_bn_stats_on_views_at_a_float_offset(card, shape, offset):
+    """Views one and three floats off the 16-byte alignment take 4-byte
+    loads (another summation order than an aligned copy)."""
+    flat = np.random.default_rng(offset).standard_normal(
+        math.prod(shape) + offset).astype(np.float32)
+    x = torch.from_numpy(flat).to(card)[offset:].view(shape)
+    _check_stats(x, offset)
+
+
+def test_nms_and_bn_stats_read_nothing_back(card):
+    """Neither wrapper copies to or from the host, reads a scalar or
+    synchronises in a call: torch.profiler over three calls records none
+    beyond an empty window's."""
+    cs = _chip_smoke()
+    ins = cs.nms_grid_inputs(torch, card, seed=7, n=4, a=8096, classes=20)
+    assert cs.host_syncs(torch, lambda: nms_mod.nms(
+        *ins, 0.01, 0.45, False, 20)) == 0
+    x = torch.randn(32, 256, 28, 28, device=card)
+    mm, mv = torch.zeros(256, device=card), torch.ones(256, device=card)
+    assert cs.host_syncs(torch, lambda: stats_mod.bn_stats(
+        x, mm, mv, 0.9)) == 0
