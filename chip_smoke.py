@@ -161,6 +161,23 @@ Run from the root of a checkout. Phases, each printing its own lines:
     DCGAN step's 13 beside ``torch.var_mean`` and
     ``torch.batch_norm_stats``) and ``bn_stats``' host path piece by
     piece;
+13c. redesigned ``l2norm_channel_bwd`` and ``softmax_output_bwd`` —
+    ``l2norm_channel_bwd`` on the SSD step's recorded (32, 512, 37, 37) x 20
+    and at ``l2_bwd_edges`` (C = 1, H*W = 1, rank 2, odd image counts,
+    32-position blocks straddling two images, one image at C = 512, each
+    side of the two-pass border), scale 1 and 20, within ``bwd_limit``, the
+    planned regime, one launch a call, two calls bit for bit;
+    ``softmax_output_bwd`` bit for bit (``torch.equal``) against its plain
+    version on the CPU on the SSD step's
+    recorded call (class-major view, use_ignore, valid), at the LSTM
+    head's (1024, 10000) and ResNet's (32, 1000) and at ``so_bwd_edges``
+    (C = 1, 2, 3, odd rows, one row, every normalization with and without
+    use_ignore, every label ignored, labels out of range, multi_output
+    with inner > 1, the class-major view, a view off alignment), one
+    launch a call, the gradient in ``p``'s layout; neither copies to or
+    from the host or synchronises in a call; then their times
+    (``kernel_times_l2norm_softmax_bwd``: warm, L2-cold, device by kernel
+    name, plain, bound, host us);
 14. SSD training — the same model trained by ``Module.fit`` on ``gpu(0)``
     over an ``NDArrayIter`` of painted-rectangle images (20 classes, 1..6
     objects, mean subtracted) at batch 32, SGD lr 0.002, momentum 0.9, wd
@@ -237,8 +254,9 @@ a machine with many cores, ~3 minutes on 8); it needs no card.
 
     python3 chip_smoke.py --kernel-times [ROOT]
 
-prints phase 5b's times and phase 13b's (on the SSD heads recorded by
-``ssd_nms_heads``) alone (after phases 1-2), for the package of the
+prints phase 5b's times, phase 13b's (on the SSD heads recorded by
+``ssd_nms_heads``) and phase 13c's alone (after phases 1-2), for the
+package of the
 checkout at ``ROOT`` when given (say, the parent commit unpacked under
 ``build/``), else for this one's: run both in one call, in turns, to
 compare two versions on one card.
@@ -316,14 +334,14 @@ FIT_STEPS = 12  # Module.fit's steps on the main path; 2..12 are timed
 # each port kernel's CUDA function names, as torch.profiler reports them
 PORT_KERNELS = {"bn_stats": "bn_stats_kernel", "bn_act": "bn_act_",
                 "bn_act_bwd": "bn_bwd_", "softmax_rows": "softmax_rows_",
-                "softmax_output_bwd": "softmax_output_bwd_kernel",
+                "softmax_output_bwd": "softmax_output_bwd_",
                 "sgd_mom_multi": "sgd_mom_multi_kernel",
                 "lstm_cell": "lstm_cell_kernel",
                 "lstm_cell_bwd": "lstm_cell_bwd_kernel",
                 "adam_multi": "adam_multi_kernel",
                 "multibox_decode": "multibox_decode_kernel",
                 "nms": "nms_", "l2norm_channel": "l2norm_channel_kernel",
-                "l2norm_channel_bwd": "l2norm_channel_bwd_kernel",
+                "l2norm_channel_bwd": "l2norm_channel_bwd_",
                 "multibox_target": "multibox_target_kernel"}
 # kernels counted beside another one, in that one's module
 BWD_COUNTERS = {"lstm_cell_bwd": ("lstm_cell", "BWD_LAUNCHES"),
@@ -431,13 +449,13 @@ SSD_MEAN = (123.0, 117.0, 104.0)  # the example iterator's mean_r/g/b
 # then saturate the softmax and the first steps' loss jumps by orders of
 # magnitude
 SSD_INPUT_SCALE = 1.0 / 58
-# launches per SSD training step: softmax_output_bwd under
-# normalization="valid" launches twice per call (the count of valid labels,
-# then the gradient); nms as its plan gives them on the card (None here:
-# ssd_nms_launches, two on the H100, where A = 8096 exceeds L_max)
+# launches per SSD training step: softmax_output_bwd one a call under
+# normalization="valid" too (the count of valid labels in the same
+# cooperative launch); nms as its plan gives them on the card (None here:
+# ssd_nms_launches, three on the H100, where A = 8096 exceeds L_max)
 SSD_TRAIN_LAUNCHES = {"multibox_target": 1, "l2norm_channel": 1,
                       "l2norm_channel_bwd": 1, "softmax_rows": 1,
-                      "softmax_output_bwd": 2, "multibox_decode": 1,
+                      "softmax_output_bwd": 1, "multibox_decode": 1,
                       "nms": None, "sgd_mom_multi": 1}
 # the loss check: SSD_LOSS_STEPS steps on one fixed batch of
 # SSD_LOSS_BATCH must bring the class cross-entropy over the anchors whose
@@ -1802,6 +1820,12 @@ NMS_MARKS = ("nms_",)  # every nms kernel's name, the parent's and this one's
 def kernel_split(torch, fn, marks, reps=10):
     """Device milliseconds per call of ``fn`` under ``torch.profiler``, by
     kernel name, for the kernels whose names hold one of ``marks``."""
+    return kernel_events(torch, fn, marks, reps)[0]
+
+
+def kernel_events(torch, fn, marks, reps=10):
+    """:func:`kernel_split` and the number of kernel events of those names
+    that the profiler's window recorded for the ``reps`` calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1812,15 +1836,16 @@ def kernel_split(torch, fn, marks, reps=10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    split = {}
+    split, events = {}, 0
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA and any(m in ev.key
                                                       for m in marks):
             name = ev.key.replace("(anonymous namespace)::", "")
-            name = name.split("(")[0].split("::")[-1].split(" ")[-1]
+            name = name.split("(")[0].removeprefix("void ").split("::")[-1]
             split[name] = split.get(name, 0.0) + \
                 ev.self_device_time_total / reps / 1e3
-    return split
+            events += ev.count
+    return split, events
 
 
 HOST_SYNC_MARKS = ("DtoH", "Synchronize", "_local_scalar_dense", "HtoD")
@@ -2236,6 +2261,299 @@ def print_nms_bn_stats_times(times, card, tag):
               f"{r['batch_norm_stats_cold_ms']:.4f} ms cold; bound "
               f"{r['bound_ms']:.5f} ms ({r['bound_by']}); wrapper host "
               f"{r['host_us']:.1f} us per call", flush=True)
+
+
+# --- the redesigned l2norm_channel_bwd and softmax_output_bwd (phase 13c
+# and --kernel-times) --------------------------------------------------------
+L2_BWD_PATH = (SSD_TRAIN_BATCH, 512, 37, 37)  # conv4_3 in SSD training
+L2_BWD_EPS, L2_BWD_SCALE = 1e-10, 20.0  # models/ssd.py's eps and scale
+# every kernel name of the two functions, the parent's and this one's
+L2_BWD_MARKS = ("l2norm_channel_bwd_",)
+SO_BWD_MARKS = ("softmax_output_bwd_", "count_valid_kernel")
+SSD_IGNORED = 0.9  # the share of ignored labels in the timed SSD call
+
+
+def so_path_inputs(torch, gen, dev):
+    """SoftmaxOutput's backward at each path's call, as the wrapper's
+    arguments: SSD training's class-major view of (32, 8096, 21)
+    probabilities, ``multi_output``, ``use_ignore`` and 'valid'
+    (``SSD_IGNORED`` of the labels ignored), the LSTM head's (1024, 10000)
+    and ResNet's (32, 1000), 'null'."""
+    shape = (SSD_TRAIN_BATCH, SSD_ANCHORS, SSD_CLASSES + 1)
+    p = torch.softmax(torch.randn(shape, generator=gen, device=dev),
+                      -1).transpose(1, 2)
+    lab = torch.randint(0, SSD_CLASSES + 1, shape[:2], generator=gen,
+                        device=dev).float()
+    lab[torch.rand(shape[:2], generator=gen, device=dev) < SSD_IGNORED] = -1.
+    out = {"ssd_train": (p, lab, 1.0, -1.0, True, "valid", True)}
+    for path in ("lstm_head", "resnet"):
+        rows, classes = SM_PATHS[path]
+        p = torch.softmax(torch.randn(rows, classes, generator=gen,
+                                      device=dev), -1)
+        lab = torch.randint(0, classes, (rows,), generator=gen,
+                            device=dev).float()
+        out[path] = (p, lab, 1.0, -1.0, False, "null", False)
+    return out
+
+
+def timed_bwd(torch, run, plain, marks, counter, b, flush, what, reps=50):
+    """One call ``run`` of the redesigned backward kernels: launches a
+    call, warm and cold times, device time by kernel name, the plain
+    version, the wrapper's host microseconds, the bound ``b``."""
+    before = counter.value
+    run()
+    launches = counter.value - before
+    # a window now and then records none or only part of the launches
+    # (PERF.md §7), and then reads low: take the first window that recorded
+    # every launch of its calls, and no reading if none of five did
+    reps_split = 10
+    split = {}
+    for _ in range(5):
+        got, events = kernel_events(torch, run, marks, reps_split)
+        if events == reps_split * launches:
+            split = got
+            break
+    return {"what": what, "launches": launches,
+            "ms": cuda_ms(torch, run, reps=reps),
+            "cold_ms": cold_ms(torch, run, flush),
+            "device_ms": sum(split.values()) if split else None,
+            "device_by_kernel": split,
+            "plain_ms": cuda_ms(torch, plain, reps=10, warmup=1),
+            "library": None, "library_ms": None,
+            "bound_ms": b[0], "bound_by": b[1],
+            "host_us": host_us(torch, run)}
+
+
+def kernel_times_l2norm_softmax_bwd(torch):
+    """``l2norm_channel_bwd`` at SSD training's (32, 512, 37, 37) x 20 and
+    ``softmax_output_bwd`` at each path's call (:func:`so_path_inputs`): the
+    kernel back to back by CUDA events (warm), single calls with the L2
+    cache cold (median), the device time under the profiler by kernel name,
+    the launches a call, the plain version, the wrapper's host microseconds
+    per call and the bound; no single PyTorch call computes either
+    function. Uses only the wrappers' public calls, so it times any
+    checkout's package (``--kernel-times``)."""
+    from mxnet_tpu_torch.kernels import l2norm_channel as l2
+    from mxnet_tpu_torch.kernels import softmax_output_bwd as so
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
+    out = {"l2norm_channel_bwd": {}, "softmax_output_bwd": {}}
+    x = torch.randn(L2_BWD_PATH, generator=gen, device=dev)
+    g = torch.randn(L2_BWD_PATH, generator=gen, device=dev)
+    n = x.numel()
+    out["l2norm_channel_bwd"]["ssd_train"] = timed_bwd(
+        torch, lambda: l2.l2norm_channel_bwd(x, g, L2_BWD_EPS, L2_BWD_SCALE),
+        lambda: l2.l2norm_channel_bwd_plain(x, g, L2_BWD_EPS, L2_BWD_SCALE),
+        L2_BWD_MARKS, l2.BWD_LAUNCHES, bound(12 * n, 8 * n), flush,
+        f"{L2_BWD_PATH} x {L2_BWD_SCALE}")
+    del x, g
+    for path, args in so_path_inputs(torch, gen, dev).items():
+        n = args[0].numel()
+        out["softmax_output_bwd"][path] = timed_bwd(
+            torch, lambda args=args: so.softmax_output_bwd(*args),
+            lambda args=args: so.softmax_output_bwd_plain(*args),
+            SO_BWD_MARKS, so.LAUNCHES,
+            bound(8 * n + 4 * args[1].numel(), 2 * n), flush,
+            f"{tuple(args[0].shape)} {args[5]}"
+            f"{', class-major, use_ignore' if args[6] else ''}",
+            reps=50 if n > 1e6 else 200)
+    del flush
+    return out
+
+
+def print_l2norm_softmax_bwd_times(times, card, tag):
+    for name, paths in times.items():
+        for path, r in paths.items():
+            split = ", ".join(f"{k} {v:.4f}" for k, v in
+                              r["device_by_kernel"].items())
+            dev = (f"device {r['device_ms']:.4f} ms ({split})"
+                   if r["device_ms"] is not None else
+                   "device time not measured (no profiler window of five "
+                   "recorded every launch)")
+            print(f"[{tag}] {name} {path} {r['what']} on {card}: kernel "
+                  f"{r['ms']:.4f} ms warm, {r['cold_ms']:.4f} ms cold "
+                  f"({100 * r['bound_ms'] / r['cold_ms']:.0f}% of the "
+                  f"bound); {dev}; "
+                  f"{r['launches']} launches a call; plain "
+                  f"{r['plain_ms']:.4f} ms; no library call; bound "
+                  f"{r['bound_ms']:.5f} ms ({r['bound_by']}); wrapper host "
+                  f"{r['host_us']:.1f} us per call", flush=True)
+
+
+def l2_bwd_edges(l2):
+    """``l2norm_channel_bwd``'s edge shapes on this card: C = 1, H*W = 1
+    and rank 2, odd image counts, 32-position blocks straddling two images
+    (H*W = 35, 9), one image at SSD's C, and each side of the two-pass
+    border."""
+    c2 = l2.ONCHIP_C + 1  # the least C of the two-pass regime
+    return [(3, 1, 5, 7), (4, 6, 1, 1), (5, 3), (7, 21, 3, 3), (3, 8, 5, 7),
+            (1, 512, 37, 37), (2, c2 - 1, 3, 5), (2, c2, 3, 5),
+            (3, 2 * c2 + 3, 1, 1), (5, 17, 13, 11)]
+
+
+def so_bwd_edges(torch, gen, dev):
+    """``softmax_output_bwd``'s edge calls: C = 1, odd row counts (no
+    multiple of 4 elements), one row, C = 2 and 3 (chunks across several
+    rows), under each normalization with and without ``use_ignore``; every
+    label ignored; labels out of the int32 range and fractional;
+    ``multi_output`` with ``inner`` > 1; the class-major view; a view one
+    float off the 16-byte alignment (the general regime)."""
+    def probs(shape, dim=-1):
+        return torch.softmax(torch.randn(shape, generator=gen, device=dev),
+                             dim)
+
+    def labels(shape, classes):
+        return torch.randint(-1, classes, shape, generator=gen,
+                             device=dev).float()
+
+    calls = []
+    for shape in ((7, 1), (33, 21), (1, 1000), (9, 3), (13, 2), (5, 4)):
+        p, lab = probs(shape), labels(shape[:1], shape[1])
+        for norm in ("null", "batch", "valid"):
+            for ui in (False, True):
+                calls.append((f"{shape} {norm} use_ignore={ui}",
+                              (p, lab, 0.5, -1.0, ui, norm, False)))
+    p = probs((9, 21))
+    calls.append(("(9, 21) every label ignored", (
+        p, torch.full((9,), 3.0, device=dev), 1.0, 3.0, True, "valid",
+        False)))
+    wild = torch.tensor([-1.0, 0.0, 2.7, -0.5, 3e9, -3e9, 10.0, 11.0],
+                        device=dev)
+    calls.append(("(8, 11) labels out of range and fractional", (
+        probs((8, 11)), wild, 1.0, -1.0, True, "valid", False)))
+    for shape in ((3, 5, 2, 7), (2, 4, 3), (1, 3, 1, 1)):
+        p = probs(shape, 1)
+        lab = labels((shape[0],) + shape[2:], shape[1])
+        for norm in ("null", "batch", "valid"):
+            calls.append((f"multi_output {shape} {norm}",
+                          (p, lab, 1.0, -1.0, True, norm, True)))
+    p = probs((4, 300, 21)).transpose(1, 2)
+    lab = labels((4, 300), 21)
+    lab[torch.rand(4, 300, generator=gen, device=dev) < 0.75] = -1.0
+    for norm in ("null", "batch", "valid"):
+        calls.append((f"class-major view (4, 21, 300) {norm}",
+                      (p, lab, 1.0, -1.0, True, norm, True)))
+    view = torch.empty(33 * 21 + 1, device=dev)[1:].view(33, 21)
+    view.copy_(probs((33, 21)))
+    calls.append(("(33, 21) one float off alignment", (
+        view, labels((33,), 21), 1.0, -1.0, True, "valid", False)))
+    return calls
+
+
+def phase_redesign_l2norm_softmax_bwd(torch, mx, card, recorded):
+    """The redesigned ``l2norm_channel_bwd`` and ``softmax_output_bwd`` on
+    the card. ``l2norm_channel_bwd``: on the SSD step's recorded tensors and
+    at :func:`l2_bwd_edges` (scale 1 and 20), within ``bwd_limit``, the
+    regime as planned, one launch a call, two calls bit for bit.
+    ``softmax_output_bwd``: on the SSD step's recorded call, at the LSTM
+    head's and ResNet's shapes and at :func:`so_bwd_edges`, bit for bit
+    against its plain version on the CPU (``torch.equal``), one launch a
+    call, the
+    gradient in ``p``'s layout. Neither copies to or from the host or
+    synchronises in a call. Then :func:`kernel_times_l2norm_softmax_bwd`."""
+    from mxnet_tpu_torch.kernels import l2norm_channel as l2
+    from mxnet_tpu_torch.kernels import softmax_output_bwd as so
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+    t0 = time.perf_counter()
+    xl, gl, eps, scale = recorded["l2norm_channel_bwd"]
+    cases = [(f"the step's conv4_3 {tuple(xl.shape)}", xl, gl, scale)]
+    for shape in l2_bwd_edges(l2):
+        x = torch.randn(shape, generator=gen, device=dev)
+        g = torch.randn(shape, generator=gen, device=dev)
+        cases += [(str(shape), x, g, 1.0), (str(shape), x, g, 20.0)]
+    err, regimes = 0.0, {}
+    for what, x, g, sc in cases:
+        p = l2.bwd_plan(x.shape[1])
+        before = l2.BWD_LAUNCHES.value
+        got = l2.l2norm_channel_bwd(x, g, eps, sc)
+        launches = l2.BWD_LAUNCHES.value - before
+        again = l2.l2norm_channel_bwd(x, g, eps, sc)
+        want = l2.l2norm_channel_bwd_plain(x, g, eps, sc)
+        err = max(err, check(torch, f"l2norm_channel_bwd {what} x {sc}",
+                             got, want, 0.0,
+                             l2.bwd_limit(x, g, eps, sc, want)))
+        if launches != 1 or not torch.equal(got, again):
+            fail(f"l2norm_channel_bwd {what}: {launches} launches, or two "
+                 f"calls differ")
+        key = f"{p.regime} (k {p.k})"
+        regimes[key] = regimes.get(key, 0) + 1
+    step_plan = l2.bwd_plan(xl.shape[1])
+    if step_plan.regime != "onchip":
+        fail(f"l2norm_channel_bwd plans {step_plan} at the SSD step's "
+             f"{tuple(xl.shape)}")
+    syncs = host_syncs(torch, lambda: l2.l2norm_channel_bwd(xl, gl, eps,
+                                                            scale))
+    if syncs:
+        fail(f"l2norm_channel_bwd copied to or from the host or "
+             f"synchronised {syncs} times in 3 calls")
+    print(f"[redesign-l2-bwd] l2norm_channel_bwd holds its plain version in "
+          f"{len(cases)} cases (the SSD step's tensors, {len(cases) // 2} "
+          f"edge shapes x scale 1 and 20; the two-pass border at C = "
+          f"{l2.ONCHIP_C + 1}): max abs err {err:g} "
+          f"({l2.BWD_RTOL} of the terms + {l2.BWD_ATOL} x max|dx|); plans "
+          f"{regimes}; one launch a call, two calls bit for bit; 0 host "
+          f"copies or synchronisations in 3 calls "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    so_args = recorded["softmax_output_bwd"]
+    ignored = float((so_args[1] == so_args[3]).float().mean())
+    calls = [(f"the SSD step's call {tuple(so_args[0].shape)} (class-major "
+              f"view, {100 * ignored:.1f} % ignored)", so_args)]
+    for path, args in so_path_inputs(torch, gen, dev).items():
+        if path != "ssd_train":
+            calls.append((f"the {path} shape {tuple(args[0].shape)}", args))
+    calls += so_bwd_edges(torch, gen, dev)
+    routes = {}
+    for what, args in calls:
+        p = args[0]
+        moved = (args[6] and p.dim() > 2 and not p.is_contiguous()
+                 and p.movedim(1, -1).is_contiguous())
+        view = p.movedim(1, -1) if moved else p
+        o, c, i = so._view(view, args[6] and not moved)
+        aligned = view.data_ptr() % 16 == 0
+        route = so.plan(o, c, i, aligned).regime
+        before = so.LAUNCHES.value
+        got = so.softmax_output_bwd(*args)
+        launches = so.LAUNCHES.value - before
+        again = so.softmax_output_bwd(*args)
+        # the plain version on the CPU, whose divisions are correctly
+        # rounded, as the kernel's are (PyTorch's CUDA division by a Python
+        # number multiplies by the reciprocal)
+        want = so.softmax_output_bwd_plain(
+            *(a.cpu() if torch.is_tensor(a) else a for a in args))
+        if not torch.equal(got.cpu(), want):
+            bad = int((got.cpu() != want).sum())
+            fail(f"softmax_output_bwd {what}: {bad} values differ from the "
+                 f"plain version on the CPU (max "
+                 f"{float((got.cpu() - want).abs().max()):g})")
+        if (launches != 1 or not torch.equal(got, again)
+                or got.shape != p.shape or got.stride() != p.stride()):
+            fail(f"softmax_output_bwd {what}: {launches} launches, two "
+                 f"calls differ, or the layout {got.stride()} is not p's "
+                 f"{p.stride()}")
+        key = f"{route}{' counting' if args[5] == 'valid' and args[4] else ''}"
+        routes[key] = routes.get(key, 0) + 1
+    syncs = host_syncs(torch, lambda: so.softmax_output_bwd(*so_args))
+    if syncs:
+        fail(f"softmax_output_bwd copied to or from the host or "
+             f"synchronised {syncs} times in 3 calls")
+    print(f"[redesign-so-bwd] softmax_output_bwd equals its plain version "
+          f"bit for bit in {len(calls)} calls (the SSD step's, the LSTM "
+          f"head's and ResNet's shapes, and edges: C = 1, 2, 3, odd rows, "
+          f"one row, null/batch/valid with and without use_ignore, every "
+          f"label ignored, labels out of range, multi_output with inner > "
+          f"1, the class-major view, a view off alignment; routes "
+          f"{routes}); one launch a call, two calls bit for bit, the "
+          f"gradient in p's layout; 0 host copies or synchronisations in 3 "
+          f"calls ({time.perf_counter() - t0:.1f} s)", flush=True)
+    times = kernel_times_l2norm_softmax_bwd(torch)
+    print_l2norm_softmax_bwd_times(times, card, "redesign")
+    return times, err
 
 
 def resnet50_numpy(mx, seed):
@@ -4208,8 +4526,10 @@ def phase_ssd_train_kernels(torch, mx):
           f"SSD's {len(names)} tensors ({numel / 1e6:.2f} M values, wd "
           f"{SSD_TRAIN_OPT['wd']} on the weights): max abs err {err:g}; "
           f"{json.dumps(extra['sgd_mom_multi'])}", flush=True)
+    recorded = {"l2norm_channel_bwd": (xl, gl, eps, scale),
+                "softmax_output_bwd": so_args}
     del mod, exe, rec, calls
-    return rows, extra, nargs[:6]
+    return rows, extra, nargs[:6], recorded
 
 
 def phase_ssd_training(torch, mx, card):
@@ -5471,6 +5791,7 @@ def main():
         bn_stats_plan_sweep(torch, mx)
         host_breakdown_bn_stats(torch)
         return
+        return
     if sys.argv[1:2] == ["--l2norm-bwd-sweep"]:
         sweep = l2norm_bwd_sweep(torch, range(int(sys.argv[2])))
         print(json.dumps({"l2norm_bwd_sweep": sweep}))
@@ -5481,7 +5802,9 @@ def main():
         print_kernel_times(times, card, "kernel-times")
         more = kernel_times_nms_bn_stats(torch, mx, ssd_nms_heads(torch, mx))
         print_nms_bn_stats_times(more, card, "kernel-times")
-        print(json.dumps({"kernel_times": {**times, **more}}))
+        bwd = kernel_times_l2norm_softmax_bwd(torch)
+        print_l2norm_softmax_bwd_times(bwd, card, "kernel-times")
+        print(json.dumps({"kernel_times": {**times, **more, **bwd}}))
         return
     kernels = phase_kernels(torch)
     trained_kernels, bn_act_err = phase_train_kernels(torch, mx)
@@ -5506,8 +5829,8 @@ def main():
     lstm_trained, lstm_device_ms = phase_lstm_training(torch, mx, card)
     phase_lstm_parity(torch, mx)
     ssd_served, ssd_device_ms = phase_ssd_serving(torch, mx, card, ssd)
-    ssd_train_rows, ssd_train_extra, train_head = phase_ssd_train_kernels(
-        torch, mx)
+    ssd_train_rows, ssd_train_extra, train_head, recorded = \
+        phase_ssd_train_kernels(torch, mx)
     kernels += ssd_train_rows
     for k in kernels:
         k.update(ssd_train_extra.get(k["name"], {}))
@@ -5518,6 +5841,14 @@ def main():
             k["paths"] = redesigned[k["name"]]
         if k["name"] == "bn_stats":
             k["max_abs_err"] = max(k["max_abs_err"], stats_err)
+    redesigned_bwd, l2_bwd_err = phase_redesign_l2norm_softmax_bwd(
+        torch, mx, card, recorded)
+    del recorded
+    for k in kernels:
+        if k["name"] in redesigned_bwd:
+            k["paths"] = redesigned_bwd[k["name"]]
+        if k["name"] == "l2norm_channel_bwd":
+            k["max_abs_err"] = max(k["max_abs_err"], l2_bwd_err)
     ssd_trained, ssd_train_device_ms = phase_ssd_training(torch, mx, card)
     phase_ssd_train_parity(torch, mx)
     dcgan_rows, dcgan_errs = phase_dcgan_kernels(torch, mx)

@@ -46,9 +46,7 @@ _SIGNATURES = {
                           ctypes.c_float, _I, ctypes.c_float, _I, _P],
     "mxt_bn_bwd_caps": [_P, _P],
     "mxt_bn_bwd_onepass_f32": [_P],
-    "mxt_softmax_output_bwd_f32": [_P, _P, _P, _P, _LL, _LL, _LL,
-                                   ctypes.c_float, ctypes.c_float, _I, _I,
-                                   ctypes.c_float, _P],
+    "mxt_softmax_output_bwd_f32": [_P],
     "mxt_sgd_pack_bytes": [],
     "mxt_sgd_probe_f32": [_P, _P, _I, _P],
     "mxt_sgd_mom_multi_f32": [_P, ctypes.c_float, _I, ctypes.c_float,
@@ -60,8 +58,7 @@ _SIGNATURES = {
     + [ctypes.c_float] * 7 + [_P, _P, _P],
     "mxt_l2norm_channel_f32": [_P, _P, _LL, _LL, _LL, ctypes.c_float,
                                ctypes.c_float, _P],
-    "mxt_l2norm_channel_bwd_f32": [_P, _P, _P, _LL, _LL, _LL,
-                                   ctypes.c_float, ctypes.c_float, _P],
+    "mxt_l2norm_channel_bwd_f32": [_P],
     "mxt_multibox_target_f32": [_P] * 6 + [_LL] * 6 + [ctypes.c_float] * 8
     + [_I, _I, _P],
     "mxt_multibox_decode_f32": [_P, _LL, _LL, _LL, _P, _P, _P, _P, _P, _LL,

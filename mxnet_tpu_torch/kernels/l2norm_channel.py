@@ -20,21 +20,27 @@ once, in the reference's order.
 
 In training :class:`L2NormChannelFn` runs the forward kernel and, as its
 backward, ``csrc/l2norm_channel_bwd.cu``: the VJP ``dx = s * g / n - x *
-(s * sum_c g * x) / n^3`` (``n = sqrt(sum_c x^2 + eps)``), in the same
-layout, one pass that sums ``x^2`` and ``g * x`` per position and a second
-over the same channels (in L2) that writes ``dx``. It recomputes the norm,
-so the forward keeps its single output. At SSD-300's conv4_3 in training,
-(32, 512, 37, 37), it reads 179 MB and writes 90 MB. Its order of
-operations is not ``jax.vjp``'s: against :func:`l2norm_channel_bwd_plain`
-(which is) it agrees to :func:`bwd_limit`: ``BWD_RTOL`` of the two terms'
-magnitudes at each position plus ``BWD_ATOL`` of the largest value, since
-``s * g / n`` and the projection term cancel where ``g`` lies along ``x``
-and each float32 version then keeps only their rounding.
+(s * sum_c g * x) / n^3`` (``n = sqrt(sum_c x^2 + eps)``). It recomputes
+the norm, so the forward keeps its single output. At SSD-300's conv4_3 in
+training, (32, 512, 37, 37), it reads 179 MB and writes 90 MB. One launch
+a call, planned here by :func:`bwd_plan` from the channel count alone: up
+to C = 512 (every path shape) a block of 32 positions x 16 channel slices
+keeps its slab of ``x`` and ``g`` in registers from the channel sums to the
+write of ``dx``, so each element is read once; past that, a two-pass regime
+reads them again. Its order of operations is not ``jax.vjp``'s: against
+:func:`l2norm_channel_bwd_plain` (which is) it agrees to :func:`bwd_limit`:
+``BWD_RTOL`` of the two terms' magnitudes at each position plus
+``BWD_ATOL`` of the largest value, since ``s * g / n`` and the projection
+term cancel where ``g`` lies along ``x`` and each float32 version then
+keeps only their rounding. The backward's
+wrapper takes the light launch path (:func:`_lib.launch_packed`).
 """
 
 from __future__ import annotations
 
 import math
+import struct
+from collections import namedtuple
 
 import torch
 
@@ -48,6 +54,17 @@ BWD_LAUNCHES = _tm.counter("kernel.l2norm_channel_bwd.launches")
 # the backward kernel against its plain version (float32): |got - want| <=
 # BWD_RTOL * (the terms' magnitudes) + BWD_ATOL * max|want|: see bwd_limit
 BWD_RTOL, BWD_ATOL = 1e-5, 1e-6
+# the backward's C entry's packed arguments (csrc/l2norm_channel_bwd.cu
+# Packed): x, g, dx, n, c, hw, eps, scale, the plan's regime and k, the
+# stream
+_BWD_PACK = struct.Struct("=3Q3q2d2qQ").pack
+# the on-chip regime: a block takes 32 positions x 16 slices of channels,
+# a thread k (a compiled choice) of its position's channels in registers,
+# at most 32 (on the H100, shared-memory storage and other block shapes
+# lost to this setting at SSD's shape: PERF.md)
+POSITIONS, SLICES = 32, 16
+K_CHOICES = (1, 2, 4, 8, 16, 32)
+ONCHIP_C = SLICES * K_CHOICES[-1]  # the largest C the on-chip regime takes
 
 
 def l2norm_channel_plain(x, eps, scale=1.0):
@@ -118,6 +135,22 @@ def l2norm_channel(x, eps, scale=1.0):
     return y
 
 
+BwdPlan = namedtuple("BwdPlan", "regime k")
+
+
+def bwd_plan(c):
+    """The backward's regime for ``c`` channels: ``onchip`` with ``k`` the
+    least of ``K_CHOICES`` that covers C in ``SLICES`` slices, up to
+    ``ONCHIP_C``; ``two_pass`` past it."""
+    if c <= ONCHIP_C:
+        return BwdPlan("onchip", next(k for k in K_CHOICES
+                                      if SLICES * k >= c))
+    return BwdPlan("two_pass", 0)
+
+
+_bwd_plans = {}
+
+
 def l2norm_channel_bwd(x, g, eps, scale=1.0):
     """The gradient of ``(x / sqrt(sum_c x^2 + eps)) * scale`` (axis 1)
     with respect to ``x``, given the output's gradient ``g``.
@@ -127,19 +160,30 @@ def l2norm_channel_bwd(x, g, eps, scale=1.0):
     one shape (rank >= 2) on one device; anything else raises
     :class:`MXNetError`.
     """
-    if x.device.type in ("cpu", "meta"):
-        return l2norm_channel_bwd_plain(x, g, eps, scale)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type in ("cpu", "meta"):
+            return l2norm_channel_bwd_plain(x, g, eps, scale)
         raise MXNetError(f"l2norm_channel_bwd: no kernel for device "
                          f"{x.device}")
-    n, c, hw = _check_layout("l2norm_channel_bwd", x)
-    _lib.check_f32("l2norm_channel_bwd: g", g, x.device, x.shape)
+    dev = x.get_device()
+    f32 = torch.float32
+    if not (x.dim() >= 2 and x.dtype is f32 and x.is_contiguous()
+            and g.dtype is f32 and g.is_contiguous() and g.is_cuda
+            and g.get_device() == dev and g.shape == x.shape):
+        _check_layout("l2norm_channel_bwd", x)
+        _lib.check_f32("l2norm_channel_bwd: g", g, x.device, x.shape)
     dx = torch.empty_like(x)
-    lib = _lib.library()
-    with torch.cuda.device(x.device):
-        err = lib.mxt_l2norm_channel_bwd_f32(
-            x.data_ptr(), g.data_ptr(), dx.data_ptr(), n, c, hw, float(eps),
-            float(scale), _lib.stream_of(x))
+    if not x.numel():
+        return dx
+    n, c = x.shape[0], x.shape[1]
+    p = _bwd_plans.get(c)
+    if p is None:
+        p = _bwd_plans[c] = bwd_plan(c)
+    err = _lib.launch_packed(
+        x, _lib.library().mxt_l2norm_channel_bwd_f32, _BWD_PACK,
+        x.data_ptr(), g.data_ptr(), dx.data_ptr(), n, c,
+        x.numel() // (n * c), float(eps), float(scale),
+        0 if p.regime == "onchip" else 1, p.k)
     _lib.check(err, "l2norm_channel_bwd")
     BWD_LAUNCHES.inc()
     return dx

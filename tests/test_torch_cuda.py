@@ -15,8 +15,13 @@ float32 cancellation of the anchored variance (``8 * 2**-23 * dmean**2``,
 ``dmean`` the distance of the batch mean from the anchor); ``bn_act_bwd``
 holds ``dx`` to rtol 1e-4 / atol 1e-5 and the channel sums ``dgamma`` and
 ``dbeta`` to rtol 1e-4 / atol 1e-3 (thousands of terms of order 1);
-``softmax_output_bwd`` and ``sgd_mom_multi`` repeat the plain version's
-operations in its order and are held to 1e-6 absolute. ``lstm_cell``,
+``sgd_mom_multi`` repeats the plain version's operations in its order and
+is held to 1e-6 absolute; ``softmax_output_bwd`` does too and is held bit
+for bit (``torch.equal``) to the plain version run on the CPU, whose
+divisions are correctly rounded as the kernel's are (PyTorch's CUDA
+division by a Python number multiplies by the reciprocal), one launch a
+call under every normalization, and two streams counting at once keep
+their counts apart. ``lstm_cell``,
 ``lstm_cell_bwd`` and ``adam_multi`` repeat them too, but ``expf``,
 ``tanhf`` and ``sqrtf`` may round differently from torch's own kernels:
 rtol 1e-5 / atol 1e-6. The SSD kernels: ``nms`` is held bit for bit (the
@@ -49,7 +54,15 @@ and A not a multiple of 64, a batch whose images take different routes);
 ``bn_stats`` at each regime border and path shape, aligned and at float
 offsets 1 and 3 (its tolerances above, ``kvar`` exactly, launches as
 planned, two calls bit for bit); neither wrapper copies to or from the host
-or synchronises in a call (``torch.profiler``).
+or synchronises in a call (``torch.profiler``). The redesigned
+``l2norm_channel_bwd`` at its edge shapes (C = 1, H*W = 1, rank 2, blocks
+straddling two images, each side of the two-pass border) within
+``bwd_limit``, as planned, one launch a call, two calls bit for bit; the
+redesigned ``softmax_output_bwd`` bit for bit at its edges (C = 1, 2, 3,
+odd rows, every normalization with and without ``use_ignore``, every label
+ignored, labels out of range, ``multi_output`` with inner > 1, a view off
+the 16-byte alignment), one launch a call; neither reads anything back in
+a call.
 """
 
 import math
@@ -229,14 +242,12 @@ def test_softmax_output_bwd_kernel_matches_plain(card, shape, kwargs):
         np.float32)).to(card)
     before = sob_mod.LAUNCHES.value
     got = sob_mod.softmax_output_bwd(p, label, **kwargs)
-    valid = kwargs.get("normalization") == "valid"  # count kernel + rows
-    assert sob_mod.LAUNCHES.value == before + (2 if valid else 1)
-    torch.testing.assert_close(
-        got, sob_mod.softmax_output_bwd_plain(
-            p, label, kwargs.get("grad_scale", 1.0),
-            kwargs.get("ignore_label", -1.0), kwargs.get("use_ignore", False),
-            kwargs.get("normalization", "null"),
-            kwargs.get("multi_output", False)), rtol=0, atol=1e-6)
+    assert sob_mod.LAUNCHES.value == before + 1  # the count in the launch
+    assert torch.equal(got.cpu(), sob_mod.softmax_output_bwd_plain(
+        p.cpu(), label.cpu(), kwargs.get("grad_scale", 1.0),
+        kwargs.get("ignore_label", -1.0), kwargs.get("use_ignore", False),
+        kwargs.get("normalization", "null"),
+        kwargs.get("multi_output", False)))
 
 
 def _sgd_inputs(device, sizes=(1, 7, 64, 70000, 32769)):
@@ -620,12 +631,14 @@ def test_softmax_output_bwd_on_the_class_major_view(card):
     label = rng.integers(0, 21, (4, 300)).astype(np.float32)
     label[rng.uniform(size=label.shape) < 0.75] = -1
     label = torch.from_numpy(label).to(card)
+    before = sob_mod.LAUNCHES.value
     got = sob_mod.softmax_output_bwd(p, label, 1.0, -1.0, True, "valid",
                                      True)
-    want = sob_mod.softmax_output_bwd_plain(p, label, 1.0, -1.0, True,
-                                            "valid", True)
+    assert sob_mod.LAUNCHES.value == before + 1
+    want = sob_mod.softmax_output_bwd_plain(p.cpu(), label.cpu(), 1.0, -1.0,
+                                            True, "valid", True)
     assert got.shape == p.shape and got.stride() == p.stride()
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    assert torch.equal(got.cpu(), want)
 
 
 def test_ssd_train_kernels_raise_on_what_they_do_not_take(card):
@@ -1148,3 +1161,112 @@ def test_nms_and_bn_stats_read_nothing_back(card):
     mm, mv = torch.zeros(256, device=card), torch.ones(256, device=card)
     assert cs.host_syncs(torch, lambda: stats_mod.bn_stats(
         x, mm, mv, 0.9)) == 0
+
+
+# -- the redesigned l2norm_channel_bwd and softmax_output_bwd ---------------
+def _l2_bwd_edges():
+    c2 = l2_mod.ONCHIP_C + 1  # the least C of the two-pass regime
+    return [(3, 1, 5, 7), (4, 6, 1, 1), (5, 3), (7, 21, 3, 3), (3, 8, 5, 7),
+            (1, 512, 37, 37), (2, c2 - 1, 3, 5), (2, c2, 3, 5),
+            (3, 2 * c2 + 3, 1, 1)]
+
+
+@pytest.mark.parametrize("edge", range(9))
+@pytest.mark.parametrize("scale", [1.0, 20.0])
+def test_l2norm_channel_bwd_at_the_edges(card, edge, scale):
+    shape = _l2_bwd_edges()[edge]
+    rng = np.random.default_rng(edge * 10 + int(scale))
+    x, g = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(card) for _ in range(2))
+    plan = l2_mod.bwd_plan(shape[1])
+    assert plan.regime == ("two_pass" if edge >= 7 else "onchip")
+    before = l2_mod.BWD_LAUNCHES.value
+    got = l2_mod.l2norm_channel_bwd(x, g, 1e-10, scale)
+    assert l2_mod.BWD_LAUNCHES.value == before + 1
+    assert torch.equal(got, l2_mod.l2norm_channel_bwd(x, g, 1e-10, scale))
+    want = l2_mod.l2norm_channel_bwd_plain(x, g, 1e-10, scale)
+    limit = l2_mod.bwd_limit(x, g, 1e-10, scale, want)
+    assert bool(((got - want).abs() <= limit).all())
+
+
+def _so_edge_inputs(shape, multi, rule, device):
+    rng = np.random.default_rng(sum(shape) + len(rule))
+    p = torch.softmax(torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)), 1 if multi else -1)
+    classes = shape[1] if multi else shape[-1]
+    lshape = (shape[0],) + shape[2:] if multi else shape[:-1]
+    label = rng.integers(-1, classes, lshape).astype(np.float32)
+    if rule == "ignored":
+        label[...] = -1
+    elif rule == "wild":
+        label = rng.choice(np.asarray([-1, 0, 2.7, -0.5, 3e9, -3e9, 10, 11],
+                                      np.float32), lshape)
+    if rule == "offset":  # one float off the 16-byte alignment
+        flat = torch.empty(p.numel() + 1)
+        flat[1:] = p.reshape(-1)
+        return flat.to(device)[1:].view(shape), torch.from_numpy(label).to(
+            device)
+    return p.to(device), torch.from_numpy(label).to(device)
+
+
+@pytest.mark.parametrize("shape, multi, rule", [
+    ((7, 1), False, "random"), ((33, 21), False, "random"),
+    ((1, 1000), False, "random"), ((9, 3), False, "random"),
+    ((13, 2), False, "random"), ((9, 21), False, "ignored"),
+    ((8, 11), False, "wild"), ((33, 21), False, "offset"),
+    ((3, 5, 2, 7), True, "random"), ((1, 3, 1, 1), True, "random")])
+@pytest.mark.parametrize("normalization", ["null", "batch", "valid"])
+@pytest.mark.parametrize("use_ignore", [False, True])
+def test_softmax_output_bwd_at_the_edges(card, shape, multi, rule,
+                                         normalization, use_ignore):
+    p, label = _so_edge_inputs(shape, multi, rule, card)
+    args = (0.5, -1.0, use_ignore, normalization, multi)
+    before = sob_mod.LAUNCHES.value
+    got = sob_mod.softmax_output_bwd(p, label, *args)
+    assert sob_mod.LAUNCHES.value == before + 1
+    assert got.shape == p.shape
+    assert torch.equal(got.cpu(), sob_mod.softmax_output_bwd_plain(
+        p.cpu(), label.cpu(), *args))
+
+
+def test_softmax_output_bwd_counts_on_two_streams_at_once(card):
+    """Counting calls ('valid' under use_ignore) queued on two streams at
+    once, with counts that differ, each keep their own count: the slots of
+    the count belong to the launch's stream."""
+    rng = np.random.default_rng(17)
+    p = torch.softmax(torch.from_numpy(rng.standard_normal(
+        (4096, 21)).astype(np.float32)), -1).to(card)
+    labels = []
+    for share in (0.1, 0.9):
+        lab = rng.integers(0, 21, 4096).astype(np.float32)
+        lab[rng.uniform(size=4096) < share] = -1
+        labels.append(torch.from_numpy(lab).to(card))
+    wants = [sob_mod.softmax_output_bwd_plain(p.cpu(), lab.cpu(), 1.0, -1.0,
+                                              True, "valid", False)
+             for lab in labels]
+    streams = [torch.cuda.Stream(card), torch.cuda.Stream(card)]
+    assert streams[0].cuda_stream != streams[1].cuda_stream
+    torch.cuda.synchronize(card)
+    outs = [[], []]
+    for _ in range(50):
+        for k in (0, 1):
+            with torch.cuda.stream(streams[k]):
+                outs[k].append(sob_mod.softmax_output_bwd(
+                    p, labels[k], 1.0, -1.0, True, "valid", False))
+    torch.cuda.synchronize(card)
+    for k in (0, 1):
+        for got in outs[k]:
+            assert torch.equal(got.cpu(), wants[k])
+
+
+def test_l2norm_bwd_and_softmax_output_bwd_read_nothing_back(card):
+    """torch.profiler over three calls of each records no copy to or from
+    the host and no synchronisation beyond an empty window's."""
+    cs = _chip_smoke()
+    x = torch.randn(32, 512, 37, 37, device=card)
+    assert cs.host_syncs(torch, lambda: l2_mod.l2norm_channel_bwd(
+        x, x, 1e-10, 20.0)) == 0
+    p = torch.softmax(torch.randn(4, 8096, 21, device=card), -1)
+    label = torch.randint(-1, 21, (4, 8096), device=card).float()
+    assert cs.host_syncs(torch, lambda: sob_mod.softmax_output_bwd(
+        p.transpose(1, 2), label, 1.0, -1.0, True, "valid", True)) == 0
