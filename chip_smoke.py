@@ -178,6 +178,27 @@ Run from the root of a checkout. Phases, each printing its own lines:
     from the host or synchronises in a call; then their times
     (``kernel_times_l2norm_softmax_bwd``: warm, L2-cold, device by kernel
     name, plain, bound, host us);
+13d. redesigned ``bn_act`` and ``multibox_target`` — ``bn_act`` bit for bit
+    (every bit, signed zeros included) against the parent kernel's
+    per-element order computed on the CPU (:func:`bn_act_parent_order`) for
+    no activation, the ReLU and the leaky ReLU at every path shape
+    (ResNet-50 serving's 5 and training's 12, DCGAN's D and G) and at
+    ``bn_act_borders`` (each side of the block sizes' thresholds in both
+    regimes, planes of 1 to 49 floats, C = 1 and 3, N = 1), aligned and at
+    float offsets 1 and 3, each border also forced into the other regimes
+    (``run_plan``), within ``BN_RTOL``/``BN_ATOL`` of ``bn_act_plain`` at
+    the path shapes, one launch a call with the leaky ones counted;
+    ``multibox_target`` bit for bit against its plain version on the SSD
+    step's recorded call and on ``MBT_CASES`` and ``MBT_EDGES`` (ties at
+    K* across the blocks, the last block's best anchor, max_neg 0 and at
+    least A, G = 1 with a tiny A, A no multiple of the blocks' span with G
+    past one sweep, a forced anchor that would have been a mining
+    candidate), each with the mining on and off, one launch a call; neither
+    reads anything back in a call; then their times
+    (``kernel_times_bn_act_mbt``: ``bn_act`` over each path's calls beside
+    ``F.batch_norm`` + ``relu_``/``F.leaky_relu``, ``multibox_target`` at
+    SSD training's call; warm, L2-cold, device time by kernel name, plain,
+    bound, host us);
 14. SSD training — the same model trained by ``Module.fit`` on ``gpu(0)``
     over an ``NDArrayIter`` of painted-rectangle images (20 classes, 1..6
     objects, mean subtracted) at batch 32, SGD lr 0.002, momentum 0.9, wd
@@ -255,11 +276,10 @@ a machine with many cores, ~3 minutes on 8); it needs no card.
     python3 chip_smoke.py --kernel-times [ROOT]
 
 prints phase 5b's times, phase 13b's (on the SSD heads recorded by
-``ssd_nms_heads``) and phase 13c's alone (after phases 1-2), for the
-package of the
-checkout at ``ROOT`` when given (say, the parent commit unpacked under
-``build/``), else for this one's: run both in one call, in turns, to
-compare two versions on one card.
+``ssd_nms_heads``), phase 13c's and phase 13d's alone (after phases 1-2),
+for the package of the checkout at ``ROOT`` when given (say, the parent
+commit unpacked under ``build/``), else for this one's: run both in one
+call, in turns, to compare two versions on one card.
 
     python3 chip_smoke.py --bn-bwd-plans
 
@@ -2296,32 +2316,40 @@ def so_path_inputs(torch, gen, dev):
     return out
 
 
-def timed_bwd(torch, run, plain, marks, counter, b, flush, what, reps=50):
-    """One call ``run`` of the redesigned backward kernels: launches a
-    call, warm and cold times, device time by kernel name, the plain
-    version, the wrapper's host microseconds, the bound ``b``."""
+def timed_call(torch, run, plain, marks, counter, b, flush, what, reps=50,
+               library=None, plain_reps=10):
+    """One call ``run`` of a redesigned kernel's wrapper (or a set of
+    calls): its launches, warm and cold times, device time by kernel name
+    (:func:`complete_device_ms`), the plain version, ``library`` (``(name,
+    fn)``, one PyTorch call for the same function) when given, the
+    wrapper's host microseconds, the bound ``b``."""
     before = counter.value
     run()
     launches = counter.value - before
-    # a window now and then records none or only part of the launches
-    # (PERF.md §7), and then reads low: take the first window that recorded
-    # every launch of its calls, and no reading if none of five did
-    reps_split = 10
-    split = {}
-    for _ in range(5):
-        got, events = kernel_events(torch, run, marks, reps_split)
-        if events == reps_split * launches:
-            split = got
-            break
+    split = complete_device_ms(torch, run, marks, launches)
     return {"what": what, "launches": launches,
             "ms": cuda_ms(torch, run, reps=reps),
             "cold_ms": cold_ms(torch, run, flush),
             "device_ms": sum(split.values()) if split else None,
             "device_by_kernel": split,
-            "plain_ms": cuda_ms(torch, plain, reps=10, warmup=1),
-            "library": None, "library_ms": None,
+            "plain_ms": cuda_ms(torch, plain, reps=plain_reps, warmup=1),
+            "library": library[0] if library else None,
+            "library_ms": cuda_ms(torch, library[1], reps=reps)
+            if library else None,
             "bound_ms": b[0], "bound_by": b[1],
             "host_us": host_us(torch, run)}
+
+
+def complete_device_ms(torch, run, marks, launches, reps=10):
+    """Device milliseconds per call of ``run`` by kernel name, from the
+    first of five profiler windows that recorded all ``launches`` of each
+    of its ``reps`` calls ({} if none did: a window now and then records
+    none or only part of them, and then reads low; PERF.md §7)."""
+    for _ in range(5):
+        got, events = kernel_events(torch, run, marks, reps)
+        if events == reps * launches:
+            return got
+    return {}
 
 
 def kernel_times_l2norm_softmax_bwd(torch):
@@ -2343,7 +2371,7 @@ def kernel_times_l2norm_softmax_bwd(torch):
     x = torch.randn(L2_BWD_PATH, generator=gen, device=dev)
     g = torch.randn(L2_BWD_PATH, generator=gen, device=dev)
     n = x.numel()
-    out["l2norm_channel_bwd"]["ssd_train"] = timed_bwd(
+    out["l2norm_channel_bwd"]["ssd_train"] = timed_call(
         torch, lambda: l2.l2norm_channel_bwd(x, g, L2_BWD_EPS, L2_BWD_SCALE),
         lambda: l2.l2norm_channel_bwd_plain(x, g, L2_BWD_EPS, L2_BWD_SCALE),
         L2_BWD_MARKS, l2.BWD_LAUNCHES, bound(12 * n, 8 * n), flush,
@@ -2351,7 +2379,7 @@ def kernel_times_l2norm_softmax_bwd(torch):
     del x, g
     for path, args in so_path_inputs(torch, gen, dev).items():
         n = args[0].numel()
-        out["softmax_output_bwd"][path] = timed_bwd(
+        out["softmax_output_bwd"][path] = timed_call(
             torch, lambda args=args: so.softmax_output_bwd(*args),
             lambda args=args: so.softmax_output_bwd_plain(*args),
             SO_BWD_MARKS, so.LAUNCHES,
@@ -2363,7 +2391,7 @@ def kernel_times_l2norm_softmax_bwd(torch):
     return out
 
 
-def print_l2norm_softmax_bwd_times(times, card, tag):
+def print_redesign_times(times, card, tag):
     for name, paths in times.items():
         for path, r in paths.items():
             split = ", ".join(f"{k} {v:.4f}" for k, v in
@@ -2372,12 +2400,14 @@ def print_l2norm_softmax_bwd_times(times, card, tag):
                    if r["device_ms"] is not None else
                    "device time not measured (no profiler window of five "
                    "recorded every launch)")
+            lib = (f"{r['library']} {r['library_ms']:.4f} ms"
+                   if r["library"] else "no library call")
             print(f"[{tag}] {name} {path} {r['what']} on {card}: kernel "
                   f"{r['ms']:.4f} ms warm, {r['cold_ms']:.4f} ms cold "
                   f"({100 * r['bound_ms'] / r['cold_ms']:.0f}% of the "
                   f"bound); {dev}; "
-                  f"{r['launches']} launches a call; plain "
-                  f"{r['plain_ms']:.4f} ms; no library call; bound "
+                  f"{r['launches']} launches; plain "
+                  f"{r['plain_ms']:.4f} ms; {lib}; bound "
                   f"{r['bound_ms']:.5f} ms ({r['bound_by']}); wrapper host "
                   f"{r['host_us']:.1f} us per call", flush=True)
 
@@ -2552,8 +2582,441 @@ def phase_redesign_l2norm_softmax_bwd(torch, mx, card, recorded):
           f"gradient in p's layout; 0 host copies or synchronisations in 3 "
           f"calls ({time.perf_counter() - t0:.1f} s)", flush=True)
     times = kernel_times_l2norm_softmax_bwd(torch)
-    print_l2norm_softmax_bwd_times(times, card, "redesign")
+    print_redesign_times(times, card, "redesign")
     return times, err
+
+
+# --- 13d: the redesigned bn_act and multibox_target -------------------------
+BN_ACT_MARKS = ("bn_act_",)  # every bn_act kernel's name, leaky included
+MBT_MARKS = ("multibox_target_kernel",)
+SSD_MAPS = (37, 18, 9, 5, 3, 1)  # SSD-300's feature maps: 8096 anchors
+# multibox_target's edge inputs beyond MBT_CASES, where a cluster's split of
+# an image's anchors between its blocks could go wrong
+MBT_EDGES = ("ties at K* across the blocks, signed zeros",
+             "an object whose best anchor lies in the last block",
+             "max_neg of 0", "max_neg of A or more", "G = 1 and a tiny A",
+             "A no multiple of the blocks' span, G past one sweep",
+             "a forced candidate, K* at +inf",
+             "a forced candidate at K*'s top byte")
+
+
+def mbt_edge_case(name):
+    """``(anchors (1, A, 4), label (n, G, 5), cls_pred (n, 6, A), params)``
+    as numpy for one of ``MBT_EDGES``."""
+    rng = np.random.default_rng(SEED + 70 + MBT_EDGES.index(name))
+
+    def anchors(a):
+        lo = rng.uniform(0, 0.8, (a, 2))
+        return np.concatenate([lo, lo + rng.uniform(0.05, 0.3, (a, 2))],
+                              1).astype(np.float32)[None]
+
+    def labels(valid_counts, g):
+        label = np.full((len(valid_counts), g, 5), -1.0, np.float32)
+        for b, k in enumerate(valid_counts):
+            for j in range(k):
+                x1 = rng.uniform(0, 0.6, 2)
+                label[b, j] = [rng.integers(0, 5), *x1,
+                               *(x1 + rng.uniform(0.1, 0.4, 2))]
+        return label
+
+    def logits(n, a):
+        return rng.standard_normal((n, 6, a)).astype(np.float32)
+
+    if name == "ties at K* across the blocks, signed zeros":
+        # most keys are +0.0 or -0.0, a few below: K* is 0, every block
+        # holds some, and in one image the kept ones end past the first
+        # block's span but before the last anchor
+        a = 301
+        cls = rng.choice(np.asarray([-1.0, -0.0, 0.0, 1.0], np.float32),
+                         (3, 6, a), p=[0.01, 0.47, 0.47, 0.05])
+        return anchors(a), labels([3, 1, 5], 6), cls, \
+            dict(MBT_PARAMS, negative_mining_ratio=25.0)
+    if name == "an object whose best anchor lies in the last block":
+        a = 300
+        anc = anchors(a)
+        label = labels([2, 3], 4)
+        label[0, 1, 1:] = anc[0, a - 2]  # IoU 1 at anchor A - 2
+        label[1, 2, 1:] = anc[0, a - 1]
+        return anc, label, logits(2, a), MBT_PARAMS
+    if name == "max_neg of 0":
+        # ratio * num_pos below 1 in every image, no minimum
+        return anchors(300), labels([1, 0, 2], 4), logits(3, 300), \
+            dict(MBT_PARAMS, negative_mining_ratio=0.1)
+    if name == "max_neg of A or more":
+        return anchors(300), labels([1, 3], 4), logits(2, 300), \
+            dict(MBT_PARAMS, negative_mining_ratio=1000.0)
+    if name == "G = 1 and a tiny A":
+        # one anchor: the second block of the cluster has none, and still
+        # takes part in the cluster's barriers
+        return anchors(1), labels([1, 1, 0], 1), logits(3, 1), \
+            dict(MBT_PARAMS, negative_mining_thresh=0.9)
+    if name == "A no multiple of the blocks' span, G past one sweep":
+        return anchors(1237), labels([33, 17, 5], 33), logits(3, 1237), \
+            MBT_PARAMS
+    # a tiny object in a corner: its best anchor meets it at an IoU below
+    # the mining threshold, so that anchor is forced though it would have
+    # been a mining candidate
+    corner = [1.0, 0.97, 0.97, 0.99, 0.99]
+    if name == "a forced candidate, K* at +inf":
+        # candidates (best IoU below 0.2) fewer than max_neg < A: K* is
+        # the +inf of the matched and the other anchors
+        label = labels([4, 3], 6)
+        label[:, 5] = corner
+        return anchors(300), label, logits(2, 300), dict(
+            MBT_PARAMS, negative_mining_thresh=0.2,
+            negative_mining_ratio=30.0)
+    if name == "a forced candidate at K*'s top byte":
+        # every logit 0.0 or 0.5: K* is one of them, and so is the forced
+        # candidate's key
+        label = labels([2, 3, 1], 5)
+        label[:, 4] = corner
+        cls = rng.choice(np.asarray([0.0, 0.5], np.float32), (3, 6, 300),
+                         p=[0.9, 0.1])
+        return anchors(300), label, cls, MBT_PARAMS
+    raise KeyError(name)
+
+
+def same_bits(torch, got, want):
+    """``got`` and ``want`` (float32, any devices) hold the same bits:
+    signed zeros told apart, NaNs equal to themselves."""
+    return torch.equal(got.cpu().view(torch.int32),
+                       want.cpu().view(torch.int32))
+
+
+def bits_apart(torch, got, want):
+    return int((got.cpu().view(torch.int32)
+                != want.cpu().view(torch.int32)).sum())
+
+
+def ssd_anchors(torch, mx, dev):
+    """SSD-300's 8096 anchors as ``models.ssd``'s MultiBoxPrior layers
+    make them (sizes and ratios per feature map, no clip), (1, A, 4)."""
+    from mxnet_tpu_torch.ops.defs_contrib import multibox_prior
+
+    ssd = mx.models.ssd
+    anc = torch.cat([multibox_prior(m, m, ssd._SIZES[k], ssd._RATIOS[k],
+                                    None, (0.5, 0.5), False, device=dev)
+                     for k, m in enumerate(SSD_MAPS)], 1)
+    if anc.shape[1] != SSD_ANCHORS:
+        fail(f"SSD-300's anchors: {anc.shape[1]}, not {SSD_ANCHORS}")
+    return anc
+
+
+def bn_act_parent_order(torch, x, mean, var, gamma, beta, eps, fix_gamma,
+                        slope):
+    """``bn_act``'s result as the parent kernel rounds it, on the CPU:
+    ``inv = 1 / sqrt(var + eps)``, then ``((x - mean) * inv) * gamma +
+    beta``, each step one correctly rounded float32 operation, then the
+    activation: ``t`` where ``t`` is not below 0 (NaN, -0.0 and +0.0 as
+    they are), below it +0.0 (the ReLU, slope 0) or ``slope * t``. The
+    square root and the division run in float64 and round once to float32,
+    which is the correctly rounded float32 result (53 bits hold more than
+    twice 24 + 2); PyTorch's float32 square root on the CPU is not always
+    correctly rounded."""
+    f32 = torch.float32
+    x, mean, var, gamma, beta = (t.cpu() for t in (x, mean, var, gamma,
+                                                   beta))
+    bshape = (1, -1) + (1,) * (x.dim() - 2)
+    root = torch.sqrt((var + torch.tensor(eps, dtype=f32)).double()).to(f32)
+    inv = (1.0 / root.double()).to(f32)
+    if fix_gamma:
+        gamma = torch.ones_like(gamma)
+    t = (x - mean.reshape(bshape)) * inv.reshape(bshape)
+    t = t * gamma.reshape(bshape)
+    t = t + beta.reshape(bshape)
+    if slope is None:
+        return t
+    below = (torch.zeros_like(t) if slope == 0
+             else t * torch.tensor(slope, dtype=f32))
+    return torch.where(t < 0, below, t)
+
+
+def bn_act_borders(ba):
+    """``bn_act``'s shapes at each border of its plan: each side of the
+    block sizes' thresholds in both regimes (float4 units, and float units
+    with H*W = 1), planes of 1, 2, 3, 4, 8 and 49 floats, C = 1, 3, 1000,
+    N = 1, grids that end in a partial block."""
+    u, b = ba.UNITS, ba.MIN_BLOCKS - 1
+    t256, t128 = b * ba.THREADS[0] * u, b * ba.THREADS[1] * u
+    return [(1, 1, 4 * t256), (1, 1, 4 * t256 + 4), (1, 1, 4 * t128),
+            (1, 1, 4 * t128 + 4), (1, t256), (1, t256 + 1), (1, t128),
+            (1, t128 + 1), (3, 5, 1, 1), (2, 3, 2), (4, 7, 3), (5, 3, 2, 2),
+            (2, 6, 2, 4), (2, 1000, 7, 7), (1, 3, 7, 7), (7, 1, 5, 5),
+            (3, 5, 7, 9), (1, 2048, 7, 7), (9, 33, 4, 4)]
+
+
+def bn_act_inputs(torch, gen, dev, shape, offset=0):
+    """x (a view at a float ``offset`` into its storage when given) and the
+    moving statistics, gamma and beta of a BatchNorm input of ``shape``;
+    some of x's elements exact zeros of both signs at channel 0, whose
+    mean and beta are 0 and -0.0."""
+    c = shape[1]
+    n = math.prod(shape)
+    x = torch.empty(n + offset, device=dev)[offset:].view(shape)
+    x.copy_(torch.randn(shape, generator=gen, device=dev))
+    mean = 0.1 * torch.randn(c, generator=gen, device=dev)
+    var = 0.5 + torch.rand(c, generator=gen, device=dev)
+    gamma = 0.5 + torch.rand(c, generator=gen, device=dev)
+    beta = 0.1 * torch.randn(c, generator=gen, device=dev)
+    if n // c >= 3:
+        x0 = x[:, 0].cpu().reshape(-1)
+        x0[0::3] = 0.0
+        x0[1::3] = -0.0
+        x[:, 0] = x0.reshape(x[:, 0].shape).to(dev)
+        mean[0], beta[0] = 0.0, -0.0
+    return x, mean, var, gamma, beta
+
+
+def bn_act_path_sets(torch, mx, gen, dev):
+    """``bn_act``'s calls on each path: ``{path: (what, [(inputs, count)],
+    eps, fix_gamma, slope)}``: ResNet-50 serving's 17 (``PATH_BN``, the
+    ReLU), a ResNet-50 training step's 50 (the ReLU), one DCGAN D pass (3,
+    leaky 0.2, fix_gamma) and G's pass (4, the ReLU, fix_gamma)."""
+    _sym, bn_shapes, _p = resnet50_shapes(mx, TRAIN_BATCH)
+    train = {}
+    for s in bn_shapes:
+        train[s] = train.get(s, 0) + 1
+    out = {}
+    for path, what, shapes, eps, fix_gamma, slope in (
+            ("resnet_serve", "ResNet-50 serving forward, 17 calls",
+             dict(PATH_BN), BN_EPS, False, 0.0),
+            ("resnet_train", "ResNet-50 training step, 50 calls", train,
+             BN_EPS, False, 0.0),
+            ("dcgan_d", "DCGAN D pass, 3 leaky calls",
+             {s: 1 for s in DCGAN_D_BN}, DCGAN_EPS, True, DCGAN_SLOPE),
+            ("dcgan_g", "DCGAN G pass, 4 ReLU calls",
+             {s: 1 for s in DCGAN_G_BN}, DCGAN_EPS, True, 0.0)):
+        sets = [(bn_act_inputs(torch, gen, dev, s), k)
+                for s, k in shapes.items()]
+        out[path] = (what, sets, eps, fix_gamma, slope)
+    return out
+
+
+def bn_act_set_times(torch, F, ba, what, sets, eps, fix_gamma, slope,
+                     flush):
+    """:func:`timed_call` over one path's ``bn_act`` calls back to back,
+    beside the library pair (``F.batch_norm`` over the same statistics,
+    then ``relu_`` or ``F.leaky_relu``); host us per wrapper call."""
+    def each(fn):
+        def run():
+            for ins, k in sets:
+                for _ in range(k):
+                    fn(*ins)
+        return run
+
+    def lib(x, m, v, g, b):
+        y = F.batch_norm(x, m, v, None if fix_gamma else g, b,
+                         training=False, eps=eps)
+        if slope is None:
+            return y
+        return F.leaky_relu(y, slope, inplace=True) if slope else y.relu_()
+
+    calls = sum(k for _s, k in sets)
+    n_el = sum(k * ins[0].numel() for ins, k in sets)
+    c_sum = sum(k * ins[0].shape[1] for ins, k in sets)
+    r = timed_call(
+        torch, each(lambda *t: ba.bn_act(*t, eps, fix_gamma, slope)),
+        each(lambda *t: ba.bn_act_plain(*t, eps, fix_gamma, slope)),
+        BN_ACT_MARKS, ba.LAUNCHES, bound(8 * n_el + 16 * c_sum, 5 * n_el),
+        flush, what, reps=20, plain_reps=5,
+        library=("F.batch_norm + " + ("F.leaky_relu" if slope else "relu_"),
+                 each(lib)))
+    r["host_us"] /= calls  # per wrapper call; the times are per set
+    return r
+
+
+def mbt_path_inputs(torch, mx, dev, gen):
+    """``multibox_target``'s arguments at SSD training's call: SSD-300's
+    8096 anchors, the 32 labels of the training phase's batch (1..6
+    objects in 16 rows) and N(0, 1) logits through the class-major view of
+    class-last memory, as the head hands them, with the symbol's
+    parameters."""
+    anc = ssd_anchors(torch, mx, dev)
+    _x, y = ssd_train_images(SSD_TRAIN_BATCH, SEED + 21)
+    label = torch.from_numpy(y).to(dev)
+    cls_pred = torch.randn((SSD_TRAIN_BATCH, SSD_ANCHORS, SSD_CLASSES + 1),
+                           generator=gen, device=dev).transpose(1, 2)
+    return (anc, label, cls_pred, *mbt_args(MBT_PARAMS))
+
+
+def mbt_times(torch, mbt, args, flush):
+    """:func:`timed_call` of ``multibox_target`` at one call ``args``; the
+    bound by bytes (a 32-byte sector per strided background logit, the
+    anchors and labels once, 9 floats out per anchor) or operations (~12
+    per IoU, ~20 per encoded match), whichever is larger."""
+    anc, label = args[0], args[1]
+    n, g, a = label.shape[0], label.shape[1], anc.numel() // 4
+    matched = int((mbt.multibox_target(*args)[2] > 0).sum())
+    b = bound(n * a * 32 + a * 16 + label.numel() * 4 + n * a * 9 * 4,
+              n * a * g * 12 + matched * 20)
+    return timed_call(
+        torch, lambda: mbt.multibox_target(*args),
+        lambda: mbt.multibox_target_plain(*args), MBT_MARKS, mbt.LAUNCHES,
+        b, flush, f"A {a}, G {g}, batch {n}, class-major logits, {matched} "
+        f"matched", plain_reps=3)
+
+
+def kernel_times_bn_act_mbt(torch, mx):
+    """``bn_act`` over each path's calls (:func:`bn_act_path_sets`) and
+    ``multibox_target`` at SSD training's call (:func:`mbt_path_inputs`):
+    the kernel back to back by CUDA events (warm), the L2 cache cold
+    (median single runs), the device time under the profiler by kernel
+    name, the launches, the plain version, the library pair for
+    ``bn_act`` (no single PyTorch call computes ``multibox_target``), the
+    bound and the wrapper's host microseconds per call. Uses only the
+    wrappers' public calls, so it times any checkout's package
+    (``--kernel-times``)."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.kernels import bn_act as ba
+    from mxnet_tpu_torch.kernels import multibox_target as mbt
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 80)
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
+    out = {"bn_act": {}, "multibox_target": {}}
+    for path, (what, sets, eps, fix_gamma, slope) in bn_act_path_sets(
+            torch, mx, gen, dev).items():
+        out["bn_act"][path] = bn_act_set_times(
+            torch, F, ba, what, sets, eps, fix_gamma, slope, flush)
+        sets.clear()
+    out["multibox_target"]["ssd_train"] = mbt_times(
+        torch, mbt, mbt_path_inputs(torch, mx, dev, gen), flush)
+    del flush
+    return out
+
+
+def phase_redesign_bn_act_mbt(torch, mx, card, recorded):
+    """The redesigned ``bn_act`` and ``multibox_target`` on the card.
+    ``bn_act``: bit for bit against the parent kernel's per-element order
+    (:func:`bn_act_parent_order`) for no activation, the ReLU and the leaky
+    ReLU, at every path shape (:func:`bn_act_path_sets`) and at
+    :func:`bn_act_borders`, aligned and at float offsets 1 and 3 (the
+    scalar regime), each border also forced into the other regimes
+    (``run_plan``); within ``BN_RTOL``/``BN_ATOL`` of ``bn_act_plain`` at
+    the path shapes; one launch a call, the leaky ones counted. Then
+    ``multibox_target`` bit for bit against its plain version on the SSD
+    step's recorded call and on ``MBT_CASES`` and ``MBT_EDGES``, each with
+    the mining on and off, one launch a call. Neither copies to or from the
+    host or synchronises in a call. Then :func:`kernel_times_bn_act_mbt`."""
+    from mxnet_tpu_torch.kernels import bn_act as ba
+    from mxnet_tpu_torch.kernels import multibox_target as mbt
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 81)
+    t0 = time.perf_counter()
+    cases = []
+    for path, (what, sets, eps, fix_gamma, slope) in bn_act_path_sets(
+            torch, mx, gen, dev).items():
+        for ins, _k in sets:
+            cases.append((f"{path} {tuple(ins[0].shape)}", ins, eps,
+                          fix_gamma, True))
+    for shape in bn_act_borders(ba):
+        for offset in (0, 1, 3):
+            cases.append((f"{shape} offset {offset}",
+                          bn_act_inputs(torch, gen, dev, shape, offset),
+                          BN_EPS,
+                          offset == 1, False))
+    regimes, calls, plain_err = {}, 0, 0.0
+    for what, ins, eps, fix_gamma, path in cases:
+        x = ins[0]
+        p = ba.plan(x.shape[0], x.shape[1], x.numel() // math.prod(
+            x.shape[:2]), x.data_ptr() % 16 == 0)
+        regimes[p.regime] = regimes.get(p.regime, 0) + 1
+        for slope in (None, 0.0, DCGAN_SLOPE):
+            want = bn_act_parent_order(torch, *ins, eps, fix_gamma, slope)
+            before = (ba.LAUNCHES.value, ba.LEAKY_LAUNCHES.value)
+            got = ba.bn_act(*ins, eps, fix_gamma, slope)
+            launches = (ba.LAUNCHES.value - before[0],
+                        ba.LEAKY_LAUNCHES.value - before[1])
+            calls += 1
+            if launches != (1, 1 if slope else 0):
+                fail(f"bn_act {what} slope {slope}: launches {launches}")
+            if not same_bits(torch, got, want):
+                fail(f"bn_act {what} slope {slope}: "
+                     f"{bits_apart(torch, got, want)} values differ from "
+                     f"the parent's order in their bits")
+            if path:
+                plain_err = max(plain_err, check(
+                    torch, f"bn_act {what} slope {slope}", got,
+                    ba.bn_act_plain(*ins, eps, fix_gamma, slope), BN_RTOL,
+                    BN_ATOL))
+            elif p.regime != "wide":
+                # every other regime on the same inputs: the same bits
+                for regime in ("scalar", "wide"):
+                    if regime == p.regime:
+                        continue
+                    q = p._replace(regime=regime, unit=1, d_magic=0,
+                                   d_shift=0, c_magic=0, c_shift=0)
+                    if regime == "scalar":
+                        q = ba.plan(x.shape[0], x.shape[1],
+                                    x.numel() // math.prod(x.shape[:2]),
+                                    False)
+                    got = ba.run_plan(q, *ins, eps, fix_gamma, slope)
+                    calls += 1
+                    if not same_bits(torch, got, want):
+                        fail(f"bn_act {what} slope {slope}: regime "
+                             f"{regime} differs from the parent's order")
+    ins = cases[0][1]
+    syncs = host_syncs(torch, lambda: ba.bn_act(*ins, BN_EPS, False, 0.0))
+    if syncs:
+        fail(f"bn_act copied to or from the host or synchronised {syncs} "
+             f"times in 3 calls")
+    print(f"[redesign-bn-act] bn_act equals the parent kernel's order bit "
+          f"for bit in {calls} calls ({len(cases)} inputs x no activation, "
+          f"the ReLU and leaky {DCGAN_SLOPE}: every path shape of ResNet-50 "
+          f"serving and training and DCGAN D and G, and "
+          f"{len(bn_act_borders(ba))} border shapes aligned and at float "
+          f"offsets 1 and 3, each also forced into the other regimes; "
+          f"plans {regimes}); within rtol {BN_RTOL} atol {BN_ATOL} of its "
+          f"plain version at the path shapes (max abs err {plain_err:g}); "
+          f"one launch a call; 0 host copies or synchronisations in 3 calls "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    del cases
+
+    t0 = time.perf_counter()
+    step = recorded["multibox_target"]
+    calls = [("the SSD step's call", step[:3], list(step[3:]))]
+    for name in MBT_CASES:
+        a_np, l_np, c_np, p = mbt_case(name)
+        calls.append((name, [torch.from_numpy(t).to(dev)
+                             for t in (a_np, l_np, c_np)], mbt_args(p)))
+    for name in MBT_EDGES:
+        a_np, l_np, c_np, p = mbt_edge_case(name)
+        calls.append((name, [torch.from_numpy(t).to(dev)
+                             for t in (a_np, l_np, c_np)], mbt_args(p)))
+    n_calls = 0
+    for what, ins, params in calls:
+        for ratio in (params[2], -1.0 if params[2] > 0 else 3.0):
+            args = [*ins, *params[:2], ratio, *params[3:]]
+            before = mbt.LAUNCHES.value
+            got = mbt.multibox_target(*args)
+            launches = mbt.LAUNCHES.value - before
+            want = mbt.multibox_target_plain(*args)
+            n_calls += 1
+            if launches != 1:
+                fail(f"multibox_target {what}: {launches} launches")
+            for out, g_, w_ in zip(("loc_target", "loc_mask", "cls_target"),
+                                   got, want):
+                if not same_bits(torch, g_, w_):
+                    fail(f"multibox_target {what} (mining ratio {ratio}): "
+                         f"{bits_apart(torch, g_, w_)} values of {out} "
+                         f"differ from the plain version in their bits")
+    syncs = host_syncs(torch, lambda: mbt.multibox_target(*step))
+    if syncs:
+        fail(f"multibox_target copied to or from the host or synchronised "
+             f"{syncs} times in 3 calls")
+    print(f"[redesign-mbt] multibox_target equals its plain version bit "
+          f"for bit in {n_calls} calls (the SSD step's, {len(MBT_CASES)} "
+          f"edge cases and {len(MBT_EDGES)} more: ties at K* across the "
+          f"blocks, the last block's best anchor, max_neg 0 and >= A, G = 1 "
+          f"with A = 1, A = 1237 with G = 33; each with the mining on and "
+          f"off); plan at SSD's call {mbt.plan(SSD_ANCHORS, SSD_OBJECTS)}; "
+          f"one launch a call; 0 host copies or synchronisations in 3 calls "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    times = kernel_times_bn_act_mbt(torch, mx)
+    print_redesign_times(times, card, "redesign")
+    return times, plain_err
 
 
 def resnet50_numpy(mx, seed):
@@ -4527,7 +4990,8 @@ def phase_ssd_train_kernels(torch, mx):
           f"{SSD_TRAIN_OPT['wd']} on the weights): max abs err {err:g}; "
           f"{json.dumps(extra['sgd_mom_multi'])}", flush=True)
     recorded = {"l2norm_channel_bwd": (xl, gl, eps, scale),
-                "softmax_output_bwd": so_args}
+                "softmax_output_bwd": so_args,
+                "multibox_target": (anc, label, cls_pred, *params)}
     del mod, exe, rec, calls
     return rows, extra, nargs[:6], recorded
 
@@ -5791,7 +6255,6 @@ def main():
         bn_stats_plan_sweep(torch, mx)
         host_breakdown_bn_stats(torch)
         return
-        return
     if sys.argv[1:2] == ["--l2norm-bwd-sweep"]:
         sweep = l2norm_bwd_sweep(torch, range(int(sys.argv[2])))
         print(json.dumps({"l2norm_bwd_sweep": sweep}))
@@ -5803,8 +6266,10 @@ def main():
         more = kernel_times_nms_bn_stats(torch, mx, ssd_nms_heads(torch, mx))
         print_nms_bn_stats_times(more, card, "kernel-times")
         bwd = kernel_times_l2norm_softmax_bwd(torch)
-        print_l2norm_softmax_bwd_times(bwd, card, "kernel-times")
-        print(json.dumps({"kernel_times": {**times, **more, **bwd}}))
+        print_redesign_times(bwd, card, "kernel-times")
+        fwd = kernel_times_bn_act_mbt(torch, mx)
+        print_redesign_times(fwd, card, "kernel-times")
+        print(json.dumps({"kernel_times": {**times, **more, **bwd, **fwd}}))
         return
     kernels = phase_kernels(torch)
     trained_kernels, bn_act_err = phase_train_kernels(torch, mx)
@@ -5843,12 +6308,19 @@ def main():
             k["max_abs_err"] = max(k["max_abs_err"], stats_err)
     redesigned_bwd, l2_bwd_err = phase_redesign_l2norm_softmax_bwd(
         torch, mx, card, recorded)
-    del recorded
     for k in kernels:
         if k["name"] in redesigned_bwd:
             k["paths"] = redesigned_bwd[k["name"]]
         if k["name"] == "l2norm_channel_bwd":
             k["max_abs_err"] = max(k["max_abs_err"], l2_bwd_err)
+    redesigned_fwd, bn_act_plain_err = phase_redesign_bn_act_mbt(
+        torch, mx, card, recorded)
+    del recorded
+    for k in kernels:
+        if k["name"] in redesigned_fwd:
+            k["paths"] = redesigned_fwd[k["name"]]
+        if k["name"] == "bn_act":
+            k["max_abs_err"] = max(k["max_abs_err"], bn_act_plain_err)
     ssd_trained, ssd_train_device_ms = phase_ssd_training(torch, mx, card)
     phase_ssd_train_parity(torch, mx)
     dcgan_rows, dcgan_errs = phase_dcgan_kernels(torch, mx)

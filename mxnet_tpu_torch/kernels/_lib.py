@@ -34,8 +34,7 @@ _I = ctypes.c_int
 # C entry -> argtypes; every pointer and the stream pass as c_void_p (a
 # packed argument struct too: see launch_packed)
 _SIGNATURES = {
-    "mxt_bn_act_f32": [_P, _P, _P, _P, _P, _P, _LL, _LL, _LL,
-                       ctypes.c_float, _I, ctypes.c_float, _P],
+    "mxt_bn_act_f32": [_P],
     "mxt_softmax_rows_f32": [_P, _P, _LL, _LL, _P],
     "mxt_bn_stats_caps": [_P, _P],
     "mxt_bn_stats_f32": [_P],
@@ -59,8 +58,7 @@ _SIGNATURES = {
     "mxt_l2norm_channel_f32": [_P, _P, _LL, _LL, _LL, ctypes.c_float,
                                ctypes.c_float, _P],
     "mxt_l2norm_channel_bwd_f32": [_P],
-    "mxt_multibox_target_f32": [_P] * 6 + [_LL] * 6 + [ctypes.c_float] * 8
-    + [_I, _I, _P],
+    "mxt_multibox_target_f32": [_P],
     "mxt_multibox_decode_f32": [_P, _LL, _LL, _LL, _P, _P, _P, _P, _P, _LL,
                                 _I, _LL] + [ctypes.c_float] * 4
     + [_I, _I, _P],
@@ -206,6 +204,22 @@ def launch_packed(t, entry, pack, *args):
         return entry(pack(*args, torch._C._cuda_getCurrentRawStream(dev)))
     with torch.cuda.device(dev):
         return entry(pack(*args, torch._C._cuda_getCurrentRawStream(dev)))
+
+
+def magic(d):
+    """``(m, s)`` with ``q // d == ((q * m >> 32) + q) >> s`` for every
+    ``0 <= q <= 2**31 - 1`` (32-bit unsigned arithmetic): ``s`` the least
+    with ``2**s >= d``, ``m = 2**32 * (2**s - d) // d + 1``. The kernels
+    that divide an index by a size fixed for the launch take these numbers
+    from the host."""
+    s = max(0, (d - 1).bit_length())
+    return (1 << 32) * ((1 << s) - d) // d + 1, s
+
+
+def quotient(q, m, s):
+    """The kernels' ``q // d`` from :func:`magic`'s ``(m, s)``:
+    ``(umulhi(q, m) + q) >> s``."""
+    return (((q * m) >> 32) + q) >> s
 
 
 def c_slope(slope):

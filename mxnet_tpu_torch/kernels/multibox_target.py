@@ -10,12 +10,19 @@ PyTorch would run as dozens of launches and a sort per step.
 Bound on the H100: device-memory bytes. At SSD-300 training, batch 32,
 A = 8096 anchors, G = 16 objects, the function reads ~8 MB of background
 logits through the class-major view's stride and writes 9.3 MB of targets.
-``csrc/multibox_target.cu`` runs one 1024-thread block per image: the
-objects in shared memory, each object's best anchor by a block reduction,
-each anchor matched and encoded by its own thread, and the mining rank
-found without a sort (a radix select of the ``max_neg``-th key and a
-block scan for the ties), so the outputs equal :func:`multibox_target_plain`
-bit for bit on the same inputs.
+``csrc/multibox_target.cu`` gives each image a thread-block cluster of
+``CLUSTER`` blocks (planned by :func:`plan`), each a contiguous span of the
+anchors: every (anchor, valid object) IoU is computed once and folded into
+its anchor's row maximum and its object's column maximum; each anchor's
+mining key is set before the forced matches are known and counted by top
+byte; after one cluster barrier every block reads the others' partials
+through distributed shared memory (each object's best anchor, the first
+on ties), finds the forced anchors and corrects the counts for them; the
+mining rank is found without a sort (a radix select over the cluster's
+summed histograms, each bin chosen by a warp-parallel prefix, a scan for
+the ties); and the targets are written last, in 16-byte rows. The outputs
+equal :func:`multibox_target_plain` bit for bit on the same inputs. The
+wrapper takes the light launch path (:func:`_lib.launch_packed`).
 
 Semantics the reference's code has, which both versions keep:
 
@@ -31,6 +38,9 @@ Semantics the reference's code has, which both versions keep:
 
 from __future__ import annotations
 
+import struct
+from collections import namedtuple
+
 import torch
 
 from .. import telemetry as _tm
@@ -41,7 +51,36 @@ from .nms import iou_matrix
 # counts kernel launches only (never the plain version)
 LAUNCHES = _tm.counter("kernel.multibox_target.launches")
 _ENC_EPS = 1e-8  # _encode_boxes' eps
-_THREADS_WARPS = 32  # warps of the kernel's block (its shared partials)
+# the C entry's packed arguments (csrc/multibox_target.cu Packed): anchors,
+# label, the background logits, the three outputs, n, A, G, the label's row
+# width, the logits' image and anchor strides, the overlap threshold,
+# ignore_label, the mining ratio and threshold, the four variances,
+# min_neg, mining, the plan's three fields, the stream
+_PACK = struct.Struct("=6Q6q8d5qQ").pack
+# blocks an image takes and threads a block takes (csrc kCluster,
+# kThreads), chosen from a sweep of k in {2, 4, 8} x {256, 512, 1024}
+# threads at SSD's call on the H100 (PERF.md)
+CLUSTER, THREADS = 2, 1024
+# the block's dynamic shared memory: 52 bytes an object, 16 an anchor of
+# its span; the static rest (warp partials, four 256-bin histograms) below
+# 9 KB of the H100's 227 KB
+OBJECT_BYTES, ANCHOR_BYTES = 52, 16
+SMEM_LIMIT = 232448 - 9216
+
+Plan = namedtuple("Plan", "span apt smem")
+
+
+def plan(a, g):
+    """The launch for ``a`` anchors and ``g`` objects an image: each of the
+    ``CLUSTER`` blocks a span of ``ceil(a / CLUSTER)`` anchors in
+    ``THREADS`` threads, ``apt`` contiguous anchors a thread, and the
+    block's dynamic shared memory in bytes."""
+    span = -(-a // CLUSTER)
+    return Plan(span, -(-span // THREADS),
+                OBJECT_BYTES * g + ANCHOR_BYTES * span)
+
+
+_plans = {}
 
 
 def encode_boxes(matched, anchors, variances):
@@ -165,25 +204,41 @@ def multibox_target(anchors, label, cls_pred, overlap_threshold=0.5,
             f"multibox_target: cls_pred must be float32 ({n}, classes + 1, "
             f"{a}) on {dev}, got {cls_pred.dtype} {tuple(cls_pred.shape)} "
             f"on {cls_pred.device}")
-    # dynamic shared memory, beside ~1.4 KB of static (227 KB a block)
-    smem = g * (8 + 2 * _THREADS_WARPS) * 4 + a * 5
-    if g < 1 or smem > 232448 - 2048 or n > 2 ** 31 - 1:
-        raise MXNetError(f"multibox_target: {a} anchors and {g} objects "
-                         "exceed the kernel's shared memory")
-    loc_t = torch.empty((n, a * 4), dtype=torch.float32, device=dev)
+    key = (a, g)
+    p = _plans.get(key)
+    if p is None:
+        p = plan(a, g)
+        if g < 1 or p.smem > SMEM_LIMIT:
+            raise MXNetError(f"multibox_target: {a} anchors and {g} objects "
+                             "exceed the kernel's shared memory")
+        _plans[key] = p
+    return run_plan(p, anchors, label, cls_pred, *args)
+
+
+def run_plan(p, anchors, label, cls_pred, overlap_threshold, ignore_label,
+             negative_mining_ratio, negative_mining_thresh,
+             minimum_negative_samples, variances):
+    """Launch plan ``p`` on checked CUDA inputs."""
+    n, g, w = label.shape
+    a = anchors.numel() // 4
+    if anchors.data_ptr() % 16:  # a view off the 16-byte rows
+        anchors = anchors.clone()
+    if n * CLUSTER > 2 ** 31 - 1:
+        raise MXNetError(f"multibox_target: {n} images exceed the grid")
+    loc_t = torch.empty((n, a * 4), dtype=torch.float32, device=label.device)
     loc_mask = torch.empty_like(loc_t)
-    cls_t = torch.empty((n, a), dtype=torch.float32, device=dev)
-    var = [float(v) for v in variances]
-    lib = _lib.library()
-    with torch.cuda.device(dev):
-        err = lib.mxt_multibox_target_f32(
-            anchors.data_ptr(), label.data_ptr(), cls_pred.data_ptr(),
-            loc_t.data_ptr(), loc_mask.data_ptr(), cls_t.data_ptr(), n, a, g,
-            w, cls_pred.stride(0), cls_pred.stride(2),
-            float(overlap_threshold), float(ignore_label),
-            float(negative_mining_ratio), float(negative_mining_thresh),
-            *var, int(minimum_negative_samples),
-            int(negative_mining_ratio > 0), _lib.stream_of(anchors))
+    cls_t = torch.empty((n, a), dtype=torch.float32, device=label.device)
+    if (loc_t.data_ptr() | loc_mask.data_ptr()) % 16:
+        raise MXNetError("multibox_target: outputs off the 16-byte alignment")
+    err = _lib.launch_packed(
+        anchors, _lib.library().mxt_multibox_target_f32, _PACK,
+        anchors.data_ptr(), label.data_ptr(), cls_pred.data_ptr(),
+        loc_t.data_ptr(), loc_mask.data_ptr(), cls_t.data_ptr(), n, a, g, w,
+        cls_pred.stride(0), cls_pred.stride(2), float(overlap_threshold),
+        float(ignore_label), float(negative_mining_ratio),
+        float(negative_mining_thresh), *(float(v) for v in variances),
+        int(minimum_negative_samples), int(negative_mining_ratio > 0),
+        p.span, p.apt, p.smem)
     _lib.check(err, "multibox_target")
     LAUNCHES.inc()
     return loc_t, loc_mask, cls_t

@@ -13,7 +13,7 @@ launch. ``csrc/softmax_output_bwd.cu`` makes one launch a call under every
 normalization, planned by :func:`plan`: regime ``rows`` (class axis last,
 16-byte aligned, fewer than 2**31 elements: every path) walks the flat
 buffer in 16-byte chunks and finds a chunk's row and class by a 32-bit
-multiply-high division by :func:`magic`'s number, reading each row's label
+multiply-high division by :func:`_lib.magic`'s number, reading each row's label
 once per chunk; regime ``general`` (``multi_output`` with ``inner`` > 1,
 views off the alignment, larger tensors) takes one element at a time.
 ``normalization='valid'`` under ``use_ignore`` divides by the number of
@@ -61,19 +61,6 @@ INT32_MAX = 2 ** 31 - 1  # the largest element count of the rows regime
 Plan = namedtuple("Plan", "regime magic shift")
 
 
-def magic(d):
-    """``(m, s)`` with ``i // d == ((i * m >> 32) + i) >> s`` for every
-    ``0 <= i <= INT32_MAX`` (32-bit unsigned arithmetic): ``s`` the least
-    with ``2**s >= d``, ``m = 2**32 * (2**s - d) // d + 1``."""
-    s = max(0, (d - 1).bit_length())
-    return (1 << 32) * ((1 << s) - d) // d + 1, s
-
-
-def row_of(i, m, s):
-    """The kernel's quotient: ``((umulhi(i, m)) + i) >> s``."""
-    return (((i * m) >> 32) + i) >> s
-
-
 def plan(outer, classes, inner, aligned):
     """The regime of a call on ``(outer, classes, inner)`` probabilities
     whose memory (and the gradient's) starts at a 16-byte boundary when
@@ -81,7 +68,7 @@ def plan(outer, classes, inner, aligned):
     ``inner == 1`` and there are at most ``INT32_MAX`` elements, else
     ``general``."""
     if inner == 1 and aligned and 0 < outer * classes <= INT32_MAX:
-        return Plan("rows", *magic(classes))
+        return Plan("rows", *_lib.magic(classes))
     return Plan("general", 0, 0)
 
 

@@ -62,7 +62,13 @@ redesigned ``softmax_output_bwd`` bit for bit at its edges (C = 1, 2, 3,
 odd rows, every normalization with and without ``use_ignore``, every label
 ignored, labels out of range, ``multi_output`` with inner > 1, a view off
 the 16-byte alignment), one launch a call; neither reads anything back in
-a call.
+a call. The redesigned ``bn_act`` bit for bit (signed zeros told apart)
+against ``chip_smoke.bn_act_parent_order`` (the parent kernel's order on
+the CPU) at its block-size thresholds, planes of 1 to 49 floats and float
+offsets 1 and 3, for all three activations, with every other regime
+forced on the same inputs; the redesigned ``multibox_target`` bit for bit
+against its plain version on ``chip_smoke.MBT_EDGES``, the mining on and
+off, one launch a call; neither reads anything back in a call.
 """
 
 import math
@@ -1270,3 +1276,77 @@ def test_l2norm_bwd_and_softmax_output_bwd_read_nothing_back(card):
     label = torch.randint(-1, 21, (4, 8096), device=card).float()
     assert cs.host_syncs(torch, lambda: sob_mod.softmax_output_bwd(
         p.transpose(1, 2), label, 1.0, -1.0, True, "valid", True)) == 0
+
+
+# -- the redesigned bn_act and multibox_target --------------------------------
+BN_BORDER_SHAPES = [(1, 1, 536576), (1, 1, 536580), (1, 134144),
+                    (1, 134145), (3, 5, 1, 1), (2, 3, 2), (4, 7, 3),
+                    (5, 3, 2, 2), (2, 6, 2, 4), (1, 3, 7, 7), (7, 1, 5, 5),
+                    (9, 33, 4, 4), (64, 512, 4, 4), (32, 2048, 7, 7)]
+
+
+@pytest.mark.parametrize("shape", BN_BORDER_SHAPES)
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("slope", [None, 0.0, 0.2])
+def test_bn_act_kernel_bit_for_bit_at_its_borders(card, shape, offset,
+                                                  slope):
+    """Each side of the block sizes' thresholds in both regimes, planes of
+    1 to 49 floats, C = 1 and 3, N = 1, aligned and at float offsets 1 and
+    3: the bits of the parent kernel's order (``chip_smoke``'s CPU
+    reference, signed zeros included), one launch, the leaky ones counted;
+    every other regime forced on the same inputs gives the same bits."""
+    cs = _chip_smoke()
+    gen = torch.Generator(device=card).manual_seed(sum(shape) + offset)
+    ins = cs.bn_act_inputs(torch, gen, card, shape, offset)
+    fix_gamma = offset == 1
+    want = cs.bn_act_parent_order(torch, *ins, 2e-5, fix_gamma, slope)
+    before = (bn_mod.LAUNCHES.value, bn_mod.LEAKY_LAUNCHES.value)
+    got = bn_mod.bn_act(*ins, 2e-5, fix_gamma, slope)
+    assert (bn_mod.LAUNCHES.value - before[0],
+            bn_mod.LEAKY_LAUNCHES.value - before[1]) == (1, 1 if slope else 0)
+    assert cs.same_bits(torch, got, want)
+    x = ins[0]
+    hw = x.numel() // (x.shape[0] * x.shape[1])
+    p = bn_mod.plan(x.shape[0], x.shape[1], hw, x.data_ptr() % 16 == 0)
+    assert p.regime == ("vec" if hw % 4 == 0 and offset == 0 else "scalar")
+    for q in (bn_mod.plan(x.shape[0], x.shape[1], hw, False),
+              p._replace(regime="wide", unit=1)):
+        assert cs.same_bits(torch, bn_mod.run_plan(q, *ins, 2e-5, fix_gamma,
+                                                   slope), want)
+
+
+def test_bn_act_and_multibox_target_read_nothing_back(card):
+    """torch.profiler over three calls of each records no copy to or from
+    the host and no synchronisation beyond an empty window's."""
+    cs = _chip_smoke()
+    ins = _bn_inputs((64, 128, 16, 16), card)
+    assert cs.host_syncs(torch, lambda: bn_mod.bn_act(
+        *ins, 2e-5, True, 0.2)) == 0
+    anc, label, cls_pred, params = cs.mbt_edge_case(cs.MBT_EDGES[0])
+    args = [torch.from_numpy(t).to(card) for t in (anc, label, cls_pred)]
+    assert cs.host_syncs(torch, lambda: mbt_mod.multibox_target(
+        *args, *cs.mbt_args(params))) == 0
+
+
+@pytest.mark.parametrize("name", [
+    "ties at K* across the blocks, signed zeros",
+    "an object whose best anchor lies in the last block", "max_neg of 0",
+    "max_neg of A or more", "G = 1 and a tiny A",
+    "A no multiple of the blocks' span, G past one sweep",
+    "a forced candidate, K* at +inf", "a forced candidate at K*'s top byte"])
+@pytest.mark.parametrize("mining", [True, False])
+def test_multibox_target_kernel_at_the_cluster_edges(card, name, mining):
+    """Where the split of an image over a cluster's blocks could go wrong
+    (``chip_smoke.MBT_EDGES``), with the mining on and off: every output
+    bit for bit against the plain version, one launch."""
+    cs = _chip_smoke()
+    anc, label, cls_pred, params = cs.mbt_edge_case(name)
+    if not mining:
+        params = dict(params, negative_mining_ratio=-1.0)
+    ins = [torch.from_numpy(t).to(card) for t in (anc, label, cls_pred)]
+    before = mbt_mod.LAUNCHES.value
+    got = mbt_mod.multibox_target(*ins, *cs.mbt_args(params))
+    assert mbt_mod.LAUNCHES.value == before + 1
+    want = mbt_mod.multibox_target_plain(*ins, *cs.mbt_args(params))
+    for g, w in zip(got, want):
+        assert cs.same_bits(torch, g, w)

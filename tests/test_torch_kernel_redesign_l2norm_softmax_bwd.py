@@ -33,6 +33,7 @@ import jax.numpy as jnp
 from mxnet_tpu.ops import registry as jreg
 from mxnet_tpu.ops.registry import OpMode as JOpMode
 
+from mxnet_tpu_torch.kernels import _lib
 from mxnet_tpu_torch.kernels import l2norm_channel as l2_mod
 from mxnet_tpu_torch.kernels import softmax_output_bwd as sob_mod
 
@@ -139,7 +140,7 @@ def test_bwd_model_matches_plain_and_jax(shape, scale):
 
 # -- softmax_output_bwd: the plan and the (row, class) decomposition ----------
 def test_plan_regime_borders():
-    m21 = sob_mod.magic(21)
+    m21 = _lib.magic(21)
     assert sob_mod.plan(259072, 21, 1, True) == ("rows", *m21)
     assert sob_mod.plan(1, sob_mod.INT32_MAX, 1, True).regime == "rows"
     assert sob_mod.plan(2, 2 ** 30, 1, True).regime == "general"
@@ -149,9 +150,9 @@ def test_plan_regime_borders():
 
 
 def _quotients(i, d):
-    m, s = sob_mod.magic(d)
+    m, s = _lib.magic(d)
     assert 0 < m < 2 ** 32 and 0 <= s <= 31 and 2 ** s >= d
-    return sob_mod.row_of(i, np.uint64(m), np.uint64(s))
+    return _lib.quotient(i, np.uint64(m), np.uint64(s))
 
 
 @pytest.mark.parametrize("rows, classes", [(259072, 21), (32, 1000),
