@@ -199,6 +199,30 @@ Run from the root of a checkout. Phases, each printing its own lines:
     ``F.batch_norm`` + ``relu_``/``F.leaky_relu``, ``multibox_target`` at
     SSD training's call; warm, L2-cold, device time by kernel name, plain,
     bound, host us);
+13e. redesigned ``l2norm_channel`` and ``multibox_decode`` — on the
+    recorded SSD serving forward (bucket 8, and its first image as bucket
+    1) and training step (:func:`path_calls_l2_decode`):
+    ``l2norm_channel`` bit for bit against the kernel's order of rounding
+    computed on the CPU (:func:`l2norm_order`) there and at
+    :func:`l2_edges` (C = 1, 3, 16, 17, 512, 513, 1000; H*W = 1 and odd;
+    rank 2; blocks straddling two images), one float off alignment and
+    :func:`l2_nan_edges` (a norm of NaN or 0 gives NaN), scale 1 and 20,
+    every tile forced on the same inputs giving the same bits, within
+    ``L2_RTOL``/``L2_ATOL`` of its plain version, the planned regime, one
+    launch a call, two calls bit for bit; ``multibox_decode``
+    on the recorded calls (logits, the transposed view; probabilities) and
+    on :func:`decode_views` (transposed, class-major, wider rows, padded
+    images, off alignment) at A = 1000, 77 and 1 and at 401 classes on
+    logits and probabilities, clip on and off, within
+    ``DECODE_RTOL``/``DECODE_ATOL`` with class ids equal where the best
+    class is clear, the planned body, one launch a call, two calls bit for
+    bit; neither reads anything back in a call; the share of zeros in the
+    recorded inputs; the decode's host path piece by piece
+    (``host_breakdown_decode``); then their times
+    (``kernel_times_l2norm_decode``: at SSD serving buckets 1 and 8 and SSD
+    training's call, warm, L2-cold, device time by kernel name, plain,
+    ``F.normalize * 20`` beside the normalization, bound, host us, and a
+    digest of the output bits);
 14. SSD training — the same model trained by ``Module.fit`` on ``gpu(0)``
     over an ``NDArrayIter`` of painted-rectangle images (20 classes, 1..6
     objects, mean subtracted) at batch 32, SGD lr 0.002, momentum 0.9, wd
@@ -276,10 +300,13 @@ a machine with many cores, ~3 minutes on 8); it needs no card.
     python3 chip_smoke.py --kernel-times [ROOT]
 
 prints phase 5b's times, phase 13b's (on the SSD heads recorded by
-``ssd_nms_heads``), phase 13c's and phase 13d's alone (after phases 1-2),
-for the package of the checkout at ``ROOT`` when given (say, the parent
-commit unpacked under ``build/``), else for this one's: run both in one
-call, in turns, to compare two versions on one card.
+``ssd_nms_heads``), phase 13c's, phase 13d's and phase 13e's (on the calls
+recorded with those heads) alone (after phases 1-2), for the package of
+the checkout at ``ROOT`` when given (say, the parent commit unpacked under
+``build/``), else for this one's: run both in one call, in turns, to
+compare two versions on one card. Each turn keeps a digest of phase 13e's
+output bits in ``KERNEL_BITS`` (under ``build/``) and prints whether the
+checkouts timed before it in the same call gave the same bits.
 
     python3 chip_smoke.py --bn-bwd-plans
 
@@ -1978,33 +2005,46 @@ def check_bn_stats(torch, bs, what, x, gen):
     return err, p.regime
 
 
-def ssd_nms_heads(torch, mx):
+def ssd_nms_heads(torch, mx, calls=None):
     """The ``nms`` inputs of the SSD path, recorded: SSD-300's detection at
     serving batch 8 (phase 11's weights and images, nms_threshold 0.5) and
     one training forward at batch 32 (phase 13's, 0.45). Returns ``{path:
-    (boxes, score, cls_id, order, threshold, nms_threshold)}``."""
-    from mxnet_tpu_torch.kernels import nms
+    (boxes, score, cls_id, order, threshold, nms_threshold)}``. With a dict
+    ``calls``, the same forwards' ``multibox_decode`` and
+    ``l2norm_channel`` arguments go into it as ``{"serve": {kernel:
+    args}, "train": {kernel: args}}``."""
+    from mxnet_tpu_torch.kernels import multibox_decode as dec, nms
 
     sym, args = ssd_numpy(mx, SEED + 10)
     pred = mx.predictor.Predictor(sym, ssd_params(mx, args, "cuda:0"),
                                   {"data": (SSD_BATCH, 3, SSD_SHAPE,
                                             SSD_SHAPE)})
     heads = {}
-    with record_calls([("nms", nms, "nms")]) as rec:
+    targets = [("nms", nms, "nms"),
+               ("multibox_decode", dec, "multibox_decode"), *l2norm_targets()]
+    with record_calls(targets) as rec:
         pred.forward(data=ssd_images(SSD_BATCH))
         torch.cuda.synchronize()
     heads["serve"] = rec.calls["nms"][0][0][:6]
+    if calls is not None:
+        calls["serve"] = {k: rec.calls[k][0][0] for k in
+                          ("multibox_decode", "l2norm_channel")}
     del pred
     _sym, args = ssd_numpy(mx, SEED + 20)
     x, y = ssd_train_images(SSD_TRAIN_BATCH, SEED + 21)
     mod = ssd_train_module(mx, ssd_train_symbol(mx), args, mx.gpu(0),
                            SSD_TRAIN_BATCH)
-    with record_calls([("nms", nms, "nms")]) as rec:
+    with record_calls(targets) as rec:
         mod.forward(ssd_batch(mx, x, y, mx.gpu(0)), is_train=True)
         torch.cuda.synchronize()
-    a = rec.calls["nms"][0][0]
-    heads["train"] = tuple(t.detach() if isinstance(t, torch.Tensor) else t
-                           for t in a[:6])
+
+    def detached(a):
+        return tuple(t.detach() if isinstance(t, torch.Tensor) else t
+                     for t in a)
+    heads["train"] = detached(rec.calls["nms"][0][0][:6])
+    if calls is not None:
+        calls["train"] = {k: detached(rec.calls[k][0][0]) for k in
+                          ("multibox_decode", "l2norm_channel")}
     del mod
     torch.cuda.empty_cache()
     return heads
@@ -3019,6 +3059,440 @@ def phase_redesign_bn_act_mbt(torch, mx, card, recorded):
     return times, plain_err
 
 
+# --- 13e: the redesigned l2norm_channel and multibox_decode -----------------
+# every kernel name of the two forward functions, the parent's and this
+# one's (the backward's names hold "l2norm_channel_bwd_", not these)
+L2_MARKS = ("l2norm_channel_kernel",)
+DECODE_MARKS = ("multibox_decode_kernel",)
+L2_SLICES = 16  # the channel slices whose partial sums the kernel adds
+# where a bits digest of each turn's outputs is kept (--kernel-times), so a
+# later turn in the same call can say whether its kernels give the bits an
+# earlier checkout's gave on the same inputs
+KERNEL_BITS = "build/kernel_times_bits.json"
+
+
+def l2norm_order(torch, x, eps, scale):
+    """``l2norm_channel``'s result as its kernel rounds it, on the CPU: the
+    thread of slice ``j`` of 16 sums the squares of channels ``j, j + 16,
+    ...`` in order, each square and sum one float32 rounding; the 16
+    partials are added in slice order; then ``norm = sqrt(total + eps)``,
+    ``x / norm`` and ``* scale``, each one correctly rounded float32
+    operation (the square root and the quotient run in float64 and round
+    once to float32, which is the correctly rounded result: 53 bits hold
+    more than twice 24 + 2)."""
+    f32 = torch.float32
+    x = x.cpu()
+    n, c = x.shape[0], x.shape[1]
+    xs = x.reshape(n, c, -1)
+    part = torch.zeros((n, L2_SLICES, xs.shape[2]), dtype=f32)
+    for j0 in range(0, c, L2_SLICES):
+        v = xs[:, j0:j0 + L2_SLICES]
+        m = v.shape[1]
+        part[:, :m] = part[:, :m] + v * v
+    total = torch.zeros((n, 1, xs.shape[2]), dtype=f32)
+    for j in range(L2_SLICES):
+        total = total + part[:, j:j + 1]
+    total = total + torch.tensor(eps, dtype=f32)
+    norm = torch.sqrt(total.double()).to(f32)
+    q = (xs.double() / norm.double()).to(f32)
+    return (q * torch.tensor(scale, dtype=f32)).reshape(x.shape)
+
+
+def l2_edges():
+    """``l2norm_channel``'s edge shapes: C = 1, 3, 16, 17, 512 and 513
+    (each side of the two-pass border and of the first k border), H*W = 1
+    and odd, rank 2, blocks straddling two images (H*W = 35, 9), one image
+    at SSD's C (serving bucket 1), each side of the narrow and the wide
+    tile's borders, and C = 1000."""
+    return [(3, 1, 5, 7), (2, 3, 7, 9), (4, 16, 3, 3), (4, 17, 3, 3),
+            (1, 512, 37, 37), (2, 513, 3, 5), (4, 6, 1, 1), (5, 3),
+            (3, 8, 5, 7), (7, 21, 3, 3), (2, 512, 45, 45), (3, 512, 37, 37),
+            (1, 1000, 1, 1), (23, 512, 37, 37), (24, 512, 37, 37)]
+
+
+def l2_nan_edges(torch, gen, dev):
+    """``l2norm_channel``'s inputs where a position's norm is NaN or 0, in
+    each regime (C = 512 on chip, 513 in two passes): one position holds a
+    NaN among zeros and another a column of zeros, at eps 0. The reference
+    gives NaN in every channel of both positions, zeros included. Returns
+    ``[(what, x, eps)]``."""
+    cases = []
+    for c in (512, 513):
+        x = torch.randn((2, c, 3, 5), generator=gen, device=dev)
+        x[0, :, 1, 2] = 0.0
+        x[0, 7, 1, 2] = float("nan")
+        x[1, :, 2, 4] = 0.0
+        cases.append((f"(2, {c}, 3, 5) a NaN among zeros and a column of "
+                      f"zeros at eps 0", x, 0.0))
+    return cases
+
+
+def same_values(torch, got, want):
+    """``got`` holds ``want``'s bits wherever ``want`` is a number and NaN
+    wherever it is NaN (NaN payloads are not compared)."""
+    g, w = got.cpu(), want.cpu()
+    nan = torch.isnan(w)
+    return torch.equal(torch.isnan(g), nan) and torch.equal(
+        g[~nan].view(torch.int32), w[~nan].view(torch.int32))
+
+
+def l2_offset_view(torch, gen, dev, shape):
+    """A contiguous ``shape`` whose data starts one float past a 16-byte
+    boundary."""
+    flat = torch.randn(math.prod(shape) + 1, generator=gen, device=dev)
+    return flat[1:].view(shape)
+
+
+def decode_views(torch, gen, dev, n, a, c1=SSD_CLASSES + 1):
+    """Class scores ``(n, c1, a)`` in each layout ``multibox_decode`` takes,
+    with offsets and anchors: the SSD paths' transposed view of (n, A, C+1)
+    logits (body ``rows``), a class-major copy, a view of wider rows
+    (``sa`` = C+4), a view of a batch padded past A anchors an image, and
+    the transposed view one float off alignment (each ``strided``).
+    Returns ``[(what, cls, loc, anchors)]``."""
+    logits = torch.randn((n, a, c1), generator=gen, device=dev) * 1.5
+    wide = torch.randn((n, a, c1 + 3), generator=gen, device=dev) * 1.5
+    padded = torch.randn((n, a + 5, c1), generator=gen, device=dev) * 1.5
+    flat = torch.randn(n * a * c1 + 1, generator=gen, device=dev) * 1.5
+    loc = torch.randn((n, 4 * a), generator=gen, device=dev)
+    lo = torch.rand((1, a, 2), generator=gen, device=dev) * 0.8
+    anchors = torch.cat([lo, lo + 0.02 + 0.48 * torch.rand(
+        (1, a, 2), generator=gen, device=dev)], 2)
+    views = [("transposed", logits.transpose(1, 2)),
+             ("class-major", logits.transpose(1, 2).contiguous()),
+             ("rows of C+4", wide[..., :c1].transpose(1, 2)),
+             ("padded images", padded[:, :a].transpose(1, 2)),
+             ("off alignment", flat[1:].view(n, a, c1).transpose(1, 2))]
+    return [(what, cls, loc, anchors) for what, cls in views]
+
+
+def decode_check(torch, dec, what, args):
+    """``multibox_decode`` on ``args`` against its plain version: boxes and
+    scores within ``DECODE_RTOL``/``DECODE_ATOL``, class ids equal where the
+    two best probabilities are further apart than that; one launch a call
+    and two calls bit for bit. Returns the outputs and the largest error."""
+    before = dec.LAUNCHES.value
+    got = dec.multibox_decode(*args)
+    launches = dec.LAUNCHES.value - before
+    again = dec.multibox_decode(*args)
+    want = dec.multibox_decode_plain(*args)
+    err = 0.0
+    for name, g, w in zip(("boxes", "score"), got[:2], want[:2]):
+        err = max(err, check(torch, f"multibox_decode {what} {name}", g, w,
+                             DECODE_RTOL, DECODE_ATOL))
+    cls, softmax = args[0], args[5]
+    fg = (dec.channel_softmax(cls) if softmax else cls)[:, 1:]
+    top2 = torch.topk(fg, 2, dim=1).values
+    clear = top2[:, 0] - top2[:, 1] > DECODE_RTOL * top2[:, 0] + DECODE_ATOL
+    bad = int(((got[2] != want[2]) & clear).sum())
+    if bad:
+        fail(f"multibox_decode {what}: {bad} class ids differ where the two "
+             f"best probabilities are apart")
+    if launches != 1 or not all(torch.equal(g, h)
+                                for g, h in zip(got, again)):
+        fail(f"multibox_decode {what}: {launches} launches, or two calls "
+             f"differ")
+    return got, err
+
+
+def l2_check(torch, l2, what, x, eps, scale):
+    """``l2norm_channel`` on ``x``: bit for bit with :func:`l2norm_order`
+    (NaN where it is NaN), NaN where the plain version is and within
+    ``L2_RTOL``/``L2_ATOL`` x scale of it elsewhere, one launch a call, two
+    calls bit for bit. Returns the largest error."""
+    before = l2.LAUNCHES.value
+    got = l2.l2norm_channel(x, eps, scale)
+    launches = l2.LAUNCHES.value - before
+    again = l2.l2norm_channel(x, eps, scale)
+    if launches != 1 or not same_bits(torch, got, again):
+        fail(f"l2norm_channel {what}: {launches} launches, or two calls "
+             f"differ")
+    want = l2norm_order(torch, x, eps, scale)
+    if not same_values(torch, got, want):
+        fail(f"l2norm_channel {what} x {scale}: "
+             f"{bits_apart(torch, got, want)} values differ from the "
+             f"kernel's order in their bits")
+    plain = l2.l2norm_channel_plain(x, eps, scale)
+    nan = torch.isnan(plain)
+    if not torch.equal(torch.isnan(got), nan):
+        fail(f"l2norm_channel {what} x {scale}: NaN where the plain "
+             f"version is not, or the other way round")
+    return check(torch, f"l2norm_channel {what} x {scale}", got[~nan],
+                 plain[~nan], L2_RTOL, L2_ATOL * scale)
+
+
+def path_calls_l2_decode(serve, train):
+    """The two kernels' path calls from the recorded ones: ``serve`` the
+    SSD-300 forward's at bucket 8 (``{kernel: args}``), its first image as
+    bucket 1, and ``train`` the training step's at batch 32. Returns
+    ``{kernel: {path: args}}``."""
+    x, eps, scale = serve["l2norm_channel"]
+    cls, loc, anc, var, clip, sm = serve["multibox_decode"]
+    return {
+        "l2norm_channel": {"serve_b1": (x[:1], eps, scale),
+                           "serve_b8": (x, eps, scale),
+                           "ssd_train": train["l2norm_channel"]},
+        "multibox_decode": {"serve_b1": (cls[:1], loc[:1], anc, var, clip,
+                                         sm),
+                            "serve_b8": (cls, loc, anc, var, clip, sm),
+                            "ssd_train": train["multibox_decode"]}}
+
+
+def bits_digest(torch, outs):
+    """A digest of the bits of ``outs`` (tensors, on any device)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in outs:
+        h.update(t.detach().contiguous().cpu().view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
+def kernel_times_l2norm_decode(torch, calls):
+    """``l2norm_channel`` and ``multibox_decode`` at each path call of
+    :func:`path_calls_l2_decode` (SSD serving at buckets 1 and 8, SSD
+    training at batch 32): the kernel back to back by CUDA events (warm),
+    single calls with the L2 cache cold (median), the device time under the
+    profiler by kernel name, the launches a call, the plain version,
+    ``F.normalize * scale`` for the normalization (no single PyTorch call
+    computes the decode), the bound, the wrapper's host microseconds per
+    call, and a digest of each call's output bits. Uses only the wrappers'
+    public calls, so it times any checkout's package (``--kernel-times``)."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.kernels import l2norm_channel as l2
+    from mxnet_tpu_torch.kernels import multibox_decode as dec
+
+    dev = torch.device("cuda", 0)
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
+    out = {"l2norm_channel": {}, "multibox_decode": {}}
+    for path, (x, eps, scale) in calls["l2norm_channel"].items():
+        n = x.numel()
+        r = timed_call(
+            torch, lambda x=x, eps=eps, scale=scale: l2.l2norm_channel(
+                x, eps, scale),
+            lambda x=x, eps=eps, scale=scale: l2.l2norm_channel_plain(
+                x, eps, scale),
+            L2_MARKS, l2.LAUNCHES, bound(8 * n, 4 * n), flush,
+            f"{tuple(x.shape)} x {scale}",
+            library=(f"F.normalize * {scale}",
+                     lambda x=x, scale=scale: F.normalize(x, dim=1) * scale),
+            reps=200 if n < 1e7 else 50)
+        r["bits"] = bits_digest(torch, [l2.l2norm_channel(x, eps, scale)])
+        out["l2norm_channel"][path] = r
+    for path, args in calls["multibox_decode"].items():
+        cls = args[0]
+        nb, c1, a = cls.shape
+        r = timed_call(
+            torch, lambda args=args: dec.multibox_decode(*args),
+            lambda args=args: dec.multibox_decode_plain(*args),
+            DECODE_MARKS, dec.LAUNCHES,
+            bound(nb * a * (4 * c1 + 16 + 16 + 8) + a * 16,
+                  nb * a * (5 * c1 + 20)), flush,
+            f"{tuple(cls.shape)} strides {cls.stride()} "
+            f"{'logits' if args[5] else 'probabilities'}", reps=200)
+        r["bits"] = bits_digest(torch, dec.multibox_decode(*args))
+        out["multibox_decode"][path] = r
+    del flush
+    return out
+
+
+def compare_bits(times, package):
+    """Keep this turn's bits digests under ``package`` in ``KERNEL_BITS``
+    and print, for each checkout timed earlier in the same call, whether
+    each call's outputs hold the same bits."""
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        KERNEL_BITS)
+    seen = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            seen = json.load(f)
+    mine = {f"{k} {p}": r["bits"] for k, paths in times.items()
+            for p, r in paths.items()}
+    for other, digests in seen.items():
+        if other == package:
+            continue
+        same = sorted(k for k in mine if digests.get(k) == mine[k])
+        apart = sorted(k for k in mine if digests.get(k) != mine[k])
+        print(f"[kernel-times] bits against {other}: the same at {same}; "
+              f"apart at {apart}", flush=True)
+    seen[package] = mine
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(seen, f)
+
+
+def host_breakdown_decode(torch, args, reps=2000):
+    """Host microseconds of each piece of ``multibox_decode``'s launch path
+    at ``args`` (a cached layout), back to back without a sync: the whole
+    call, the layout's key and lookup, the compound check of ``loc`` and
+    ``anchors``, the three output views of one allocation, the allocation
+    alone, and the launch with the outputs."""
+    from mxnet_tpu_torch.kernels import multibox_decode as dec
+
+    cls, loc, anc, var, clip, sm = args
+    dec.multibox_decode(*args)
+    dv, f32 = cls.get_device(), torch.float32
+    lay = dec._layouts[(cls.dtype, cls.shape, cls.stride(), dv,
+                        cls.data_ptr() % 16 == 0)]
+    n, _c1, a = cls.shape
+
+    def key():
+        return dec._layouts.get((cls.dtype, cls.shape, cls.stride(),
+                                 cls.get_device(), cls.data_ptr() % 16 == 0))
+
+    def checked():
+        return (loc.dtype is f32 and loc.get_device() == dv
+                and loc.shape == lay[0] and loc.is_contiguous()
+                and anc.dtype is f32 and anc.get_device() == dv
+                and anc.shape == lay[1] and anc.is_contiguous()
+                and not loc.data_ptr() % 16 and not anc.data_ptr() % 16)
+
+    pieces = {
+        "whole call": lambda: dec.multibox_decode(*args),
+        "key and lookup": key, "compound check": checked,
+        "outputs": lambda: dec.outputs(n, a, cls.device),
+        "torch.empty": lambda: torch.empty((6, n, a), device=cls.device),
+        "outputs and launch": lambda: dec._launch(
+            cls, cls.data_ptr(), loc.data_ptr(), anc.data_ptr(), lay[2],
+            lay[3], lay[4], var, clip, sm)}
+    return {k: host_us(torch, fn, reps) for k, fn in pieces.items()}
+
+
+def phase_redesign_l2norm_decode(torch, mx, card, calls):
+    """The redesigned ``l2norm_channel`` and ``multibox_decode`` on the
+    card. ``l2norm_channel``: on the recorded SSD serving (bucket 8 and its
+    first image as bucket 1) and training calls, at :func:`l2_edges`, a
+    view one float off alignment and :func:`l2_nan_edges` (norms of NaN
+    and 0), scale 1 and 20: bit for bit with the kernel's order
+    (:func:`l2norm_order`; NaN where it is NaN), within
+    ``L2_RTOL``/``L2_ATOL`` of its plain version, the planned regime, one
+    launch a call, two calls bit for bit, and every tile forced on the same
+    inputs giving the same bits. ``multibox_decode``: on the recorded
+    serving (logits, the transposed view) and training (probabilities)
+    calls, bucket 1, and on :func:`decode_views` at A = 1000 and 77 (no
+    multiple of a block's anchors) and 1, and at 401 classes (the wide
+    body), on logits and probabilities, clip on and off, within
+    ``DECODE_RTOL``/``DECODE_ATOL`` with class ids equal where the best
+    class is clear, the body as planned, one launch a call, two calls bit
+    for bit. Neither copies to or from the host or synchronises in a call.
+    Then :func:`kernel_times_l2norm_decode`."""
+    from mxnet_tpu_torch.kernels import l2norm_channel as l2
+    from mxnet_tpu_torch.kernels import multibox_decode as dec
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+    t0 = time.perf_counter()
+    cases = [(f"{path} {tuple(x.shape)}", x, eps, scale)
+             for path, (x, eps, scale) in calls["l2norm_channel"].items()]
+    for shape in l2_edges():
+        x = torch.randn(shape, generator=gen, device=dev)
+        cases += [(str(shape), x, SSD_L2_EPS, 1.0),
+                  (str(shape), x, SSD_L2_EPS, 20.0)]
+    x = l2_offset_view(torch, gen, dev, (2, 512, 37, 37))
+    cases.append(("(2, 512, 37, 37) one float off alignment", x,
+                  SSD_L2_EPS, 20.0))
+    for what, x, eps in l2_nan_edges(torch, gen, dev):
+        cases += [(what, x, eps, 1.0), (what, x, eps, 20.0)]
+    err, plans, forced = 0.0, {}, 0
+    for what, x, eps, scale in cases:
+        err = max(err, l2_check(torch, l2, what, x, eps, scale))
+        c = x.shape[1]
+        p = l2.plan(c)
+        pos = l2.tile(x.numel() // c)
+        key = f"{p.regime} (k {p.k}, {pos} positions)"
+        plans[key] = plans.get(key, 0) + 1
+        if p.regime == "onchip" and (p.k != next(
+                k for k in l2.K_CHOICES if 16 * k >= c) or c > 512):
+            fail(f"l2norm_channel plans {p} at C = {c}")
+        if p.regime == "two_pass" and c <= 512:
+            fail(f"l2norm_channel plans {p} at C = {c}")
+        if p.regime == "onchip":
+            want = l2.l2norm_channel(x, eps, scale)
+            for other in l2.TILES:
+                forced += 1
+                if not same_bits(torch, l2.run_plan(p, other, x, eps,
+                                                    scale), want):
+                    fail(f"l2norm_channel {what}: {other} positions a "
+                         f"block give other bits")
+    x, eps, scale = calls["l2norm_channel"]["ssd_train"]
+    if l2.plan(x.shape[1]).regime != "onchip":
+        fail(f"l2norm_channel does not plan the on-chip regime at "
+             f"{tuple(x.shape)}")
+    syncs = host_syncs(torch, lambda: l2.l2norm_channel(x, eps, scale))
+    if syncs:
+        fail(f"l2norm_channel copied to or from the host or synchronised "
+             f"{syncs} times in 3 calls")
+    zeros = {path: round(float((x == 0).float().mean()), 4)
+             for path, (x, _eps, _scale) in calls["l2norm_channel"].items()}
+    print(f"[redesign-l2] the recorded inputs' share of exact zeros (ReLU "
+          f"outputs; the kernel skips the division there): {zeros}",
+          flush=True)
+    print(f"[redesign-l2] l2norm_channel equals the kernel's order bit for "
+          f"bit in {len(cases)} cases (SSD serving at buckets 1 and 8, "
+          f"training, {len(l2_edges())} edge shapes x scale 1 and 20, a "
+          f"view one float off alignment, NaN where a norm is NaN or 0), "
+          f"and {forced} more calls forcing "
+          f"each tile of {l2.TILES}; within rtol {L2_RTOL} atol {L2_ATOL} x "
+          f"scale of its plain version (max abs err {err:g}); plans "
+          f"{plans}; one launch a call, two calls bit for bit; 0 host "
+          f"copies or synchronisations in 3 calls "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    dcases = [(f"{path} {tuple(args[0].shape)} "
+               f"{'logits' if args[5] else 'probabilities'}", args)
+              for path, args in calls["multibox_decode"].items()]
+    var = (0.1, 0.1, 0.2, 0.2)
+    for n, a, c1 in ((3, 1000, 21), (2, 77, 21), (1, 1, 21), (2, 50, 401)):
+        for what, cls, loc, anc in decode_views(torch, gen, dev, n, a, c1):
+            probs = dec.channel_softmax(cls)
+            for clip in (True, False):
+                dcases += [(f"({n}, {c1}, {a}) {what} logits clip {clip}",
+                            (cls, loc, anc, var, clip, True)),
+                           (f"({n}, {c1}, {a}) {what} probabilities clip "
+                            f"{clip}", (probs, loc, anc, var, clip, False))]
+    derr, bodies = 0.0, {}
+    for what, args in dcases:
+        cls = args[0]
+        p = dec.plan(*cls.shape, cls.stride(), cls.data_ptr() % 16 == 0)
+        bodies[p.body] = bodies.get(p.body, 0) + 1
+        derr = max(derr, decode_check(torch, dec, what, args)[1])
+    for path, args in calls["multibox_decode"].items():
+        cls = args[0]
+        if dec.plan(*cls.shape, cls.stride(),
+                    cls.data_ptr() % 16 == 0).body != "rows":
+            fail(f"multibox_decode does not stage the rows of the {path} "
+                 f"call's view, strides {cls.stride()}")
+    args = calls["multibox_decode"]["serve_b8"]
+    syncs = host_syncs(torch, lambda: dec.multibox_decode(*args))
+    if syncs:
+        fail(f"multibox_decode copied to or from the host or synchronised "
+             f"{syncs} times in 3 calls")
+    print(f"[redesign-decode] multibox_decode holds its plain version in "
+          f"{len(dcases)} calls (SSD serving at buckets 1 and 8 on logits, "
+          f"training on probabilities, and the transposed, class-major, "
+          f"wider-row, padded and misaligned views at A = 1000, 77 and 1 "
+          f"and at 401 classes on logits and probabilities, clip on and "
+          f"off): boxes and scores "
+          f"within rtol {DECODE_RTOL} atol {DECODE_ATOL} (max abs err "
+          f"{derr:g}), class ids equal where the best class is clear; "
+          f"bodies {bodies}; one launch a call, two calls bit for bit; 0 "
+          f"host copies or synchronisations in 3 calls "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    pieces = host_breakdown_decode(torch, args)
+    print(f"[redesign-decode] multibox_decode's host path at serving bucket "
+          f"8, us a call: " + ", ".join(f"{k} {v:.1f}"
+                                       for k, v in pieces.items()),
+          flush=True)
+    times = kernel_times_l2norm_decode(torch, calls)
+    print_redesign_times(times, card, "redesign")
+    return times, err, derr
+
+
 def resnet50_numpy(mx, seed):
     """ResNet-50 parameters as numpy: He-normal weights, gamma 1, beta and
     biases 0, moving_mean 0, moving_var 1."""
@@ -3996,11 +4470,22 @@ class record_calls:
 
 def record_detection():
     """Record the ``multibox_decode`` and ``nms`` calls of the detection
-    step."""
+    step and the forward's ``l2norm_channel``."""
     from mxnet_tpu_torch.kernels import multibox_decode as dec, nms
 
     return record_calls([("multibox_decode", dec, "multibox_decode"),
-                         ("nms", nms, "nms")])
+                         ("nms", nms, "nms"), *l2norm_targets()])
+
+
+def l2norm_targets():
+    """``l2norm_channel`` where the forward calls it: the op's own name in
+    inference, the kernel module's through ``L2NormChannelFn`` in
+    training."""
+    from mxnet_tpu_torch.kernels import l2norm_channel as l2
+    from mxnet_tpu_torch.ops import defs_nn
+
+    return [("l2norm_channel", l2, "l2norm_channel"),
+            ("l2norm_channel", defs_nn, "l2norm_channel")]
 
 
 def ssd_nms_launches(n):
@@ -4233,7 +4718,9 @@ def phase_ssd_kernels(torch, mx, ssd):
          "replaces": "mxnet_tpu/ops/defs_nn.py:500",
          "max_abs_err": l2_err, "ms": l2_ms, "plain_ms": l2_plain,
          "bound_ms": l2_bound, "bound_by": l2_by, "library_ms": l2_lib},
-    ], (boxes, score, cls_id, order, thr, nms_thr)
+    ], (boxes, score, cls_id, order, thr, nms_thr), {
+        "multibox_decode": rec.calls["multibox_decode"][0][0],
+        "l2norm_channel": rec.calls["l2norm_channel"][0][0]}
 
 
 def ssd_cpu_answers(mx, sym, args, x, dtype=np.float32):
@@ -4991,7 +5478,9 @@ def phase_ssd_train_kernels(torch, mx):
           f"{json.dumps(extra['sgd_mom_multi'])}", flush=True)
     recorded = {"l2norm_channel_bwd": (xl, gl, eps, scale),
                 "softmax_output_bwd": so_args,
-                "multibox_target": (anc, label, cls_pred, *params)}
+                "multibox_target": (anc, label, cls_pred, *params),
+                "l2norm_channel": (xf, eps_f, scale_f),
+                "multibox_decode": dargs}
     del mod, exe, rec, calls
     return rows, extra, nargs[:6], recorded
 
@@ -6263,13 +6752,20 @@ def main():
         print(f"[kernel-times] {mx.__file__}", flush=True)
         times = kernel_times(torch, mx)
         print_kernel_times(times, card, "kernel-times")
-        more = kernel_times_nms_bn_stats(torch, mx, ssd_nms_heads(torch, mx))
+        calls = {}
+        more = kernel_times_nms_bn_stats(torch, mx,
+                                         ssd_nms_heads(torch, mx, calls))
         print_nms_bn_stats_times(more, card, "kernel-times")
         bwd = kernel_times_l2norm_softmax_bwd(torch)
         print_redesign_times(bwd, card, "kernel-times")
         fwd = kernel_times_bn_act_mbt(torch, mx)
         print_redesign_times(fwd, card, "kernel-times")
-        print(json.dumps({"kernel_times": {**times, **more, **bwd, **fwd}}))
+        l2d = kernel_times_l2norm_decode(torch, path_calls_l2_decode(
+            calls["serve"], calls["train"]))
+        print_redesign_times(l2d, card, "kernel-times")
+        compare_bits(l2d, mx.__file__)
+        print(json.dumps({"kernel_times": {**times, **more, **bwd, **fwd,
+                                           **l2d}}))
         return
     kernels = phase_kernels(torch)
     trained_kernels, bn_act_err = phase_train_kernels(torch, mx)
@@ -6286,7 +6782,7 @@ def main():
     for k in kernels:
         k.update(head.get(k["name"], {}))
     ssd = ssd_numpy(mx, SEED + 10)
-    ssd_rows, serve_head = phase_ssd_kernels(torch, mx, ssd)
+    ssd_rows, serve_head, serve_calls = phase_ssd_kernels(torch, mx, ssd)
     kernels += ssd_rows
     served = phase_serving(torch, mx, card)
     trained, device_ms = phase_training(torch, mx, card)
@@ -6315,12 +6811,23 @@ def main():
             k["max_abs_err"] = max(k["max_abs_err"], l2_bwd_err)
     redesigned_fwd, bn_act_plain_err = phase_redesign_bn_act_mbt(
         torch, mx, card, recorded)
-    del recorded
+    l2_calls = path_calls_l2_decode(serve_calls, recorded)
+    del recorded, serve_calls
     for k in kernels:
         if k["name"] in redesigned_fwd:
             k["paths"] = redesigned_fwd[k["name"]]
         if k["name"] == "bn_act":
             k["max_abs_err"] = max(k["max_abs_err"], bn_act_plain_err)
+    redesigned_l2d, l2_err, dec_err = phase_redesign_l2norm_decode(
+        torch, mx, card, l2_calls)
+    del l2_calls
+    for k in kernels:
+        if k["name"] in redesigned_l2d:
+            k["paths"] = redesigned_l2d[k["name"]]
+        if k["name"] == "l2norm_channel":
+            k["max_abs_err"] = max(k["max_abs_err"], l2_err)
+        if k["name"] == "multibox_decode":
+            k["max_abs_err"] = max(k["max_abs_err"], dec_err)
     ssd_trained, ssd_train_device_ms = phase_ssd_training(torch, mx, card)
     phase_ssd_train_parity(torch, mx)
     dcgan_rows, dcgan_errs = phase_dcgan_kernels(torch, mx)

@@ -55,13 +55,10 @@ _SIGNATURES = {
     "mxt_lstm_cell_bwd_f32": [_P],
     "mxt_adam_multi_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _LL]
     + [ctypes.c_float] * 7 + [_P, _P, _P],
-    "mxt_l2norm_channel_f32": [_P, _P, _LL, _LL, _LL, ctypes.c_float,
-                               ctypes.c_float, _P],
+    "mxt_l2norm_channel_f32": [_P],
     "mxt_l2norm_channel_bwd_f32": [_P],
     "mxt_multibox_target_f32": [_P],
-    "mxt_multibox_decode_f32": [_P, _LL, _LL, _LL, _P, _P, _P, _P, _P, _LL,
-                                _I, _LL] + [ctypes.c_float] * 4
-    + [_I, _I, _P],
+    "mxt_multibox_decode_f32": [_P],
     "mxt_nms_caps": [_P, _P],
     "mxt_nms_f32": [_P],
 }

@@ -7,33 +7,40 @@ that follows it on the SSD path (``mxnet_tpu/models/ssd.py:132-133``),
 which XLA fuses into one pass and eager PyTorch would run as a square, a
 sum, an add, a sqrt, a divide and a multiply. The executor routes an
 ``L2Normalization(mode="channel")`` whose only consumer is a
-``_mul_scalar`` here with the scale fused (``executor._fused_l2norm``);
+``_mul_scalar`` here with the scale fused (``executor._run_l2norm``);
 the op alone runs the same kernel with scale 1.
 
-Bound on the H100: device-memory bandwidth. At SSD-300's conv4_3,
-(8, 512, 37, 37) float32, the function reads 22.4 MB and writes 22.4 MB.
-``csrc/l2norm_channel.cu`` gives each (n, h*w) position 16 threads, each
-summing every 16th channel with stride H*W, so the threads of a warp read
-neighbouring addresses; the partial sums are added in a fixed order, and
-the square, the sum, the sqrt, the division and the scale are each rounded
-once, in the reference's order.
+Bound on the H100: device-memory bandwidth. The forward reads ``x`` once
+and writes ``y`` once: at SSD-300's conv4_3 in training, (32, 512, 37, 37)
+float32, 89.7 MB each way (0.0536 ms at 3.35 TB/s); in serving at bucket 8,
+22.4 MB. Both directions plan their regime here from the channel count
+alone (:func:`plan`): up to ``ONCHIP_C`` = 512 channels (every path shape)
+a block of positions x ``SLICES`` = 16 channel slices keeps each thread's
+``k`` channels in registers from the load to the store, so each element is
+read once; past that, a two-pass regime reads them again. The thread of
+slice ``j`` sums channels ``j, j + 16, ...`` in order and the 16 partials
+are added in slice order, in both regimes. ``csrc/l2norm_channel.cu``
+rounds the square, the sum, the sqrt, the division and the scale once
+each, in the reference's order; the forward's block is 64 positions wide
+on large grids (SSD training), 32 on middle ones and 16 where wider blocks
+would leave SMs idle (:func:`tile`: SSD serving at bucket 1). A zero
+input is its own quotient where the norm is positive: the kernels skip the
+division there, whose slow path a zero dividend takes; a norm of 0 (eps 0)
+or NaN gives NaN, as the reference does.
 
 In training :class:`L2NormChannelFn` runs the forward kernel and, as its
 backward, ``csrc/l2norm_channel_bwd.cu``: the VJP ``dx = s * g / n - x *
 (s * sum_c g * x) / n^3`` (``n = sqrt(sum_c x^2 + eps)``). It recomputes
 the norm, so the forward keeps its single output. At SSD-300's conv4_3 in
-training, (32, 512, 37, 37), it reads 179 MB and writes 90 MB. One launch
-a call, planned here by :func:`bwd_plan` from the channel count alone: up
-to C = 512 (every path shape) a block of 32 positions x 16 channel slices
-keeps its slab of ``x`` and ``g`` in registers from the channel sums to the
-write of ``dx``, so each element is read once; past that, a two-pass regime
-reads them again. Its order of operations is not ``jax.vjp``'s: against
-:func:`l2norm_channel_bwd_plain` (which is) it agrees to :func:`bwd_limit`:
-``BWD_RTOL`` of the two terms' magnitudes at each position plus
-``BWD_ATOL`` of the largest value, since ``s * g / n`` and the projection
-term cancel where ``g`` lies along ``x`` and each float32 version then
-keeps only their rounding. The backward's
-wrapper takes the light launch path (:func:`_lib.launch_packed`).
+training it reads 179 MB and writes 90 MB, one launch a call in the same
+regimes (32 positions a block). Its order of operations is not
+``jax.vjp``'s: against :func:`l2norm_channel_bwd_plain` (which is) it
+agrees to :func:`bwd_limit`: ``BWD_RTOL`` of the two terms' magnitudes at
+each position plus ``BWD_ATOL`` of the largest value, since ``s * g / n``
+and the projection term cancel where ``g`` lies along ``x`` and each
+float32 version then keeps only their rounding. Both wrappers take the
+light launch path (:func:`_lib.launch_packed`, the plan cached per call
+shape).
 """
 
 from __future__ import annotations
@@ -54,17 +61,32 @@ BWD_LAUNCHES = _tm.counter("kernel.l2norm_channel_bwd.launches")
 # the backward kernel against its plain version (float32): |got - want| <=
 # BWD_RTOL * (the terms' magnitudes) + BWD_ATOL * max|want|: see bwd_limit
 BWD_RTOL, BWD_ATOL = 1e-5, 1e-6
-# the backward's C entry's packed arguments (csrc/l2norm_channel_bwd.cu
-# Packed): x, g, dx, n, c, hw, eps, scale, the plan's regime and k, the
+# the C entries' packed arguments (csrc/l2norm_channel.cu and
+# csrc/l2norm_channel_bwd.cu Packed): the forward's x, y, n, c, hw, eps,
+# scale, the plan's regime, k and positions a block, the stream; the
+# backward's x, g, dx, n, c, hw, eps, scale, the plan's regime and k, the
 # stream
+_PACK = struct.Struct("=2Q3q2d3qQ").pack
 _BWD_PACK = struct.Struct("=3Q3q2d2qQ").pack
-# the on-chip regime: a block takes 32 positions x 16 slices of channels,
+# the on-chip regime: a block takes its positions x 16 slices of channels,
 # a thread k (a compiled choice) of its position's channels in registers,
-# at most 32 (on the H100, shared-memory storage and other block shapes
-# lost to this setting at SSD's shape: PERF.md)
+# at most 32; the backward's blocks hold POSITIONS positions, the
+# forward's as tile() gives them (on the H100, shared-memory storage and
+# other block shapes lost to these settings at SSD's shapes: PERF.md)
 POSITIONS, SLICES = 32, 16
 K_CHOICES = (1, 2, 4, 8, 16, 32)
 ONCHIP_C = SLICES * K_CHOICES[-1]  # the largest C the on-chip regime takes
+REGIMES = ("onchip", "two_pass")
+# the forward's positions a block (compiled choices): WIDE_POSITIONS from
+# WIDE_FROM positions on, NARROW_POSITIONS below NARROW_BELOW, POSITIONS
+# between them. Each tile was the fastest on the H100 at one measured call
+# (PERF.md): SSD serving at bucket 1 (1369 positions) 16, at bucket 8
+# (10952) 32, training at batch 32 (43808) 64. The borders lie between those
+# calls and were not timed themselves: buckets 2 (2738) and 4 (5476) fall on
+# either side of NARROW_BELOW, bucket 16 (21904) below WIDE_FROM.
+TILES = (16, 32, 64)
+WIDE_POSITIONS, WIDE_FROM = 64, 32768
+NARROW_POSITIONS, NARROW_BELOW = 16, 4096
 
 
 def l2norm_channel_plain(x, eps, scale=1.0):
@@ -112,6 +134,33 @@ def _check_layout(name, x):
     return n, c, hw
 
 
+Plan = namedtuple("Plan", "regime k")
+
+
+def plan(c):
+    """The regime for ``c`` channels, forward and backward: ``onchip``
+    with ``k`` the least of ``K_CHOICES`` that covers C in ``SLICES``
+    slices, up to ``ONCHIP_C``; ``two_pass`` past it."""
+    if c <= ONCHIP_C:
+        return Plan("onchip", next(k for k in K_CHOICES if SLICES * k >= c))
+    return Plan("two_pass", 0)
+
+
+bwd_plan = plan  # the backward plans as the forward does
+
+
+def tile(positions):
+    """The forward's positions a block (on chip) for ``positions`` = N *
+    H*W: ``WIDE_POSITIONS`` from ``WIDE_FROM`` on, ``NARROW_POSITIONS``
+    below ``NARROW_BELOW``, else ``POSITIONS``."""
+    if positions >= WIDE_FROM:
+        return WIDE_POSITIONS
+    return NARROW_POSITIONS if positions < NARROW_BELOW else POSITIONS
+
+
+_plans = {}  # (C, N * H*W) -> the packed struct's plan fields
+
+
 def l2norm_channel(x, eps, scale=1.0):
     """``(x / sqrt(sum_c x^2 + eps)) * scale`` over axis 1 of ``x``.
 
@@ -119,33 +168,45 @@ def l2norm_channel(x, eps, scale=1.0):
     tensor launches the kernel, which takes a contiguous float32 tensor of
     rank >= 2; anything else raises :class:`MXNetError`.
     """
-    if x.device.type in ("cpu", "meta"):
-        return l2norm_channel_plain(x, eps, scale)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type in ("cpu", "meta"):
+            return l2norm_channel_plain(x, eps, scale)
         raise MXNetError(f"l2norm_channel: no kernel for device {x.device}")
-    n, c, hw = _check_layout("l2norm_channel", x)
+    shape = x.shape
+    if not (x.dtype is torch.float32 and len(shape) >= 2
+            and x.is_contiguous()):
+        _check_layout("l2norm_channel", x)
+    if not x.numel():
+        return torch.empty_like(x)
+    n, c = shape[0], shape[1]
+    positions = x.numel() // c
+    key = (c, positions)
+    fields = _plans.get(key)
+    if fields is None:
+        _check_layout("l2norm_channel", x)
+        p = plan(c)
+        fields = _plans[key] = (REGIMES.index(p.regime), p.k,
+                                tile(positions) if p.regime == "onchip"
+                                else POSITIONS)
+    return _launch(x, n, c, positions // n, eps, scale, fields)
+
+
+def _launch(x, n, c, hw, eps, scale, fields):
     y = torch.empty_like(x)
-    lib = _lib.library()
-    with torch.cuda.device(x.device):
-        err = lib.mxt_l2norm_channel_f32(
-            x.data_ptr(), y.data_ptr(), n, c, hw, float(eps), float(scale),
-            _lib.stream_of(x))
+    err = _lib.launch_packed(
+        x, _lib.library().mxt_l2norm_channel_f32, _PACK, x.data_ptr(),
+        y.data_ptr(), n, c, hw, float(eps), float(scale), *fields)
     _lib.check(err, "l2norm_channel")
     LAUNCHES.inc()
     return y
 
 
-BwdPlan = namedtuple("BwdPlan", "regime k")
-
-
-def bwd_plan(c):
-    """The backward's regime for ``c`` channels: ``onchip`` with ``k`` the
-    least of ``K_CHOICES`` that covers C in ``SLICES`` slices, up to
-    ``ONCHIP_C``; ``two_pass`` past it."""
-    if c <= ONCHIP_C:
-        return BwdPlan("onchip", next(k for k in K_CHOICES
-                                      if SLICES * k >= c))
-    return BwdPlan("two_pass", 0)
+def run_plan(p, pos, x, eps, scale=1.0):
+    """Launch plan ``p`` with ``pos`` positions a block on a checked CUDA
+    ``x`` with at least one element; returns ``y``."""
+    n, c = x.shape[0], x.shape[1]
+    return _launch(x, n, c, x.numel() // (n * c), eps, scale,
+                   (REGIMES.index(p.regime), p.k, pos))
 
 
 _bwd_plans = {}
@@ -178,7 +239,7 @@ def l2norm_channel_bwd(x, g, eps, scale=1.0):
     n, c = x.shape[0], x.shape[1]
     p = _bwd_plans.get(c)
     if p is None:
-        p = _bwd_plans[c] = bwd_plan(c)
+        p = _bwd_plans[c] = plan(c)
     err = _lib.launch_packed(
         x, _lib.library().mxt_l2norm_channel_bwd_f32, _BWD_PACK,
         x.data_ptr(), g.data_ptr(), dx.data_ptr(), n, c,

@@ -68,7 +68,18 @@ the CPU) at its block-size thresholds, planes of 1 to 49 floats and float
 offsets 1 and 3, for all three activations, with every other regime
 forced on the same inputs; the redesigned ``multibox_target`` bit for bit
 against its plain version on ``chip_smoke.MBT_EDGES``, the mining on and
-off, one launch a call; neither reads anything back in a call.
+off, one launch a call; neither reads anything back in a call. The
+redesigned ``l2norm_channel`` bit for bit against
+``chip_smoke.l2norm_order`` (the kernel's order of rounding on the CPU) at
+``chip_smoke.l2_edges``, one float off alignment and
+``chip_smoke.l2_nan_edges`` (NaN where a norm is NaN or 0), every tile
+forced on the same inputs, within its tolerance of the plain version; the
+redesigned ``multibox_decode`` in each layout of
+``chip_smoke.decode_views`` (each body: staged rows, strided) at A no
+multiple of a block's anchors and at bucket 1, within its tolerances, one
+launch a call, its
+outputs views of one allocation that ``nms`` takes; neither reads anything
+back in a call.
 """
 
 import math
@@ -1350,3 +1361,140 @@ def test_multibox_target_kernel_at_the_cluster_edges(card, name, mining):
     want = mbt_mod.multibox_target_plain(*ins, *cs.mbt_args(params))
     for g, w in zip(got, want):
         assert cs.same_bits(torch, g, w)
+
+
+# -- the redesigned l2norm_channel and multibox_decode ------------------------
+@pytest.mark.parametrize("edge", range(15))
+@pytest.mark.parametrize("scale", [1.0, 20.0])
+def test_l2norm_channel_bit_for_bit_at_the_edges(card, edge, scale):
+    """``chip_smoke.l2_edges`` (C = 1, 3, 16, 17, 512, 513 and 1000, H*W
+    = 1 and odd, rank 2, blocks straddling two images, bucket 1, each side
+    of the narrow and the wide tile's borders): the bits of the kernel's order
+    (``chip_smoke.l2norm_order``), the plain version within rtol 1e-5 /
+    atol 1e-6 x scale, the planned regime, one launch, two calls bit for
+    bit, and every tile forced on the same inputs giving the same bits."""
+    cs = _chip_smoke()
+    shape = cs.l2_edges()[edge]
+    rng = np.random.default_rng(edge * 10 + int(scale))
+    x = torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(card)
+    p = l2_mod.plan(shape[1])
+    assert p.regime == ("two_pass" if shape[1] > 512 else "onchip")
+    before = l2_mod.LAUNCHES.value
+    got = l2_mod.l2norm_channel(x, 1e-10, scale)
+    assert l2_mod.LAUNCHES.value == before + 1
+    assert torch.equal(got, l2_mod.l2norm_channel(x, 1e-10, scale))
+    assert cs.same_bits(torch, got, cs.l2norm_order(torch, x, 1e-10, scale))
+    torch.testing.assert_close(got, l2_mod.l2norm_channel_plain(
+        x, 1e-10, scale), rtol=1e-5, atol=1e-6 * scale)
+    if p.regime == "onchip":
+        for pos in l2_mod.TILES:
+            assert torch.equal(l2_mod.run_plan(p, pos, x, 1e-10, scale), got)
+
+
+@pytest.mark.parametrize("case", range(2))
+@pytest.mark.parametrize("scale", [1.0, 20.0])
+def test_l2norm_channel_where_the_norm_is_nan_or_zero(card, case, scale):
+    """``chip_smoke.l2_nan_edges`` on chip and in two passes: NaN in every
+    channel, zeros included, of a position whose norm is NaN (a NaN among
+    zeros) or 0 (a column of zeros at eps 0), as the kernel's order and the
+    plain version give it; the kernel's order's bits everywhere else; every
+    tile forced on the same inputs giving the same bits."""
+    cs = _chip_smoke()
+    gen = torch.Generator(device=card).manual_seed(31 + case)
+    _what, x, eps = cs.l2_nan_edges(torch, gen, card)[case]
+    got = l2_mod.l2norm_channel(x, eps, scale)
+    assert cs.same_values(torch, got, cs.l2norm_order(torch, x, eps, scale))
+    assert torch.isnan(got[0, :, 1, 2]).all()
+    assert torch.isnan(got[1, :, 2, 4]).all()
+    torch.testing.assert_close(got, l2_mod.l2norm_channel_plain(
+        x, eps, scale), rtol=1e-5, atol=1e-6 * scale, equal_nan=True)
+    p = l2_mod.plan(x.shape[1])
+    if p.regime == "onchip":
+        for pos in l2_mod.TILES:
+            assert cs.same_bits(torch, l2_mod.run_plan(p, pos, x, eps, scale),
+                                got)
+
+
+def test_l2norm_channel_one_float_off_alignment(card):
+    cs = _chip_smoke()
+    gen = torch.Generator(device=card).manual_seed(9)
+    x = cs.l2_offset_view(torch, gen, card, (2, 512, 37, 37))
+    assert x.data_ptr() % 16 == 4 and x.is_contiguous()
+    got = l2_mod.l2norm_channel(x, 1e-10, 20.0)
+    assert cs.same_bits(torch, got, cs.l2norm_order(torch, x, 1e-10, 20.0))
+
+
+DECODE_VIEW_BODIES = {"transposed": "rows", "class-major": "strided",
+                      "rows of C+4": "strided", "padded images": "strided",
+                      "off alignment": "strided"}
+
+
+@pytest.mark.parametrize("n, a", [(3, 1000), (2, 77), (1, 8096)])
+@pytest.mark.parametrize("view", list(DECODE_VIEW_BODIES))
+@pytest.mark.parametrize("softmax", [True, False])
+@pytest.mark.parametrize("clip", [True, False])
+def test_multibox_decode_in_every_layout(card, n, a, view, softmax, clip):
+    """``chip_smoke.decode_views`` at A no multiple of a block's anchors and
+    at bucket 1, on logits and probabilities, clip on and off: the planned
+    body, boxes and scores within rtol 1e-6 / atol 1e-7 of the plain
+    version, class ids equal where the best class is clear, one launch, two
+    calls bit for bit (``chip_smoke.decode_check``)."""
+    cs = _chip_smoke()
+    gen = torch.Generator(device=card).manual_seed(n * a)
+    views = dict((what, (cls, loc, anc)) for what, cls, loc, anc in
+                 cs.decode_views(torch, gen, card, n, a))
+    cls, loc, anc = views[view]
+    if not softmax:
+        cls = dec_mod.channel_softmax(cls)
+    p = dec_mod.plan(*cls.shape, cls.stride(), cls.data_ptr() % 16 == 0)
+    # one image of a padded batch is a batch of contiguous rows; the
+    # probabilities come in the layout channel_softmax gives them
+    if softmax:
+        assert p.body == ("rows" if (n, view) == (1, "padded images")
+                          else DECODE_VIEW_BODIES[view])
+    cs.decode_check(torch, dec_mod, view, (cls, loc, anc, (0.1, 0.1, 0.2,
+                                                           0.2), clip,
+                                           softmax))
+
+
+@pytest.mark.parametrize("softmax", [True, False])
+def test_multibox_decode_past_a_blocks_shared_memory(card, softmax):
+    """401 classes: 32 anchors' scores exceed 48 KB, so the wide body reads
+    them from device memory; the same tolerances as every layout."""
+    cs = _chip_smoke()
+    gen = torch.Generator(device=card).manual_seed(401)
+    _what, cls, loc, anc = cs.decode_views(torch, gen, card, 2, 50, 401)[0]
+    if not softmax:
+        cls = dec_mod.channel_softmax(cls)
+    assert dec_mod.plan(*cls.shape, cls.stride(), True).body == "wide"
+    cs.decode_check(torch, dec_mod, "401 classes",
+                    (cls, loc, anc, (0.1, 0.1, 0.2, 0.2), True, softmax))
+
+
+def test_multibox_decode_outputs_share_one_allocation(card):
+    cls, loc, anchors = _decode_inputs(card)
+    boxes, score, cls_id = dec_mod.multibox_decode(
+        cls, loc, anchors, (0.1, 0.1, 0.2, 0.2), True, True)
+    m = score.numel()
+    assert all(t.is_contiguous() for t in (boxes, score, cls_id))
+    assert boxes.data_ptr() % 16 == 0
+    assert score.data_ptr() == boxes.data_ptr() + 16 * m
+    assert cls_id.data_ptr() == boxes.data_ptr() + 20 * m
+    order = torch.argsort(-score, dim=1, stable=True)
+    assert torch.equal(nms_mod.nms(boxes, score, cls_id, order, 0.01, 0.5,
+                                   False),
+                       nms_mod.nms_plain(boxes, score, cls_id, order, 0.01,
+                                         0.5, False))
+
+
+def test_l2norm_channel_and_multibox_decode_read_nothing_back(card):
+    """torch.profiler over three calls of each records no copy to or from
+    the host and no synchronisation beyond an empty window's."""
+    cs = _chip_smoke()
+    x = torch.randn(8, 512, 37, 37, device=card)
+    assert cs.host_syncs(torch, lambda: l2_mod.l2norm_channel(
+        x, 1e-10, 20.0)) == 0
+    cls, loc, anchors = _decode_inputs(card)
+    assert cs.host_syncs(torch, lambda: dec_mod.multibox_decode(
+        cls, loc, anchors, (0.1, 0.1, 0.2, 0.2), True, True)) == 0
