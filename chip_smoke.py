@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one CUDA card: ResNet-50
 serving and training, LSTM-PTB training, SSD-VGG16 serving and training,
-and DCGAN training.
+DCGAN training, and the repository's BASELINE training scripts.
 
     python3 chip_smoke.py
 
@@ -70,7 +70,16 @@ Run from the root of a checkout. Phases, each printing its own lines:
    on the H100), ``softmax_rows`` 1,
    ``softmax_output_bwd`` 1, ``sgd_mom_multi`` 1), and ms per step,
    steps/s and images/s of ``fit``'s own steps after the first by the
-   host's clock, with the time spent waiting for the input; 10 steps on
+   host's clock, with the time spent waiting for the input; that fit runs
+   with device prefetch on (the default: ``fit`` wraps the iterator in
+   ``io.DevicePrefetchIter``), and a second fit from the same weights
+   with ``MXNET_DEVICE_PREFETCH=0`` is timed the same way: each fit's
+   batches held bit for bit against their sources on the card, the
+   weights after two more such fits, prefetch on and off under
+   ``cudnn.deterministic``, within ``PARITY_TOL``, and ``fit.data_wait``
+   split into the batch's copy (one batch's copy alone by CUDA events,
+   from page-locked memory for the prefetcher, pageable without it) and
+   the wait; 10 steps on
    one fixed batch must lower the training cross-entropy to at most
    ``LOSS_RATIO`` of its first value; then the compute step alone (one
    batch already on the card) by CUDA events, peak memory, and a
@@ -230,9 +239,10 @@ Run from the root of a checkout. Phases, each printing its own lines:
     ``SSD_TRAIN_LAUNCHES`` and no plain version on data; 10 steps on one
     fixed batch of 4 must lower the class cross-entropy and the loc loss
     to ``SSD_LOSS_RATIO`` of their first values; ms per step and images/s
-    of fit's own steps after the first, the compute step by CUDA events,
-    peak memory, and a profile of one step (busy share, convolutions'
-    share, top kernels);
+    of fit's own steps after the first, with prefetch on (the main path)
+    and off, as phase 6 reads them (the weights within
+    ``SSD_PARITY_TOL``), the compute step by CUDA events, peak memory, and
+    a profile of one step (busy share, convolutions' share, top kernels);
 15. SSD training parity — two SGD steps at batch 2 on the card and on the
     port's CPU path, each from the same state, within ``SSD_PARITY_TOL``
     in norm and at most ``SSD_TARGET_LIMIT`` cls_target values apart;
@@ -270,7 +280,26 @@ Run from the root of a checkout. Phases, each printing its own lines:
     D's parameters, BatchNorm statistics, Adam states and the published
     outputs within ``DCGAN_PARITY_TOL`` in norm, and at most a share
     ``DCGAN_FLIP_SHARE`` of the weights whose first update took the other
-    sign.
+    sign;
+19. baseline scripts — ``softmax_rows`` and ``softmax_output_bwd`` at
+    MNIST's (64, 10) and ``sgd_mom_multi`` over the MLP's and LeNet's
+    parameters against their plain versions (the path's shapes; limits as
+    in phases 5 and 5b), timed beside their bounds and the PyTorch calls;
+    then the repository's own training scripts, unchanged,
+    each in a subprocess through ``python -m mxnet_tpu_torch.launch``
+    (``mxnet_tpu_torch`` bound as ``mxnet_tpu``; numpy's generator seeded
+    with ``SEED``): ``examples/train_mnist.py --synthetic 1`` for the MLP
+    and LeNet (``--kv-store local``, batch 64, ``MNIST_EPOCHS`` epochs),
+    each reaching the validation accuracy of the same command on the
+    port's CPU path (``MNIST_CPU_ACC``) within ``MNIST_ACC_MARGIN``, with
+    ``softmax_rows``, ``softmax_output_bwd`` and ``sgd_mom_multi`` launched
+    once a training step and ``softmax_rows`` once a validation batch;
+    then ``examples/train_imagenet.py --network resnet --num-layers 50
+    --kv-store device --benchmark 1`` at batch 32 over 640 examples (20
+    steps, float32: the canonical ``--dtype bfloat16`` needs the ``Cast``
+    op, which is not yet ported) with the six ResNet kernels' launches per
+    step as phase 6 checks them, and the script's Speedometer samples/s.
+    No process imported ``jax``.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. Any failed phase exits non-zero before the result
@@ -296,6 +325,12 @@ seeds and phase 15's two parity steps in float32 and in float64, and
 prints the readings ``SSD_LOSS_RATIO``, ``SSD_PARITY_TOL`` and
 ``SSD_TARGET_LIMIT`` were fixed from (SSD-300 at batches 4 and 2: run it on
 a machine with many cores, ~3 minutes on 8); it needs no card.
+
+    python3 chip_smoke.py --cpu-baseline
+
+runs phase 19's MNIST scripts on the port's CPU path (``--cpu``) and
+prints each epoch's validation accuracy (the readings ``MNIST_CPU_ACC``
+was fixed from); it needs no card.
 
     python3 chip_smoke.py --kernel-times [ROOT]
 
@@ -327,6 +362,13 @@ prints ``bn_stats``' device time at every ResNet-50 and DCGAN shape for
 each planner setting of ``STATS_TARGETS`` x ``STATS_PER_THREAD``, and its
 wrapper's host path piece by piece, after phases 1-2.
 
+    python3 chip_smoke.py --fit-spread
+
+prints how far apart full ResNet-50 fits from the same weights and
+batches end with cuDNN's default algorithms, prefetch on against off and
+off against off, after 12, 2 and 1 steps (``fit_spread``: the readings
+``prefetch_check`` rests on), after phases 1-2.
+
     python3 chip_smoke.py --l2norm-bwd-sweep N
 
 holds ``l2norm_channel_bwd`` and its plain version at (2, 3) against a
@@ -345,6 +387,8 @@ and ``DCGAN_FLIP_SHARE`` were fixed from, and the readings of the
 import contextlib
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -534,6 +578,18 @@ SSD_PARITY_BATCH = 2
 SSD_PARITY_TOL = {"loss": (1e-5, 1e-5), "param": (1e-5, 1e-5),
                   "momentum": (2e-2, 2e-2)}
 SSD_TARGET_LIMIT = 4
+# the BASELINE scripts (phase 19): examples/train_mnist.py's synthetic
+# MNIST reaches these validation accuracies on the port's CPU path with
+# numpy seeded with SEED (``--cpu-baseline``); the card's initial weights
+# come from its own generator, so it must come within the margin
+MNIST_EPOCHS = 2
+MNIST_CPU_ACC = {"mlp": 1.0, "lenet": 1.0}
+MNIST_ACC_MARGIN = 0.01
+BASELINE_STEPS = 20  # --num-examples 640 at --batch-size 32
+BASELINE_RESNET = [
+    "examples/train_imagenet.py", "--network", "resnet", "--num-layers",
+    "50", "--kv-store", "device", "--benchmark", "1", "--batch-size", "32",
+    "--num-examples", "640", "--num-epochs", "1", "--disp-batches", "5"]
 
 
 def fail(msg):
@@ -712,7 +768,7 @@ def phase_kernels(torch):
 def resnet50_params(mx):
     """ResNet-50 parameters from numpy with a fixed seed: He-normal
     weights, gamma 1, beta 0, biases 0, moving_mean 0, moving_var 1."""
-    sym = mx.models.resnet.get_symbol(num_classes=1000, num_layers=50,
+    sym = mx.models.resnet(num_classes=1000, num_layers=50,
                                       image_shape="3,224,224")
     arg_shapes, _, aux_shapes = sym.infer_shape(data=(1, 3, 224, 224))
     rng = np.random.default_rng(SEED)
@@ -865,7 +921,7 @@ def phase_serving(torch, mx, card):
 def resnet50_shapes(mx, batch):
     """(symbol, the 50 BatchNorm input shapes at ``batch``, the 155
     parameter (name, shape) pairs) of ResNet-50."""
-    sym = mx.models.resnet.get_symbol(num_classes=1000, num_layers=50,
+    sym = mx.models.resnet(num_classes=1000, num_layers=50,
                                       image_shape="3,224,224")
     internals = sym.get_internals()
     _, outs, _ = internals.infer_shape(data=(batch, 3, 224, 224))
@@ -3576,6 +3632,376 @@ def profile_step(torch, step, reps=2, tag="profile",
     return {k: v[0] for k, v in ours.items()}
 
 
+def resnet_train_launches(mx):
+    """ResNet-50's launches per training step at ``TRAIN_BATCH``:
+    ``bn_act_bwd`` one a call in the block and cluster regimes, two in the
+    two-phase one, as its planner gives them on this card."""
+    from mxnet_tpu_torch.kernels import bn_act_bwd
+
+    shapes = resnet50_shapes(mx, TRAIN_BATCH)[1]
+    bwd = sum(bn_act_bwd.plan(s[0], s[1], math.prod(s[2:]),
+                              *bn_act_bwd.device_limits(0)).launches
+              for s in shapes)
+    return {"bn_stats": len(shapes), "bn_act": len(shapes), "bn_act_bwd": bwd,
+            "softmax_rows": 1, "softmax_output_bwd": 1, "sgd_mom_multi": 1}
+
+
+@contextlib.contextmanager
+def device_prefetch(on):
+    """``MXNET_DEVICE_PREFETCH`` set to ``on`` for the block."""
+    old = os.environ.get("MXNET_DEVICE_PREFETCH")
+    os.environ["MXNET_DEVICE_PREFETCH"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["MXNET_DEVICE_PREFETCH"]
+        else:
+            os.environ["MXNET_DEVICE_PREFETCH"] = old
+
+
+def batch_sources(torch, x, y, batch):
+    """The batches an ``NDArrayIter`` over ``x``, ``y`` gives, as tensors
+    on the card (copied here, apart from any fit)."""
+    dev = torch.device("cuda", 0)
+    return [[torch.from_numpy(np.ascontiguousarray(a[i:i + batch])).to(dev)
+             for a in (x, y)] for i in range(0, len(x), batch)]
+
+
+def fit_timer(torch, steps, sources):
+    """A batch-end callback for a ``Module.fit`` of ``steps`` batches and
+    its reader. The callback holds each step's batch against its source in
+    ``sources`` on the card (a count of the values apart, no host read),
+    and drains the card at the end of the first step and of the last,
+    reading the host's clock and the fit spans there. ``read()`` gives per
+    step over steps 2..``steps``: ms, ``fit.data_wait``, ``fit.dispatch``
+    and the prefetcher's consumer wait in ms, and the values apart."""
+    from mxnet_tpu_torch import telemetry as tm
+
+    spans = ("fit.data_wait", "fit.dispatch", "io.prefetch.consumer_wait_us")
+    marks = {}
+    apart = torch.zeros((), dtype=torch.int64, device="cuda")
+
+    def callback(param):
+        batch = param.locals["data_batch"]
+        for got, want in zip(batch.data + batch.label,
+                             sources[param.nbatch]):
+            apart.add_((got._data != want).sum())
+        if param.nbatch in (0, steps - 1):
+            torch.cuda.synchronize()
+            marks[param.nbatch] = [time.perf_counter()] + [
+                tm.histogram(n).sum for n in spans]
+
+    def read():
+        timed = steps - 1
+        d = [(b - a) / timed for a, b in zip(marks[0], marks[steps - 1])]
+        return {"fit_ms": d[0] * 1e3, "wait_ms": d[1] / 1e3,
+                "dispatch_ms": d[2] / 1e3, "consumer_ms": d[3] / 1e3,
+                "apart": int(apart)}
+
+    return callback, read
+
+
+def copy_ms(torch, x, reps=7):
+    """One batch's copy to the card alone, the card idle, median of
+    ``reps`` by CUDA events: from pageable memory (an unprefetched
+    ``NDArrayIter``) and from page-locked memory (the prefetch thread)."""
+    dev = torch.device("cuda", 0)
+    src = torch.from_numpy(np.ascontiguousarray(x))
+    out = {}
+    for name, t in (("pageable", src), ("pinned", src.pin_memory())):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t.to(dev, non_blocking=name == "pinned")
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        out[name] = sorted(times)[reps // 2]
+    return out
+
+
+def prefetch_report(tag, card, batch, nbytes, on, off, copy):
+    """Print a fit's two timings, prefetch on and off, with
+    ``fit.data_wait`` split into the copy and the wait; returns the split
+    for the phase's summary."""
+    mb = nbytes / 1e6
+    print(f"[{tag}] Module.fit at batch {batch} on {card}, steps after the "
+          f"first by the host's clock, prefetch on (the default): "
+          f"{on['fit_ms']:.2f} ms per step ({batch * 1e3 / on['fit_ms']:.1f} "
+          f"images/s); per step fit.data_wait {on['wait_ms']:.3f} ms (the "
+          f"wait: of it the prefetcher's queue {on['consumer_ms']:.3f} ms; "
+          f"the copy, {mb:.1f} MB from page-locked memory on a side "
+          f"stream, {copy['pinned']:.3f} ms alone by CUDA events, runs under "
+          f"the step), fit.dispatch {on['dispatch_ms']:.2f} ms", flush=True)
+    wait = off["wait_ms"] - copy["pageable"]
+    print(f"[{tag}] Module.fit at batch {batch} on {card}, the same, "
+          f"MXNET_DEVICE_PREFETCH=0: {off['fit_ms']:.2f} ms per step "
+          f"({batch * 1e3 / off['fit_ms']:.1f} images/s); per step "
+          f"fit.data_wait {off['wait_ms']:.3f} ms = the copy from pageable "
+          f"memory {copy['pageable']:.3f} ms alone by CUDA events + the wait "
+          f"behind the card's queue {wait:.3f} ms; fit.dispatch "
+          f"{off['dispatch_ms']:.2f} ms", flush=True)
+    return {"on": on, "off": off, "copy": copy}
+
+
+def module_state(mod):
+    """A module's parameters and auxiliary states as numpy, by kind."""
+    args, auxs = mod.get_params()
+    return {"param": {n: a.asnumpy() for n, a in args.items()},
+            "aux": {n: a.asnumpy() for n, a in auxs.items()}}
+
+
+def prefetch_check(torch, tag, steps, on, off, fit, limits):
+    """Both timed fits' batches bit for bit their sources; then ``fit(on)``
+    (a fresh module's fit from the same weights over the same batches,
+    returning the module) run with device prefetch on and off under
+    ``cudnn.deterministic``, and the weights (and BatchNorm statistics)
+    after the first within ``limits`` (kind -> rtol in norm) of the
+    second's. cuDNN's default algorithms sum in another order run to run,
+    and at the training rate a few steps make that order's last bits
+    grow (``--fit-spread``)."""
+    if on["apart"] or off["apart"]:
+        fail(f"{tag}: {on['apart']} (prefetch on) and {off['apart']} (off) "
+             f"values of the fits' batches differ from their sources")
+    torch.backends.cudnn.deterministic = True
+    try:
+        states = [module_state(fit(prefetch)) for prefetch in (True, False)]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    lines, same = [], True
+    for kind, rtol in limits.items():
+        got, want = states[0][kind], states[1][kind]
+        same = same and all(np.array_equal(got[n], w)
+                            for n, w in want.items())
+        rel, worst, worst_rel = parity_diff(got, want)
+        lines.append(f"{kind} {rel:.3g} (limit {rtol}; worst tensor {worst} "
+                     f"{worst_rel:.3g})")
+        if not rel <= rtol:
+            fail(f"{tag}: the weights after prefetched and unprefetched fits "
+                 f"differ: {lines[-1]}")
+    print(f"[{tag}] prefetch on and off: every batch of both timed fits bit "
+          f"for bit its source ({2 * steps} batches); under "
+          f"cudnn.deterministic, after {steps} steps |on - off| / |off| in "
+          f"norm: {'; '.join(lines)}; bit for bit: {same}", flush=True)
+
+
+def run_script(args, cpu=False, timeout=900):
+    """Run a repository script through the port's launcher in a subprocess
+    from the root of the checkout, numpy seeded with ``SEED``. Returns the
+    launcher's counts, the validation accuracy of each epoch, the
+    Speedometer's samples/s readings and the seconds the run took."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    cmd = ([sys.executable, "-m", "mxnet_tpu_torch.launch"]
+           + (["--cpu"] if cpu else []) + ["--seed", str(SEED)] + args)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{' '.join(args)} exited with {proc.returncode}:\n"
+             f"{proc.stderr[-4000:]}")
+    counts = [json.loads(line)["launch"] for line in proc.stdout.splitlines()
+              if line.startswith('{"launch"')]
+    if len(counts) != 1:
+        fail(f"{' '.join(args)} printed no launch counts:\n"
+             f"{proc.stdout[-2000:]}")
+    acc = [float(v) for v in
+           re.findall(r"Validation-accuracy=([0-9.]+)", proc.stderr)]
+    speeds = [float(v) for v in
+              re.findall(r"Speed: ([0-9.]+) samples/sec", proc.stderr)]
+    return counts[0], acc, speeds, secs
+
+
+def mnist_command(net):
+    return ["examples/train_mnist.py", "--synthetic", "1", "--network", net,
+            "--num-epochs", str(MNIST_EPOCHS)]
+
+
+def cpu_baseline():
+    """Phase 19's MNIST commands on the port's CPU path: each epoch's
+    validation accuracy (the readings ``MNIST_CPU_ACC`` was fixed from)."""
+    for net in MNIST_CPU_ACC:
+        counts, acc, _speeds, secs = run_script(mnist_command(net), cpu=True)
+        print(json.dumps({"cpu_baseline": net, "validation_accuracy": acc,
+                          "fit_batches": counts["fit_batches"],
+                          "score_batches": counts["score_batches"],
+                          "seconds": round(secs, 1)}), flush=True)
+
+
+def phase_mnist_kernels(torch, mx):
+    """The three kernels of the MNIST scripts at the shapes their path
+    gives them (batch 64, 10 classes; SGD lr 0.05, momentum 0.9, wd 1e-4
+    on weights, rescale 1/64 over the MLP's 6 and LeNet's 8 parameters)
+    against their plain versions, each timed beside its plain version, its
+    bound and the PyTorch call for the same function. Returns the readings
+    as ``{kernel: {path: readings}}`` and each kernel's largest error."""
+    from mxnet_tpu_torch.kernels import (
+        sgd_mom_multi as sg, softmax_output_bwd as so, softmax_rows as sm)
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    batch, classes = 64, 10
+    x = 3 * torch.randn(batch, classes, generator=gen, device=dev)
+    sm_err, _rel = sm_check(torch, "softmax_rows (64, 10)",
+                            sm.softmax_rows(x), sm.softmax_rows_plain(x))
+    sm_bound, sm_by = bound(2 * x.numel() * 4, 7 * x.numel())
+    out = {"softmax_rows": {"mnist": {
+        "shape": [batch, classes], "max_abs_err": sm_err,
+        "ms": cuda_ms(torch, lambda: sm.softmax_rows(x), reps=100),
+        "plain_ms": cuda_ms(torch, lambda: sm.softmax_rows_plain(x),
+                            reps=100),
+        "library_ms": cuda_ms(torch, lambda: torch.softmax(x, -1), reps=100),
+        "bound_ms": sm_bound, "bound_by": sm_by}}}
+    prob = torch.softmax(x, -1)
+    label = torch.randint(0, classes, (batch,), generator=gen,
+                          device=dev).float()
+    so_err = check(torch, "softmax_output_bwd (64, 10)",
+                   so.softmax_output_bwd(prob, label),
+                   so.softmax_output_bwd_plain(prob, label, 1.0, -1.0, False,
+                                               "null", False),
+                   0.0, EXACT_ATOL)
+    so_bound, so_by = bound(2 * prob.numel() * 4 + batch * 4,
+                            2 * prob.numel())
+    out["softmax_output_bwd"] = {"mnist": {
+        "shape": [batch, classes], "max_abs_err": so_err,
+        "ms": cuda_ms(torch, lambda: so.softmax_output_bwd(prob, label),
+                      reps=100),
+        "plain_ms": cuda_ms(torch, lambda: so.softmax_output_bwd_plain(
+            prob, label, 1.0, -1.0, False, "null", False), reps=100),
+        "library_ms": None, "bound_ms": so_bound, "bound_by": so_by}}
+    out["sgd_mom_multi"] = {}
+    for net, shape in (("mlp", (batch, 784)), ("lenet", (batch, 1, 28, 28))):
+        sym = getattr(mx.models, net)(num_classes=classes)
+        arg_shapes, _, _ = sym.infer_shape(data=shape)
+        shapes = [sh for n, sh in zip(sym.list_arguments(), arg_shapes)
+                  if n not in ("data", "softmax_label")]
+        ws, gs, ms, _lrs, wds = sgd_inputs(torch, gen, dev, shapes)
+        lrs = [0.05] * len(shapes)
+        w2, m2 = [t.clone() for t in ws], [t.clone() for t in ms]
+        sg.sgd_mom_multi(ws, gs, ms, lrs, wds, 0.9, 1 / batch, -1.0)
+        sg.sgd_mom_multi_plain(w2, gs, m2, lrs, wds, 0.9, 1 / batch, -1.0)
+        err = max(check(torch, f"sgd_mom_multi ({net})", got, want, 0.0,
+                        EXACT_ATOL) for got, want in zip(ws + ms, w2 + m2))
+        tparams = [torch.nn.Parameter(w) for w in ws]
+        for p_, g in zip(tparams, gs):
+            p_.grad = g
+        topt = torch.optim.SGD(tparams, lr=0.05, momentum=0.9,
+                               weight_decay=1e-4, fused=True)
+        numel = sum(math.prod(sh) for sh in shapes)
+        sg_bound, sg_by = bound(20 * numel, 6 * numel)
+        cache = {}
+        out["sgd_mom_multi"][f"mnist_{net}"] = {
+            "tensors": len(shapes), "values": numel, "max_abs_err": err,
+            "ms": cuda_ms(torch, lambda: sg.sgd_mom_multi(
+                ws, gs, ms, lrs, wds, 0.9, 1 / batch, -1.0, cache=cache),
+                reps=100),
+            "plain_ms": cuda_ms(torch, lambda: sg.sgd_mom_multi_plain(
+                ws, gs, ms, lrs, wds, 0.9, 1 / batch, -1.0), reps=20),
+            "library_ms": cuda_ms(torch, topt.step, reps=100),
+            "bound_ms": sg_bound, "bound_by": sg_by}
+    for name, paths in out.items():
+        for path, r in paths.items():
+            lib = ("none" if r["library_ms"] is None
+                   else f"{r['library_ms']:.4f} ms")
+            print(f"[mnist-kernels] {name} at MNIST's {path} call matches its "
+                  f"plain version (max abs err {r['max_abs_err']:g}): kernel "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+                  f"{lib}, bound {r['bound_ms'] * 1e3:.4f} us "
+                  f"({r['bound_by']})", flush=True)
+    return out
+
+
+def phase_baseline_scripts(torch, mx, card):
+    """The BASELINE training scripts on the card, each in a subprocess
+    through ``mxnet_tpu_torch.launch``: MNIST's MLP and LeNet and the
+    ResNet-50 ``--benchmark 1`` command. Returns the launches of all
+    three runs by kernel."""
+    total = {}
+    for net in MNIST_CPU_ACC:
+        counts, acc, speeds, secs = run_script(mnist_command(net))
+        steps, vals = counts["fit_batches"], counts["score_batches"]
+        got = {k: v for k, v in counts["launches"].items() if v}
+        want = {"softmax_rows": steps + vals, "softmax_output_bwd": steps,
+                "sgd_mom_multi": steps}
+        if counts["jax"] or not steps or not vals or got != want:
+            fail(f"{net}: launches {got} over {steps} steps and {vals} "
+                 f"validation batches; expected {want}, jax "
+                 f"{counts['jax']}")
+        floor = MNIST_CPU_ACC[net] - MNIST_ACC_MARGIN
+        if len(acc) != MNIST_EPOCHS or not acc[-1] >= floor:
+            fail(f"{net}: validation accuracy by epoch {acc}; the CPU path "
+                 f"reaches {MNIST_CPU_ACC[net]}, the limit is {floor}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        print(f"[baseline] examples/train_mnist.py --synthetic 1 --network "
+              f"{net} --num-epochs {MNIST_EPOCHS} (kv-store local, batch 64) "
+              f"on {card} in {secs:.1f} s: validation accuracy by epoch "
+              f"{acc} (the CPU path's {MNIST_CPU_ACC[net]}, margin "
+              f"{MNIST_ACC_MARGIN}); Speedometer samples/s {speeds}; "
+              f"launches {got} over {steps} steps and {vals} validation "
+              f"batches", flush=True)
+    counts, _acc, speeds, secs = run_script(BASELINE_RESNET)
+    batch = int(BASELINE_RESNET[BASELINE_RESNET.index("--batch-size") + 1])
+    per_step = resnet_train_launches(mx)
+    got = {k: v for k, v in counts["launches"].items() if v}
+    want = {k: v * BASELINE_STEPS for k, v in per_step.items()}
+    if (counts["jax"] or counts["fit_batches"] != BASELINE_STEPS
+            or got != want or not speeds):
+        fail(f"train_imagenet.py: launches {got} over "
+             f"{counts['fit_batches']} steps, Speedometer {speeds}; "
+             f"expected {BASELINE_STEPS} steps of {per_step}, jax "
+             f"{counts['jax']}")
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+    print(f"[baseline] {' '.join(BASELINE_RESNET)} on {card} in {secs:.1f} "
+          f"s (start-up included): {counts['fit_batches']} steps, launches "
+          f"per step {per_step}; Speedometer samples/s {speeds} (the last: "
+          f"{batch * 1e3 / speeds[-1]:.2f} ms a step); float32, as the "
+          f"canonical --dtype bfloat16 needs the Cast op (ROADMAP.md queue "
+          f"1 item 4b)", flush=True)
+    return total
+
+
+def fit_spread(torch, mx, steps=(12, 2, 1)):
+    """Full ResNet-50 ``Module.fit`` at ``TRAIN_BATCH`` from the same
+    weights over the same batches with cuDNN's default algorithms: for
+    each count of ``steps``, a fit with device prefetch on and two with it
+    off, and the relative differences in norm (``parity_diff``) of the
+    parameters and BatchNorm statistics, on - off and off - off (the
+    readings ``prefetch_check``'s use of ``cudnn.deterministic`` rests
+    on)."""
+    sym, args, auxs = resnet50_numpy(mx, SEED)
+    arg_nd = {k: mx.nd.array(v, ctx=mx.cpu()) for k, v in args.items()}
+    aux_nd = {k: mx.nd.array(v, ctx=mx.cpu()) for k, v in auxs.items()}
+    rng = np.random.default_rng(SEED + 3)
+    n = max(steps) * TRAIN_BATCH
+    x = rng.standard_normal((n, 3, 224, 224), np.float32)
+    y = rng.integers(0, 1000, n).astype(np.float32)
+    for k in steps:
+        states = []
+        for prefetch in (True, False, False):
+            it = mx.io.NDArrayIter(x[:k * TRAIN_BATCH], y[:k * TRAIN_BATCH],
+                                   batch_size=TRAIN_BATCH)
+            mod = mx.mod.Module(sym)
+            with device_prefetch(prefetch):
+                mod.fit(it, num_epoch=1, optimizer="sgd",
+                        optimizer_params=TRAIN_OPT, arg_params=arg_nd,
+                        aux_params=aux_nd)
+            states.append(module_state(mod))
+            del mod
+        for what, a, b in (("on - off", 0, 1), ("off - off", 2, 1)):
+            diffs = {kind: parity_diff(states[a][kind], states[b][kind])
+                     for kind in ("param", "aux")}
+            print(json.dumps({"fit_spread": {"steps": k, "pair": what,
+                                             **diffs}}), flush=True)
+
+
 def phase_training(torch, mx, card):
     from mxnet_tpu_torch import telemetry as tm
     from mxnet_tpu_torch.kernels import (
@@ -3584,7 +4010,6 @@ def phase_training(torch, mx, card):
 
     t0 = time.perf_counter()
     sym, args, auxs = resnet50_numpy(mx, SEED)
-    n_bn = len(resnet50_shapes(mx, TRAIN_BATCH)[1])  # 50 in ResNet-50
     cpu = mx.cpu()
     arg_nd = {k: mx.nd.array(v, ctx=cpu) for k, v in args.items()}
     aux_nd = {k: mx.nd.array(v, ctx=cpu) for k, v in auxs.items()}
@@ -3598,27 +4023,16 @@ def phase_training(torch, mx, card):
                "bn_act_bwd": bn_act_bwd, "softmax_rows": softmax_rows,
                "softmax_output_bwd": softmax_output_bwd,
                "sgd_mom_multi": sgd_mom_multi}
-    # bn_act_bwd: one launch a call in the block and cluster regimes, two
-    # in the two-phase one, as the planner gives them on this card
-    bwd_per_step = sum(bn_act_bwd.plan(s[0], s[1], math.prod(s[2:]),
-                                       *bn_act_bwd.device_limits(0)).launches
-                       for s in resnet50_shapes(mx, TRAIN_BATCH)[1])
-    per_step = {"bn_stats": n_bn, "bn_act": n_bn, "bn_act_bwd": bwd_per_step,
-                "softmax_rows": 1, "softmax_output_bwd": 1,
-                "sgd_mom_multi": 1}
+    per_step = resnet_train_launches(mx)
 
-    # fit's own steps after the first, as a user pays for them: the host's
-    # copy of each batch to the card, the step, the metric. The card is
-    # drained at the end of the first step and of the last.
-    marks = {}
+    # fit's own steps after the first, as a user pays for them: the copy
+    # of each batch to the card, the step, the metric. The card is drained
+    # at the end of the first step and of the last.
+    sources = batch_sources(torch, x, y, TRAIN_BATCH)
+    timer, read_on = fit_timer(torch, steps, sources)
 
-    def timer(param):
-        if param.nbatch in (0, steps - 1):
-            torch.cuda.synchronize()
-            marks[param.nbatch] = (time.perf_counter(), tm.histogram(
-                "fit.data_wait").sum, tm.histogram("fit.dispatch").sum)
-
-    # the main path: every count at 0 just before, read just after
+    # the main path (device prefetch on, the default): every count at 0
+    # just before, read just after
     tm.reset()
     mod.fit(it, num_epoch=1, eval_metric=["acc", "ce"], optimizer="sgd",
             optimizer_params=TRAIN_OPT, arg_params=arg_nd, aux_params=aux_nd,
@@ -3643,17 +4057,27 @@ def phase_training(torch, mx, card):
           f"first launches included); launches {launches} = per step "
           f"{per_step}; the update's launch parameters packed {builds} "
           f"time(s), no metadata copied to the device", flush=True)
-    timed = steps - 1
-    fit_ms = (marks[steps - 1][0] - marks[0][0]) / timed * 1e3
-    wait_ms = (marks[steps - 1][1] - marks[0][1]) / timed / 1e3
-    dispatch_ms = (marks[steps - 1][2] - marks[0][2]) / timed / 1e3
-    print(f"[training] Module.fit at batch {TRAIN_BATCH} on {card}, steps 2.."
-          f"{steps} by the host's clock: {fit_ms:.2f} ms per step "
-          f"({1e3 / fit_ms:.2f} steps/s, {TRAIN_BATCH * 1e3 / fit_ms:.1f} "
-          f"images/s); per step fit.data_wait {wait_ms:.2f} ms (the "
-          f"NDArrayIter's batch copied to the card), fit.dispatch "
-          f"{dispatch_ms:.2f} ms (forward, backward and update enqueued)",
-          flush=True)
+    on = read_on()
+
+    def fit(prefetch, callback=None):
+        with device_prefetch(prefetch):
+            m = mx.mod.Module(sym)
+            it.reset()
+            m.fit(it, num_epoch=1, eval_metric=["acc", "ce"],
+                  optimizer="sgd", optimizer_params=TRAIN_OPT,
+                  arg_params=arg_nd, aux_params=aux_nd,
+                  batch_end_callback=callback)
+        return m
+
+    timer, read_off = fit_timer(torch, steps, sources)
+    fit(False, timer)
+    off = read_off()
+    del sources
+    split = prefetch_report("training", card, TRAIN_BATCH, x[0].nbytes
+                            * TRAIN_BATCH, on, off,
+                            copy_ms(torch, x[:TRAIN_BATCH]))
+    prefetch_check(torch, "training", steps, on, off, fit,
+                   {k: PARITY_TOL[k][1] for k in ("param", "aux")})
 
     # 10 steps on one fixed batch lower the cross-entropy
     mod2 = mx.mod.Module(sym)
@@ -3702,8 +4126,10 @@ def phase_training(torch, mx, card):
           f"a batch on the card) at batch {TRAIN_BATCH} on {card}: "
           f"{step_ms:.2f} ms per step by CUDA events ({1e3 / step_ms:.2f} "
           f"steps/s, {TRAIN_BATCH * 1e3 / step_ms:.1f} images/s); host wall "
-          f"{wall_ms:.2f} ms per step; peak device memory {peak:.2f} GiB",
-          flush=True)
+          f"{wall_ms:.2f} ms per step; peak device memory {peak:.2f} GiB; "
+          f"fit per step minus the compute step: prefetch on "
+          f"{split['on']['fit_ms'] - step_ms:.2f} ms, off "
+          f"{split['off']['fit_ms'] - step_ms:.2f} ms", flush=True)
     device_ms = profile_step(torch, step)
     if device_ms.get("bn_act_bwd"):
         n_el = sum(math.prod(s) for s in resnet50_shapes(mx, TRAIN_BATCH)[1])
@@ -5489,8 +5915,9 @@ def phase_ssd_training(torch, mx, card):
     """SSD-300 trained by ``Module.fit`` at batch 32 on the card over an
     ``NDArrayIter`` of painted images: every step's launches exactly
     ``SSD_TRAIN_LAUNCHES`` and no plain version on data; the loss check;
-    ms per step and images/s of fit's own steps after the first, the
-    compute step by CUDA events, peak memory and a profile of one step."""
+    ms per step and images/s of fit's own steps after the first, with
+    device prefetch on (the main path) and off; the compute step by CUDA
+    events, peak memory and a profile of one step."""
     from mxnet_tpu_torch import telemetry as tm
     from mxnet_tpu_torch.kernels import sgd_mom_multi
 
@@ -5505,18 +5932,18 @@ def phase_ssd_training(torch, mx, card):
     arg_nd = {k: mx.nd.array(v, ctx=mx.cpu()) for k, v in args.items()}
     kernels = launch_counters()
     plain_calls = count_plain_calls(torch, kernel_modules())
-    per_step, last, marks = [], {}, {}
+    per_step, last = [], {}
+    sources = batch_sources(torch, x, y, SSD_TRAIN_BATCH)
+    timer, read_on = fit_timer(torch, steps, sources)
 
     def on_batch(param):
         now = {k: c.value for k, c in kernels.items()}
         per_step.append({k: v - last.get(k, 0) for k, v in now.items()})
         last.update(now)
-        if param.nbatch in (0, steps - 1):
-            torch.cuda.synchronize()
-            marks[param.nbatch] = (time.perf_counter(), tm.histogram(
-                "fit.data_wait").sum, tm.histogram("fit.dispatch").sum)
+        timer(param)
 
-    # the main path: every count at 0 just before, read just after
+    # the main path (device prefetch on, the default): every count at 0
+    # just before, read just after
     tm.reset()
     for k in plain_calls:
         plain_calls[k] = 0
@@ -5564,16 +5991,28 @@ def phase_ssd_training(torch, mx, card):
           f"ran; the update's launch parameters packed once; outputs "
           f"{shapes}, finite",
           flush=True)
-    timed = steps - 1
-    fit_ms = (marks[steps - 1][0] - marks[0][0]) / timed * 1e3
-    wait_ms = (marks[steps - 1][1] - marks[0][1]) / timed / 1e3
-    dispatch_ms = (marks[steps - 1][2] - marks[0][2]) / timed / 1e3
-    print(f"[ssd-training] Module.fit at batch {SSD_TRAIN_BATCH} on {card}, "
-          f"steps 2..{steps} by the host's clock: {fit_ms:.2f} ms per step "
-          f"({1e3 / fit_ms:.3f} steps/s, "
-          f"{SSD_TRAIN_BATCH * 1e3 / fit_ms:.1f} images/s); per step "
-          f"fit.data_wait {wait_ms:.2f} ms (the NDArrayIter's batch copied "
-          f"to the card), fit.dispatch {dispatch_ms:.2f} ms", flush=True)
+    on = read_on()
+
+    def fit(prefetch, callback=None):
+        with device_prefetch(prefetch):
+            m = mx.mod.Module(ssd_train_symbol(mx), data_names=("data",),
+                              label_names=("label",))
+            it.reset()
+            m.fit(it, num_epoch=1,
+                  eval_metric=mx.metric.Loss(name="ssd_loss"),
+                  optimizer="sgd", optimizer_params=SSD_TRAIN_OPT,
+                  arg_params=arg_nd, batch_end_callback=callback)
+        return m
+
+    timer, read_off = fit_timer(torch, steps, sources)
+    fit(False, timer)
+    off = read_off()
+    del sources
+    split = prefetch_report("ssd-training", card, SSD_TRAIN_BATCH,
+                            x[0].nbytes * SSD_TRAIN_BATCH, on, off,
+                            copy_ms(torch, x[:SSD_TRAIN_BATCH]))
+    prefetch_check(torch, "ssd-training", steps, on, off, fit,
+                   {"param": SSD_PARITY_TOL["param"][1]})
 
     # the loss check: steps on one fixed batch of SSD_LOSS_BATCH
     curve = ssd_loss_curve(torch, mx, mx.gpu(0), SEED + 30)
@@ -5618,8 +6057,10 @@ def phase_ssd_training(torch, mx, card):
           f"on a batch on the card) at batch {SSD_TRAIN_BATCH} on {card}: "
           f"{step_ms:.2f} ms per step by CUDA events "
           f"({SSD_TRAIN_BATCH * 1e3 / step_ms:.1f} images/s); host wall "
-          f"{wall_ms:.2f} ms per step; peak device memory {peak:.2f} GiB",
-          flush=True)
+          f"{wall_ms:.2f} ms per step; peak device memory {peak:.2f} GiB; "
+          f"fit per step minus the compute step: prefetch on "
+          f"{split['on']['fit_ms'] - step_ms:.2f} ms, off "
+          f"{split['off']['fit_ms'] - step_ms:.2f} ms", flush=True)
     device_ms = profile_step(torch, step, tag="ssd-profile",
                              what=f"one SSD-300 training step at batch "
                              f"{SSD_TRAIN_BATCH}")
@@ -6721,6 +7162,9 @@ def main():
     if sys.argv[1:2] == ["--cpu-dcgan"]:
         dcgan_cpu_readings()
         return
+    if sys.argv[1:2] == ["--cpu-baseline"]:
+        cpu_baseline()
+        return
     if sys.argv[1:2] == ["--kernel-times"]:
         # time the package of another checkout (its root first on the path)
         sys.path[:0] = sys.argv[2:3]
@@ -6743,6 +7187,9 @@ def main():
     if sys.argv[1:2] == ["--bn-stats-plans"]:
         bn_stats_plan_sweep(torch, mx)
         host_breakdown_bn_stats(torch)
+        return
+    if sys.argv[1:2] == ["--fit-spread"]:
+        fit_spread(torch, mx)
         return
     if sys.argv[1:2] == ["--l2norm-bwd-sweep"]:
         sweep = l2norm_bwd_sweep(torch, range(int(sys.argv[2])))
@@ -6837,6 +7284,8 @@ def main():
     kernels += dcgan_rows
     dcgan_trained, dcgan_device_ms = phase_dcgan_training(torch, mx, card)
     phase_dcgan_parity(torch, mx)
+    mnist_paths = phase_mnist_kernels(torch, mx)
+    baseline = phase_baseline_scripts(torch, mx, card)
     for k in kernels:
         name = k["name"]
         k["launches_serving"] = served.get(name, 0)
@@ -6845,9 +7294,15 @@ def main():
         k["launches_ssd"] = ssd_served.get(name, 0)
         k["launches_ssd_train"] = ssd_trained.get(name, 0)
         k["launches_dcgan"] = dcgan_trained.get(name, 0)
+        k["launches_baseline"] = baseline.get(name, 0)
+        if name in mnist_paths:
+            k.setdefault("paths", {}).update(mnist_paths[name])
+            k["max_abs_err"] = max(k["max_abs_err"], *(
+                r["max_abs_err"] for r in mnist_paths[name].values()))
         k["launches"] = (k["launches_serving"] + k["launches_training"]
                          + k["launches_lstm"] + k["launches_ssd"]
-                         + k["launches_ssd_train"] + k["launches_dcgan"])
+                         + k["launches_ssd_train"] + k["launches_dcgan"]
+                         + k["launches_baseline"])
         k["step_device_ms"] = device_ms.get(name)
         k["lstm_step_device_ms"] = lstm_device_ms.get(name)
         k["ssd_forward_device_ms"] = ssd_device_ms.get(name)

@@ -5,10 +5,13 @@ layout so each module's counterpart is easy to find. It imports torch and
 numpy, never ``jax`` and nothing from ``mxnet_tpu``. It trains and serves
 models end to end: Symbol graphs (JSON and ``.params`` compatible with the
 JAX package), an eager executor with backward and a fused update,
-``Module.fit`` and ``BucketingModule.fit`` with SGD and Adam, RNN cells and
-``BucketSentenceIter``, ``GANModule`` (DCGAN), initializers, metrics and
-``NDArrayIter``, ``Predictor`` and ``ModelServer`` (ResNet classification
-and SSD detection). Entry points run on the card (``gpu(0)``) unless the
+``Module.fit`` and ``BucketingModule.fit`` with SGD and Adam (through an
+in-process ``kv`` store when one is given), RNN cells and
+``BucketSentenceIter``, ``GANModule`` (DCGAN), initializers, metrics,
+``NDArrayIter``, ``MNISTIter`` and the device prefetch ``fit`` wraps its
+iterator in, ``Predictor`` and ``ModelServer`` (ResNet classification and
+SSD detection); the training scripts under ``examples/`` run on it through
+``python -m mxnet_tpu_torch.launch``. Entry points run on the card (``gpu(0)``) unless the
 caller asks for the CPU. BatchNorm (+ReLU or LeakyReLU) forward and
 backward, the SoftmaxOutput
 forward and loss backward, the LSTM cell step forward and backward, the
@@ -47,6 +50,8 @@ from . import lr_scheduler, optimizer  # noqa: E402
 from . import optimizer as opt  # noqa: E402
 from .optimizer import Optimizer  # noqa: E402
 from . import metric, io, callback, model  # noqa: E402
+from . import kvstore  # noqa: E402
+from . import kvstore as kv  # noqa: E402
 from . import module  # noqa: E402
 from . import module as mod  # noqa: E402
 from . import rnn  # noqa: E402
@@ -61,5 +66,5 @@ __all__ = [
     "models", "predictor", "serving", "kernels", "ops", "base", "context",
     "env", "telemetry", "AttrScope", "NameManager", "random", "rnd", "init",
     "initializer", "lr_scheduler", "optimizer", "opt", "Optimizer", "metric",
-    "io", "callback", "model", "module", "mod", "rnn",
+    "io", "callback", "model", "module", "mod", "rnn", "kv", "kvstore",
 ]

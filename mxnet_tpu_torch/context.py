@@ -7,6 +7,10 @@ Reference: ``include/mxnet/base.h:101-318`` (``Context{kCPU,kGPU,...}``) and
 is ``gpu(0)``: its entry points run on the card unless the caller asks for
 the CPU. Resolving a ``gpu`` context on a machine without one raises
 :class:`MXNetError` — nothing carries on silently on the CPU.
+``cpu_pinned()`` is page-locked host memory, from which a copy to the card
+runs asynchronously: arrays made on it or copied to it are pinned
+(``Tensor.pin_memory``), and resolving it on a machine without a card
+raises :class:`MXNetError` as ``gpu`` does.
 """
 
 from __future__ import annotations
@@ -64,13 +68,25 @@ class Context:
     def __exit__(self, ptype, value, trace):
         Context._default_ctx.value = self._old_ctx
 
+    @property
+    def pinned(self):
+        """True for ``cpu_pinned``: arrays on it are page-locked."""
+        return self.device_type == "cpu_pinned"
+
     def torch_device(self):
         """The ``torch.device`` this context names. A ``gpu`` context
         raises :class:`MXNetError` when CUDA is absent or the id is out of
-        range."""
-        if self.device_type in ("cpu", "cpu_pinned"):
+        range, and ``cpu_pinned`` when CUDA is absent (page-locked memory
+        is CUDA's)."""
+        if self.device_type == "cpu":
             return torch.device("cpu")
         n = num_gpus()
+        if self.pinned:
+            if n == 0:
+                raise MXNetError(
+                    f"{self} requested but no CUDA device is visible: "
+                    "page-locked host memory needs a card")
+            return torch.device("cpu")
         if self.device_id >= n:
             raise MXNetError(
                 f"{self} requested but {n} CUDA device(s) are visible")

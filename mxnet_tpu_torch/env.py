@@ -137,6 +137,17 @@ _declare("MXNET_NONFINITE_GUARD", str, "",
 _declare("MXNET_NONFINITE_TOLERANCE", int, 3,
          "Consecutive non-finite-gradient skips tolerated before "
          "MXNET_NONFINITE_GUARD=rollback escalates.")
+_declare("MXNET_DEVICE_PREFETCH", _parse_bool, True,
+         "When true (default), Module.fit and score (on a full, fresh "
+         "pass) wrap the data iterator in io.DevicePrefetchIter: a thread "
+         "makes batch N+1 in page-locked memory and copies it to the card "
+         "on a side stream while batch N computes. Set to 0 to feed "
+         "batches synchronously from the epoch loop.")
+_declare("MXNET_PREFETCH_DEPTH", int, 0,
+         "Staging-queue depth (batches) of the DevicePrefetchIter that "
+         "fit and score wrap around their iterators. 0 (default) = auto: "
+         "2 (training windows, which would grow it, are ROADMAP.md queue "
+         "1 item 2). An explicit value is honoured as it is.")
 _declare("MXNET_TRAIN_WINDOW", str, "",
          "Fused-K training windows for Module.fit. Not yet ported "
          "(ROADMAP.md queue 1 item 2): a value other than empty or 1 "
@@ -148,13 +159,6 @@ _ignored("MXNET_ENGINE_TYPE", str, "ThreadedEnginePerDevice",
          "Execution engine; 'NaiveEngine' runs the reference synchronously "
          "for debugging. Ignored: the port runs eagerly in stream order "
          "either way, with the same results.")
-_ignored("MXNET_DEVICE_PREFETCH", _parse_bool, True,
-         "Staging of the next batch on the device inside fit. Ignored "
-         "(performance only; device prefetch is ROADMAP.md queue 1 item "
-         "3a): fit copies each batch when it is needed.")
-_ignored("MXNET_PREFETCH_DEPTH", int, 0,
-         "Depth of the device prefetch queue. Ignored with "
-         "MXNET_DEVICE_PREFETCH (performance only).")
 _ignored("MXNET_CPU_WORKER_NTHREADS", int, 4,
          "Host threads of the decode plane. Ignored (performance only; "
          "the decode plane is ROADMAP.md queue 1 item 6).")

@@ -3,23 +3,25 @@
 Counterpart of ``mxnet_tpu/model.py`` (reference ``python/mxnet/model.py``)
 for ``BatchEndParam``, ``save_checkpoint``/``load_checkpoint`` (the
 ``<prefix>-symbol.json`` and ``<prefix>-<epoch>.params`` pair, readable by
-either package), ``_create_kvstore`` and ``_update_params``. Both files are
+either package), and the kvstore helpers of ``Module``: ``_create_kvstore``
+(a store object is used as given and owns the update; a store name on one
+device needs no store), ``_initialize_kvstore``,
+``_update_params_on_kvstore`` and ``_update_params``. Both files are
 written to a temporary name, flushed to disk and renamed, so a crash never
-leaves a torn file. The kvstore and the ``FeedForward`` API are not yet
-ported: one device needs no store, and asking for one on several devices
-raises.
+leaves a torn file. The ``FeedForward`` API is not yet ported.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import math
 import os
 import tempfile
 from collections import namedtuple
 
+from . import kvstore as kvs
 from . import symbol as sym_mod
-from .base import MXNetError
 from .ndarray import load as nd_load, save as nd_save
 
 BatchEndParam = namedtuple(
@@ -47,14 +49,51 @@ def atomic_path(path):
 
 
 def _create_kvstore(kvstore, num_device, arg_params):
-    """``(kvstore, update_on_kvstore)`` (reference model.py:40-66). One
-    device needs no reduction store; stores themselves are not yet ported."""
-    if kvstore is None or (isinstance(kvstore, str) and num_device == 1
-                           and "dist" not in kvstore):
-        return (None, False)
-    raise MXNetError(
-        f"kvstore {kvstore!r} over {num_device} device(s) is not yet ported "
-        "to mxnet_tpu_torch (ROADMAP.md queue 1 items 4 and 7)")
+    """``(kvstore, update_on_kvstore)`` (reference model.py:40-66): a
+    :class:`~.kvstore.KVStore` is used as given and applies the updates; a
+    name on one device needs no store; ``local`` over several devices
+    leaves the updates to the devices past 16 M elements in a parameter."""
+    update_on_kvstore = True
+    if kvstore is None:
+        kv = None
+    elif isinstance(kvstore, kvs.KVStore):
+        kv = kvstore
+    elif isinstance(kvstore, str):
+        if num_device == 1 and "dist" not in kvstore:
+            kv = None
+        else:
+            kv = kvs.create(kvstore)
+            if kvstore == "local":
+                max_size = max(math.prod(param.shape)
+                               for param in arg_params.values())
+                if max_size > 1024 * 1024 * 16:
+                    update_on_kvstore = False
+    else:
+        raise TypeError("kvstore must be KVStore, str or None")
+    if kv is None:
+        update_on_kvstore = False
+    return (kv, update_on_kvstore)
+
+
+def _initialize_kvstore(kvstore, param_arrays, arg_params, param_names,
+                        update_on_kvstore):
+    """Put every parameter in the store; when the store owns the update,
+    pull its value back into the device arrays."""
+    for idx, param_on_devs in enumerate(param_arrays):
+        kvstore.init(idx, arg_params[param_names[idx]])
+        if update_on_kvstore:
+            kvstore.pull(idx, param_on_devs, priority=-idx)
+
+
+def _update_params_on_kvstore(param_arrays, grad_arrays, kvstore):
+    """Push each gradient (the store applies its optimizer), then pull the
+    updated weight."""
+    for index, pair in enumerate(zip(param_arrays, grad_arrays)):
+        arg_list, grad_list = pair
+        if grad_list[0] is None:
+            continue
+        kvstore.push(index, grad_list, priority=-index)
+        kvstore.pull(index, arg_list, priority=-index)
 
 
 def _update_params(param_arrays, grad_arrays, updater, num_device,

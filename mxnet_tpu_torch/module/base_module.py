@@ -7,13 +7,15 @@ update_metric -> epoch metric log, callbacks, optional evaluation, plus
 ``score``, ``predict`` and ``iter_predict``. The epoch loop never reads a
 device value per batch: the metric accumulates on the device and the epoch
 end reads it, and the non-finite guard's counters are read there too.
+``fit`` (and ``score`` on a full, fresh pass) wraps its iterator in
+``io.DevicePrefetchIter`` when ``MXNET_DEVICE_PREFETCH`` is on, the
+default, so batch N+1 is copied to the card while batch N computes.
 
 Not yet ported, and raising where a caller asks for them: training windows
 (``MXNET_TRAIN_WINDOW``), checkpoint directories with auto-resume
 (``fit(checkpoint=...)``, ``MXNET_CHECKPOINT_*``), monitors, the I/O retry
 wrapper (``MXNET_IO_RETRY``) and the other variables of subsystems not yet
-ported (``env.check_unported("fit")``). Device prefetch is a performance
-knob and ``MXNET_DEVICE_PREFETCH`` is accepted and ignored.
+ported (``env.check_unported("fit")``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import time
 import torch
 
 from .. import env as _env
+from .. import io as io_mod
 from .. import metric as metric_mod
 from .. import telemetry as _tm
 from ..base import MXNetError
@@ -134,6 +137,31 @@ class BaseModule:
         self.forward(data_batch, is_train=True)
         self.backward()
 
+    @property
+    def input_shardings(self):
+        """Input name -> the Context its batches are staged on, or None
+        when this module has no single device to say (then fit and score
+        take no device prefetch). Concrete modules override."""
+        return None
+
+    def _wrap_device_prefetch(self, data_iter):
+        """``data_iter`` wrapped in a DevicePrefetchIter staging on this
+        module's inputs' devices; unchanged when prefetch is off, the
+        iterator is already wrapped, or the module has no single device."""
+        if not _env.get("MXNET_DEVICE_PREFETCH"):
+            return data_iter
+        if isinstance(data_iter, io_mod.DevicePrefetchIter):
+            return data_iter
+        shardings = self.input_shardings
+        if shardings is None:
+            return data_iter
+        kwargs = {}
+        depth = _env.get("MXNET_PREFETCH_DEPTH")
+        if depth > 0:
+            kwargs["depth"] = depth
+        return io_mod.DevicePrefetchIter(data_iter, shardings=shardings,
+                                         **kwargs)
+
     def score(self, eval_data, eval_metric, num_batch=None,
               batch_end_callback=None, score_end_callback=None, reset=True,
               epoch=0):
@@ -144,14 +172,44 @@ class BaseModule:
         if not isinstance(eval_metric, metric_mod.EvalMetric):
             eval_metric = metric_mod.create(eval_metric)
         eval_metric.reset()
+        # wrap only a full, fresh pass: with num_batch (or reset=False) the
+        # staging thread would take batches past where an unwrapped score
+        # leaves the caller's iterator
+        staged = (self._wrap_device_prefetch(eval_data)
+                  if reset and num_batch is None else eval_data)
+        try:
+            actual_num_batch = self._score_loop(
+                staged, eval_metric, num_batch, batch_end_callback, epoch)
+        finally:
+            if staged is not eval_data:
+                staged.close()
+        if score_end_callback:
+            from ..model import BatchEndParam
+
+            params = BatchEndParam(epoch=epoch, nbatch=actual_num_batch,
+                                   eval_metric=eval_metric, locals=locals())
+            for callback in _as_list(score_end_callback):
+                callback(params)
+        return eval_metric.get_name_value()
+
+    def _score_loop(self, eval_data, eval_metric, num_batch,
+                    batch_end_callback, epoch):
         from ..model import BatchEndParam
 
         actual_num_batch = 0
-        for nbatch, eval_batch in enumerate(eval_data):
+        batches = iter(eval_data)
+        while True:
+            with _tm.span("score.data_wait"):
+                eval_batch = next(batches, None)
+            if eval_batch is None:
+                break
+            nbatch = actual_num_batch
             if num_batch is not None and nbatch == num_batch:
                 break
-            self.forward(eval_batch, is_train=False)
-            self.update_metric(eval_metric, eval_batch.label)
+            with _tm.span("score.dispatch"):
+                self.forward(eval_batch, is_train=False)
+            with _tm.span("score.metric"):
+                self.update_metric(eval_metric, eval_batch.label)
             if batch_end_callback is not None:
                 params = BatchEndParam(epoch=epoch, nbatch=nbatch,
                                        eval_metric=eval_metric,
@@ -159,12 +217,7 @@ class BaseModule:
                 for callback in _as_list(batch_end_callback):
                     callback(params)
             actual_num_batch += 1
-        if score_end_callback:
-            params = BatchEndParam(epoch=epoch, nbatch=actual_num_batch,
-                                   eval_metric=eval_metric, locals=locals())
-            for callback in _as_list(score_end_callback):
-                callback(params)
-        return eval_metric.get_name_value()
+        return actual_num_batch
 
     def iter_predict(self, eval_data, num_batch=None, reset=True):
         if not (self.binded and self.params_initialized):
@@ -227,62 +280,89 @@ class BaseModule:
             validation_metric = eval_metric
         if not isinstance(eval_metric, metric_mod.EvalMetric):
             eval_metric = metric_mod.create(eval_metric)
+
+        # a thread copies batch N+1 to the card while batch N computes
+        orig_train_data = train_data
+        train_data = self._wrap_device_prefetch(train_data)
+        fit_completed = False
+        try:
+            for epoch in range(begin_epoch, num_epoch):
+                self._fit_epoch(epoch, train_data, eval_data, eval_metric,
+                                validation_metric, guard, batch_end_callback,
+                                epoch_end_callback, eval_end_callback,
+                                eval_batch_end_callback)
+                # after the last epoch the wrapper is not reset: that would
+                # restart its thread to stage batches no one takes; the
+                # finally block leaves the same state
+                if epoch < num_epoch - 1 or train_data is orig_train_data:
+                    train_data.reset()
+            fit_completed = True
+        finally:
+            if train_data is not orig_train_data:
+                # on an exception the wrapped iterator may stand up to
+                # depth batches past the last one trained
+                train_data.close()
+                if fit_completed:
+                    orig_train_data.reset()
+
+    def _fit_epoch(self, epoch, train_data, eval_data, eval_metric,
+                   validation_metric, guard, batch_end_callback,
+                   epoch_end_callback, eval_end_callback,
+                   eval_batch_end_callback):
         from ..model import BatchEndParam
 
-        for epoch in range(begin_epoch, num_epoch):
-            tic = time.time()
-            eval_metric.reset()
-            nbatch = 0
-            batches = iter(train_data)
+        tic = time.time()
+        eval_metric.reset()
+        nbatch = 0
+        batches = iter(train_data)
+        with _tm.span("fit.data_wait"):
+            pending = next(batches, None)
+        while pending is not None:
+            data_batch = pending
+            with _tm.span("fit.dispatch"):
+                self.forward_backward(data_batch)
+                self.update()
+            # fetch and prepare the next batch while this step runs on
+            # the card (a BucketingModule binds its bucket here)
             with _tm.span("fit.data_wait"):
                 pending = next(batches, None)
-            while pending is not None:
-                data_batch = pending
-                with _tm.span("fit.dispatch"):
-                    self.forward_backward(data_batch)
-                    self.update()
-                # fetch and prepare the next batch while this step runs on
-                # the card (a BucketingModule binds its bucket here)
-                with _tm.span("fit.data_wait"):
-                    pending = next(batches, None)
-                    if pending is not None:
-                        self.prepare(pending)
-                with _tm.span("fit.metric"):
-                    self.update_metric(eval_metric, data_batch.label)
-                if batch_end_callback is not None:
-                    params = BatchEndParam(epoch=epoch, nbatch=nbatch,
-                                           eval_metric=eval_metric,
-                                           locals=locals())
-                    with _tm.span("fit.callback"):
-                        for callback in _as_list(batch_end_callback):
-                            callback(params)
-                nbatch += 1
-                if guard is not None:
-                    guard.after_batch()
-            _tm.counter("fit.batches").inc(nbatch)
-            _tm.counter("fit.epochs").inc()
+                if pending is not None:
+                    self.prepare(pending)
             with _tm.span("fit.metric"):
-                epoch_values = eval_metric.get_name_value()
-            for name, val in epoch_values:
-                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
-            self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
-                             time.time() - tic)
-            with _tm.span("fit.param_sync"):
-                arg_params_, aux_params_ = self.get_params()
+                self.update_metric(eval_metric, data_batch.label)
+            if batch_end_callback is not None:
+                params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                       eval_metric=eval_metric,
+                                       locals=locals())
+                with _tm.span("fit.callback"):
+                    for callback in _as_list(batch_end_callback):
+                        callback(params)
+            nbatch += 1
             if guard is not None:
-                guard.on_epoch(self.logger)
-            if epoch_end_callback is not None:
-                for callback in _as_list(epoch_end_callback):
-                    callback(epoch, self.symbol, arg_params_, aux_params_)
-            if eval_data:
-                res = self.score(eval_data, validation_metric,
-                                 score_end_callback=eval_end_callback,
-                                 batch_end_callback=eval_batch_end_callback,
-                                 epoch=epoch)
-                for name, val in res:
-                    self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
-                                     name, val)
-            train_data.reset()
+                guard.after_batch()
+        _tm.counter("fit.batches").inc(nbatch)
+        _tm.counter("fit.epochs").inc()
+        with _tm.span("fit.metric"):
+            epoch_values = eval_metric.get_name_value()
+        for name, val in epoch_values:
+            self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+        self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
+                         time.time() - tic)
+        with _tm.span("fit.param_sync"):
+            arg_params_, aux_params_ = self.get_params()
+        if guard is not None:
+            guard.on_epoch(self.logger)
+        if epoch_end_callback is not None:
+            for callback in _as_list(epoch_end_callback):
+                callback(epoch, self.symbol, arg_params_, aux_params_)
+        if eval_data:
+            res = self.score(eval_data, validation_metric,
+                             score_end_callback=eval_end_callback,
+                             batch_end_callback=eval_batch_end_callback,
+                             epoch=epoch)
+            for name, val in res:
+                self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
+                                 name, val)
 
     def prepare(self, data_batch):
         """Get ready for ``data_batch`` before its step (reference

@@ -224,6 +224,15 @@ class BucketingModule(BaseModule):
                 mod.borrow_optimizer(self._curr_module)
         self.optimizer_initialized = True
 
+    @property
+    def input_shardings(self):
+        """The active bucket's input placements: every bucket binds the
+        same device and input names, so they hold for every staged
+        batch."""
+        if not self.binded:
+            return None
+        return self._curr_module.input_shardings
+
     def prepare(self, data_batch):
         """Bind the batch's bucket ahead of its step without making it
         current."""

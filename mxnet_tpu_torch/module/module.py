@@ -7,11 +7,15 @@ Counterpart of ``mxnet_tpu/module/module.py`` (reference
 optimizer, ``update`` applies it — in one fused multi-tensor launch when
 the optimizer has ``torch_apply`` and a backward has just run, else
 parameter by parameter through the ``Updater`` — and checkpoints save the
-symbol, the parameters and the optimizer states.
+symbol, the parameters and the optimizer states. Given a
+:class:`~..kvstore.KVStore` object, the module takes the reference's
+``update_on_kvstore`` path: the store holds the weights (sharing the
+executor's tensors) and its updater applies the optimizer, in the same
+fused launch.
 
 The module runs on ``context`` (default: the current context, ``gpu(0)``;
-the JAX package defaults to ``cpu()``). Several contexts, kvstores and
-training windows (``train_window``) are not yet ported;
+the JAX package defaults to ``cpu()``). Several contexts and training
+windows (``train_window``) are not yet ported;
 :class:`WindowBoundary`, the handle a window returns, is (``GANModule``
 returns one).
 """
@@ -29,9 +33,12 @@ from .. import optimizer as opt
 from ..base import MXNetError
 from ..executor import nonfinite_guard_on
 from ..initializer import InitDesc, Uniform
+from ..kvstore import _key_str
 from ..model import (
     _create_kvstore,
+    _initialize_kvstore,
     _update_params,
+    _update_params_on_kvstore,
     atomic_path,
     load_checkpoint,
 )
@@ -280,6 +287,16 @@ class Module(BaseModule):
             # bind() after load(): push the loaded params into the executor
             self._exec_group.set_params(self._arg_params, self._aux_params)
 
+    @property
+    def input_shardings(self):
+        """Input name -> the Context its batches are staged on (the
+        module's one device), for ``fit``'s device prefetch; None before
+        ``bind``."""
+        if not self.binded:
+            return None
+        return {n: self._context[0]
+                for n in self._data_names + self._label_names}
+
     def reshape(self, data_shapes, label_shapes=None):
         self._require(bound=True)
         self._exec_group.reshape(data_shapes, label_shapes)
@@ -294,7 +311,7 @@ class Module(BaseModule):
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring...")
             return
-        self._kvstore, self._update_on_kvstore = _create_kvstore(
+        kvstore, update_on_kvstore = _create_kvstore(
             kvstore, len(self._context), self._arg_params)
         rescale_grad = 1.0 / self._exec_group.batch_size
         if isinstance(optimizer, str):
@@ -312,8 +329,18 @@ class Module(BaseModule):
                 f"is not normalized to 1.0/batch_size "
                 f"({optimizer.rescale_grad} vs. {rescale_grad}). Is this "
                 "intended?", stacklevel=2)
-        self._optimizer = optimizer
-        self._updater = opt.get_updater(optimizer)
+        self._optimizer, self._kvstore = optimizer, kvstore
+        self._update_on_kvstore, self._updater = update_on_kvstore, None
+        if kvstore is not None:
+            _initialize_kvstore(
+                kvstore=kvstore, param_arrays=self._exec_group.param_arrays,
+                arg_params=self._arg_params,
+                param_names=self._exec_group.param_names,
+                update_on_kvstore=update_on_kvstore)
+        if update_on_kvstore:
+            kvstore.set_optimizer(self._optimizer)
+        else:
+            self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
         if self._preload_opt_states:
             self.load_optimizer_states(self._preload_opt_states)
@@ -350,13 +377,36 @@ class Module(BaseModule):
         self._require(bound=True, params=True, optimizer=True)
         self._params_dirty = True
         if self._fusable_update():
-            self._exec_group.update_fused(self._optimizer, self._updater)
+            updater = (self._kvstore._updater if self._update_on_kvstore
+                       else self._updater)
+            self._exec_group.update_fused(self._optimizer, updater)
+            self._sync_kvstore_after_fused()
             return
         if self._nonfinite_skip_imperative():
             return
-        _update_params(self._exec_group.param_arrays,
-                       self._exec_group.grad_arrays, updater=self._updater,
-                       num_device=1)
+        if self._update_on_kvstore:
+            _update_params_on_kvstore(self._exec_group.param_arrays,
+                                      self._exec_group.grad_arrays,
+                                      self._kvstore)
+        else:
+            _update_params(self._exec_group.param_arrays,
+                           self._exec_group.grad_arrays,
+                           updater=self._updater, num_device=1)
+
+    def _sync_kvstore_after_fused(self):
+        """Keep the store's weights those the fused update wrote: each
+        stored value shares its executor weight's tensor (the update writes
+        in place, so sharing once holds until a rebind), no copy a step."""
+        if not self._update_on_kvstore:
+            return
+        exe = self._exec_group._exec
+        store = self._kvstore._store
+        for i, n in enumerate(self._exec_group.param_names):
+            k = _key_str(i)
+            if k in store and n in exe.arg_dict:
+                src = exe.arg_dict[n]._data
+                if store[k]._data is not src:
+                    store[k]._data = src
 
     def train_window(self, data_batch, n_steps=1, batches=None,
                      publish_grads=True):
@@ -438,11 +488,21 @@ class Module(BaseModule):
 
     # ------------------------------------------------------------------
     def save_optimizer_states(self, fname):
+        """Write the optimizer states (the store's, when it owns the
+        update)."""
         self._require(optimizer=True)
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+            return
         with open(fname, "wb") as fout:
             fout.write(self._updater.get_states())
 
     def load_optimizer_states(self, fname):
+        """Read optimizer states written by either package (into the
+        store's updater, when it owns the update)."""
         self._require(optimizer=True)
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            return
         with open(fname, "rb") as f:
             self._updater.set_states(f.read())

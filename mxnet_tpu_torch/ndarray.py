@@ -64,13 +64,27 @@ def _to_numpy(t):
     return t.numpy()
 
 
-def _to_tensor(arr, device):
-    arr = np.array(arr, order="C", copy=True)  # owned and writable
+def _from_numpy(arr):
     if arr.dtype.name == "bfloat16":
-        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(arr)
-    return t.to(device)
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _pinned_copy(t):
+    """A copy of ``t`` in page-locked host memory."""
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return out.copy_(t)
+
+
+def _to_tensor(arr, device, pinned=False):
+    if pinned:
+        # one copy, into page-locked memory, made by torch with the
+        # interpreter lock released (a prefetch thread runs this)
+        if not (arr.flags.c_contiguous and arr.flags.writeable):
+            arr = np.array(arr, order="C", copy=True)
+        return _pinned_copy(_from_numpy(arr))
+    arr = np.array(arr, order="C", copy=True)  # owned and writable
+    return _from_numpy(arr).to(device)
 
 
 class NDArray:
@@ -117,7 +131,10 @@ class NDArray:
             other._data.copy_(self._data)
             return other
         if isinstance(other, Context):
-            return NDArray(self._data.to(other.torch_device(), copy=True))
+            device = other.torch_device()  # raises where the card is missing
+            if other.pinned:
+                return NDArray(_pinned_copy(self._data))
+            return NDArray(self._data.to(device, copy=True))
         raise MXNetError(f"copyto does not support type {type(other)}")
 
     def as_in_context(self, context):
@@ -295,8 +312,10 @@ def _narrow(dtype, fn=None):
 
 def array(source_array, ctx=None, dtype=None):
     """An NDArray from an NDArray, numpy array or nested list (float32
-    unless ``dtype``, as in the reference; int64 narrows to int32)."""
-    device = (ctx or current_context()).torch_device()
+    unless ``dtype``, as in the reference; int64 narrows to int32); on
+    ``cpu_pinned`` it is page-locked."""
+    ctx = ctx or current_context()
+    device = ctx.torch_device()
     dtype = _narrow(dtype)
     if isinstance(source_array, NDArray):
         t = source_array._data
@@ -304,6 +323,8 @@ def array(source_array, ctx=None, dtype=None):
             t = t.to(torch_dtype(dtype))
         elif t.dtype == torch.int64:
             t = t.to(torch.int32)
+        if ctx.pinned:
+            return NDArray(_pinned_copy(t))
         return NDArray(t.to(device, copy=True))
     arr = np.asarray(source_array, dtype=np_dtype(dtype) if dtype else None)
     if dtype is None and (arr.dtype == np.float64 or (
@@ -311,15 +332,15 @@ def array(source_array, ctx=None, dtype=None):
         arr = arr.astype(np.float32)  # mxnet default dtype is float32
     elif arr.dtype == np.int64:  # a numpy int64 array: JAX keeps 32 bits
         arr = arr.astype(np.int32)
-    return NDArray(_to_tensor(arr, device))
+    return NDArray(_to_tensor(arr, device, ctx.pinned))
 
 
 def _filled(fill, shape, ctx, dtype, fn):
     if isinstance(shape, int):
         shape = (shape,)
-    device = (ctx or current_context()).torch_device()
+    ctx = ctx or current_context()
     return NDArray(fill(tuple(shape), dtype=torch_dtype(_narrow(dtype, fn)),
-                        device=device))
+                        device=ctx.torch_device(), pin_memory=ctx.pinned))
 
 
 def zeros(shape, ctx=None, dtype=None):

@@ -34,15 +34,16 @@ def _draw(params, mode, fill):
     from ..context import Context, current_context
     from ..random import generator
 
-    device = mode.device
+    device, pinned = mode.device, False
     if device is None:
         ctx = current_context()
         if params["ctx"]:  # "gpu(0)", the string form of a Context
             kind, _, dev_id = params["ctx"].partition("(")
             ctx = Context(kind, int(dev_id.rstrip(")") or 0))
-        device = ctx.torch_device()
+        device, pinned = ctx.torch_device(), ctx.pinned
     out = torch.empty(tuple(params["shape"]),
-                      dtype=torch_dtype(params["dtype"]), device=device)
+                      dtype=torch_dtype(params["dtype"]), device=device,
+                      pin_memory=pinned)
     if out.device.type != "meta":
         fill(out, generator(out.device))
     return out

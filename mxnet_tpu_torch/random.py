@@ -47,8 +47,10 @@ def _sample(fill, shape, ctx, dtype, out):
         return out
     if isinstance(shape, int):
         shape = (shape,)
-    device = (ctx or current_context()).torch_device()
-    t = torch.empty(tuple(shape), dtype=torch_dtype(dtype), device=device)
+    ctx = ctx or current_context()
+    device = ctx.torch_device()
+    t = torch.empty(tuple(shape), dtype=torch_dtype(dtype), device=device,
+                    pin_memory=ctx.pinned)
     fill(t, generator(device))
     return NDArray(t)
 

@@ -83,6 +83,7 @@ back in a call.
 """
 
 import math
+import time
 
 import numpy as np
 import pytest
@@ -1498,3 +1499,96 @@ def test_l2norm_channel_and_multibox_decode_read_nothing_back(card):
     cls, loc, anchors = _decode_inputs(card)
     assert cs.host_syncs(torch, lambda: dec_mod.multibox_decode(
         cls, loc, anchors, (0.1, 0.1, 0.2, 0.2), True, True)) == 0
+
+
+# --- device prefetch (page-locked staging on a side stream) -----------------
+
+def _prefetch_source(n, batch, shape, seed=9):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n * batch,) + shape).astype(np.float32)
+    y = rng.integers(0, 10, n * batch).astype(np.float32)
+    return x, y
+
+
+def test_cpu_pinned_arrays_are_pinned(card):
+    import mxnet_tpu_torch as mx
+
+    ctx = mx.cpu_pinned()
+    host = mx.nd.array(np.arange(6, dtype=np.float32), ctx=mx.cpu())
+    made = [mx.nd.array(np.ones((2, 3)), ctx=ctx),
+            mx.nd.array(host, ctx=ctx), mx.nd.zeros((4,), ctx=ctx),
+            mx.nd.empty((4,), ctx=ctx), host.copyto(ctx),
+            host.as_in_context(ctx), mx.random.uniform(shape=(3,), ctx=ctx),
+            mx.nd.array(np.ones(3), ctx=mx.gpu(0)).copyto(ctx)]
+    for a in made:
+        assert a._data.device.type == "cpu" and a._data.is_pinned()
+    np.testing.assert_array_equal(made[1].asnumpy(), host.asnumpy())
+    assert not host._data.is_pinned()
+
+
+def test_prefetched_batches_equal_their_sources(card):
+    """Every batch a DevicePrefetchIter hands over is on the card, copied
+    from page-locked memory, and bit for bit its source; the consumer's
+    current stream stays the default stream."""
+    import mxnet_tpu_torch as mx
+
+    x, y = _prefetch_source(5, 8, (3, 17, 19))
+    it = mx.io.DevicePrefetchIter(mx.io.NDArrayIter(x, y, batch_size=8),
+                                  context=mx.gpu(0))
+    for _ in range(500):  # the thread stages up to depth batches ahead
+        if it._queue.qsize():
+            break
+        time.sleep(0.01)
+    staged = it._queue.queue[0]._staged
+    assert all(s.is_pinned() for s in staged.sources)
+    for i, b in enumerate(it):
+        assert torch.cuda.current_stream() == torch.cuda.default_stream()
+        assert b.data[0]._data.device == card
+        assert np.array_equal(b.data[0].asnumpy(), x[8 * i:8 * i + 8])
+        assert np.array_equal(b.label[0].asnumpy(), y[8 * i:8 * i + 8])
+    assert i == 4
+    it.close()
+
+
+def test_prefetched_batch_is_not_overwritten_under_a_concurrent_step(card):
+    """The consumer's stream sleeps before it reads each batch (a long
+    step), and the batch's handle is dropped at once: the copies of the
+    later batches run on the side stream meanwhile, and none may land in a
+    batch's memory before the consumer read it (``record_stream``)."""
+    import mxnet_tpu_torch as mx
+
+    n, batch = 12, 4
+    x, y = _prefetch_source(n, batch, (256, 256))
+    it = mx.io.DevicePrefetchIter(mx.io.NDArrayIter(x, y, batch_size=batch),
+                                  context=mx.gpu(0), depth=4)
+    reads = []
+    for _ in range(n):
+        b = it.next()
+        torch.cuda._sleep(20_000_000)  # ~10 ms of the consumer's stream
+        reads.append(b.data[0]._data.clone())
+        del b
+    torch.cuda.synchronize()
+    for i, r in enumerate(reads):
+        assert np.array_equal(r.cpu().numpy(),
+                              x[batch * i:batch * (i + 1)]), i
+    it.close()
+
+
+def test_prefetch_next_makes_no_synchronizing_call(card):
+    """Under ``torch.cuda.set_sync_debug_mode("error")`` the thread's
+    staging and the consumer's ``next`` run without one synchronizing call
+    (a D2H copy, a stream or device synchronize)."""
+    import mxnet_tpu_torch as mx
+
+    x, y = _prefetch_source(4, 8, (3, 32, 32))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        it = mx.io.DevicePrefetchIter(mx.io.NDArrayIter(x, y, batch_size=8),
+                                      context=mx.gpu(0))
+        batches = [it.next() for _ in range(4)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for i, b in enumerate(batches):
+        assert np.array_equal(b.data[0].asnumpy(), x[8 * i:8 * i + 8])
+    it.close()
