@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one CUDA card: ResNet-50
 serving and training, LSTM-PTB training, SSD-VGG16 serving and training,
-DCGAN training, and the repository's BASELINE training scripts.
+DCGAN training, the repository's BASELINE training scripts, and training
+windows.
 
     python3 chip_smoke.py
 
@@ -299,7 +300,26 @@ Run from the root of a checkout. Phases, each printing its own lines:
     steps, float32: the canonical ``--dtype bfloat16`` needs the ``Cast``
     op, which is not yet ported) with the six ResNet kernels' launches per
     step as phase 6 checks them, and the script's Speedometer samples/s.
-    No process imported ``jax``.
+    No process imported ``jax``;
+20. windows — training windows under deterministic cuDNN: ResNet-50 at
+    batch 32 (phase 6's weights), ``Module.train_window`` over
+    ``WINDOW_K`` distinct batches and over one batch ``n_steps=WINDOW_K``,
+    each bit for bit ``WINDOW_K`` serial ``forward_backward`` + ``update``
+    from the same weights (weights, momenta, BatchNorm statistics, the last
+    outputs), its launches ``WINDOW_K`` x phase 6's per step;
+    ``publish_grads=False``: ``boundary.grads()`` raises and the weights
+    are the publishing window's; under ``MXNET_NONFINITE_GUARD=skip`` a NaN
+    batch at step ``WINDOW_NAN_STEP`` + 1 skips that step alone, as the
+    serial loop does. Then the main path: ``Module.fit`` over
+    ``WINDOW_FIT_STEPS`` batches under ``MXNET_TRAIN_WINDOW=WINDOW_K`` and
+    ``MXNET_DISPATCH_DEPTH=WINDOW_DEPTH`` (launches, the ``fit.*`` gauges,
+    bit for bit the per-batch fit, ms per step beside it); LSTM-PTB's
+    ``BucketingModule.fit`` as in phase 9 under windows (launches,
+    Train-Perplexity under ``PPL_LIMIT``) and one mixed-bucket chunk bit
+    for bit its serial steps, Adam's counts advanced by the chunk; and
+    ``examples/train_mnist.py --network mlp`` under
+    ``MXNET_TRAIN_WINDOW=auto`` through the launcher (the chosen K,
+    validation accuracy within ``MNIST_ACC_MARGIN``, launches, samples/s).
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. Any failed phase exits non-zero before the result
@@ -585,6 +605,7 @@ SSD_TARGET_LIMIT = 4
 MNIST_EPOCHS = 2
 MNIST_CPU_ACC = {"mlp": 1.0, "lenet": 1.0}
 MNIST_ACC_MARGIN = 0.01
+MNIST_BATCH = 64  # examples/train_mnist.py's default --batch-size
 BASELINE_STEPS = 20  # --num-examples 640 at --batch-size 32
 BASELINE_RESNET = [
     "examples/train_imagenet.py", "--network", "resnet", "--num-layers",
@@ -3793,7 +3814,8 @@ def run_script(args, cpu=False, timeout=900):
     """Run a repository script through the port's launcher in a subprocess
     from the root of the checkout, numpy seeded with ``SEED``. Returns the
     launcher's counts, the validation accuracy of each epoch, the
-    Speedometer's samples/s readings and the seconds the run took."""
+    Speedometer's samples/s readings, the seconds the run took and each
+    epoch's training seconds (``fit``'s "Time cost")."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (root, os.environ.get("PYTHONPATH")) if p))
@@ -3815,7 +3837,9 @@ def run_script(args, cpu=False, timeout=900):
            re.findall(r"Validation-accuracy=([0-9.]+)", proc.stderr)]
     speeds = [float(v) for v in
               re.findall(r"Speed: ([0-9.]+) samples/sec", proc.stderr)]
-    return counts[0], acc, speeds, secs
+    costs = [float(v) for v in
+             re.findall(r"Time cost=([0-9.]+)", proc.stderr)]
+    return counts[0], acc, speeds, secs, costs
 
 
 def mnist_command(net):
@@ -3823,11 +3847,19 @@ def mnist_command(net):
             "--num-epochs", str(MNIST_EPOCHS)]
 
 
+def epoch_rates(steps, costs):
+    """Samples/s of each training epoch of a script: its steps (evenly
+    over the epochs) times ``MNIST_BATCH`` over the epoch's Time cost."""
+    per_epoch = steps // max(1, len(costs)) * MNIST_BATCH
+    return [round(per_epoch / c, 1) for c in costs if c > 0]
+
+
 def cpu_baseline():
     """Phase 19's MNIST commands on the port's CPU path: each epoch's
     validation accuracy (the readings ``MNIST_CPU_ACC`` was fixed from)."""
     for net in MNIST_CPU_ACC:
-        counts, acc, _speeds, secs = run_script(mnist_command(net), cpu=True)
+        counts, acc, _speeds, secs, _costs = run_script(mnist_command(net),
+                                                        cpu=True)
         print(json.dumps({"cpu_baseline": net, "validation_accuracy": acc,
                           "fit_batches": counts["fit_batches"],
                           "score_batches": counts["score_batches"],
@@ -3924,7 +3956,7 @@ def phase_baseline_scripts(torch, mx, card):
     three runs by kernel."""
     total = {}
     for net in MNIST_CPU_ACC:
-        counts, acc, speeds, secs = run_script(mnist_command(net))
+        counts, acc, speeds, secs, costs = run_script(mnist_command(net))
         steps, vals = counts["fit_batches"], counts["score_batches"]
         got = {k: v for k, v in counts["launches"].items() if v}
         want = {"softmax_rows": steps + vals, "softmax_output_bwd": steps,
@@ -3944,9 +3976,10 @@ def phase_baseline_scripts(torch, mx, card):
               f"on {card} in {secs:.1f} s: validation accuracy by epoch "
               f"{acc} (the CPU path's {MNIST_CPU_ACC[net]}, margin "
               f"{MNIST_ACC_MARGIN}); Speedometer samples/s {speeds}; "
-              f"launches {got} over {steps} steps and {vals} validation "
-              f"batches", flush=True)
-    counts, _acc, speeds, secs = run_script(BASELINE_RESNET)
+              f"samples/s by epoch {epoch_rates(steps, costs)} (its steps "
+              f"over fit's Time cost); launches {got} over {steps} steps "
+              f"and {vals} validation batches", flush=True)
+    counts, _acc, speeds, secs, _costs = run_script(BASELINE_RESNET)
     batch = int(BASELINE_RESNET[BASELINE_RESNET.index("--batch-size") + 1])
     per_step = resnet_train_launches(mx)
     got = {k: v for k, v in counts["launches"].items() if v}
@@ -7149,6 +7182,368 @@ def l2norm_bwd_sweep(torch, seeds):
     return out
 
 
+# --- phase 20: training windows ---------------------------------------------
+WINDOW_K = 4  # steps per window of the ResNet-50 and LSTM-PTB checks
+WINDOW_FIT_STEPS = 20  # ResNet-50 batches of the fits under windows
+WINDOW_DEPTH = 2  # MXNET_DISPATCH_DEPTH of the ResNet-50 fit
+WINDOW_NAN_STEP = 1  # the window step (from 0) whose batch holds a NaN
+WINDOW_IMAGE = (3, 224, 224)
+
+
+@contextlib.contextmanager
+def env_set(**values):
+    """The environment variables ``values`` set for the block."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    """cuDNN's deterministic algorithms for the block (the same launches
+    then give the same bits)."""
+    old = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = old
+
+
+def device_state(mod):
+    """A Module's parameters, aux states and optimizer states as the
+    tensors on the card, by name."""
+    exe = mod._exec_group._exec
+    out = {f"arg:{n}": exe.arg_dict[n]._data for n in mod._param_names
+           if n in exe.arg_dict}
+    out.update({f"aux:{n}": a._data for n, a in exe.aux_dict.items()})
+    for i, st in mod._updater.states.items():
+        for j, a in enumerate(st if isinstance(st, tuple) else (st,)):
+            if a is not None:
+                out[f"state:{i}:{j}"] = a._data
+    return out
+
+
+def states_apart(torch, got, want):
+    """The names whose tensors are not bit for bit the same."""
+    if got.keys() != want.keys():
+        return sorted(set(got) ^ set(want))
+    return [k for k, v in want.items() if not torch.equal(got[k], v)]
+
+
+def reset_module(mx, mod, arg_nd, aux_nd, opt, opt_params):
+    """``mod`` back to the given weights with a fresh optimizer (new
+    states, counts from 0)."""
+    mod.set_params(arg_nd, aux_nd, force_init=True)
+    mod.init_optimizer(optimizer=opt, optimizer_params=opt_params,
+                       force_init=True)
+    return mod
+
+
+def window_fit(torch, mx, sym, arg_nd, aux_nd, x, y, window):
+    """A ResNet-50 ``Module.fit`` over ``x``, ``y`` at ``TRAIN_BATCH``
+    with ``MXNET_TRAIN_WINDOW=window`` ('' for the per-batch loop); returns
+    the module, the ms per step between the end of the first window (the
+    first ``WINDOW_K`` steps) and the last, and the most windows in
+    flight."""
+    from mxnet_tpu_torch import telemetry as tm
+
+    marks, inflight = {}, [0]
+    last = len(x) // TRAIN_BATCH - 1
+
+    def on_batch(param):
+        inflight[0] = max(inflight[0], tm.gauge("fit.windows_in_flight").value)
+        if param.nbatch in (WINDOW_K - 1, last):
+            torch.cuda.synchronize()
+            marks[param.nbatch] = time.perf_counter()
+
+    it = mx.io.NDArrayIter(x, y, batch_size=TRAIN_BATCH)
+    mod = mx.mod.Module(sym)
+    with env_set(MXNET_TRAIN_WINDOW=window,
+                 MXNET_DISPATCH_DEPTH=str(WINDOW_DEPTH)):
+        mod.fit(it, num_epoch=1, optimizer="sgd", optimizer_params=TRAIN_OPT,
+                arg_params=arg_nd, aux_params=aux_nd,
+                batch_end_callback=on_batch)
+    torch.cuda.synchronize()
+    ms = (marks[last] - marks[WINDOW_K - 1]) * 1e3 / (last - WINDOW_K + 1)
+    return mod, ms, inflight[0]
+
+
+def lstm_chunk(it):
+    """A mixed-bucket chunk of ``WINDOW_K`` batches from ``it``: two of
+    one bucket around one of another, then a third bucket."""
+    by_key = {}
+    for batch in it:
+        by_key.setdefault(batch.bucket_key, []).append(batch)
+        if len(by_key) >= 3 and any(len(v) >= 2 for v in by_key.values()):
+            break
+    a = next(k for k, v in by_key.items() if len(v) >= 2)
+    b, c = [k for k in by_key if k != a][:2]
+    return [by_key[a][0], by_key[b][0], by_key[a][1], by_key[c][0]]
+
+
+def phase_windows(torch, mx, card):
+    """Phase 20: training windows (``Module.train_window``,
+    ``BucketingModule.train_window``, ``fit`` under
+    ``MXNET_TRAIN_WINDOW``). Returns the launches of its main path (the
+    window fits of ResNet-50, LSTM-PTB and MNIST) by kernel."""
+    from mxnet_tpu_torch import telemetry as tm
+
+    t0 = time.perf_counter()
+    sym, args, auxs = resnet50_numpy(mx, SEED)
+    cpu = mx.cpu()
+    arg_nd = {k: mx.nd.array(v, ctx=cpu) for k, v in args.items()}
+    aux_nd = {k: mx.nd.array(v, ctx=cpu) for k, v in auxs.items()}
+    rng = np.random.default_rng(SEED + 20)
+    n = WINDOW_FIT_STEPS * TRAIN_BATCH
+    x = rng.standard_normal((n,) + WINDOW_IMAGE, np.float32)
+    y = rng.integers(0, 1000, n).astype(np.float32)
+    batches = [mx.io.DataBatch(
+        [mx.nd.array(x[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH])],
+        [mx.nd.array(y[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH])])
+        for i in range(WINDOW_K)]
+    counters = launch_counters()
+    per_step = resnet_train_launches(mx)
+    want = {k: WINDOW_K * v for k, v in per_step.items()}
+
+    def module():
+        mod = mx.mod.Module(sym)
+        mod.bind(data_shapes=[("data", (TRAIN_BATCH,) + WINDOW_IMAGE)],
+                 label_shapes=[("softmax_label", (TRAIN_BATCH,))])
+        mod.init_params(arg_params=arg_nd, aux_params=aux_nd)
+        mod.init_optimizer(optimizer="sgd", optimizer_params=TRAIN_OPT)
+        return mod
+
+    def reset(*mods):
+        for m in mods:
+            reset_module(mx, m, arg_nd, aux_nd, "sgd", TRAIN_OPT)
+
+    def serial(mod, bs):
+        for b in bs:
+            mod.forward_backward(b)
+            mod.update()
+
+    serial_mod, win = module(), module()
+    with deterministic_cudnn(torch):
+        # four distinct batches: serial steps, a publishing window and a
+        # window that publishes no gradients
+        serial(serial_mod, batches)
+        before = {k: counters[k].value for k in want}
+        boundary = win.train_window(None, batches=batches)
+        torch.cuda.synchronize()
+        got = {k: counters[k].value - before[k] for k in want}
+        if got != want:
+            fail(f"windows: a window of {WINDOW_K} launched {got}; expected "
+                 f"{WINDOW_K} x {per_step}")
+        apart = states_apart(torch, device_state(win),
+                             device_state(serial_mod))
+        if apart or not torch.equal(boundary.outputs[0]._data,
+                                    serial_mod.get_outputs()[0]._data):
+            fail(f"windows: a window of {WINDOW_K} distinct batches is not "
+                 f"bit for bit {WINDOW_K} serial steps: {apart[:5]} apart, "
+                 f"or the last outputs")
+        grads = boundary.grads()
+        if set(grads) != {n for n in win._param_names}:
+            fail("windows: the publishing window's gradients are not every "
+                 "parameter's")
+        published = {k: v.clone() for k, v in device_state(win).items()}
+        del boundary, grads
+        reset(win)
+        lazy = win.train_window(None, batches=batches, publish_grads=False)
+        try:
+            lazy.grads()
+            fail("windows: boundary.grads() after publish_grads=False did "
+                 "not raise")
+        except mx.MXNetError:
+            pass
+        apart = states_apart(torch, device_state(win), published)
+        if apart:
+            fail(f"windows: publish_grads=False trained other weights: "
+                 f"{apart[:5]}")
+        del lazy, published
+        # one batch, four steps
+        reset(serial_mod, win)
+        serial(serial_mod, batches[:1] * WINDOW_K)
+        boundary = win.train_window(batches[0], n_steps=WINDOW_K)
+        apart = states_apart(torch, device_state(win),
+                             device_state(serial_mod))
+        if apart or not torch.equal(boundary.outputs[0]._data,
+                                    serial_mod.get_outputs()[0]._data):
+            fail(f"windows: train_window(batch, n_steps={WINDOW_K}) is not "
+                 f"bit for bit {WINDOW_K} serial steps: {apart[:5]}")
+        del boundary
+        # the guard: a NaN batch at one step of the window
+        bad = [mx.io.DataBatch([b.data[0].copy()], b.label) for b in batches]
+        bad[WINDOW_NAN_STEP].data[0]._data[0, 0, 0, 0] = float("nan")
+        with env_set(MXNET_NONFINITE_GUARD="skip"):
+            reset(serial_mod, win)
+            serial(serial_mod, bad)
+            win.train_window(None, batches=bad)
+            skips = (win.nonfinite_stats(), serial_mod.nonfinite_stats())
+        apart = states_apart(torch, device_state(win),
+                             device_state(serial_mod))
+        moved = not torch.equal(device_state(win)["arg:fc1_weight"],
+                                arg_nd["fc1_weight"]._data.to(
+                                    win._context[0].torch_device()))
+        if skips != ((1, 0), (1, 0)) or apart or not moved:
+            fail(f"windows: under MXNET_NONFINITE_GUARD=skip a NaN at step "
+                 f"{WINDOW_NAN_STEP + 1} of {WINDOW_K} gave skips (window, "
+                 f"serial) {skips}, expected one each; {apart[:5]} apart; "
+                 f"weights moved {moved}")
+    del serial_mod, win
+    print(f"[windows] ResNet-50 at batch {TRAIN_BATCH} on {card}, "
+          f"deterministic cuDNN: train_window(batches=[{WINDOW_K} "
+          f"batches]) and train_window(batch, n_steps={WINDOW_K}) bit for "
+          f"bit {WINDOW_K} serial steps (weights, momenta, BatchNorm "
+          f"statistics, the last outputs); launches {want} = {WINDOW_K} x a "
+          f"step's; publish_grads=False: grads() raises, the same bits; a "
+          f"NaN batch at step {WINDOW_NAN_STEP + 1} under "
+          f"MXNET_NONFINITE_GUARD=skip: one skip, the other steps applied "
+          f"as the serial loop's ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+    # fit under MXNET_TRAIN_WINDOW=4, MXNET_DISPATCH_DEPTH=2: the main path
+    launches = {}
+    with deterministic_cudnn(torch):
+        tm.reset()
+        fitted, win_ms, inflight = window_fit(torch, mx, sym, arg_nd, aux_nd,
+                                              x, y, str(WINDOW_K))
+        got = {k: counters[k].value for k in per_step}
+        gauges = (tm.gauge("fit.train_window_k").value,
+                  tm.gauge("fit.dispatch_depth").value, inflight)
+        batches_fit = tm.counter("fit.batches").value
+        windows_fit = tm.histogram("fit.window").count
+        launches.update(got)
+        want_fit = {k: WINDOW_FIT_STEPS * v for k, v in per_step.items()}
+        if got != want_fit or batches_fit != WINDOW_FIT_STEPS:
+            fail(f"windows: fit launched {got} over {batches_fit} steps; "
+                 f"expected {WINDOW_FIT_STEPS} x {per_step}")
+        if gauges != (WINDOW_K, WINDOW_DEPTH, WINDOW_DEPTH) or \
+                windows_fit != WINDOW_FIT_STEPS // WINDOW_K:
+            fail(f"windows: fit's (train_window_k, dispatch_depth, most "
+                 f"windows in flight) {gauges}, {windows_fit} windows; "
+                 f"expected ({WINDOW_K}, {WINDOW_DEPTH}, {WINDOW_DEPTH})")
+        per_batch, batch_ms, _n = window_fit(torch, mx, sym, arg_nd, aux_nd,
+                                             x, y, "")
+        apart = states_apart(torch, device_state(fitted),
+                             device_state(per_batch))
+    if apart:
+        fail(f"windows: fit under MXNET_TRAIN_WINDOW={WINDOW_K} is not bit "
+             f"for bit the per-batch fit: {apart[:5]}")
+    del fitted, per_batch
+    print(f"[windows] ResNet-50 Module.fit over {WINDOW_FIT_STEPS} batches on "
+          f"{card}, deterministic cuDNN, device prefetch on: "
+          f"MXNET_TRAIN_WINDOW={WINDOW_K} MXNET_DISPATCH_DEPTH={WINDOW_DEPTH} "
+          f"{win_ms:.2f} ms per step against the per-batch fit's "
+          f"{batch_ms:.2f} (steps {WINDOW_K + 1}..{WINDOW_FIT_STEPS} by the "
+          f"host's clock); fit.train_window_k {gauges[0]}, "
+          f"fit.dispatch_depth {gauges[1]}, fit.windows_in_flight at most "
+          f"{gauges[2]}, {windows_fit} windows; the weights, momenta and "
+          f"statistics bit for bit the per-batch fit's", flush=True)
+
+    # LSTM-PTB: BucketingModule.fit under windows, and one mixed chunk
+    t1 = time.perf_counter()
+    tm.reset()
+    with env_set(MXNET_TRAIN_WINDOW=str(WINDOW_K)):
+        it, mod, epochs = lstm_fit(mx, SEED)
+    torch.cuda.synchronize()
+    got = {k: counters[k].value for k in counters}
+    steps = tm.counter("fit.batches").value
+    it.reset()
+    tokens = LSTM_EPOCHS * sum(b.bucket_key for b in it)
+    lstm_want = {"lstm_cell": 2 * tokens, "lstm_cell_bwd": 2 * tokens,
+                 "adam_multi": steps, "softmax_rows": steps,
+                 "softmax_output_bwd": steps}
+    if {k: v for k, v in got.items() if v} != lstm_want:
+        fail(f"windows: LSTM fit launched {got}; expected {lstm_want}")
+    for k, v in lstm_want.items():
+        launches[k] = launches.get(k, 0) + v
+    if not (epochs[-1] < PPL_LIMIT and epochs[-1] < epochs[0]):
+        fail(f"windows: LSTM Train-Perplexity by epoch {epochs} under "
+             f"MXNET_TRAIN_WINDOW={WINDOW_K}; expected the last below "
+             f"{PPL_LIMIT} and below the first")
+    fit_s = time.perf_counter() - t1
+    it.reset()
+    chunk = lstm_chunk(it)
+    sym_gen, states = mx.models.lstm_lm_sym_gen(**LSTM)
+    _sym8, _states, lstm_args = lstm_numpy(mx, SEED + 21)
+    lstm_nd = {k: mx.nd.array(v, ctx=cpu) for k, v in lstm_args.items()}
+
+    def bucketing():
+        m = mx.mod.BucketingModule(sym_gen,
+                                   default_bucket_key=it.default_bucket_key,
+                                   state_names=states)
+        m.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+        m.init_params(arg_params=lstm_nd, allow_missing=True)
+        m.init_optimizer(optimizer="adam", optimizer_params=LSTM_OPT)
+        return m
+
+    keys = [b.bucket_key for b in chunk]
+    order = [b for b in chunk if b.bucket_key != keys[-1]]
+    order = sorted(order, key=lambda b: keys.index(b.bucket_key)) + \
+        [b for b in chunk if b.bucket_key == keys[-1]]
+    with deterministic_cudnn(torch):
+        ref, win = bucketing(), bucketing()
+        for b in order:
+            ref.forward_backward(b)
+            ref.update()
+        boundary = win.train_window(None, batches=chunk)
+        torch.cuda.synchronize()
+    counts = set(win._curr_module._optimizer._index_update_count.values())
+    apart = states_apart(torch, device_state(win._curr_module),
+                         device_state(ref._curr_module))
+    if apart or counts != {WINDOW_K} or boundary.n_steps != WINDOW_K:
+        fail(f"windows: BucketingModule.train_window over buckets {keys} is "
+             f"not bit for bit the serial steps in its order "
+             f"{[b.bucket_key for b in order]}: {apart[:5]} apart; Adam's "
+             f"update counts {counts}, expected {{{WINDOW_K}}}")
+    del ref, win, mod, boundary
+    print(f"[windows] LSTM-PTB BucketingModule.fit on {card} under "
+          f"MXNET_TRAIN_WINDOW={WINDOW_K}: {steps} steps in {fit_s:.1f} s, "
+          f"Train-Perplexity by epoch {[round(v, 1) for v in epochs]} "
+          f"(limit {PPL_LIMIT}); launches {lstm_want}; one chunk over buckets "
+          f"{keys} bit for bit the serial steps in its order "
+          f"{[b.bucket_key for b in order]}, Adam's counts +{WINDOW_K}",
+          flush=True)
+
+    # MNIST MLP through the launcher under MXNET_TRAIN_WINDOW=auto
+    with env_set(MXNET_TRAIN_WINDOW="auto"):
+        counts, acc, speeds, secs, costs = run_script(mnist_command("mlp"))
+    steps, vals = counts["fit_batches"], counts["score_batches"]
+    got = {k: v for k, v in counts["launches"].items() if v}
+    mnist_want = {"softmax_rows": steps + vals, "softmax_output_bwd": steps,
+                  "sgd_mom_multi": steps}
+    floor = MNIST_CPU_ACC["mlp"] - MNIST_ACC_MARGIN
+    if counts["jax"] or not steps or got != mnist_want or \
+            len(acc) != MNIST_EPOCHS or not acc[-1] >= floor:
+        fail(f"windows: train_mnist.py under MXNET_TRAIN_WINDOW=auto: "
+             f"launches {got}, expected {mnist_want}; validation accuracy "
+             f"{acc}, limit {floor}; jax {counts['jax']}")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"[windows] examples/train_mnist.py --synthetic 1 --network mlp "
+          f"under MXNET_TRAIN_WINDOW=auto on {card} in {secs:.1f} s: chosen "
+          f"K {counts['train_window_k']}, dispatch depth "
+          f"{counts['dispatch_depth']}; validation accuracy by epoch {acc} "
+          f"(the CPU path's {MNIST_CPU_ACC['mlp']}, margin "
+          f"{MNIST_ACC_MARGIN}); Speedometer samples/s {speeds} (it reads "
+          f"where a window ends on a multiple of 20 batches); samples/s by "
+          f"epoch {epoch_rates(steps, costs)} (its steps over fit's Time "
+          f"cost; phase 19 prints the per-batch loop's); launches {got} over "
+          f"{steps} steps and {vals} validation batches; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main():
     if sys.argv[1:2] == ["--cpu-perplexity"]:
         cpu_perplexity([int(a) for a in sys.argv[2:]])
@@ -7286,6 +7681,7 @@ def main():
     phase_dcgan_parity(torch, mx)
     mnist_paths = phase_mnist_kernels(torch, mx)
     baseline = phase_baseline_scripts(torch, mx, card)
+    windows = phase_windows(torch, mx, card)
     for k in kernels:
         name = k["name"]
         k["launches_serving"] = served.get(name, 0)
@@ -7295,6 +7691,7 @@ def main():
         k["launches_ssd_train"] = ssd_trained.get(name, 0)
         k["launches_dcgan"] = dcgan_trained.get(name, 0)
         k["launches_baseline"] = baseline.get(name, 0)
+        k["launches_windows"] = windows.get(name, 0)
         if name in mnist_paths:
             k.setdefault("paths", {}).update(mnist_paths[name])
             k["max_abs_err"] = max(k["max_abs_err"], *(
@@ -7302,7 +7699,7 @@ def main():
         k["launches"] = (k["launches_serving"] + k["launches_training"]
                          + k["launches_lstm"] + k["launches_ssd"]
                          + k["launches_ssd_train"] + k["launches_dcgan"]
-                         + k["launches_baseline"])
+                         + k["launches_baseline"] + k["launches_windows"])
         k["step_device_ms"] = device_ms.get(name)
         k["lstm_step_device_ms"] = lstm_device_ms.get(name)
         k["ssd_forward_device_ms"] = ssd_device_ms.get(name)

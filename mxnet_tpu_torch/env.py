@@ -13,9 +13,8 @@ Each variable is one of three kinds:
   training, ``ModelServer`` for serving; :func:`check_unported`) — never
   silently ignored.
 
-The serving mesh, sequence buckets, checkpoint watcher and training
-windows are honoured variables whose non-default values raise where they
-are read.
+The serving mesh, sequence buckets and checkpoint watcher are honoured
+variables whose non-default values raise where they are read.
 """
 
 from __future__ import annotations
@@ -146,12 +145,29 @@ _declare("MXNET_DEVICE_PREFETCH", _parse_bool, True,
 _declare("MXNET_PREFETCH_DEPTH", int, 0,
          "Staging-queue depth (batches) of the DevicePrefetchIter that "
          "fit and score wrap around their iterators. 0 (default) = auto: "
-         "2 (training windows, which would grow it, are ROADMAP.md queue "
-         "1 item 2). An explicit value is honoured as it is.")
+         "2, grown to K x depth + 1 once fit's training windows engage "
+         "(MXNET_TRAIN_WINDOW, MXNET_DISPATCH_DEPTH), so the staged "
+         "batches cover every window in flight. An explicit value is "
+         "honoured as it is.")
 _declare("MXNET_TRAIN_WINDOW", str, "",
-         "Fused-K training windows for Module.fit. Not yet ported "
-         "(ROADMAP.md queue 1 item 2): a value other than empty or 1 "
-         "raises MXNetError.")
+         "Steps per training window of Module.fit: an integer K hands "
+         "chunks of K batches to Module.train_window (K eager steps on the "
+         "hand-written kernels, the hyperparameters frozen at the window's "
+         "first step); 'auto' probes a few single-step batches and picks K "
+         "from the measured dispatch-vs-residual span ratio "
+         "(aot.choose_train_window). Windows move lr-schedule, metric and "
+         "batch-callback updates to window granularity. Empty (default) "
+         "keeps the per-batch loop.")
+_declare("MXNET_DISPATCH_DEPTH", str, "",
+         "Training windows Module.fit keeps in flight: the host enqueues "
+         "window N+1 while window N runs on the card and fences "
+         "(WindowBoundary.wait, a CUDA event) only when the count would "
+         "exceed this depth. An integer >= 1 fixes it; empty/'auto' "
+         "(default) lets the window scheduler co-tune it with K "
+         "(aot.choose_dispatch_depth, >= 2 whenever windows engage). "
+         "Published on the fit.dispatch_depth gauge; "
+         "MXNET_NONFINITE_GUARD=rollback caps it at 1. Each window in "
+         "flight holds K staged batches of device memory.")
 
 
 # --- accepted and ignored: layout- and performance-only -------------------
@@ -179,10 +195,6 @@ _ignored("MXNET_AOT_CACHE", _parse_bool, False,
          "eager PyTorch compiles no program.")
 _ignored("MXNET_AOT_CACHE_DIR", str, "~/.cache/mxnet_tpu/aot",
          "Directory of the program cache. Ignored with MXNET_AOT_CACHE.")
-_ignored("MXNET_DISPATCH_DEPTH", str, "",
-         "Training windows kept in flight by fit. Ignored (performance "
-         "only): windows themselves are MXNET_TRAIN_WINDOW's, which "
-         "raises.")
 _ignored("MXNET_IO_POOL", _parse_bool, True,
          "Decode RecordIO batches on a worker pool (byte-identical to the "
          "serial path). Ignored (performance only).")

@@ -11,10 +11,16 @@ statistics then, once per forward, as the reference does), ``backward()``
 differentiates it at once — loss heads drive it without ``out_grads``, as
 ``_head_loss_flags`` has it — and ``fused_train_update`` applies the
 optimizer to every parameter in one multi-tensor kernel launch, with the
-``MXNET_NONFINITE_GUARD`` select on the device. The NHWC,
+``MXNET_NONFINITE_GUARD`` select on the device. A training window
+(``fused_train_update(n_steps=K)``) runs K such steps in a row, eagerly:
+where the reference loops inside one XLA program, the port enqueues each
+step's forward, backward and update launches on the stream, with no host
+wait between them. ``set_monitor_callback`` and ``partial_forward`` run
+the graph op by op as written, as the reference's interpret mode does;
+``reshape`` and ``debug_str`` are the reference's. The NHWC,
 rematerialisation, device-placement and rng branches of the reference
-interpreter, training windows (``n_steps > 1``), small-parameter packing
-and CUDA-graph capture of the step are not yet ported.
+interpreter and small-parameter packing are not yet ported; CUDA-graph
+capture of the step is a later performance change (``ROADMAP.md``).
 
 Where XLA would fuse a BatchNorm into the (leaky) ReLU that consumes it,
 the interpreter routes the pair to the ``bn_act`` kernel (and in training
@@ -68,9 +74,36 @@ from .ops.defs_nn import batch_norm, l2norm_channel_op
 from .ops.registry import OpMode
 
 _GRAD_REQ = ("null", "write", "add")
-_WINDOWS = ("training windows (n_steps > 1, data_stacks, "
-            "publish_grads=False) are not yet ported to mxnet_tpu_torch "
-            "(ROADMAP.md queue 1 item 2)")
+
+
+class _Unpublished:
+    """Stands in for a gradient a training window ran with
+    ``publish_grads=False``: the array keeps its shape, dtype and device,
+    and any read of its values raises :class:`MXNetError` until a
+    publishing step writes the gradient again. The window frees the last
+    step's gradient tensors early (the reference dead-codes their
+    publication out of its program)."""
+
+    __slots__ = ("name", "shape", "dtype", "device")
+
+    def __init__(self, name, tensor):
+        self.name = name
+        self.shape = tensor.shape
+        self.dtype = tensor.dtype
+        self.device = tensor.device
+
+    def numel(self):
+        return self.shape.numel()
+
+    def dim(self):
+        return len(self.shape)
+
+    def __getattr__(self, attr):
+        raise MXNetError(
+            f"gradient '{self.name}' was not published: the last training "
+            "window ran with publish_grads=False. Run train_window(..., "
+            "publish_grads=True) or a single step to read per-step "
+            "gradients.")
 
 
 def _consumers(symbol, topo):
@@ -330,23 +363,40 @@ class _Graph:
         for (node, _idx) in self.heads:
             self._last_use[id(node)] = len(self.topo)
 
-    def evaluate(self, arg_vals, aux_vals, is_train, device=None):
+    def evaluate(self, arg_vals, aux_vals, is_train, device=None,
+                 monitor=None, monitor_all=False, limit=None):
         """Run the graph on ``device`` (where an op without inputs places
-        its output). Returns the head outputs."""
+        its output). Returns the head outputs.
+
+        With ``monitor`` (a callback ``(name, tensor)``) or ``limit`` every
+        op runs as written, no fused route (the reference's interpret
+        mode): ``monitor`` sees each op node's visible outputs as
+        ``<node>_output`` (``<node>_output<i>`` past the first) and, with
+        ``monitor_all``, each variable's value under its own name;
+        ``limit`` runs only the first ``limit`` op nodes and returns the
+        last one's outputs (``partial_forward``)."""
         mode = OpMode(is_train=is_train, device=device)
+        plain = monitor is not None or limit is not None
         env = {}
+        executed, last = 0, []
         for pos, node in enumerate(self.topo):
             if node.is_variable:
                 if node.is_aux:
                     env[id(node)] = [aux_vals[self._aux_index[node.name]]]
                 else:
                     env[id(node)] = [arg_vals[self._arg_index[node.name]]]
+                if monitor is not None and monitor_all:
+                    monitor(node.name, env[id(node)][0])
                 continue
-            reads = self._reads[id(node)]
+            if limit is not None and executed >= limit:
+                break
+            reads = node.inputs if plain else self._reads[id(node)]
             if reads is None:
                 continue  # inside a fused LSTM step
             ins = [env[id(inode)][idx] for (inode, idx) in reads]
-            if id(node) in self._routes:
+            if plain:
+                outs, new_aux = node.op.apply(ins, node.params(), mode)
+            elif id(node) in self._routes:
                 outs, new_aux = self._routes[id(node)][1](ins, mode), []
             elif id(node) in self.fused:
                 outs, new_aux = ins, []  # its BatchNorm applied the ReLU
@@ -365,9 +415,19 @@ class _Graph:
                 if value is not held:
                     held.copy_(value)
             env[id(node)] = outs
+            executed, last = executed + 1, outs
+            if monitor is not None:
+                nvis = node.op.num_visible_outputs(node.params())
+                for i, o in enumerate(outs[:nvis]):
+                    monitor(node.name + ("_output" if i == 0
+                                         else f"_output{i}"), o)
+            if plain:
+                continue  # a debugging run keeps every value
             for (inode, _idx) in reads:
                 if self._last_use[id(inode)] == pos:
                     env.pop(id(inode), None)
+        if limit is not None:
+            return list(last)
         return [env[id(node)][idx] for (node, idx) in self.heads]
 
     def _shape_const(self, node, ins, mode):
@@ -426,6 +486,10 @@ class Executor:
         # (head tensors, {name: leaf}) of a training forward
         self._recorded = None
         self._grads_fresh = False  # a backward no update has consumed yet
+        self._head_grads = False  # that backward took explicit out_grads
+        self._steps_applied = 0  # updates the last fused call applied
+        self._monitor_callback = None
+        self._monitor_all = False
         self._aux_snapshot = None  # (flat copy, restore pairs) for the guard
         self._guard_dev = None  # device int32 [total, consecutive] skips
         self._update_cache = {}  # the update kernel's packs or table
@@ -484,25 +548,18 @@ class Executor:
         output with ``asnumpy`` waits for them. With ``is_train`` the
         forward takes batch statistics, updates the BatchNorm moving
         statistics and is recorded for :meth:`backward`."""
-        for name, arr in kwargs.items():
-            if name not in self.arg_dict:
-                raise MXNetError(f"forward: unknown argument {name!r}")
-            tgt = self.arg_dict[name]
-            src = arr._data if isinstance(arr, NDArray) \
-                else torch.as_tensor(arr)
-            if tuple(src.shape) != tgt.shape:
-                raise MXNetError(
-                    f"forward: shape mismatch for {name}: bound {tgt.shape}, "
-                    f"got {tuple(src.shape)}")
-            tgt._data.copy_(src)
+        self._write_inputs(kwargs, "forward")
         self._recorded = None
         self._grads_fresh = False
         aux_vals = [self.aux_dict[n]._data for n in self.aux_names]
+        monitor = {"monitor": self._monitor_callback,
+                   "monitor_all": self._monitor_all}
         if not is_train:
             with torch.inference_mode():
                 outs = self.graph.evaluate(
                     [self.arg_dict[n]._data for n in self.arg_names],
-                    aux_vals, is_train=False, device=self._device())
+                    aux_vals, is_train=False, device=self._device(),
+                    **monitor)
             self._outputs = [NDArray(o) for o in outs]
             return list(self._outputs)
         if nonfinite_guard_on():
@@ -519,10 +576,24 @@ class Executor:
             arg_vals.append(t)
         with torch.enable_grad():
             outs = self.graph.evaluate(arg_vals, aux_vals, is_train=True,
-                                       device=self._device())
+                                       device=self._device(), **monitor)
         self._recorded = (outs, leaves)
         self._outputs = [NDArray(o.detach()) for o in outs]
         return list(self._outputs)
+
+    def _write_inputs(self, kwargs, what):
+        """Copy new input values into the bound arrays."""
+        for name, arr in kwargs.items():
+            if name not in self.arg_dict:
+                raise MXNetError(f"{what}: unknown argument {name!r}")
+            tgt = self.arg_dict[name]
+            src = arr._data if isinstance(arr, NDArray) \
+                else torch.as_tensor(arr)
+            if tuple(src.shape) != tgt.shape:
+                raise MXNetError(
+                    f"{what}: shape mismatch for {name}: bound {tgt.shape}, "
+                    f"got {tuple(src.shape)}")
+            tgt._data.copy_(src)
 
     def _device(self):
         """The ``torch.device`` of the bound context."""
@@ -609,6 +680,7 @@ class Executor:
             else:
                 self.grad_dict[n]._data = g
         self._grads_fresh = True
+        self._head_grads = out_grads is not None
 
     # --- the fused training update --------------------------------------
     def nonfinite_guard_stats(self):
@@ -631,8 +703,7 @@ class Executor:
                            cache_token=None, n_steps=1, data_stacks=None,
                            publish_grads=True):
         """Apply the optimizer to every parameter in ``update_names`` after
-        a :meth:`backward`, in place (reference ``fused_train_update``,
-        single step).
+        a :meth:`backward`, in place (reference ``fused_train_update``).
 
         ``apply_fn(weights, grads, states, lrs, wds, ts, cache=, guard=)``
         updates lists of tensors at once (``Optimizer.torch_apply``: one
@@ -640,14 +711,86 @@ class Executor:
         Under ``MXNET_NONFINITE_GUARD`` a step whose gradients are not all
         finite keeps the old parameters, optimizer state and BatchNorm
         statistics, and advances the device skip counters
-        (:meth:`nonfinite_guard_stats`). Training windows raise
-        :class:`MXNetError`."""
-        if int(n_steps) != 1 or data_stacks is not None or not publish_grads:
-            raise MXNetError(f"fused_train_update: {_WINDOWS}")
+        (:meth:`nonfinite_guard_stats`).
+
+        ``n_steps > 1`` runs a training window: step 0 is the update of the
+        pending backward, then each of steps 1..K-1 runs a training
+        forward (on slice ``i`` of every ``data_stacks`` entry, else on the
+        bound inputs), the backward and the update, so parameters,
+        optimizer state, BatchNorm statistics, the guard's snapshot and
+        the random generators advance per step. The hyperparameters are
+        the window's first step's: ``lrs`` and ``wds`` stay as given and
+        step ``i`` takes the counts ``ts + i``. No host wait enters the
+        loop. ``data_stacks`` maps input names to ``(n_steps,) + bound
+        shape`` arrays, cast to the bound dtype on the device. A window
+        needs ``grad_req="write"`` and loss heads (no explicit head
+        gradients). The last step's outputs are published and, with
+        ``publish_grads``, its gradients; with ``publish_grads=False``
+        they are freed and reading them raises :class:`MXNetError` until
+        a publishing step runs.
+        """
+        n_steps = int(n_steps)
+        self._steps_applied = 0
         if not self._grads_fresh:
             raise MXNetError(
                 "fused_train_update requires a backward() whose gradients "
                 "no update has consumed yet")
+        if data_stacks and n_steps <= 1:
+            raise MXNetError(
+                "data_stacks requires a window (n_steps>1); a single step "
+                "trains on the bound inputs")
+        stacks = {}
+        if n_steps > 1:
+            if self._head_grads:
+                raise MXNetError(
+                    "a training window (n_steps>1) drives loss heads only; "
+                    "explicit head gradients change per step: run "
+                    "single-step updates instead")
+            if any(r == "add" for r in self.grad_req.values()):
+                raise MXNetError(
+                    "a training window requires grad_req='write' (an 'add' "
+                    "accumulation carried across window steps would "
+                    "double-count); use single-step updates")
+            stacks = self._window_stacks(data_stacks or {}, n_steps)
+        publish = bool(publish_grads) or n_steps <= 1
+        new_states = states
+        for i in range(n_steps):
+            if i:
+                self.forward(is_train=True, **{n: NDArray(v[i])
+                                               for n, v in stacks.items()})
+                self.backward()
+            new_states = self._apply_update(
+                update_names, apply_fn, new_states, lrs, wds,
+                [t + i for t in ts])
+            self._steps_applied += 1
+        if not publish:
+            for n, r in self.grad_req.items():
+                if r == "write" and n in self.grad_dict:
+                    arr = self.grad_dict[n]
+                    arr._data = _Unpublished(n, arr._data)
+        return new_states
+
+    def _window_stacks(self, data_stacks, n_steps):
+        """``data_stacks`` checked against the bound inputs and cast to
+        their dtypes on their device: ``{name: tensor}``."""
+        out = {}
+        for name in sorted(data_stacks):
+            if name not in self.arg_dict:
+                raise MXNetError(
+                    f"data_stacks name '{name}' is not a bound input")
+            v = data_stacks[name]
+            v = v._data if isinstance(v, NDArray) else torch.as_tensor(v)
+            tgt = self.arg_dict[name]._data
+            want = (n_steps,) + tuple(tgt.shape)
+            if tuple(v.shape) != want:
+                raise MXNetError(
+                    f"data_stacks['{name}'] shape {tuple(v.shape)} != "
+                    f"(n_steps,)+bound shape {want}")
+            out[name] = v.to(device=tgt.device, dtype=tgt.dtype)
+        return out
+
+    def _apply_update(self, update_names, apply_fn, states, lrs, wds, ts):
+        """One update of the gradients of the pending backward."""
         guard = None
         if nonfinite_guard_on():
             if self._aux_snapshot is None:
@@ -664,6 +807,84 @@ class Executor:
                               cache=self._update_cache, guard=guard)
         self._grads_fresh = False
         return new_states
+
+    # --- debugging: the reference's interpret mode ----------------------
+    def debug_str(self):
+        """The execution plan (reference ``Executor::DebugStr``): the
+        graph's nodes in the order the interpreter runs them."""
+        mode = ("interpret(monitor)" if self._monitor_callback is not None
+                else "eager")
+        lines = [f"Symbol outputs: {', '.join(self.output_names)}",
+                 f"ctx: {self._ctx}  mode: {mode}"]
+        step = 0  # op-node ordinal: the unit partial_forward counts
+        for node in self.graph.topo:
+            if node.is_variable:
+                kind = "aux" if node.is_aux else "var"
+                lines.append(f"  [     ] {kind:8s} {node.name}")
+                continue
+            step += 1
+            lines.append(f"  [{step:4d} ] {node.op.name:20s} {node.name}")
+        lines.append(f"Total {step} op nodes "
+                     f"({len(self.arg_names)} args, "
+                     f"{len(self.aux_names)} aux)")
+        return "\n".join(lines)
+
+    def partial_forward(self, is_train=False, num_nodes=None, **kwargs):
+        """Run the first ``num_nodes`` op nodes (the ordinals
+        :meth:`debug_str` prints; all of them when None) op by op as
+        written and return the last one's outputs (reference
+        ``PartialForward``). ``kwargs`` write new input values as in
+        :meth:`forward`. The aux states are read, never written."""
+        self._write_inputs(kwargs, "partial_forward")
+        if num_nodes is None:
+            num_nodes = len(self.graph.topo)
+        aux = [self.aux_dict[n]._data.clone() for n in self.aux_names]
+        with torch.inference_mode():
+            outs = self.graph.evaluate(
+                [self.arg_dict[n]._data for n in self.arg_names], aux,
+                is_train=is_train, device=self._device(), limit=num_nodes)
+        return [NDArray(o) for o in outs]
+
+    def set_monitor_callback(self, callback, monitor_all=False):
+        """Call ``callback(name, NDArray)`` on every op node's output of
+        each forward (reference ``MXExecutorSetMonitorCallback``; with
+        ``monitor_all``, on every variable's value too). While it is
+        installed the graph runs op by op as written, no fused route;
+        ``None`` removes it."""
+        def _cb(name, arr):
+            callback(name, NDArray(arr.detach()))
+
+        self._monitor_callback = _cb if callback is not None else None
+        self._monitor_all = bool(monitor_all) and callback is not None
+
+    def reshape(self, partial_shaping=False, allow_up_sizing=False,
+                **kwargs):
+        """A new executor for the input shapes in ``kwargs`` (reference
+        ``Executor.reshape``): arrays whose shape stays are shared, the
+        others allocated anew; an argument outside ``kwargs`` whose shape
+        changes raises unless ``partial_shaping`` or ``allow_up_sizing``.
+        The aux states are shared."""
+        arg_shapes, _out, _aux = self._symbol.infer_shape(**kwargs)
+        new_args, new_grads = {}, {}
+        for n, shape in zip(self.arg_names, arg_shapes):
+            shape = tuple(shape)
+            cur = self.arg_dict[n]
+            if cur.shape == shape:
+                new_args[n] = cur
+            elif partial_shaping or allow_up_sizing or n in kwargs:
+                new_args[n] = nd_zeros(shape, ctx=cur.context,
+                                       dtype=cur.dtype)
+            else:
+                raise MXNetError(
+                    f"reshape: shape of {n} changed {cur.shape}->{shape}; "
+                    "set partial_shaping=True")
+            g = self.grad_dict.get(n)
+            if g is not None:
+                new_grads[n] = g if g.shape == shape else nd_zeros(
+                    shape, ctx=g.context, dtype=g.dtype)
+        return Executor(self._symbol, self._ctx, args=new_args,
+                        args_grad=new_grads or None, grad_req=self.grad_req,
+                        aux_states=self.aux_dict)
 
     # ------------------------------------------------------------------
     def copy_params_from(self, arg_params, aux_params=None,

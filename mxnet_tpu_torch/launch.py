@@ -18,9 +18,12 @@ JAX package is never imported.
 
 After the script returns, the launcher prints one JSON line on standard
 output: ``{"launch": {"launches": {kernel: count}, "fit_batches": n,
-"score_batches": n, "jax": false}}`` — each hand-written kernel's launches
-(the CPU path launches none), the training steps, the validation batches,
-and whether anything imported ``jax``.
+"score_batches": n, "train_window_k": k, "dispatch_depth": d, "jax":
+false}}`` — each hand-written kernel's launches (the CPU path launches
+none), the training steps, the validation batches, the steps per training
+window and the windows in flight that ``fit`` last used
+(``MXNET_TRAIN_WINDOW``, ``MXNET_DISPATCH_DEPTH``; 0 where no ``fit``
+ran), and whether anything imported ``jax``.
 """
 
 from __future__ import annotations
@@ -47,6 +50,8 @@ def _counts(mx):
                      if isinstance(v, dict) and "launches" in v},
         "fit_batches": tm.counter("fit.batches").value,
         "score_batches": tm.histogram("score.dispatch").count,
+        "train_window_k": tm.gauge("fit.train_window_k").value,
+        "dispatch_depth": tm.gauge("fit.dispatch_depth").value,
         "jax": any(m == "jax" or m.startswith("jax.") for m in sys.modules),
     }
 

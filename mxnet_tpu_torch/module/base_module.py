@@ -11,20 +11,28 @@ end reads it, and the non-finite guard's counters are read there too.
 ``io.DevicePrefetchIter`` when ``MXNET_DEVICE_PREFETCH`` is on, the
 default, so batch N+1 is copied to the card while batch N computes.
 
-Not yet ported, and raising where a caller asks for them: training windows
-(``MXNET_TRAIN_WINDOW``), checkpoint directories with auto-resume
-(``fit(checkpoint=...)``, ``MXNET_CHECKPOINT_*``), monitors, the I/O retry
-wrapper (``MXNET_IO_RETRY``) and the other variables of subsystems not yet
-ported (``env.check_unported("fit")``).
+Training windows (``MXNET_TRAIN_WINDOW``, ``aot.TrainWindowScheduler``):
+chunks of K batches go to ``train_window`` in one call, the metric and the
+batch-end callbacks run once a window on its last batch, and up to
+``MXNET_DISPATCH_DEPTH`` windows stay in flight, the host fencing on the
+oldest one's CUDA event (``fit.window_wait``) before it enqueues more.
+
+Not yet ported, and raising where a caller asks for them: checkpoint
+directories with auto-resume (``fit(checkpoint=...)``,
+``MXNET_CHECKPOINT_*``), monitors, the I/O retry wrapper
+(``MXNET_IO_RETRY``) and the other variables of subsystems not yet ported
+(``env.check_unported("fit")``).
 """
 
 from __future__ import annotations
 
 import logging
 import time
+from collections import deque
 
 import torch
 
+from .. import aot as _aot
 from .. import env as _env
 from .. import io as io_mod
 from .. import metric as metric_mod
@@ -112,14 +120,6 @@ class _NonfiniteGuard:
                 f"{consec} consecutive non-finite-gradient skips and no "
                 "checkpoint to roll back to (checkpoint rollback is not yet "
                 "ported to mxnet_tpu_torch)")
-
-
-def _train_window_unset():
-    window = str(_env.get("MXNET_TRAIN_WINDOW") or "").strip()
-    if window not in ("", "1"):
-        raise MXNetError(f"MXNET_TRAIN_WINDOW={window}: training windows "
-                         "are not yet ported to mxnet_tpu_torch (ROADMAP.md "
-                         "queue 1 item 2)")
 
 
 class BaseModule:
@@ -265,7 +265,6 @@ class BaseModule:
                              "callback.do_checkpoint(prefix)")
         if monitor is not None:
             raise MXNetError("monitors are not yet ported to mxnet_tpu_torch")
-        _train_window_unset()
         _env.check_unported("fit")
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
@@ -284,13 +283,14 @@ class BaseModule:
         # a thread copies batch N+1 to the card while batch N computes
         orig_train_data = train_data
         train_data = self._wrap_device_prefetch(train_data)
+        window = self._window_scheduler(guard, monitor)
         fit_completed = False
         try:
             for epoch in range(begin_epoch, num_epoch):
                 self._fit_epoch(epoch, train_data, eval_data, eval_metric,
-                                validation_metric, guard, batch_end_callback,
-                                epoch_end_callback, eval_end_callback,
-                                eval_batch_end_callback)
+                                validation_metric, guard, window,
+                                batch_end_callback, epoch_end_callback,
+                                eval_end_callback, eval_batch_end_callback)
                 # after the last epoch the wrapper is not reset: that would
                 # restart its thread to stage batches no one takes; the
                 # finally block leaves the same state
@@ -305,8 +305,27 @@ class BaseModule:
                 if fit_completed:
                     orig_train_data.reset()
 
+    def _window_scheduler(self, guard, monitor):
+        """The training-window scheduler of this fit, or None for the
+        per-batch loop: ``MXNET_TRAIN_WINDOW`` unset, a monitor, or the
+        guard's ``raise`` mode (it checks every batch). The guard's
+        ``rollback`` mode caps the dispatch depth at 1."""
+        window = _aot.TrainWindowScheduler.from_env(self, monitor)
+        if window is not None and guard is not None:
+            if guard.mode == "raise":
+                window = None
+            elif guard.mode == "rollback":
+                window.cap_depth("nonfinite-rollback")
+                self.logger.info(
+                    "fit: dispatch depth capped at 1 "
+                    "(MXNET_NONFINITE_GUARD=rollback fences every window "
+                    "boundary)")
+        if window is None:
+            _tm.gauge("fit.dispatch_depth").set(1)
+        return window
+
     def _fit_epoch(self, epoch, train_data, eval_data, eval_metric,
-                   validation_metric, guard, batch_end_callback,
+                   validation_metric, guard, window, batch_end_callback,
                    epoch_end_callback, eval_end_callback,
                    eval_batch_end_callback):
         from ..model import BatchEndParam
@@ -314,11 +333,74 @@ class BaseModule:
         tic = time.time()
         eval_metric.reset()
         nbatch = 0
+        inflight = deque()  # boundaries of the windows in flight
+        prefetch_auto = _env.get("MXNET_PREFETCH_DEPTH") == 0
+
+        def batch_end(nbatch, scope):
+            if batch_end_callback is None:
+                return
+            params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                   eval_metric=eval_metric, locals=scope)
+            with _tm.span("fit.callback"):
+                for callback in _as_list(batch_end_callback):
+                    callback(params)
+
         batches = iter(train_data)
         with _tm.span("fit.data_wait"):
             pending = next(batches, None)
         while pending is not None:
             data_batch = pending
+            k = window.next_k() if window is not None else 1
+            if k > 1:
+                chunk = [data_batch]
+                with _tm.span("fit.data_wait"):
+                    while len(chunk) < k:
+                        nxt = next(batches, None)
+                        if nxt is None:
+                            break
+                        chunk.append(nxt)
+                if len(chunk) < k:
+                    # an epoch tail shorter than K runs single steps
+                    for b in chunk:
+                        with _tm.span("fit.dispatch"):
+                            self.forward_backward(b)
+                            self.update()
+                        with _tm.span("fit.metric"):
+                            self.update_metric(eval_metric, b.label)
+                        nbatch += 1
+                    window.observe(len(chunk))
+                    pending = None  # a short chunk drained the iterator
+                else:
+                    if (prefetch_auto
+                            and isinstance(train_data,
+                                           io_mod.DevicePrefetchIter)
+                            and train_data.depth < k * window.depth + 1):
+                        # stage enough batches for every window in flight
+                        train_data.set_depth(k * window.depth + 1)
+                    with _tm.span("fit.window", k=k, depth=window.depth,
+                                  in_flight=len(inflight)):
+                        with _tm.span("fit.dispatch"):
+                            boundary = self.train_window(
+                                None, batches=chunk, publish_grads=False)
+                        inflight.append(boundary)
+                        _tm.gauge("fit.windows_in_flight").set(len(inflight))
+                        with _tm.span("fit.data_wait"):
+                            pending = next(batches, None)
+                            if pending is not None:
+                                self.prepare(pending)
+                        with _tm.span("fit.metric"):
+                            self.update_metric(eval_metric, chunk[-1].label)
+                    nbatch += len(chunk)
+                    window.observe(len(chunk))
+                data_batch = chunk[-1]
+                batch_end(nbatch - 1, locals())
+                while len(inflight) >= window.depth:
+                    # fence on the oldest window's event: at most depth
+                    # windows (each holding K staged batches) queued
+                    with _tm.span("fit.window_wait"):
+                        inflight.popleft().wait()
+                    _tm.gauge("fit.windows_in_flight").set(len(inflight))
+                continue
             with _tm.span("fit.dispatch"):
                 self.forward_backward(data_batch)
                 self.update()
@@ -330,16 +412,18 @@ class BaseModule:
                     self.prepare(pending)
             with _tm.span("fit.metric"):
                 self.update_metric(eval_metric, data_batch.label)
-            if batch_end_callback is not None:
-                params = BatchEndParam(epoch=epoch, nbatch=nbatch,
-                                       eval_metric=eval_metric,
-                                       locals=locals())
-                with _tm.span("fit.callback"):
-                    for callback in _as_list(batch_end_callback):
-                        callback(params)
+            batch_end(nbatch, locals())
             nbatch += 1
             if guard is not None:
                 guard.after_batch()
+            if window is not None:
+                window.observe(1)
+        if inflight:
+            # every window retires before the epoch's sync points
+            with _tm.span("fit.window_wait"):
+                while inflight:
+                    inflight.popleft().wait()
+            _tm.gauge("fit.windows_in_flight").set(0)
         _tm.counter("fit.batches").inc(nbatch)
         _tm.counter("fit.epochs").inc()
         with _tm.span("fit.metric"):

@@ -9,10 +9,9 @@ holds the same parameter, gradient and state arrays, and borrows its
 optimizer, so every bucket updates the same Adam (or momentum) states. The
 JAX package compiles one XLA program per bucket; here each bucket is an
 eager executor with its own graph plan and its own update-kernel table,
-built once, over the shared storage.
-
-Training windows (``train_window``) and ahead-of-time warmup
-(``compile``) are not yet ported and raise :class:`MXNetError`.
+built once, over the shared storage. ``train_window`` groups a chunk of
+batches by bucket and runs each group as one window of its bucket's
+module; ``compile`` warms each bucket's forward ahead of the data.
 """
 
 from __future__ import annotations
@@ -24,10 +23,7 @@ from .. import telemetry as _tm
 from ..base import MXNetError
 from ..initializer import Uniform
 from .base_module import BaseModule, _check_input_names
-from .module import Module
-
-_WINDOWS = ("not yet ported to mxnet_tpu_torch (ROADMAP.md queue 1 item 2: "
-            "training windows and the step's warmup)")
+from .module import Module, WindowBoundary
 
 
 class BucketingModule(BaseModule):
@@ -245,10 +241,68 @@ class BucketingModule(BaseModule):
 
     def train_window(self, data_batch, n_steps=1, batches=None,
                      publish_grads=True):
-        raise MXNetError(f"BucketingModule.train_window: {_WINDOWS}")
+        """Training windows for bucketed training (reference
+        ``BucketingModule.train_window``). ``batches`` are grouped by
+        ``bucket_key`` in stable order and each group runs as one
+        :meth:`Module.train_window` of its bucket's module (every bucket
+        shares the parameters and optimizer states). The group holding
+        the chunk's last batch runs last, so ``fit``'s window-granular
+        ``update_metric(eval_metric, chunk[-1].label)`` reads that
+        bucket's outputs. Returns one :class:`WindowBoundary` over every
+        group (its ``wait`` fences the whole chunk; its gradients, when
+        published, are the last group's)."""
+        self._require(bound=True, params=True, optimizer=True)
+        if batches is None:
+            if data_batch is None:
+                raise MXNetError("BucketingModule.train_window needs a "
+                                 "data_batch or batches")
+            self.switch_bucket(data_batch.bucket_key,
+                               data_batch.provide_data,
+                               data_batch.provide_label)
+            self._params_dirty = True
+            _tm.counter("bucketing.window").inc()
+            return self._curr_module.train_window(
+                data_batch, n_steps=n_steps, publish_grads=publish_grads)
+        if not batches:
+            return None
+        groups = {}
+        for b in batches:
+            groups.setdefault(b.bucket_key, []).append(b)
+        last_key = batches[-1].bucket_key
+        keys = [k for k in groups if k != last_key] + [last_key]
+        total, outs, boundary = 0, [], None
+        for key in keys:
+            grp = groups[key]
+            self.switch_bucket(key, grp[0].provide_data,
+                               grp[0].provide_label)
+            _tm.counter("bucketing.window").inc()
+            boundary = self._curr_module.train_window(
+                None, batches=grp, publish_grads=publish_grads)
+            total += boundary.n_steps
+            outs.extend(boundary._outs)
+        self._params_dirty = True
+        if len(keys) == 1:
+            return boundary
+        return WindowBoundary(total, outs,
+                              boundary._grads if publish_grads else None)
 
     def compile(self, buckets=None, parallel=True):
-        raise MXNetError(f"BucketingModule.compile: {_WINDOWS}")
+        """Warm each bucket's forward ahead of the data (reference
+        ``BucketingModule.compile``): ``buckets`` are ``(bucket_key,
+        data_shapes, label_shapes)`` to bind first; None warms the bound
+        buckets only. Eager PyTorch compiles no program, so
+        ``Executor.compile`` runs one forward per bucket (CUDA module
+        loading, cuBLAS's and cuDNN's choices, the kernel library's
+        build), one after the other on the card's one stream:
+        ``parallel`` is accepted and has nothing to overlap. The active
+        bucket is restored. Returns ``{bucket_key: [kinds warmed]}``."""
+        self._require(bound=True)
+        original_key = self._curr_bucket_key
+        for key, data_shapes, label_shapes in buckets or ():
+            self.switch_bucket(key, data_shapes, label_shapes)
+        self.switch_bucket(original_key, None, None)
+        return {key: mod._exec_group._exec.compile()
+                for key, mod in self._buckets.items()}
 
     # ------------------------------------------------------------------
     def forward(self, data_batch, is_train=None):

@@ -174,11 +174,15 @@ class DataParallelExecutorGroup:
     def has_pending_backward(self):
         return self._exec._grads_fresh
 
-    def update_fused(self, optimizer, updater):
+    def update_fused(self, optimizer, updater, n_steps=1, data_stacks=None,
+                     publish_grads=True):
         """Apply the optimizer to every parameter with a gradient in one
         ``Executor.fused_train_update`` call (one multi-tensor kernel
-        launch); the states stay in ``updater.states`` as the NDArrays the
-        imperative path uses, next to their weights."""
+        launch a step; ``n_steps`` steps for a training window); the
+        states stay in ``updater.states`` as the NDArrays the imperative
+        path uses, next to their weights. The learning rates and weight
+        decays are the window's first step's; the update counts land on
+        the window's last step."""
         exe = self._exec
         host = getattr(self, "_fused_host", None)
         if host is not None and (
@@ -204,18 +208,28 @@ class DataParallelExecutorGroup:
                     "states": [updater.states[i] for i in keys]}
             self._fused_host = host
         keys = host["keys"]
+        n_steps = max(1, int(n_steps))
+        # the first step's rates and counts; the window advances the
+        # counts by one a step, the rates stay
         for i in keys:
             optimizer._update_count(i)
         lrs = [optimizer._get_lr(i) for i in keys]
         wds = [optimizer._get_wd(i) for i in keys]
         ts = [optimizer._index_update_count[i] for i in keys]
+        for _ in range(n_steps - 1):
+            for i in keys:
+                optimizer._update_count(i)
         try:
             exe.fused_train_update(host["names"], optimizer.torch_apply,
-                                   host["states"], lrs, wds, ts)
+                                   host["states"], lrs, wds, ts,
+                                   n_steps=n_steps, data_stacks=data_stacks,
+                                   publish_grads=publish_grads)
         except Exception:
-            # a retried or imperative update must see the same counts
+            # a retried or imperative update must see the counts of the
+            # steps that were applied
             for i in keys:
-                optimizer._index_update_count[i] -= 1
+                optimizer._index_update_count[i] -= \
+                    n_steps - exe._steps_applied
             optimizer.num_update = max(
                 [optimizer.begin_num_update]
                 + list(optimizer._index_update_count.values()))

@@ -25,7 +25,8 @@ reads the fake images as a fresh leaf detached from G's recorded graph,
 which survives D's three passes until G's backward, and the optimizers run
 their multi-tensor kernels (``adam_multi``) or, for an optimizer
 without one, the parameter-by-parameter update. Capturing a whole window as
-one CUDA graph is ``ROADMAP.md`` queue 1 item 2's work.
+one CUDA graph is a later performance change (``ROADMAP.md``,
+"Performance, after the benchmark").
 :meth:`GANModule._serial_window` is the reference's imperative loop through
 the Module API, the parity baseline. Both return a :class:`WindowBoundary`
 holding the last step's real-pass D outputs, read before D's update.

@@ -14,10 +14,11 @@ executor's tensors) and its updater applies the optimizer, in the same
 fused launch.
 
 The module runs on ``context`` (default: the current context, ``gpu(0)``;
-the JAX package defaults to ``cpu()``). Several contexts and training
-windows (``train_window``) are not yet ported;
-:class:`WindowBoundary`, the handle a window returns, is (``GANModule``
-returns one).
+the JAX package defaults to ``cpu()``). Several contexts are not yet
+ported. ``train_window`` runs K training steps per call (the reference's
+training window): K eager steps on the hand-written kernels, the
+hyperparameters frozen at the window's first step, and returns a
+:class:`WindowBoundary` (``GANModule`` returns one too).
 """
 
 from __future__ import annotations
@@ -55,18 +56,19 @@ class WindowBoundary:
       so it is a stream fence, never a device-to-host copy (a window on
       the CPU has nothing to wait for).
     - :attr:`outputs` wrap the last iteration's output tensors, captured
-      at dispatch (a later window writing the executor's outputs cannot
-      change them).
-
-    The reference's ``grads()`` (gradients a window published) is not
-    ported: no window of the port publishes them.
+      at dispatch (a later window makes new output tensors and never
+      writes these).
+    - :meth:`grads` returns the last step's gradients, taken by value at
+      dispatch, when the window published them; a window dispatched with
+      ``publish_grads=False`` raises instead.
     """
 
-    __slots__ = ("n_steps", "_outs", "_event")
+    __slots__ = ("n_steps", "_outs", "_grads", "_event")
 
-    def __init__(self, n_steps, outs):
+    def __init__(self, n_steps, outs, grads=None):
         self.n_steps = n_steps
         self._outs = list(outs or [])
+        self._grads = grads
         self._event = None
         dev = next((t.device for t in self._outs
                     if t.device.type == "cuda"), None)
@@ -87,6 +89,15 @@ class WindowBoundary:
         from ..ndarray import NDArray
 
         return [NDArray(o) for o in self._outs]
+
+    def grads(self):
+        """This window's gradients (captured at dispatch), if published."""
+        if self._grads is None:
+            raise MXNetError(
+                "this training window was dispatched with "
+                "publish_grads=False; re-run with publish_grads=True to "
+                "read per-window gradients")
+        return dict(self._grads)
 
 
 class Module(BaseModule):
@@ -410,18 +421,111 @@ class Module(BaseModule):
 
     def train_window(self, data_batch, n_steps=1, batches=None,
                      publish_grads=True):
-        raise MXNetError("Module.train_window: training windows are not yet "
-                         "ported to mxnet_tpu_torch (ROADMAP.md queue 1 "
-                         "item 2)")
+        """Run ``n_steps`` training steps (forward, backward, update) as
+        one training window (reference ``Module.train_window``).
 
-    def _fusable_update(self):
+        ``data_batch`` alone trains every step on that batch; ``batches``
+        (a list of DataBatch, which sets ``n_steps``) stacks the inputs on
+        the device in the bound dtype and trains step ``i`` on
+        ``batches[i]``. The learning rate and weight decay are the
+        window's first step's (schedules act at window granularity); the
+        last step's outputs (and, with ``publish_grads``, gradients) are
+        published. Steps run serially, with the same results, when a
+        window cannot be fused: one step, ``grad_req="add"``, an
+        optimizer without ``torch_apply``, a monitor, or
+        ``MXNET_EXEC_BULK_EXEC_TRAIN=0``. Returns a
+        :class:`WindowBoundary`, or None for an empty ``batches``."""
+        self._require(bound=True, params=True, optimizer=True)
+        if batches is not None:
+            if not batches:
+                return None
+            n_steps = len(batches)
+            data_batch = batches[0]
+        exe = self._exec_group._exec
+        has_add = any(r == "add" for r in exe.grad_req.values())
+        if (n_steps <= 1 or has_add
+                or not self._fusable_update(require_pending=False)):
+            for i in range(max(1, n_steps)):
+                self.forward_backward(batches[i] if batches is not None
+                                      else data_batch)
+                self.update()
+            return self._window_boundary(n_steps, published=publish_grads)
+        data_stacks = None
+        if batches is not None:
+            data_stacks, data_batch = self._stack_batches(batches)
+        self.forward(data_batch, is_train=True)
+        self.backward()
+        self._params_dirty = True
+        updater = (self._kvstore._updater if self._update_on_kvstore
+                   else self._updater)
+        self._exec_group.update_fused(
+            self._optimizer, updater, n_steps=n_steps,
+            data_stacks=data_stacks, publish_grads=publish_grads)
+        self._sync_kvstore_after_fused()
+        return self._window_boundary(n_steps, published=publish_grads)
+
+    def _stack_batches(self, batches):
+        """``(data_stacks, first batch)``: each bound input of
+        ``batches`` stacked on the executor's device in its bound dtype,
+        and a DataBatch of the stacks' first slices. A prefetched batch
+        was taken on the current stream (``io.DevicePrefetchIter``: the
+        stream waits for its copy, which is marked used there), so the
+        stack, enqueued on that stream, reads finished copies."""
+        from ..io import DataBatch
+        from ..ndarray import NDArray
+
+        exe = self._exec_group._exec
+        stacks = {}
+        rows = [(self._data_names, [b.data for b in batches])]
+        if batches[0].label:
+            rows.append((self._label_names, [b.label for b in batches]))
+        for names, arrays in rows:
+            for j, name in enumerate(names):
+                if name not in exe.arg_dict:
+                    continue  # an unbound label: the serial feed drops it
+                tgt = exe.arg_dict[name]._data
+                stacks[name] = torch.stack([
+                    (a[j]._data if isinstance(a[j], NDArray)
+                     else torch.as_tensor(a[j])).to(
+                         device=tgt.device, dtype=tgt.dtype)
+                    for a in arrays])
+        first = DataBatch(
+            data=[NDArray(stacks[n][0]) for n in self._data_names],
+            label=[NDArray(stacks[n][0]) for n in self._label_names
+                   if n in stacks] or None)
+        return stacks, first
+
+    def _window_boundary(self, n_steps, published):
+        """The just-dispatched window's boundary: its outputs and, when
+        ``published``, its gradients by value (the next window's backward
+        makes new ``write`` gradient tensors; an ``add`` gradient, which
+        later steps write in place, is copied)."""
+        exe = self._exec_group._exec
+        grads = None
+        if published:
+            from ..ndarray import NDArray
+
+            grads = {n: NDArray(g._data if exe.grad_req[n] == "write"
+                                else g._data.clone())
+                     for n, g in exe.grad_dict.items()
+                     if exe.grad_req.get(n, "null") != "null"}
+        return WindowBoundary(n_steps, [o._data for o in exe.outputs], grads)
+
+    def _fusable_update(self, require_pending=True):
         """True when this step can take the fused update: a
-        ``torch_apply`` optimizer and gradients of a backward that no
-        update has consumed (else the imperative path keeps the semantics
-        of gradients edited by hand)."""
-        return (bool(_env.get("MXNET_EXEC_BULK_EXEC_TRAIN"))
-                and getattr(self._optimizer, "torch_apply", None) is not None
-                and self._exec_group.has_pending_backward())
+        ``torch_apply`` optimizer, no monitor, and gradients of a backward
+        that no update has consumed (else the imperative path keeps the
+        semantics of gradients edited by hand). ``require_pending=False``
+        asks only about the step's shape (``train_window`` runs its own
+        backward afterwards)."""
+        if not _env.get("MXNET_EXEC_BULK_EXEC_TRAIN"):
+            return False
+        if getattr(self._optimizer, "torch_apply", None) is None:
+            return False
+        if self._exec_group._exec._monitor_callback is not None:
+            return False
+        return (not require_pending
+                or self._exec_group.has_pending_backward())
 
     def _nonfinite_skip_imperative(self):
         """The guard on the imperative update path: one host read of an

@@ -8,8 +8,9 @@ and metrics use, the creation helpers :func:`array`, :func:`zeros`,
 op (``nd.sgd_mom_update(w, g, mom, out=w, ...)``), and ``.params``
 :func:`save`/:func:`load`/:func:`load_buffer`, byte-compatible with the
 JAX package and the reference (``src/ndarray/ndarray.cc`` NDArray::Save V2,
-list container magic 0x112). Legacy V0/V1 array records, sparse storage and
-``autograd`` are not yet ported.
+list container magic 0x112); :func:`load` also reads the legacy V1 and V0
+array records of reference-era files (``ndarray.cc`` LegacyLoad). Sparse
+storage and ``autograd`` are not yet ported.
 
 Assignment (``a[:] = v``), ``copyto`` an NDArray, ``out=`` and the in-place
 operators write into the array's existing tensor, where the JAX package
@@ -375,6 +376,7 @@ def waitall():
 # ---------------------------------------------------------------------------
 _LIST_MAGIC = 0x112
 _ND_V2_MAGIC = 0xF993FAC9
+_ND_V1_MAGIC = 0xF993FAC8
 
 # mshadow type flags (mshadow/base.h); 100 is the JAX package's bfloat16
 _TYPE_FLAG_TO_NP = {
@@ -420,9 +422,7 @@ def _save_one(f, arr):
 def _load_one(f):
     (magic,) = struct.unpack("<I", f.read(4))
     if magic != _ND_V2_MAGIC:
-        raise MXNetError(
-            "legacy V0/V1 NDArray records are not yet ported to "
-            "mxnet_tpu_torch; load with mxnet_tpu and re-save")
+        return _load_legacy(f, magic)
     (stype_id,) = struct.unpack("<i", f.read(4))
     if stype_id != 0:
         raise MXNetError("sparse NDArray records are not yet ported to "
@@ -441,6 +441,27 @@ def _load_one(f):
         values = np.frombuffer(f.read(nbytes), dtype=ml_dtypes.bfloat16)
     else:
         values = np.frombuffer(f.read(nbytes), dtype=dtype_name)
+    return array(values.reshape(shape), ctx=cpu(), dtype=values.dtype)
+
+
+def _load_legacy(f, magic):
+    """One dense array in the legacy layouts (``ndarray.cc`` LegacyLoad):
+    V1 is its magic, an int64 TShape, the context, the type flag and the
+    values; V0 has no magic, its first word is the rank, followed by
+    uint32 dims."""
+    if magic == _ND_V1_MAGIC:
+        shape = _read_shape(f)
+    else:
+        ndim = magic  # V0: the first word is the rank
+        shape = struct.unpack(f"<{ndim}I", f.read(4 * ndim)) if ndim else ()
+    if not shape:
+        return array(np.zeros((0,), np.float32), ctx=cpu())
+    f.read(8)  # Context (ignored: arrays load on the CPU)
+    (type_flag,) = struct.unpack("<i", f.read(4))
+    dtype_name = _TYPE_FLAG_TO_NP[type_flag]
+    nbytes = int(np.prod(shape, dtype=np.int64)) * np.dtype(
+        dtype_name).itemsize
+    values = np.frombuffer(f.read(nbytes), dtype=dtype_name)
     return array(values.reshape(shape), ctx=cpu(), dtype=values.dtype)
 
 

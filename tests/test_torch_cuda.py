@@ -79,7 +79,10 @@ redesigned ``multibox_decode`` in each layout of
 multiple of a block's anchors and at bucket 1, within its tolerances, one
 launch a call, its
 outputs views of one allocation that ``nms`` takes; neither reads anything
-back in a call.
+back in a call. Training windows: a window of 4 steps of a conv +
+BatchNorm net (SGD and Adam) bit for bit 4 serial steps under
+deterministic cuDNN, its launch counts 4 times a step's; prefetched
+batches stacked for a window under a long step bit for bit their sources.
 """
 
 import math
@@ -1591,4 +1594,121 @@ def test_prefetch_next_makes_no_synchronizing_call(card):
         torch.cuda.set_sync_debug_mode(0)
     for i, b in enumerate(batches):
         assert np.array_equal(b.data[0].asnumpy(), x[8 * i:8 * i + 8])
+    it.close()
+
+
+def _window_module(mx, opt, seed=4):
+    """A conv + BatchNorm + ReLU net of two layers on the card (its
+    BatchNorm, softmax and update kernels), weights from ``seed``."""
+    d = mx.sym.Variable("data")
+    h = d
+    for i in range(2):
+        h = mx.sym.Convolution(h, num_filter=8, kernel=(3, 3), pad=(1, 1),
+                               name=f"conv{i}")
+        h = mx.sym.Activation(mx.sym.BatchNorm(h, name=f"bn{i}"),
+                              act_type="relu")
+    h = mx.sym.FullyConnected(mx.sym.Flatten(h), num_hidden=10, name="fc")
+    sym = mx.sym.SoftmaxOutput(h, name="softmax")
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    mod.bind(data_shapes=[("data", (16, 3, 12, 12))],
+             label_shapes=[("softmax_label", (16,))])
+    rng = np.random.default_rng(seed)
+    arg_shapes, _, _ = sym.infer_shape(data=(16, 3, 12, 12))
+    args = {n: mx.nd.array(rng.uniform(-0.3, 0.3, s).astype(np.float32),
+                           ctx=mx.cpu())
+            for n, s in zip(sym.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")}
+    mod.init_params(arg_params=args, allow_missing=True)
+    mod.init_optimizer(optimizer=opt, optimizer_params=(
+        {"learning_rate": 0.05, "momentum": 0.9} if opt == "sgd"
+        else {"learning_rate": 0.01}))
+    return mod
+
+
+def _window_state(mod):
+    args, auxs = mod.get_params()
+    out = {k: v.asnumpy() for k, v in {**args, **auxs}.items()}
+    for i, st in mod._updater.states.items():
+        for j, a in enumerate(st if isinstance(st, tuple) else (st,)):
+            out[f"state{i}.{j}"] = a.asnumpy()
+    return out
+
+
+@pytest.mark.parametrize("opt", ["sgd", "adam"])
+def test_window_matches_serial_steps_bit_for_bit(card, opt):
+    """A window of 4 steps against 4 serial steps from the same weights
+    over the same batches, under deterministic cuDNN: the same launches in
+    the same order, so weights, optimizer states, BatchNorm statistics and
+    the last outputs agree bit for bit; the launch counters read 4 times
+    one step's."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import kernels as K
+
+    rng = np.random.default_rng(6)
+    batches = [mx.io.DataBatch(
+        [mx.nd.array(rng.standard_normal((16, 3, 12, 12)).astype(
+            np.float32))],
+        [mx.nd.array(rng.integers(0, 10, 16).astype(np.float32))])
+        for _ in range(4)]
+    update = K.sgd_mom_multi if opt == "sgd" else K.adam_multi
+    counters = [K.bn_stats.LAUNCHES, K.bn_act.LAUNCHES,
+                K.bn_act_bwd.LAUNCHES, K.softmax_rows.LAUNCHES,
+                K.softmax_output_bwd.LAUNCHES, update.LAUNCHES]
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        serial = _window_module(mx, opt)
+        before = [c.value for c in counters]
+        serial.forward_backward(batches[0])
+        serial.update()
+        one = [c.value - b for c, b in zip(counters, before)]
+        for b in batches[1:]:
+            serial.forward_backward(b)
+            serial.update()
+        window = _window_module(mx, opt)
+        before = [c.value for c in counters]
+        boundary = window.train_window(None, batches=batches)
+        got = [c.value - b for c, b in zip(counters, before)]
+        boundary.wait()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert all(one) and got == [4 * v for v in one]
+    want = _window_state(serial)
+    have = _window_state(window)
+    for k, v in want.items():
+        assert np.array_equal(have[k], v), k
+    assert torch.equal(boundary.outputs[0]._data,
+                       serial.get_outputs()[0]._data)
+
+
+def test_prefetched_batches_stacked_under_a_long_step(card):
+    """A chunk of prefetched batches is stacked on the consumer's stream
+    while that stream sleeps (a long step) and the batches' handles are
+    dropped at once: the side stream's later copies must not land in a
+    batch's memory before the stack read it."""
+    import mxnet_tpu_torch as mx
+
+    n, k, batch = 12, 4, 4
+    x, y = _prefetch_source(n, batch, (256, 256))
+    mod = mx.mod.Module(mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+        mx.sym.Flatten(mx.sym.Variable("data")), num_hidden=10, name="fc"),
+        name="softmax"), context=mx.gpu(0))
+    mod.bind(data_shapes=[("data", (batch, 256, 256))],
+             label_shapes=[("softmax_label", (batch,))])
+    mod.init_params()
+    it = mx.io.DevicePrefetchIter(mx.io.NDArrayIter(x, y, batch_size=batch),
+                                  context=mx.gpu(0), depth=k + 1)
+    stacks = []
+    for _ in range(n // k):
+        chunk = [it.next() for _ in range(k)]
+        torch.cuda._sleep(20_000_000)  # ~10 ms of the consumer's stream
+        stacks.append(mod._stack_batches(chunk)[0])
+        del chunk
+    torch.cuda.synchronize()
+    for w, st in enumerate(stacks):
+        rows = slice(w * k * batch, (w + 1) * k * batch)
+        assert np.array_equal(st["data"].cpu().numpy(),
+                              x[rows].reshape(k, batch, 256, 256)), w
+        assert np.array_equal(st["softmax_label"].cpu().numpy(),
+                              y[rows].reshape(k, batch)), w
     it.close()
