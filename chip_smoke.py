@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one CUDA card: ResNet-50
 serving and training, LSTM-PTB training, SSD-VGG16 serving and training,
-DCGAN training, the repository's BASELINE training scripts, and training
-windows.
+DCGAN training, the repository's BASELINE training scripts, training
+windows, a bucketed GRU language model trained with RMSProp, and the
+fused ``RNN`` op.
 
     python3 chip_smoke.py
 
@@ -319,7 +320,40 @@ Run from the root of a checkout. Phases, each printing its own lines:
     for bit its serial steps, Adam's counts advanced by the chunk; and
     ``examples/train_mnist.py --network mlp`` under
     ``MXNET_TRAIN_WINDOW=auto`` through the launcher (the chosen K,
-    validation accuracy within ``MNIST_ACC_MARGIN``, launches, samples/s).
+    validation accuracy within ``MNIST_ACC_MARGIN``, launches, samples/s);
+21. GRU kernels — ``gru_cell`` and ``gru_cell_bwd`` against their plain
+    versions at the GRU model's (32, 3 x 200) (``gru_cases``: the path,
+    h_prev zero, an ``i2h`` one float off alignment, N, H = 7, 13; a
+    non-contiguous ``i2h`` refused),
+    training and inference, ``dnext_h`` given and None
+    (``LSTM_RTOL``/``LSTM_ATOL``); ``rmsprop_multi`` bit for bit over the
+    model's 11 tensors (4.49 M values), plain and centred, with wd,
+    clip_gradient and clip_weights on and off, over sizes no multiple of 4
+    and views one float off alignment, and a NaN gradient under the guard
+    skipping the step in one launch; each timed warm, L2-cold, on the
+    device, beside the plain version, the bound, the library call
+    (``_thnn_fused_gru_cell[_backward]``, ``torch.optim.RMSprop(
+    foreach=True)``) and its host us a call;
+22. GRU training — the GRU language model (``gru_lm_sym_gen``: the
+    LSTM-PTB configuration with ``GRUCell``, built from the public cell
+    API) trained by ``BucketingModule.fit`` on ``gpu(0)`` with RMSProp
+    (``GRU_OPT``) as phase 9 trains the LSTM: every bucket visited, every
+    step's launches exactly 2T ``gru_cell``, 2T ``gru_cell_bwd``, one
+    ``rmsprop_multi``, ``softmax_rows`` and ``softmax_output_bwd`` and no
+    plain version, one RMSProp table per bucket executor over one storage,
+    the second epoch's Train-Perplexity below ``GRU_PPL_LIMIT``; per
+    bucket ms per step, tokens/s and a profile;
+23. GRU parity — two RMSProp steps of the T=8 bucket at full width on the
+    card and on the port's CPU path, plain and centred, each from the same
+    state, within ``GRU_PARITY_TOL`` in norm (loss, parameters, n, and g
+    and delta centred), beside the CPU path in float64;
+24. RNN op — ``mx.sym.RNN`` (2 layers, state_size 200, state_outputs)
+    bound by ``simple_bind`` at (T, N, C) = ``RNN_OP_SHAPE`` on ``gpu(0)``
+    in the lstm and gru modes, one and two directions: forward and
+    backward (random head gradients on every output) against the port's
+    CPU path within ``RNN_OP_TOL`` in norm, L*D*T cell launches each way,
+    and the inference forward's time beside cuDNN's ``torch.nn.GRU`` /
+    ``torch.nn.LSTM``.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. Any failed phase exits non-zero before the result
@@ -330,6 +364,14 @@ lines. Without CUDA it exits non-zero at once.
 runs the LSTM-PTB fit of phase 9 on the port's CPU path for each
 initialization seed given and prints each epoch's Train-Perplexity (the
 readings ``PPL_LIMIT`` was fixed from); it needs no card.
+
+    python3 chip_smoke.py --cpu-gru 0 1 2
+
+runs phase 22's GRU fit on the port's CPU path for each seed given, phase
+23's two RMSProp steps and phase 24's four RNN op cases in float32 and in
+float64, and prints the readings ``GRU_PPL_LIMIT``, ``GRU_PARITY_TOL`` and
+``RNN_OP_TOL`` were fixed from (full width: ~1.5 minutes on the card
+machine's 8 cores); it needs no card.
 
     python3 chip_smoke.py --cpu-ssd
 
@@ -453,10 +495,14 @@ PORT_KERNELS = {"bn_stats": "bn_stats_kernel", "bn_act": "bn_act_",
                 "multibox_decode": "multibox_decode_kernel",
                 "nms": "nms_", "l2norm_channel": "l2norm_channel_kernel",
                 "l2norm_channel_bwd": "l2norm_channel_bwd_",
-                "multibox_target": "multibox_target_kernel"}
+                "multibox_target": "multibox_target_kernel",
+                "gru_cell": "gru_cell_kernel",
+                "gru_cell_bwd": "gru_cell_bwd_kernel",
+                "rmsprop_multi": "rmsprop_multi_kernel"}
 # kernels counted beside another one, in that one's module
 BWD_COUNTERS = {"lstm_cell_bwd": ("lstm_cell", "BWD_LAUNCHES"),
-                "l2norm_channel_bwd": ("l2norm_channel", "BWD_LAUNCHES")}
+                "l2norm_channel_bwd": ("l2norm_channel", "BWD_LAUNCHES"),
+                "gru_cell_bwd": ("gru_cell", "BWD_LAUNCHES")}
 PARITY_BATCH = 8
 TRAIN_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
 LOSS_RATIO = 0.7  # cross-entropy after 10 steps on one batch / its first
@@ -4300,18 +4346,24 @@ def synthetic_corpus(vocab_size, n=2000, seed=0):
     return sents
 
 
-def lstm_param_shapes(mx, seq_len=8):
-    """(symbol of the ``seq_len`` bucket, begin-state names, the 11
-    parameter (name, shape) pairs) of the LSTM-PTB model."""
-    sym_gen, states = mx.models.lstm_lm_sym_gen(**LSTM)
+def lm_param_shapes(sym_gen, states, num_hidden, seq_len=8):
+    """(symbol of the ``seq_len`` bucket, begin-state names, the parameter
+    (name, shape) pairs) of a language model's ``sym_gen``."""
     sym = sym_gen(seq_len)[0]
     shapes = {"data": (LSTM_BATCH, seq_len),
               "softmax_label": (LSTM_BATCH, seq_len)}
-    shapes.update({n: (LSTM_BATCH, LSTM["num_hidden"]) for n in states})
+    shapes.update({n: (LSTM_BATCH, num_hidden) for n in states})
     arg_shapes, _, _ = sym.infer_shape(**shapes)
     params = [(n, s) for n, s in zip(sym.list_arguments(), arg_shapes)
               if n not in shapes]
     return sym, states, params
+
+
+def lstm_param_shapes(mx, seq_len=8):
+    """(symbol of the ``seq_len`` bucket, begin-state names, the 11
+    parameter (name, shape) pairs) of the LSTM-PTB model."""
+    return lm_param_shapes(*mx.models.lstm_lm_sym_gen(**LSTM),
+                           LSTM["num_hidden"], seq_len)
 
 
 def phase_lstm_kernels(torch, mx):
@@ -4593,23 +4645,24 @@ def kernel_modules():
     return [getattr(K, n) for n in PORT_KERNELS if n not in BWD_COUNTERS]
 
 
-def lstm_fit(mx, seed, **callbacks):
-    """``BucketingModule.fit`` of the LSTM-PTB configuration on the current
-    context, parameters initialized from ``seed``: ``LSTM_EPOCHS`` epochs of
-    ``synthetic_corpus(10000, n=2000)``. Returns ``(iterator, module,
+def lm_fit(mx, seed, sym_gen, states, optimizer, optimizer_params,
+           **callbacks):
+    """``BucketingModule.fit`` of a language model's ``sym_gen`` on the
+    current context, parameters initialized from ``seed``:
+    ``LSTM_EPOCHS`` epochs of ``synthetic_corpus(10000, n=2000)`` at batch
+    ``LSTM_BATCH`` over ``LSTM_BUCKETS``. Returns ``(iterator, module,
     Train-Perplexity of each epoch)``."""
     it = mx.rnn.BucketSentenceIter(
         synthetic_corpus(LSTM["vocab_size"], n=2000), LSTM_BATCH,
         buckets=list(LSTM_BUCKETS), invalid_label=0)
-    sym_gen, states = mx.models.lstm_lm_sym_gen(**LSTM)
     mx.random.seed(seed)
     mod = mx.mod.BucketingModule(sym_gen,
                                  default_bucket_key=it.default_bucket_key,
                                  state_names=states)
     metric = mx.metric.Perplexity(0)
     epochs = []
-    mod.fit(it, eval_metric=metric, optimizer="adam",
-            optimizer_params=LSTM_OPT,
+    mod.fit(it, eval_metric=metric, optimizer=optimizer,
+            optimizer_params=optimizer_params,
             initializer=mx.init.Xavier(factor_type="in", magnitude=2.34),
             num_epoch=LSTM_EPOCHS,
             epoch_end_callback=lambda *_a: epochs.append(metric.get()[1]),
@@ -4617,21 +4670,37 @@ def lstm_fit(mx, seed, **callbacks):
     return it, mod, epochs
 
 
-def cpu_perplexity(seeds):
-    """The LSTM-PTB fit on the port's CPU path for each initialization
-    seed, printing each epoch's Train-Perplexity: how ``PPL_LIMIT`` was
-    fixed. Needs no card."""
+def lstm_fit(mx, seed, **callbacks):
+    """:func:`lm_fit` of the LSTM-PTB configuration with Adam."""
+    return lm_fit(mx, seed, *mx.models.lstm_lm_sym_gen(**LSTM), "adam",
+                  LSTM_OPT, **callbacks)
+
+
+def cpu_perplexity(seeds, fit=lstm_fit, tag="cpu-perplexity"):
+    """A language model's fit (the LSTM-PTB one by default) on the port's
+    CPU path for each initialization seed, printing each epoch's
+    Train-Perplexity: how ``PPL_LIMIT`` (``GRU_PPL_LIMIT``) was fixed.
+    Needs no card."""
     import mxnet_tpu_torch as mx
 
     for seed in seeds:
         t0 = time.perf_counter()
         with mx.cpu():
-            _it, _mod, epochs = lstm_fit(mx, seed)
-        print(f"[cpu-perplexity] seed {seed}: Train-Perplexity by epoch "
+            _it, _mod, epochs = fit(mx, seed)
+        print(f"[{tag}] seed {seed}: Train-Perplexity by epoch "
               f"{epochs} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
-def phase_lstm_training(torch, mx, card):
+def lm_training(torch, mx, card, tag, fit, cell, update, limit):
+    """A language model's main path on ``gpu(0)``: ``fit(mx, seed,
+    **callbacks)`` (:func:`lm_fit`) with every launch count at 0 just
+    before it; every bucket visited, every step launching exactly 2T
+    ``cell`` and ``cell``_bwd, one ``update``, ``softmax_rows`` and
+    ``softmax_output_bwd`` and no plain version, one update table per
+    bucket executor over one storage, the second epoch's Train-Perplexity
+    below ``limit`` and the first's; then per bucket ms per step, tokens/s
+    and a profile. Returns the launches and the port kernels' device ms per
+    step at the widest bucket."""
     from mxnet_tpu_torch import telemetry as tm
     from mxnet_tpu_torch import kernels as K
 
@@ -4653,49 +4722,50 @@ def phase_lstm_training(torch, mx, card):
     # the main path (on gpu(0)): every count at 0 just before, read just
     # after
     tm.reset()
-    it, mod, epochs = lstm_fit(mx, SEED, batch_end_callback=on_batch)
+    it, mod, epochs = fit(mx, SEED, batch_end_callback=on_batch)
     torch.cuda.synchronize()
     launches = {k: c.value for k, c in kernels.items()}
-    builds = K.adam_multi.TABLE_BUILDS.value
+    builds = getattr(K, update).TABLE_BUILDS.value
     batches = tm.counter("fit.batches").value
     fit_s = time.perf_counter() - t0
 
     def want(seq_len):
         w = {k: 0 for k in kernels}
-        w.update(lstm_cell=2 * seq_len, lstm_cell_bwd=2 * seq_len,
-                 adam_multi=1, softmax_rows=1, softmax_output_bwd=1)
+        w.update({cell: 2 * seq_len, f"{cell}_bwd": 2 * seq_len, update: 1,
+                  "softmax_rows": 1, "softmax_output_bwd": 1})
         return w
 
     visited = sorted({b for _e, b, _s, _t, _ev in per_step})
     if visited != sorted(LSTM_BUCKETS):
-        fail(f"LSTM fit visited buckets {visited}, expected {LSTM_BUCKETS}")
+        fail(f"{tag} fit visited buckets {visited}, expected "
+             f"{LSTM_BUCKETS}")
     bad = [(e, b, s) for e, b, s, _t, _ev in per_step if s != want(b)]
     if bad or batches != len(per_step):
-        fail(f"LSTM launches per step: {len(bad)} of {len(per_step)} steps "
+        fail(f"{tag} launches per step: {len(bad)} of {len(per_step)} steps "
              f"off, first {bad[:1]}; expected per step {want(8)} at T=8")
     if any(plain_calls.values()):
         fail(f"plain versions ran on the card's main path: {plain_calls}")
     execs = [m._exec_group._exec for m in mod._buckets.values()]
     keys = {e._update_cache.get("key") for e in execs}
     if builds != len(LSTM_BUCKETS) or len(keys) != 1 or None in keys:
-        fail(f"Adam tables: {builds} built for {len(execs)} bucket "
+        fail(f"{update} tables: {builds} built for {len(execs)} bucket "
              f"executors, {len(keys)} distinct pointer sets; expected one "
              f"build per executor, all over the same storage")
     weight = execs[0].arg_dict["pred_weight"]
     if weight.context != mx.gpu(0):
         fail("BucketingModule.fit did not train on gpu(0)")
-    if not (epochs[-1] < PPL_LIMIT and epochs[-1] < epochs[0]):
-        fail(f"Train-Perplexity by epoch {epochs}; expected the last below "
-             f"{PPL_LIMIT} and below the first")
-    print(f"[lstm] BucketingModule.fit on {mx.current_context()}: "
+    if not (epochs[-1] < limit and epochs[-1] < epochs[0]):
+        fail(f"{tag} Train-Perplexity by epoch {epochs}; expected the last "
+             f"below {limit} and below the first")
+    print(f"[{tag}] BucketingModule.fit on {mx.current_context()}: "
           f"{LSTM_EPOCHS} epochs, {batches} steps over buckets {visited} in "
           f"{fit_s:.1f} s (binding, cuBLAS's choices and first launches "
-          f"included); launches exactly 2T lstm_cell, 2T lstm_cell_bwd, 1 "
-          f"adam_multi, 1 softmax_rows, 1 softmax_output_bwd per step of "
-          f"bucket T, totals {launches}; no plain version ran; Adam tables "
-          f"built {builds} times (once per bucket executor, one pointer set); "
-          f"Train-Perplexity by epoch {[round(v, 1) for v in epochs]} (limit "
-          f"{PPL_LIMIT})", flush=True)
+          f"included); launches exactly 2T {cell}, 2T {cell}_bwd, 1 "
+          f"{update}, 1 softmax_rows, 1 softmax_output_bwd per step of "
+          f"bucket T, totals {launches}; no plain version ran; {update} "
+          f"tables built {builds} times (once per bucket executor, one "
+          f"pointer set); Train-Perplexity by epoch "
+          f"{[round(v, 1) for v in epochs]} (limit {limit})", flush=True)
 
     # ms per step of the last epoch by bucket: between consecutive
     # batch-end callbacks (its first step follows the epoch-end work)
@@ -4710,7 +4780,7 @@ def phase_lstm_training(torch, mx, card):
         host = float(np.mean([v[0] for v in by_bucket[b]]))
         dev = float(np.mean([v[1] for v in by_bucket[b]]))
         stats[b] = (host, dev)
-        print(f"[lstm] bucket {b} on {card}: {host:.2f} ms per step by the "
+        print(f"[{tag}] bucket {b} on {card}: {host:.2f} ms per step by the "
               f"host's clock, {dev:.2f} ms by CUDA events "
               f"({LSTM_BATCH * b * 1e3 / host:.0f} tokens/s) over "
               f"{len(by_bucket[b])} steps of fit's last epoch", flush=True)
@@ -4724,13 +4794,13 @@ def phase_lstm_training(torch, mx, card):
     for b in sorted(batches_by_key):
         busy, wall, n_kern, top, ours = lstm_profile(torch, mod,
                                                      batches_by_key[b])
-        print(f"[lstm-profile] bucket {b}: device busy {busy:.2f} ms of "
+        print(f"[{tag}-profile] bucket {b}: device busy {busy:.2f} ms of "
               f"{wall:.2f} ms wall ({100 * busy / wall:.0f}%), {n_kern} "
               f"kernel launches per step; top device operations:")
         for us, count, key in top:
-            print(f"[lstm-profile]   {us / 1e3:8.3f} ms x{count:<4d} "
+            print(f"[{tag}-profile]   {us / 1e3:8.3f} ms x{count:<4d} "
                   f"{key[:90]}")
-        print("[lstm-profile]   port kernels per step: " + ", ".join(
+        print(f"[{tag}-profile]   port kernels per step: " + ", ".join(
             f"{k} {ms:.4f} ms in {cnt}" for k, (ms, cnt) in sorted(
                 ours.items())), flush=True)
         if b == max(LSTM_BUCKETS):
@@ -4738,11 +4808,21 @@ def phase_lstm_training(torch, mx, card):
     return launches, device_ms
 
 
+def phase_lstm_training(torch, mx, card):
+    return lm_training(torch, mx, card, "lstm", lstm_fit, "lstm_cell",
+                       "adam_multi", PPL_LIMIT)
+
+
 def lstm_numpy(mx, seed):
     """The T=8 bucket's symbol, begin-state names and parameters as numpy:
     Xavier(factor_type="in", magnitude=2.34) uniform weights, zero
     biases."""
-    sym, states, params = lstm_param_shapes(mx)
+    return lm_numpy(*lstm_param_shapes(mx), seed)
+
+
+def lm_numpy(sym, states, params, seed):
+    """:func:`lstm_numpy` for any language model's T=8 bucket: ``(sym,
+    states, numpy parameters)``."""
     rng = np.random.default_rng(seed)
     args = {}
     for name, shape in params:
@@ -4757,19 +4837,33 @@ def lstm_numpy(mx, seed):
 def lstm_parity_side(mx, sym, states, args, ctx, dtype=np.float32):
     """A Module over the T=8 bucket on ``ctx`` with the numpy ``args``
     (cast to ``dtype``) and Adam."""
+    return lm_parity_side(mx, sym, states, args, ctx, "adam", LSTM_OPT,
+                          dtype)
+
+
+def lm_parity_side(mx, sym, states, args, ctx, optimizer, optimizer_params,
+                   dtype=np.float32):
+    """:func:`lstm_parity_side` with any optimizer."""
     mod = mx.mod.Module(sym, state_names=states, context=ctx)
     shape = (LSTM_BATCH, 8)
     mod.bind(data_shapes=[mx.io.DataDesc("data", shape, dtype)],
              label_shapes=[mx.io.DataDesc("softmax_label", shape, dtype)])
     mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu(), dtype=dtype)
                                 for k, v in args.items()})
-    mod.init_optimizer(optimizer="adam", optimizer_params=LSTM_OPT)
+    mod.init_optimizer(optimizer=optimizer,
+                       optimizer_params=dict(optimizer_params))
     return mod
 
 
 def lstm_parity_step(torch, mx, mod, x, y, dtype=np.float32):
     """One training step of ``mod`` on ``x``, ``y``; after it, each kind of
     ``LSTM_PARITY_TOL`` as float64 numpy arrays by tensor name."""
+    return lm_parity_step(torch, mx, mod, x, y, ("mean", "var"), dtype)
+
+
+def lm_parity_step(torch, mx, mod, x, y, kinds, dtype=np.float32):
+    """:func:`lstm_parity_step` for an optimizer whose state tuples hold
+    ``kinds``: the loss, the parameters and each kind of state."""
     ctx = mod._context[0]
     batch = mx.io.DataBatch([mx.nd.array(x, ctx=ctx, dtype=dtype)],
                             [mx.nd.array(y, ctx=ctx, dtype=dtype)])
@@ -4781,11 +4875,11 @@ def lstm_parity_step(torch, mx, mod, x, y, dtype=np.float32):
     names = mod._exec_group.param_names
     arg, _aux = mod.get_params()
     res = {"loss": {"loss": np.array([float(loss)])},
-           "param": {n: arg[n].asnumpy().astype(np.float64) for n in names},
-           "mean": {}, "var": {}}
-    for i, (mean, var) in mod._updater.states.items():
-        res["mean"][names[i]] = mean.asnumpy().astype(np.float64)
-        res["var"][names[i]] = var.asnumpy().astype(np.float64)
+           "param": {n: arg[n].asnumpy().astype(np.float64) for n in names}}
+    res.update({k: {} for k in kinds})
+    for i, st in mod._updater.states.items():
+        for kind, a in zip(kinds, st):
+            res[kind][names[i]] = a.asnumpy().astype(np.float64)
     return res
 
 
@@ -4798,11 +4892,12 @@ def lstm_parity_batches(seed):
             for w in words]
 
 
-def lstm_parity_run(torch, mx, sides, batches, dtypes):
+def lstm_parity_run(torch, mx, sides, batches, dtypes, kinds=("mean",
+                                                             "var")):
     """Two steps of ``sides`` (name -> Module, whose arrays hold
     ``dtypes[name]``); before the second, every side takes the first
-    side's parameters and Adam states. Returns ``{name: [step
-    results]}``."""
+    side's parameters and optimizer states (of ``kinds``). Returns
+    ``{name: [step results]}``."""
     names = list(sides)
     results = {n: [] for n in names}
     for s, (x, y) in enumerate(batches):
@@ -4818,9 +4913,32 @@ def lstm_parity_run(torch, mx, sides, batches, dtypes):
                     for a, b in zip(st, mod._updater.states[i]):
                         b[:] = a.asnumpy().astype(dtypes[n])
         for n in names:
-            results[n].append(lstm_parity_step(torch, mx, sides[n], x, y,
-                                               dtypes[n]))
+            results[n].append(lm_parity_step(torch, mx, sides[n], x, y,
+                                             kinds, dtypes[n]))
     return results
+
+
+def lm_parity_lines(res, tol):
+    """``(lines, breaches)`` of two parity steps ``res`` (``card``, ``cpu``
+    and ``cpu64`` sides): each kind of ``tol`` card against CPU in norm,
+    and beside it the CPU path in float32 against float64, the yardstick
+    of float32's own rounding."""
+    lines, bad = [], []
+    for s in range(2):
+        for kind, rtol in tol.items():
+            rel, worst, worst_rel = parity_diff(res["card"][s][kind],
+                                                res["cpu"][s][kind])
+            lines.append(f"step {s + 1} {kind}: |card - cpu| / |cpu| = "
+                         f"{rel:.3g} (rtol {rtol}); worst tensor {worst} "
+                         f"{worst_rel:.3g}")
+            if not rel <= rtol:
+                bad.append(f"step {s + 1} {kind} {rel:.3g} > {rtol}")
+            rel64, worst64, worst64_rel = parity_diff(res["cpu"][s][kind],
+                                                      res["cpu64"][s][kind])
+            lines.append(f"step {s + 1} {kind}: |cpu - cpu float64| / "
+                         f"|cpu float64| = {rel64:.3g}; worst tensor "
+                         f"{worst64} {worst64_rel:.3g}")
+    return lines, bad
 
 
 def phase_lstm_parity(torch, mx):
@@ -4837,22 +4955,7 @@ def phase_lstm_parity(torch, mx):
              "cpu64": lstm_parity_side(mx, sym, states, args, mx.cpu(),
                                        np.float64)}
     res = lstm_parity_run(torch, mx, sides, batches, dtypes)
-    lines, bad = [], []
-    for s in range(2):
-        for kind, rtol in LSTM_PARITY_TOL.items():
-            rel, worst, worst_rel = parity_diff(res["card"][s][kind],
-                                                res["cpu"][s][kind])
-            lines.append(f"step {s + 1} {kind}: |card - cpu| / |cpu| = "
-                         f"{rel:.3g} (rtol {rtol}); worst tensor {worst} "
-                         f"{worst_rel:.3g}")
-            if not rel <= rtol:
-                bad.append(f"step {s + 1} {kind} {rel:.3g} > {rtol}")
-            # the yardstick: the same CPU path in float32 against float64
-            rel64, worst64, worst64_rel = parity_diff(res["cpu"][s][kind],
-                                                      res["cpu64"][s][kind])
-            lines.append(f"step {s + 1} {kind}: |cpu - cpu float64| / "
-                         f"|cpu float64| = {rel64:.3g}; worst tensor "
-                         f"{worst64} {worst64_rel:.3g}")
+    lines, bad = lm_parity_lines(res, LSTM_PARITY_TOL)
     print(f"[lstm-parity] two Adam steps of the T=8 bucket at batch "
           f"{LSTM_BATCH}, card against the port's CPU path "
           f"({time.perf_counter() - t0:.1f} s): losses "
@@ -7544,9 +7647,577 @@ def phase_windows(torch, mx, card):
     return launches
 
 
+# --- the GRU language model and the RNN op (phases 21-24) -----------------
+# the GRU language model: the LSTM-PTB configuration (``LSTM``: hidden and
+# embedding 200, 2 layers, vocabulary 10000; batch 32, buckets 8/16/24/32)
+# with GRUCell in place of LSTMCell, built from the public cell API as a
+# user script builds it, trained by BucketingModule.fit with RMSProp
+# (``fit`` sets rescale_grad to 1/32)
+GRU_OPT = {"learning_rate": 0.001, "gamma1": 0.9, "epsilon": 1e-8}
+# Train-Perplexity of the GRU fit's second epoch must fall below it and
+# below the first epoch's. The port's CPU path at this size (``--cpu-gru
+# 0 1 2``, on the card machine's CPU) read 8809.5, 8855.1 and 8866.7 over
+# three initialization seeds (first epoch 10785..11150; guessing uniformly
+# over 10000 words gives 10000). The card initializes from its own
+# generator, so the limit is the LSTM's, 95 % of uniform guessing, ~1.5 %
+# of the way from the readings to a model that learned nothing
+GRU_PPL_LIMIT = 9500.0
+# card against the port's CPU path, two RMSProp steps (plain and centred)
+# of the T=8 bucket at full width, each from the same state, in norm over
+# all tensors of a kind: |card - cpu| <= rtol * |cpu|. The CPU path in
+# float32 against float64 (``--cpu-gru``) read at most 7.3e-8 (loss),
+# 1.9e-8 (parameters), 3.9e-7 (n), 3.2e-7 (g) and 5.6e-7 (delta) over the
+# two steps, so 1e-5 leaves ~20x for the card's other summation order, as
+# LSTM_PARITY_TOL does
+GRU_PARITY_TOL = {"loss": 1e-5, "param": 1e-5, "n": 1e-5, "g": 1e-5,
+                  "delta": 1e-5}
+# the RNN op's phase: (T, N, C) with state_size C, two layers
+RNN_OP_SHAPE = (32, 32, 200)
+RNN_OP_LAYERS = 2
+# the RNN op on the card against the port's CPU path, per output and per
+# gradient in norm: |card - cpu| <= RNN_OP_TOL * |cpu|. The CPU path in
+# float32 against float64 (``--cpu-gru``) read at most 4.2e-7 over the
+# four cases (the 32 steps of two layers compound the products' rounding):
+# 1e-5 leaves ~25x
+RNN_OP_TOL = 1e-5
+
+
+def gru_lm_sym_gen(mx, num_hidden=200, num_layers=2, num_embed=200,
+                   vocab_size=10000):
+    """``(sym_gen, begin-state names)`` of the GRU language model, built
+    from ``mx``'s public cell API (either package): an ``Embedding``, a
+    ``SequentialRNNCell`` of ``GRUCell``s unrolled over the bucket, a
+    ``FullyConnected`` to the vocabulary and ``SoftmaxOutput``."""
+    stack = mx.rnn.SequentialRNNCell()
+    for i in range(num_layers):
+        stack.add(mx.rnn.GRUCell(num_hidden=num_hidden, prefix=f"gru_l{i}_"))
+
+    def sym_gen(seq_len):
+        data = mx.sym.Variable("data")
+        label = mx.sym.Variable("softmax_label")
+        embed = mx.sym.Embedding(data, input_dim=vocab_size,
+                                 output_dim=num_embed, name="embed")
+        stack.reset()
+        outputs, _states = stack.unroll(seq_len, inputs=embed,
+                                        merge_outputs=True)
+        pred = mx.sym.Reshape(outputs, shape=(-1, num_hidden))
+        pred = mx.sym.FullyConnected(pred, num_hidden=vocab_size,
+                                     name="pred")
+        label = mx.sym.Reshape(label, shape=(-1,))
+        return (mx.sym.SoftmaxOutput(pred, label, name="softmax"),
+                ("data",), ("softmax_label",))
+
+    states = [n for n in sym_gen(2)[0].list_arguments() if "begin_state" in n]
+    return sym_gen, states
+
+
+def gru_fit(mx, seed, **callbacks):
+    """:func:`lm_fit` of the GRU language model with RMSProp."""
+    return lm_fit(mx, seed, *gru_lm_sym_gen(mx, **LSTM), "rmsprop", GRU_OPT,
+                  **callbacks)
+
+
+def gru_numpy(mx, seed):
+    """The GRU model's T=8 bucket as :func:`lstm_numpy` gives the LSTM's."""
+    return lm_numpy(*lm_param_shapes(*gru_lm_sym_gen(mx, **LSTM),
+                                     LSTM["num_hidden"]), seed)
+
+
+def gru_cases(torch, randn, n, h):
+    """``(name, i2h, h2h, h_prev, dnext_h)`` at the path's (n, 3h): the
+    path, h_prev zero, an i2h one float off the 16-byte alignment, and N, H
+    no multiple of 4."""
+    i2h, h2h = 2 * randn(n, 3 * h), 2 * randn(n, 3 * h)
+    hp, dh = randn(n, h), randn(n, h)
+    odd = (7, 13)
+    return [("path", i2h, h2h, hp, dh),
+            ("h_prev 0", i2h, h2h, torch.zeros_like(hp), dh),
+            ("i2h off alignment", 2 * randn(n * 3 * h + 1)[1:].view(
+                n, 3 * h), h2h, hp, dh),
+            (f"odd {odd}", 2 * randn(odd[0], 3 * odd[1]),
+             2 * randn(odd[0], 3 * odd[1]), randn(*odd), randn(*odd))]
+
+
+def rmsprop_sets(torch, gen, dev, shapes, centered, offset=0):
+    """Weights, gradients and states (n, and gm, delta when centred) of
+    ``shapes``; with ``offset``, each a view that many floats into its
+    own storage. A centred ``n`` holds ``gm * gm`` and more, as a running
+    mean of squares does over the running mean, so that no root is of a
+    negative number."""
+    def make(shape, scale, positive=False):
+        numel = math.prod(shape)
+        t = torch.randn(numel + offset, generator=gen, device=dev) * scale
+        t = t.abs() if positive else t
+        return t[offset:].view(shape)
+
+    ws = [make(s, 0.05) for s in shapes]
+    gs = [make(s, 1.0) for s in shapes]
+    ns = [make(s, 1e-3, positive=True) for s in shapes]
+    if not centered:
+        return ws, gs, ns, None, None
+    gms = [make(s, 1e-3) for s in shapes]
+    for n, gm in zip(ns, gms):
+        n.add_(gm * gm)
+    return ws, gs, ns, gms, [make(s, 1e-4) for s in shapes]
+
+
+def flat(*groups):
+    """The tensors of the lists in ``groups`` that are not None, in
+    order."""
+    return [t for g in groups if g is not None for t in g]
+
+
+def phase_gru_kernels(torch, mx):
+    """``gru_cell``, ``gru_cell_bwd`` and ``rmsprop_multi`` against their
+    plain versions on the card at the GRU path's shapes and at odd ones,
+    timed beside their bounds and the library calls."""
+    from mxnet_tpu_torch.kernels import (
+        gru_cell as gc, rmsprop_multi as rm, sgd_mom_multi as sg)
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def close(what, got, want):
+        return check(torch, what, got, want, LSTM_RTOL, LSTM_ATOL)
+
+    # --- gru_cell / gru_cell_bwd at the path's (32, 3 x 200) and odd ones
+    n, h = LSTM_BATCH, LSTM["num_hidden"]
+    fwd_err = bwd_err = 0.0
+    before = (gc.LAUNCHES.value, gc.BWD_LAUNCHES.value)
+    cases = gru_cases(torch, randn, n, h)
+    for name, i2h, h2h, hp, dh in cases:
+        want = gc.gru_cell_plain(i2h, h2h, hp)
+        got = gc.gru_cell(i2h, h2h, hp)
+        got_inf, none = gc.gru_cell(i2h, h2h, hp, save=False)
+        if none is not None:
+            fail("gru_cell(save=False) returned gates")
+        fwd_err = max(fwd_err, close(f"gru_cell {name} next_h", got[0],
+                                     want[0]),
+                      close(f"gru_cell {name} gates", got[1], want[1]),
+                      close(f"gru_cell {name} inference next_h", got_inf,
+                            want[0]))
+        for dnext in (dh, None):
+            got_b = gc.gru_cell_bwd(dnext, want[1], h2h, hp)
+            want_b = gc.gru_cell_bwd_plain(dnext, want[1], h2h, hp)
+            for what, g, w in zip(("di2h", "dh2h", "dh_prev"), got_b,
+                                  want_b):
+                bwd_err = max(bwd_err, close(
+                    f"gru_cell_bwd {name} dnext_h="
+                    f"{'None' if dnext is None else 'given'} {what}", g, w))
+    torch.cuda.synchronize()
+    if (gc.LAUNCHES.value - before[0], gc.BWD_LAUNCHES.value - before[1]) != (
+            2 * len(cases), 2 * len(cases)):
+        fail(f"gru_cell launches {gc.LAUNCHES.value - before[0]}, "
+             f"gru_cell_bwd {gc.BWD_LAUNCHES.value - before[1]}; expected "
+             f"{2 * len(cases)} each")
+    # a row-strided (non-contiguous) view is refused, not misread
+    try:
+        gc.gru_cell(randn(n, 3 * h + 5)[:, :3 * h], cases[0][2], cases[0][3])
+        fail("gru_cell took a non-contiguous i2h")
+    except mx.base.MXNetError:
+        pass
+    # torch's fused GRU cell computes the same function (gates r, z, n and
+    # n = tanh(x_n + r * h_n)): a yardstick, checked against the plain
+    # version
+    _name, i2h, h2h, hp, dh = cases[0]
+    zero = torch.zeros(3 * h, device=dev)
+    fused = torch.ops.aten._thnn_fused_gru_cell
+    fused_bwd = torch.ops.aten._thnn_fused_gru_cell_backward
+    hy, ws_ = fused(i2h, h2h, hp, zero, zero)
+    plain = gc.gru_cell_plain(i2h, h2h, hp)
+    lib_err = float((hy - plain[0]).abs().max())
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
+    act = plain[1]
+    fwd = timed(torch, lambda: gc.gru_cell(i2h, h2h, hp),
+                lambda: gc.gru_cell_plain(i2h, h2h, hp),
+                lambda: fused(i2h, h2h, hp, zero, zero), flush,
+                ("gru_cell_kernel",), reps=200, plain_reps=100)
+    bwd = timed(torch, lambda: gc.gru_cell_bwd(dh, act, h2h, hp),
+                lambda: gc.gru_cell_bwd_plain(dh, act, h2h, hp),
+                lambda: fused_bwd(dh, ws_, True), flush,
+                ("gru_cell_bwd_kernel",), reps=200, plain_reps=100)
+    # per (n, j): i2h and h2h (3 each) and h_prev read, next_h and the
+    # three gates written, about 20 operations (the sums, two sigmoids, a
+    # tanh, the state update); backward: dnext_h, the gates, h2h's o-slice
+    # and h_prev read, di2h and dh2h (3 each) and dh_prev written
+    fwd["bound_ms"], fwd["bound_by"] = bound(11 * n * h * 4, 20 * n * h)
+    bwd["bound_ms"], bwd["bound_by"] = bound(13 * n * h * 4, 20 * n * h)
+    print(f"[gru-kernels] gru_cell and gru_cell_bwd match their plain "
+          f"versions at ({n}, 3x{h}) ({', '.join(c[0] for c in cases)}; "
+          f"training and inference, dnext_h given and None; a "
+          f"non-contiguous i2h refused): max abs err "
+          f"{fwd_err:g} / {bwd_err:g} (rtol {LSTM_RTOL}, atol {LSTM_ATOL}); "
+          f"torch._thnn_fused_gru_cell computes the same cell to "
+          f"{lib_err:g}", flush=True)
+    for what, r, lib in (("gru_cell", fwd, "_thnn_fused_gru_cell"),
+                         ("gru_cell_bwd", bwd,
+                          "_thnn_fused_gru_cell_backward")):
+        print(f"[gru-kernels] {what}: {r['ms']:.4f} ms warm, "
+              f"{r['cold_ms']:.4f} ms L2-cold, {r['device_ms']:.4f} ms on "
+              f"the device, plain {r['plain_ms']:.4f} ms, {lib} "
+              f"{r['library_ms']:.4f} ms ({r['library_cold_ms']:.4f} cold), "
+              f"bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}), host "
+              f"{r['host_us']:.1f} us a call", flush=True)
+
+    # --- rmsprop_multi over the GRU model's 11 tensors (4.49 M values)
+    _sym, _states, params = lm_param_shapes(*gru_lm_sym_gen(mx, **LSTM),
+                                            LSTM["num_hidden"])
+    shapes = [s for _n, s in params]
+    numel = sum(math.prod(s) for s in shapes)
+    wds0 = [1.0 if nm.endswith("_weight") else 0.0 for nm, _s in params]
+    rm_err, runs = 0.0, 0
+    before = rm.LAUNCHES.value
+    for centered in (False, True):
+        for wd, clip, clip_w in ((0.0, -1.0, -1.0), (1e-4, 0.05, -1.0),
+                                 (1e-2, -1.0, 0.05)):
+            ws_, gs, ns, gms, dls = rmsprop_sets(torch, gen, dev, shapes,
+                                                 centered)
+            ref = [[t.clone() for t in x] if x is not None else None
+                   for x in (ws_, ns, gms, dls)]
+            wds = [wd * k for k in wds0]
+            lrs = [0.001] * len(shapes)
+            cache = {}
+            for _t in (1, 2):
+                rm.rmsprop_multi(ws_, gs, ns, lrs, wds, 0.9, 1e-8,
+                                 1 / LSTM_BATCH, clip, clip_w, gms, dls, 0.9,
+                                 cache=cache)
+                rm.rmsprop_multi_plain(ref[0], gs, ref[1], lrs, wds, 0.9,
+                                       1e-8, 1 / LSTM_BATCH, clip, clip_w,
+                                       ref[2], ref[3], 0.9)
+                runs += 1
+            got, want = flat(ws_, ns, gms, dls), flat(*ref)
+            rm_err = max(rm_err, *(float((a - b).abs().max())
+                                   for a, b in zip(got, want)))
+            apart = sum(not torch.equal(a, b) for a, b in zip(got, want))
+            if apart:
+                fail(f"rmsprop_multi centered={centered} wd={wd} "
+                     f"clip={clip} clip_weights={clip_w}: {apart} tensors "
+                     f"not bit for bit the plain version's (max abs err "
+                     f"{rm_err:g})")
+    # odd sizes, and views one float off the 16-byte alignment
+    odd = [(1,), (7,), (13, 5), (8193,), (70001,)]
+    for centered in (False, True):
+        for offset in (0, 1):
+            ws_, gs, ns, gms, dls = rmsprop_sets(torch, gen, dev, odd,
+                                                 centered, offset)
+            ref = [[t.clone() for t in x] if x is not None else None
+                   for x in (ws_, ns, gms, dls)]
+            lrs, wds = [0.01, 0.02, 0.01, 0.03, 0.01], [1e-3] * len(odd)
+            rm.rmsprop_multi(ws_, gs, ns, lrs, wds, 0.95, 1e-8, 0.5, 0.3,
+                             0.04, gms, dls, 0.8)
+            rm.rmsprop_multi_plain(ref[0], gs, ref[1], lrs, wds, 0.95, 1e-8,
+                                   0.5, 0.3, 0.04, ref[2], ref[3], 0.8)
+            runs += 1
+            if any(not torch.equal(a, b) for a, b in zip(
+                    flat(ws_, ns, gms, dls), flat(*ref))):
+                fail(f"rmsprop_multi on odd sizes, offset {offset}, "
+                     f"centered={centered}: not bit for bit")
+    # the guard: a NaN gradient skips the step in the same one launch
+    for centered in (False, True):
+        ws_, gs, ns, gms, dls = rmsprop_sets(torch, gen, dev, shapes,
+                                             centered)
+        aux = torch.ones(9000, device=dev)
+        snap = torch.zeros(9000, device=dev)
+        guard = sg.Guard(torch.zeros(2, dtype=torch.int32, device=dev),
+                         [(aux, snap)])
+        kept = [t.clone() for t in flat(ws_, ns, gms, dls)]
+        gs[3].view(-1)[11] = float("nan")
+        args = ([0.001] * len(shapes), [0.0] * len(shapes), 0.9, 1e-8,
+                1 / LSTM_BATCH, -1.0, -1.0)
+        count = rm.LAUNCHES.value
+        rm.rmsprop_multi(ws_, gs, ns, *args, gms, dls, 0.9, guard=guard)
+        torch.cuda.synchronize()
+        if (guard.counters.tolist() != [1, 1] or rm.LAUNCHES.value != count + 1
+                or not torch.equal(aux, snap) or any(
+                    not torch.equal(a, b)
+                    for a, b in zip(flat(ws_, ns, gms, dls), kept))):
+            fail(f"rmsprop_multi guard (centered={centered}): counters "
+                 f"{guard.counters.tolist()}, launches "
+                 f"{rm.LAUNCHES.value - count}; the step was not skipped in "
+                 f"one launch")
+        gs[3].view(-1)[11] = 0.0
+        aux.fill_(2.0)
+        ref = [[t.clone() for t in x] if x is not None else None
+               for x in (ws_, ns, gms, dls)]
+        rm.rmsprop_multi(ws_, gs, ns, *args, gms, dls, 0.9, guard=guard)
+        rm.rmsprop_multi_plain(ref[0], gs, ref[1], *args, ref[2], ref[3],
+                               0.9)
+        torch.cuda.synchronize()
+        if (guard.counters.tolist() != [1, 0] or not bool((aux == 2.0).all())
+                or any(not torch.equal(a, b) for a, b in zip(
+                    flat(ws_, ns, gms, dls), flat(*ref)))):
+            fail(f"rmsprop_multi guard after a finite step "
+                 f"(centered={centered}): counters "
+                 f"{guard.counters.tolist()}, or the step was not the plain "
+                 f"version's bit for bit")
+        runs += 2
+    if rm.LAUNCHES.value - before != runs:
+        fail(f"rmsprop_multi launched {rm.LAUNCHES.value - before} times in "
+             f"{runs} calls")
+    print(f"[gru-kernels] rmsprop_multi bit for bit its plain version over "
+          f"the model's {len(shapes)} tensors x (wd, clip_gradient, "
+          f"clip_weights), plain and centred, two steps each; over sizes no "
+          f"multiple of 4 and views one float off alignment; a NaN gradient "
+          f"under the guard skips the step in one launch (counters [1, 1] "
+          f"then [1, 0], restores copied back)", flush=True)
+    # times at the path's 11 tensors, plain and centred, wd 1e-4 on the
+    # weights
+    wds = [1e-4 * k for k in wds0]
+    lrs = [0.001] * len(shapes)
+    times = {}
+    for centered in (False, True):
+        ws_, gs, ns, gms, dls = rmsprop_sets(torch, gen, dev, shapes,
+                                             centered)
+        cache = {}
+        builds = rm.TABLE_BUILDS.value
+        hyper = (lrs, wds, 0.9, 1e-8, 1 / LSTM_BATCH, -1.0, -1.0)
+        tparams = [torch.nn.Parameter(w) for w in ws_]
+        for p_, g in zip(tparams, gs):
+            p_.grad = g
+        topt = torch.optim.RMSprop(tparams, lr=0.001, alpha=0.9, eps=1e-8,
+                                   centered=centered, foreach=True)
+        r = timed(torch,
+                  lambda a=(ws_, gs, ns), s=(gms, dls), c=cache:
+                  rm.rmsprop_multi(*a, *hyper, *s, 0.9, cache=c),
+                  lambda a=(ws_, gs, ns), s=(gms, dls):
+                  rm.rmsprop_multi_plain(*a, *hyper, *s, 0.9),
+                  topt.step, flush, ("rmsprop_multi_kernel",), reps=50,
+                  plain_reps=5)
+        if rm.TABLE_BUILDS.value != builds + 1:
+            fail(f"rmsprop_multi rebuilt its table "
+                 f"{rm.TABLE_BUILDS.value - builds} times for unmoved "
+                 f"tensors")
+        # 5 floats moved a value (9 centred); about 11 operations (17)
+        r["bound_ms"], r["bound_by"] = bound(
+            (36 if centered else 20) * numel, (17 if centered else 11) * numel)
+        times[centered] = r
+        print(f"[gru-kernels] rmsprop_multi "
+              f"{'centred' if centered else 'plain'} over {len(shapes)} "
+              f"tensors ({numel / 1e6:.2f} M values): {r['ms']:.4f} ms warm, "
+              f"{r['cold_ms']:.4f} ms L2-cold, {r['device_ms']:.4f} ms on "
+              f"the device (1 launch, table built once), plain "
+              f"{r['plain_ms']:.4f} ms, torch.optim.RMSprop(foreach=True)"
+              f".step {r['library_ms']:.4f} ms (other semantics: eps outside "
+              f"the root, no Graves delta), bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), host {r['host_us']:.1f} us a call",
+              flush=True)
+
+    def row(name, source, replaces, err, r, extra=None):
+        out = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "max_abs_err": err, "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+               "cold_ms": r["cold_ms"], "device_ms": r["device_ms"],
+               "host_us": r["host_us"]}
+        out.update(extra or {})
+        return out
+
+    src = "mxnet_tpu_torch/csrc/gru_cell.cu"
+    cent = times[True]
+    return [row("gru_cell", src, "mxnet_tpu/rnn/rnn_cell.py:301", fwd_err,
+                fwd),
+            row("gru_cell_bwd", src, "mxnet_tpu/rnn/rnn_cell.py:301",
+                bwd_err, bwd),
+            row("rmsprop_multi", "mxnet_tpu_torch/csrc/rmsprop_multi.cu",
+                "mxnet_tpu/ops/defs_optimizer.py:104", rm_err, times[False],
+                {f"centered_{k}": cent[k] for k in (
+                    "ms", "cold_ms", "device_ms", "plain_ms", "bound_ms",
+                    "library_ms", "host_us")})]
+
+
+def phase_gru_training(torch, mx, card):
+    return lm_training(torch, mx, card, "gru", gru_fit, "gru_cell",
+                       "rmsprop_multi", GRU_PPL_LIMIT)
+
+
+def phase_gru_parity(torch, mx):
+    """Two RMSProp steps of the GRU model's T=8 bucket at full width on the
+    card and on the port's CPU path (plain versions), each from the same
+    state, plain and centred, compared in norm over each kind; beside them
+    the same CPU path in float64."""
+    sym, states, args = gru_numpy(mx, SEED + 41)
+    batches = lstm_parity_batches(SEED + 42)
+    dtypes = {"card": np.float32, "cpu": np.float32, "cpu64": np.float64}
+    bad = []
+    for centered in (False, True):
+        t0 = time.perf_counter()
+        kinds = ("n", "g", "delta") if centered else ("n",)
+        opt = {**GRU_OPT, "centered": centered}
+        sides = {name: lm_parity_side(mx, sym, states, args, ctx, "rmsprop",
+                                      opt, dtypes[name])
+                 for name, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu()),
+                                   ("cpu64", mx.cpu()))}
+        res = lstm_parity_run(torch, mx, sides, batches, dtypes, kinds)
+        tol = {k: GRU_PARITY_TOL[k] for k in ("loss", "param") + kinds}
+        lines, breaches = lm_parity_lines(res, tol)
+        form = "centred" if centered else "plain"
+        print(f"[gru-parity] two {form} RMSProp steps of the T=8 bucket at "
+              f"batch {LSTM_BATCH}, card against the port's CPU path "
+              f"({time.perf_counter() - t0:.1f} s): losses "
+              f"{[float(r['loss']['loss'][0]) for r in res['card']]} vs "
+              f"{[float(r['loss']['loss'][0]) for r in res['cpu']]}",
+              flush=True)
+        for line in lines:
+            print(f"[gru-parity]   {form} {line}")
+        bad += [f"{form} {b}" for b in breaches]
+    if bad:
+        fail(f"GRU training parity: card and CPU differ beyond the "
+             f"tolerance in {bad}")
+
+
+def rnn_op_run(mx, mode, bidir, ctx, seed, dtype=np.float32):
+    """One training forward and backward of ``mx.sym.RNN`` (``mode``,
+    ``bidir``, ``RNN_OP_LAYERS`` layers, state_outputs) at
+    ``RNN_OP_SHAPE`` on ``ctx`` in ``dtype``, with random head gradients on
+    every output: data N(0, 1), parameters U(-0.07, 0.07) (about 1 /
+    sqrt(200)), states N(0, 0.5), all from ``seed``. Returns ``(executor,
+    {output or gradient name: float64 numpy})``."""
+    data = mx.sym.Variable("data")
+    sym = mx.sym.RNN(data, mode=mode, state_size=RNN_OP_SHAPE[2],
+                     num_layers=RNN_OP_LAYERS, bidirectional=bidir,
+                     state_outputs=True, name="rnn")
+    exe = sym.simple_bind(ctx, grad_req="write",
+                          type_dict={"data": np.dtype(dtype).name},
+                          data=RNN_OP_SHAPE)
+    rng = np.random.default_rng(seed)
+    for name in sym.list_arguments():
+        shape = exe.arg_dict[name].shape
+        if name == "data":
+            v = rng.standard_normal(shape)
+        elif name.endswith("parameters"):
+            v = rng.uniform(-0.07, 0.07, shape)
+        else:
+            v = 0.5 * rng.standard_normal(shape)
+        exe.arg_dict[name][:] = v.astype(dtype)
+    exe.forward(is_train=True)
+    heads = [rng.standard_normal(o.shape).astype(dtype) for o in exe.outputs]
+    exe.backward([mx.nd.array(hd, ctx=ctx, dtype=dtype) for hd in heads])
+    res = {f"out{i}": o.asnumpy().astype(np.float64)
+           for i, o in enumerate(exe.outputs)}
+    res.update({f"d{n}": g.asnumpy().astype(np.float64)
+                for n, g in exe.grad_dict.items()})
+    return exe, res
+
+
+def phase_rnn_op(torch, mx):
+    """``mx.sym.RNN`` (``RNN_OP_LAYERS`` layers, state_size 200,
+    state_outputs) at ``RNN_OP_SHAPE`` bound by ``simple_bind`` on
+    ``gpu(0)`` for the lstm and gru modes, one and two directions: forward
+    and backward against the port's CPU path on the same inputs (and
+    beside it the CPU path in float64), L*D*T cell launches each way with
+    every count at 0 before, and the inference forward's time beside
+    cuDNN's ``torch.nn.GRU``/``torch.nn.LSTM`` at the same shapes. Returns
+    each kernel's launches and the forward times."""
+    from mxnet_tpu_torch import telemetry as tm
+
+    kernels = launch_counters()
+    steps, batch, width = RNN_OP_SHAPE
+    dev = torch.device("cuda", 0)
+    launches, times, bad = {}, {}, []
+    for mode in ("lstm", "gru"):
+        cell = f"{mode}_cell"
+        for bidir in (False, True):
+            dirs = 2 if bidir else 1
+            seed = SEED + 50 + 2 * dirs + (mode == "gru")
+            tm.reset()
+            exe, card = rnn_op_run(mx, mode, bidir, mx.gpu(0), seed)
+            torch.cuda.synchronize()
+            got = {k: c.value for k, c in kernels.items() if c.value}
+            want = {cell: RNN_OP_LAYERS * dirs * steps,
+                    f"{cell}_bwd": RNN_OP_LAYERS * dirs * steps}
+            if got != want:
+                fail(f"RNN op {mode} bidirectional={bidir}: launches {got}, "
+                     f"expected {want}")
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+            cpu = rnn_op_run(mx, mode, bidir, mx.cpu(), seed)[1]
+            cpu64 = rnn_op_run(mx, mode, bidir, mx.cpu(), seed,
+                               np.float64)[1]
+            worst, worst64 = (parity_diff(card, cpu)[1:],
+                              parity_diff(cpu, cpu64)[1:])
+            if not worst[1] <= RNN_OP_TOL:
+                bad.append(f"{mode} bidirectional={bidir} {worst[0]} "
+                           f"{worst[1]:.3g}")
+            # the inference forward on the card beside cuDNN's
+            fwd_ms = cuda_ms(torch, lambda exe=exe: exe.forward(
+                is_train=False), reps=10)
+            net = (torch.nn.GRU if mode == "gru" else torch.nn.LSTM)(
+                width, width, num_layers=RNN_OP_LAYERS,
+                bidirectional=bidir).to(dev)
+            x = exe.arg_dict["data"]._data
+            h0 = torch.zeros(RNN_OP_LAYERS * dirs, batch, width, device=dev)
+            hx = h0 if mode == "gru" else (h0, h0.clone())
+            with torch.no_grad():
+                lib_ms = cuda_ms(torch, lambda net=net, hx=hx: net(x, hx),
+                                 reps=10)
+            times[f"{mode}{'_bidirectional' if bidir else ''}"] = {
+                "forward_ms": fwd_ms, "cudnn_ms": lib_ms}
+            print(f"[rnn-op] RNN mode={mode} bidirectional={bidir} at (T, N, "
+                  f"C) = {RNN_OP_SHAPE}, {RNN_OP_LAYERS} layers: forward and "
+                  f"backward launch {want} exactly; card against the CPU "
+                  f"path, worst output or gradient {worst[0]} "
+                  f"{worst[1]:.3g} in norm (limit {RNN_OP_TOL}); CPU float32 "
+                  f"against float64 {worst64[0]} {worst64[1]:.3g}; inference "
+                  f"forward {fwd_ms:.3f} ms, cuDNN torch.nn."
+                  f"{'GRU' if mode == 'gru' else 'LSTM'} {lib_ms:.3f} ms",
+                  flush=True)
+    if bad:
+        fail(f"RNN op: card and CPU differ beyond {RNN_OP_TOL} in {bad}")
+    return launches, times
+
+
+def gru_cpu_readings(seeds):
+    """The readings ``GRU_PPL_LIMIT``, ``GRU_PARITY_TOL`` and
+    ``RNN_OP_TOL`` were fixed from, on the port's CPU path: the GRU fit's
+    Train-Perplexity for each seed; two RMSProp steps (plain and centred)
+    of the T=8 bucket in float32 against float64; the RNN op's four cases
+    in float32 against float64. Needs no card (full width: run it on a
+    machine with many cores)."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    cpu_perplexity(seeds, gru_fit, "cpu-gru-perplexity")
+    with mx.cpu():
+        sym, states, args = gru_numpy(mx, SEED + 41)
+        batches = lstm_parity_batches(SEED + 42)
+        dtypes = {"cpu": np.float32, "cpu64": np.float64}
+        for centered in (False, True):
+            kinds = ("n", "g", "delta") if centered else ("n",)
+            opt = {**GRU_OPT, "centered": centered}
+            sides = {name: lm_parity_side(mx, sym, states, args, mx.cpu(),
+                                          "rmsprop", opt, dtypes[name])
+                     for name in dtypes}
+            res = lstm_parity_run(torch, mx, sides, batches, dtypes, kinds)
+            for s in range(2):
+                for kind in ("loss", "param") + kinds:
+                    rel, worst, worst_rel = parity_diff(
+                        res["cpu"][s][kind], res["cpu64"][s][kind])
+                    print(f"[cpu-gru-parity] centered={centered} step "
+                          f"{s + 1} {kind}: |cpu - cpu float64| / |cpu "
+                          f"float64| = {rel:.3g}; worst tensor {worst} "
+                          f"{worst_rel:.3g}", flush=True)
+        for mode in ("lstm", "gru"):
+            for bidir in (False, True):
+                seed = SEED + 50 + 2 * (2 if bidir else 1) + (mode == "gru")
+                cpu = rnn_op_run(mx, mode, bidir, mx.cpu(), seed)[1]
+                cpu64 = rnn_op_run(mx, mode, bidir, mx.cpu(), seed,
+                                   np.float64)[1]
+                _rel, worst, rel = parity_diff(cpu, cpu64)
+                print(f"[cpu-rnn-op] mode={mode} bidirectional={bidir}: "
+                      f"float32 against float64, worst {worst} {rel:.3g} in "
+                      f"norm", flush=True)
+
+
 def main():
     if sys.argv[1:2] == ["--cpu-perplexity"]:
         cpu_perplexity([int(a) for a in sys.argv[2:]])
+        return
+    if sys.argv[1:2] == ["--cpu-gru"]:
+        gru_cpu_readings([int(a) for a in sys.argv[2:]])
         return
     if sys.argv[1:2] == ["--cpu-ssd"]:
         ssd_cpu_readings()
@@ -7682,6 +8353,10 @@ def main():
     mnist_paths = phase_mnist_kernels(torch, mx)
     baseline = phase_baseline_scripts(torch, mx, card)
     windows = phase_windows(torch, mx, card)
+    kernels += phase_gru_kernels(torch, mx)
+    gru_trained, gru_device_ms = phase_gru_training(torch, mx, card)
+    phase_gru_parity(torch, mx)
+    rnn_op, rnn_op_times = phase_rnn_op(torch, mx)
     for k in kernels:
         name = k["name"]
         k["launches_serving"] = served.get(name, 0)
@@ -7692,6 +8367,8 @@ def main():
         k["launches_dcgan"] = dcgan_trained.get(name, 0)
         k["launches_baseline"] = baseline.get(name, 0)
         k["launches_windows"] = windows.get(name, 0)
+        k["launches_gru"] = gru_trained.get(name, 0)
+        k["launches_rnn_op"] = rnn_op.get(name, 0)
         if name in mnist_paths:
             k.setdefault("paths", {}).update(mnist_paths[name])
             k["max_abs_err"] = max(k["max_abs_err"], *(
@@ -7699,12 +8376,17 @@ def main():
         k["launches"] = (k["launches_serving"] + k["launches_training"]
                          + k["launches_lstm"] + k["launches_ssd"]
                          + k["launches_ssd_train"] + k["launches_dcgan"]
-                         + k["launches_baseline"] + k["launches_windows"])
+                         + k["launches_baseline"] + k["launches_windows"]
+                         + k["launches_gru"] + k["launches_rnn_op"])
         k["step_device_ms"] = device_ms.get(name)
         k["lstm_step_device_ms"] = lstm_device_ms.get(name)
         k["ssd_forward_device_ms"] = ssd_device_ms.get(name)
         k["ssd_step_device_ms"] = ssd_train_device_ms.get(name)
         k["dcgan_step_device_ms"] = dcgan_device_ms.get(name)
+        k["gru_step_device_ms"] = gru_device_ms.get(name)
+        if name in ("lstm_cell", "gru_cell"):
+            k["rnn_op"] = {key: t for key, t in rnn_op_times.items()
+                           if key.startswith(name[:3])}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,14 @@ device as the port's NDArrays. The other route is a ``.params`` file:
 reads it, byte for byte. :func:`gan_params_from_numpy` sets a
 ``GANModule``'s two networks from the JAX ``GANModule``'s
 ``mod_g.get_params()`` and ``mod_d.get_params()``.
+
+Optimizer states carry across as files: the JAX ``Module``'s
+``save_optimizer_states`` pickles numpy arrays (per parameter index, a
+state or a tuple of states: SGD's momentum, Adam's ``(mean, var)``,
+RMSProp's ``(n,)`` or, centred, ``(n, g, delta)``), and the port's
+``Module.load_optimizer_states`` reads that file as it is. The states land
+on the current context, and the first update moves each next to its
+weight; training then continues as the reference's would.
 """
 
 from __future__ import annotations

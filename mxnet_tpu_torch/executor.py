@@ -40,6 +40,12 @@ i * g`` -> ``next_h = o * tanh(next_c)``) runs as one ``lstm_cell`` launch,
 and in training its backward as one ``lstm_cell_bwd``, when none of its
 intermediates has a consumer outside the chain: ``next_c`` and ``next_h``
 take the places of their nodes, the other nodes of the chain run nothing.
+The gate chain of a GRU cell step (``GRUCell.__call__`` unrolled: two
+``SliceChannel(3)`` of the ``FullyConnected`` outputs -> ``r`` and ``z``
+as sigmoids of the slices' sums -> ``o = tanh(i2h_o + r * h2h_o)`` ->
+``next_h = o + z * (h_prev - o)``) runs as one ``gru_cell`` launch, and in
+training its backward as one ``gru_cell_bwd``, under the same rule:
+``next_h`` takes the place of its node.
 
 Two routes serve SSD's head. A channel ``SoftmaxActivation`` whose only
 consumer is a ``MultiBoxDetection`` runs nothing, and the detection reads
@@ -66,6 +72,7 @@ import torch
 from . import env as _env
 from .base import MXNetError, np_dtype
 from .context import Context
+from .kernels.gru_cell import GRUCellFn, gru_cell
 from .kernels.lstm_cell import LSTMCellFn, lstm_cell
 from .kernels.sgd_mom_multi import Guard
 from .ndarray import NDArray, ones as nd_ones, zeros as nd_zeros
@@ -180,6 +187,26 @@ class _LSTMStep:
         return [next_c, next_h]
 
 
+class _GRUStep:
+    """One GRU cell step's gate chain: ``inputs`` are the ``(node, index)``
+    edges of ``i2h``, ``h2h`` and ``h_prev``; ``h_node`` (the ``next_h``
+    add) runs the fused step; ``members`` are the chain's nodes."""
+
+    def __init__(self, inputs, h_node, members):
+        self.inputs = inputs
+        self.h_node = h_node
+        self.members = members
+
+    @staticmethod
+    def run(ins, mode):
+        """``[next_h]`` of the step, through the cell kernels (their
+        wrappers check the shapes and types)."""
+        i2h, h2h, h_prev = ins
+        if mode.is_train and torch.is_grad_enabled():
+            return [GRUCellFn.apply(i2h, h2h, h_prev)]
+        return [gru_cell(i2h, h2h, h_prev, save=False)[0]]
+
+
 def _pass(ins, mode):
     """``next_h`` of a fused LSTM step, which its ``next_c`` node made."""
     return ins
@@ -269,6 +296,98 @@ def _fused_lstm(topo, consumers):
     return steps
 
 
+def _fused_gru(topo, consumers):
+    """``{id(next_h node): _GRUStep}`` for every GRU gate chain the
+    interpreter may fuse: the chain of ``GRUCell.__call__`` from the two
+    ``SliceChannel(3)`` of ``FullyConnected`` outputs to ``next_h``, whose
+    intermediates feed nothing outside it."""
+
+    def sole(node, idx=0):
+        use = consumers.get((id(node), idx), [])
+        return use[0] if len(use) == 1 else None
+
+    def slice_of(edge, k):
+        """The SliceChannel(3) of a FullyConnected output that ``edge``
+        reads as output ``k``, or None."""
+        sl, idx = edge
+        if idx != k or not _is_op(sl, "SliceChannel", num_outputs=3, axis=1,
+                                  squeeze_axis=False):
+            return None
+        fc, fidx = sl.inputs[0]
+        return sl if fidx == 0 and _is_op(fc, "FullyConnected",
+                                          flatten=True) else None
+
+    def gate(act, k):
+        """``(i2h slice, h2h slice, sum)`` of a sigmoid gate over the sum
+        of output ``k`` of two slices, either order, or None."""
+        if not _is_op(act, "Activation", act_type="sigmoid"):
+            return None
+        add, idx = act.inputs[0]
+        if idx or not _is_op(add, "_plus") or sole(add) is not act:
+            return None
+        a, b = (slice_of(e, k) for e in add.inputs)
+        return (a, b, add) if a is not None and b is not None else None
+
+    steps = {}
+    for o in topo:
+        if not _is_op(o, "Activation", act_type="tanh"):
+            continue
+        add_o, idx = o.inputs[0]
+        if idx or not _is_op(add_o, "_plus") or sole(add_o) is not o:
+            continue
+        # i2h_o + r * h2h_o, the product on either side
+        edges = list(add_o.inputs)
+        mul_o = next((n for n, i in edges if i == 0 and _is_op(n, "_mul")),
+                     None)
+        if mul_o is None or sole(mul_o) is not add_o:
+            continue
+        edges.remove((mul_o, 0))
+        sl_i = slice_of(edges[0], 2)
+        r_act = next((n for n, i in mul_o.inputs if i == 0
+                      and _is_op(n, "Activation", act_type="sigmoid")), None)
+        if sl_i is None or r_act is None or sole(r_act) is not mul_o:
+            continue
+        rest = list(mul_o.inputs)
+        rest.remove((r_act, 0))
+        sl_h = slice_of(rest[0], 2)
+        r_gate = gate(r_act, 0)
+        if (sl_h is None or sl_h is sl_i or r_gate is None
+                or {r_gate[0], r_gate[1]} != {sl_i, sl_h}):
+            continue
+        # o feeds h_prev - o and o + z * (h_prev - o), nothing else
+        uses = consumers.get((id(o), 0), [])
+        sub = next((n for n in uses if _is_op(n, "_minus")
+                    and n.inputs[1] == (o, 0)), None)
+        if sub is None or len(uses) != 2:
+            continue
+        h_node = next((n for n in uses if n is not sub), None)
+        mul_z = sole(sub)
+        if (not _is_op(mul_z, "_mul") or not _is_op(h_node, "_plus")
+                or sole(mul_z) is not h_node
+                or sorted(i for _n, i in h_node.inputs) != [0, 0]
+                or {n for n, _i in h_node.inputs} != {o, mul_z}):
+            continue
+        z_act = next((n for n, i in mul_z.inputs if i == 0 and n is not sub),
+                     None)
+        z_gate = gate(z_act, 1)
+        if (z_gate is None or sole(z_act) is not mul_z
+                or {z_gate[0], z_gate[1]} != {sl_i, sl_h}):
+            continue
+        if not all(sole(sl, k) is want for sl, k, want in (
+                (sl_i, 0, r_gate[2]), (sl_h, 0, r_gate[2]),
+                (sl_i, 1, z_gate[2]), (sl_h, 1, z_gate[2]),
+                (sl_i, 2, add_o), (sl_h, 2, mul_o))):
+            continue
+        members = [sl_i, sl_h, r_gate[2], r_act, z_gate[2], z_act, mul_o,
+                   add_o, o, sub, mul_z, h_node]
+        h_prev = sub.inputs[0]
+        if h_prev[0] in members:
+            continue
+        steps[id(h_node)] = _GRUStep(
+            [sl_i.inputs[0], sl_h.inputs[0], h_prev], h_node, members)
+    return steps
+
+
 def _fused_producers(topo, consumers, op, producer, **params):
     """``{id(node): (node, producer node)}`` for every node running ``op``
     whose first input is the only use of a ``producer`` op's output with
@@ -313,6 +432,7 @@ class _Graph:
         self.fused = _fused_bn_relu(self.topo, consumers)
         self._fused_bns = {id(bn): slope for bn, slope in self.fused.values()}
         self.lstm = _fused_lstm(self.topo, consumers)
+        self.gru = _fused_gru(self.topo, consumers)
         self.detection = _fused_producers(
             self.topo, consumers, "MultiBoxDetection", "SoftmaxActivation",
             mode="channel")
@@ -322,14 +442,18 @@ class _Graph:
         # nodes that run a fused route: {id(node): (the edges it reads,
         # run(ins, mode) -> outputs)}; the other members of a route run
         # nothing. A fused LSTM step reads the chain's inputs at its next_c
-        # node; a fused detection reads the softmax's logits; a fused
-        # l2norm reads the normalization's input at its _mul_scalar node
+        # node, a fused GRU step at its next_h node; a fused detection
+        # reads the softmax's logits; a fused l2norm reads the
+        # normalization's input at its _mul_scalar node
         routes, skip = {}, set()
         for st in self.lstm.values():
             routes[id(st.c_node)] = (st.inputs, st.run)
             routes[id(st.h_node)] = ([(st.c_node, 1)], _pass)
             skip.update(id(m) for m in st.members
                         if m is not st.c_node and m is not st.h_node)
+        for st in self.gru.values():
+            routes[id(st.h_node)] = (st.inputs, st.run)
+            skip.update(id(m) for m in st.members if m is not st.h_node)
         for det, sm in self.detection.values():
             routes[id(det)] = ([sm.inputs[0]] + list(det.inputs[1:]),
                                functools.partial(_run_detection,
@@ -392,7 +516,7 @@ class _Graph:
                 break
             reads = node.inputs if plain else self._reads[id(node)]
             if reads is None:
-                continue  # inside a fused LSTM step
+                continue  # inside a fused cell step
             ins = [env[id(inode)][idx] for (inode, idx) in reads]
             if plain:
                 outs, new_aux = node.op.apply(ins, node.params(), mode)

@@ -53,6 +53,9 @@ _SIGNATURES = {
     "mxt_adam_probe_f32": [_P, _P, _P, _I, _I, _LL, _P, _P],
     "mxt_lstm_cell_f32": [_P],
     "mxt_lstm_cell_bwd_f32": [_P],
+    "mxt_gru_cell_f32": [_P],
+    "mxt_gru_cell_bwd_f32": [_P],
+    "mxt_rmsprop_multi_f32": [_P],
     "mxt_adam_multi_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _LL]
     + [ctypes.c_float] * 7 + [_P, _P, _P],
     "mxt_l2norm_channel_f32": [_P],

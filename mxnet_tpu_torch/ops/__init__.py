@@ -1,6 +1,6 @@
 """Operator registry and definitions of the port (the subset of
-``mxnet_tpu/ops`` that ResNet training and serving, LSTM training, SSD
-serving and training and DCGAN training run)."""
+``mxnet_tpu/ops`` that ResNet training and serving, LSTM and GRU training,
+the fused ``RNN`` op, SSD serving and training and DCGAN training run)."""
 
 from . import registry
 from .registry import OpDef, OpMode, Param, register, get, exists, list_ops
@@ -12,3 +12,4 @@ from . import defs_nn  # noqa: F401
 from . import defs_optimizer  # noqa: F401
 from . import defs_contrib  # noqa: F401
 from . import defs_random  # noqa: F401
+from . import defs_rnn  # noqa: F401

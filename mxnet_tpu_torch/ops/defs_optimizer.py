@@ -1,22 +1,24 @@
-"""Optimizer update operators (the SGD and Adam subset).
+"""Optimizer update operators.
 
-Counterpart of ``mxnet_tpu/ops/defs_optimizer.py:1-100``: ``sgd_update``,
-``sgd_mom_update`` and ``adam_update`` as registered ops, following the
-reference's gradient preprocessing ``_prep_grad`` (rescale, clip, then
-``wd * weight`` outside the clip for SGD; ``wd * weight`` before the clip
-for Adam). Each op body runs a multi-tensor kernel (``sgd_mom_multi``,
-``adam_multi``) over its one parameter, on copies, so the op stays
-functional; ``mx.nd`` calls with ``out=weight`` write the result back, and
-the ops write their new optimizer state into their state inputs
-(``mutate``). The fused training step calls the kernel once over every
-parameter instead (``torch_apply`` of :mod:`mxnet_tpu_torch.optimizer`).
-``rmsprop_update`` and ``rmspropalex_update`` are not yet ported.
+Counterpart of ``mxnet_tpu/ops/defs_optimizer.py``: ``sgd_update``,
+``sgd_mom_update``, ``adam_update``, ``rmsprop_update`` and
+``rmspropalex_update`` as registered ops, following the reference's
+gradient preprocessing ``_prep_grad`` (rescale, clip, then ``wd * weight``
+outside the clip for SGD and RMSProp; ``wd * weight`` before the clip for
+Adam). Each op body runs a multi-tensor kernel (``sgd_mom_multi``,
+``adam_multi``, ``rmsprop_multi``) over its one parameter, on copies, so
+the op stays functional; ``mx.nd`` calls with ``out=weight`` write the
+result back, and the ops write their new optimizer state into their state
+inputs (``mutate``). The fused training step calls the kernel once over
+every parameter instead (``torch_apply`` of
+:mod:`mxnet_tpu_torch.optimizer`).
 """
 
 from __future__ import annotations
 
 from ..base import parse_float
 from ..kernels.adam_multi import adam_multi
+from ..kernels.rmsprop_multi import rmsprop_multi
 from ..kernels.sgd_mom_multi import sgd_mom_multi
 from .registry import Param, register
 
@@ -88,4 +90,56 @@ register(
     num_outputs=3,
     num_visible_outputs=1,
     mutate=[("mean", 1), ("var", 2)],
+)
+
+
+def _rmsprop_update(ins, params, mode):
+    weight, grad, n = ins
+    w, n = weight.clone(), n.clone()
+    rmsprop_multi([w], [grad], [n], [params["lr"]], [params["wd"]],
+                  params["gamma1"], params["epsilon"], params["rescale_grad"],
+                  params["clip_gradient"], params["clip_weights"])
+    return [w, n]
+
+
+register(
+    "rmsprop_update",
+    _rmsprop_update,
+    arg_names=["weight", "grad", "n"],
+    param_schema={
+        **_common_schema(),
+        "gamma1": Param(parse_float, 0.95),
+        "epsilon": Param(parse_float, 1e-8),
+        "clip_weights": Param(parse_float, -1.0),
+    },
+    num_outputs=2,
+    num_visible_outputs=1,
+    mutate=[("n", 1)],
+)
+
+
+def _rmspropalex_update(ins, params, mode):
+    weight, grad, n, g, delta = ins
+    w, n, g, delta = weight.clone(), n.clone(), g.clone(), delta.clone()
+    rmsprop_multi([w], [grad], [n], [params["lr"]], [params["wd"]],
+                  params["gamma1"], params["epsilon"], params["rescale_grad"],
+                  params["clip_gradient"], params["clip_weights"], gms=[g],
+                  deltas=[delta], gamma2=params["gamma2"])
+    return [w, n, g, delta]
+
+
+register(
+    "rmspropalex_update",
+    _rmspropalex_update,
+    arg_names=["weight", "grad", "n", "g", "delta"],
+    param_schema={
+        **_common_schema(),
+        "gamma1": Param(parse_float, 0.95),
+        "gamma2": Param(parse_float, 0.9),
+        "epsilon": Param(parse_float, 1e-8),
+        "clip_weights": Param(parse_float, -1.0),
+    },
+    num_outputs=4,
+    num_visible_outputs=1,
+    mutate=[("n", 1), ("g", 2), ("delta", 3)],
 )

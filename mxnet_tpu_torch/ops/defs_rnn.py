@@ -1,0 +1,197 @@
+"""Fused multi-layer RNN operator (``RNN``, alias ``rnn``).
+
+Counterpart of ``mxnet_tpu/ops/defs_rnn.py`` (reference
+``src/operator/rnn.cc``, the cuDNN RNN that ``FusedRNNCell`` binds): one
+flat parameter blob laid out as ``FusedRNNCell._slice_weights`` cuts it
+(every layer's and direction's i2h and h2h weights, then their biases),
+``num_layers`` layers, one or two directions, and the modes ``lstm``,
+``gru``, ``rnn_tanh`` and ``rnn_relu``.
+
+Inputs: data ``(T, N, C)``, parameters ``(size,)``, state ``(L*D, N, H)``
+and, for lstm, state_cell ``(L*D, N, H)``. Outputs: ``(T, N, H*D)`` and
+the final states (and cells), visible when ``state_outputs``.
+
+Where the reference scans one jitted step over time (``lax.scan``), the
+port runs a Python loop per layer and direction: one ``torch.addmm`` for
+the whole sequence's input projection (the reference's ``einsum``), then
+per step one ``torch.addmm`` for ``h @ Wh.T + bh`` and the cell kernel:
+``lstm_cell`` (``LSTMCellFn`` in training; no forget bias, as the op has
+none) and ``gru_cell`` (``GRUCellFn``), each one launch forward and one
+backward a step. The ``rnn_tanh`` and ``rnn_relu`` modes run their step as
+``RNNCell`` does, a product and the ported ``Activation`` body: the vanilla
+cell-step kernel is ``ROADMAP.md`` 2b item 5. Dropout between layers
+(``p > 0`` in training with two layers or more) raises
+:class:`MXNetError`: the reference draws a JAX Bernoulli mask there, and
+``Dropout`` is ``ROADMAP.md`` queue 1 item 12.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..base import MXNetError, parse_bool, parse_float, parse_int, parse_str
+from ..kernels.gru_cell import GRUCellFn, gru_cell
+from ..kernels.lstm_cell import LSTMCellFn, lstm_cell
+from .defs_nn import _ACTS
+from .registry import Param, register
+
+_GATES = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}
+
+
+def _rnn_param_size(mode, num_layers, bidirectional, input_size, state_size):
+    m = _GATES[mode]
+    b = 2 if bidirectional else 1
+    h = state_size
+    size = 0
+    for layer in range(num_layers):
+        li = input_size if layer == 0 else h * b
+        size += b * (m * h * li + m * h * h)  # i2h + h2h weights
+    size += num_layers * b * (2 * m * h)  # biases
+    return size
+
+
+def _slice_rnn_params(arr, mode, num_layers, bidirectional, input_size, h):
+    """Views of the blob as ``FusedRNNCell._slice_weights`` cuts it:
+    weights (all layers and directions), then biases. Returns per (layer,
+    direction) ``[Wi (m*h, li), Wh (m*h, h), bi, bh]``."""
+    m = _GATES[mode]
+    dirs = 2 if bidirectional else 1
+    out = []
+    p = 0
+    for layer in range(num_layers):
+        li = input_size if layer == 0 else h * dirs
+        per_dir = []
+        for _d in range(dirs):
+            wi = arr[p:p + m * h * li].reshape(m * h, li)
+            p += m * h * li
+            wh = arr[p:p + m * h * h].reshape(m * h, h)
+            p += m * h * h
+            per_dir.append([wi, wh, None, None])
+        out.append(per_dir)
+    for layer in range(num_layers):
+        for d in range(dirs):
+            out[layer][d][2] = arr[p:p + m * h]
+            p += m * h
+            out[layer][d][3] = arr[p:p + m * h]
+            p += m * h
+    return out
+
+
+def _step(mode, xg, hp, cp, wh, bh, train):
+    """One time step: ``(next_h, next_c)`` (``next_c`` None but for
+    lstm)."""
+    h2h = torch.addmm(bh, hp, wh.t())
+    if mode == "gru":
+        if train:
+            return GRUCellFn.apply(xg, h2h, hp), None
+        return gru_cell(xg, h2h, hp, save=False)[0], None
+    if mode == "lstm":
+        if train:
+            return LSTMCellFn.apply(xg, h2h, cp, 0.0)
+        hn, cn, _act = lstm_cell(xg, h2h, cp, 0.0, save=False)
+        return hn, cn
+    return _ACTS["relu" if mode == "rnn_relu" else "tanh"](xg + h2h), None
+
+
+def _run_layer(mode, x, wi, wh, bi, bh, h0, c0, reverse, train):
+    """x ``(T, N, li)`` -> outputs ``(T, N, H)``, the last state and cell."""
+    steps, n, li = x.shape
+    xi = torch.addmm(bi, x.reshape(steps * n, li), wi.t()).view(steps, n, -1)
+    hp, cp = h0, c0
+    ys = [None] * steps
+    for t in (range(steps - 1, -1, -1) if reverse else range(steps)):
+        hp, cp = _step(mode, xi[t], hp, cp, wh, bh, train)
+        ys[t] = hp
+    return torch.stack(ys), hp, cp
+
+
+def _rnn(ins, params, mode_ctx):
+    mode = params["mode"]
+    if mode not in _GATES:
+        raise MXNetError(f"RNN: unknown mode {mode!r} (one of "
+                         f"{sorted(_GATES)})")
+    num_layers = params["num_layers"]
+    h = params["state_size"]
+    bidir = params["bidirectional"]
+    is_lstm = mode == "lstm"
+    if is_lstm:
+        data, parameters, state, state_cell = ins
+    else:
+        (data, parameters, state), state_cell = ins, None
+    train = mode_ctx.is_train and torch.is_grad_enabled()
+    if params["p"] > 0 and mode_ctx.is_train and num_layers > 1:
+        raise MXNetError(
+            "RNN: dropout between layers (p > 0 in training) needs the "
+            "'Dropout' op, not yet ported to mxnet_tpu_torch (ROADMAP.md "
+            "queue 1 item 12)")
+    _steps, _n, c = data.shape
+    dirs = 2 if bidir else 1
+    layers = _slice_rnn_params(parameters, mode, num_layers, bidir, c, h)
+    x = data
+    h_last, c_last = [], []
+    for layer in range(num_layers):
+        outs = []
+        for d in range(dirs):
+            wi, wh, bi, bh = layers[layer][d]
+            sidx = layer * dirs + d
+            c0 = state_cell[sidx].contiguous() if is_lstm else None
+            ys, ht, ct = _run_layer(mode, x, wi, wh, bi, bh,
+                                    state[sidx].contiguous(), c0, d == 1,
+                                    train)
+            outs.append(ys)
+            h_last.append(ht)
+            if is_lstm:
+                c_last.append(ct)
+        x = outs[0] if dirs == 1 else torch.cat(outs, dim=-1)
+    outputs = [x, torch.stack(h_last)]
+    if is_lstm:
+        outputs.append(torch.stack(c_last))
+    return outputs
+
+
+def _rnn_args(p):
+    args = ["data", "parameters", "state"]
+    if p["mode"] == "lstm":
+        args.append("state_cell")
+    return args
+
+
+def _rnn_fill(shapes, params):
+    data = shapes[0]
+    if data is None:
+        return shapes
+    _t, n, c = data
+    h = params["state_size"]
+    layers = params["num_layers"]
+    dirs = 2 if params["bidirectional"] else 1
+    if shapes[1] is None:
+        shapes[1] = (_rnn_param_size(params["mode"], layers,
+                                     params["bidirectional"], c, h),)
+    if shapes[2] is None:
+        shapes[2] = (layers * dirs, n, h)
+    if params["mode"] == "lstm" and shapes[3] is None:
+        shapes[3] = (layers * dirs, n, h)
+    return shapes
+
+
+register(
+    "RNN",
+    _rnn,
+    arg_names=_rnn_args,
+    param_schema={
+        "state_size": Param(parse_int),
+        "num_layers": Param(parse_int),
+        "mode": Param(parse_str),
+        "bidirectional": Param(parse_bool, False),
+        "p": Param(parse_float, 0.0),
+        "state_outputs": Param(parse_bool, False),
+        "pkeep_": Param(parse_float, None),
+        "lstm_q_": Param(parse_bool, None),
+    },
+    fill_in_shapes=_rnn_fill,
+    num_outputs=lambda p: 3 if p["mode"] == "lstm" else 2,
+    num_visible_outputs=lambda p: (
+        (3 if p["mode"] == "lstm" else 2) if p["state_outputs"] else 1
+    ),
+    aliases=("rnn",),
+)

@@ -1,20 +1,22 @@
-"""Optimizers (SGD and Adam).
+"""Optimizers (SGD, Adam and RMSProp).
 
 Counterpart of ``mxnet_tpu/optimizer.py`` (reference
 ``python/mxnet/optimizer.py``): the ``Optimizer`` base with the
 reference's lr/wd multiplier resolution (per-optimizer dicts > symbol
 ``__lr_mult__``/``__wd_mult__`` attributes > the bias/gamma/beta
-heuristic), ``SGD``, ``Adam``, ``create``/``register``, ``Updater`` and
-``get_updater``.
+heuristic), ``SGD``, ``Adam``, ``RMSProp`` (plain and centred),
+``create``/``register``, ``Updater`` and ``get_updater``.
 
 ``update`` is the imperative per-parameter path (``nd.sgd_mom_update``,
-``nd.adam_update`` with ``out=weight``). ``torch_apply`` is the
-counterpart of ``jax_apply`` for the fused training step: where the JAX
-package traces one update per parameter into the step's XLA program, the
-port updates every parameter in one launch of a multi-tensor kernel
+``nd.adam_update``, ``nd.rmsprop_update``, ``nd.rmspropalex_update`` with
+``out=weight``). ``torch_apply`` is the counterpart of ``jax_apply`` for
+the fused training step: where the JAX package traces one update per
+parameter into the step's XLA program, the port updates every parameter
+in one launch of a multi-tensor kernel
 (:mod:`mxnet_tpu_torch.kernels.sgd_mom_multi`,
-:mod:`mxnet_tpu_torch.kernels.adam_multi`). The other optimizers of the
-JAX package (RMSProp, NAG, AdaGrad, ...) are not yet ported.
+:mod:`mxnet_tpu_torch.kernels.adam_multi`,
+:mod:`mxnet_tpu_torch.kernels.rmsprop_multi`). The other optimizers of the
+JAX package (NAG, AdaGrad, AdaDelta, ...) are not yet ported.
 """
 
 from __future__ import annotations
@@ -25,9 +27,10 @@ import pickle
 import numpy as np
 
 from .kernels.adam_multi import adam_multi
+from .kernels.rmsprop_multi import rmsprop_multi
 from .kernels.sgd_mom_multi import sgd_mom_multi
-from .ndarray import (NDArray, adam_update, array, sgd_mom_update, sgd_update,
-                      zeros)
+from .ndarray import (NDArray, adam_update, array, rmsprop_update,
+                      rmspropalex_update, sgd_mom_update, sgd_update, zeros)
 
 
 class Optimizer:
@@ -216,6 +219,54 @@ class Adam(Optimizer):
                    [self.lr_t(lr, t) for lr, t in zip(lrs, ts)], wds,
                    self.beta1, self.beta2, self.epsilon, self.rescale_grad,
                    self._clip(), guard=guard, cache=cache)
+        return states
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp; ``centered=True`` is Alex Graves' variant (reference
+    ``RMSProp``, on the ``rmsprop_multi`` kernel)."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        n = 3 if self.centered else 1  # (n,) or (n, g, delta)
+        return tuple(zeros(weight.shape, ctx=weight.context,
+                           dtype=weight.dtype) for _ in range(n))
+
+    def _clip_w(self):
+        return self.clip_weights if self.clip_weights is not None else -1.0
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kwargs = dict(lr=self._get_lr(index), wd=self._get_wd(index),
+                      gamma1=self.gamma1, epsilon=self.epsilon,
+                      rescale_grad=self.rescale_grad,
+                      clip_gradient=self._clip(), clip_weights=self._clip_w())
+        if not self.centered:
+            (n,) = state
+            rmsprop_update(weight, grad, n, out=weight, **kwargs)
+        else:
+            n, g, delta = state
+            rmspropalex_update(weight, grad, n, g, delta, out=weight,
+                               gamma2=self.gamma2, **kwargs)
+
+    def torch_apply(self, weights, grads, states, lrs, wds, ts, cache=None,
+                    guard=None):
+        kinds = list(zip(*[[a._data for a in s] for s in states]))
+        rmsprop_multi(weights, grads, kinds[0], lrs, wds, self.gamma1,
+                      self.epsilon, self.rescale_grad, self._clip(),
+                      self._clip_w(),
+                      gms=kinds[1] if self.centered else None,
+                      deltas=kinds[2] if self.centered else None,
+                      gamma2=self.gamma2, guard=guard, cache=cache)
         return states
 
 

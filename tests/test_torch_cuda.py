@@ -83,6 +83,15 @@ back in a call. Training windows: a window of 4 steps of a conv +
 BatchNorm net (SGD and Adam) bit for bit 4 serial steps under
 deterministic cuDNN, its launch counts 4 times a step's; prefetched
 batches stacked for a window under a long step bit for bit their sources.
+The GRU slice: ``gru_cell`` and ``gru_cell_bwd`` at the GRU language
+model's (32, 3 x 200) and at N, H no multiple of 4, on an ``i2h`` one
+float off the 16-byte alignment, from a zero and a random state, training and inference,
+``dnext_h`` given and None (rtol 1e-5 / atol 1e-6: ``expf`` and ``tanhf``
+against torch's own kernels); ``rmsprop_multi`` bit for bit, plain and
+centred, with wd, clip_gradient and clip_weights, on sizes no multiple of
+4 and views one float off the 16-byte alignment, and under the guard (the
+skip in one launch); the RNN op's gru and lstm modes at two layers and
+two directions launching L * D * T cell steps each way.
 """
 
 import math
@@ -97,11 +106,13 @@ from mxnet_tpu_torch.kernels import adam_multi as adam_mod
 from mxnet_tpu_torch.kernels import bn_act as bn_mod
 from mxnet_tpu_torch.kernels import bn_act_bwd as bwd_mod
 from mxnet_tpu_torch.kernels import bn_stats as stats_mod
+from mxnet_tpu_torch.kernels import gru_cell as gru_mod
 from mxnet_tpu_torch.kernels import l2norm_channel as l2_mod
 from mxnet_tpu_torch.kernels import lstm_cell as lstm_mod
 from mxnet_tpu_torch.kernels import multibox_decode as dec_mod
 from mxnet_tpu_torch.kernels import multibox_target as mbt_mod
 from mxnet_tpu_torch.kernels import nms as nms_mod
+from mxnet_tpu_torch.kernels import rmsprop_multi as rms_mod
 from mxnet_tpu_torch.kernels import sgd_mom_multi as sgd_mod
 from mxnet_tpu_torch.kernels import softmax_output_bwd as sob_mod
 from mxnet_tpu_torch.kernels import softmax_rows as sm_mod
@@ -1712,3 +1723,155 @@ def test_prefetched_batches_stacked_under_a_long_step(card):
         assert np.array_equal(st["softmax_label"].cpu().numpy(),
                               y[rows].reshape(k, batch)), w
     it.close()
+
+
+# -- the GRU slice -----------------------------------------------------------
+def _gru_inputs(device, n, hidden, offset):
+    """i2h (``offset`` floats into its storage), h2h, h_prev and
+    dnext_h."""
+    rng = np.random.default_rng(n + hidden)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(
+            np.float32)).to(device)
+
+    i2h = t(n * 3 * hidden + offset, scale=2.0)[offset:].view(n, 3 * hidden)
+    return i2h, t(n, 3 * hidden, scale=2.0), t(n, hidden), t(n, hidden)
+
+
+@pytest.mark.parametrize("shape", [(32, 200), (7, 13), (3, 5)])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("h_zero", [False, True])
+def test_gru_cell_kernels_match_plain(card, shape, offset, h_zero):
+    i2h, h2h, hp, dh = _gru_inputs(card, *shape, offset)
+    if h_zero:
+        hp.zero_()
+    before = (gru_mod.LAUNCHES.value, gru_mod.BWD_LAUNCHES.value)
+    got = gru_mod.gru_cell(i2h, h2h, hp)
+    want = gru_mod.gru_cell_plain(i2h, h2h, hp)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **LSTM_TOL)
+    inf_h, none = gru_mod.gru_cell(i2h, h2h, hp, save=False)
+    assert none is None
+    torch.testing.assert_close(inf_h, want[0], **LSTM_TOL)
+    for dnext in (dh, None):
+        got_b = gru_mod.gru_cell_bwd(dnext, want[1], h2h, hp)
+        want_b = gru_mod.gru_cell_bwd_plain(dnext, want[1], h2h, hp)
+        for g, w in zip(got_b, want_b):
+            torch.testing.assert_close(g, w, **LSTM_TOL)
+    assert (gru_mod.LAUNCHES.value, gru_mod.BWD_LAUNCHES.value) == (
+        before[0] + 2, before[1] + 2)
+
+
+def test_gru_cell_kernels_raise_on_what_they_do_not_take(card):
+    i2h, h2h, hp, dh = _gru_inputs(card, 4, 8, 0)
+    with pytest.raises(MXNetError):
+        gru_mod.gru_cell(i2h.double(), h2h.double(), hp.double())
+    with pytest.raises(MXNetError):
+        gru_mod.gru_cell(i2h, h2h, hp[:, :7])
+    with pytest.raises(MXNetError):
+        gru_mod.gru_cell(torch.cat([i2h, i2h], 1)[:, :24], h2h, hp)
+    with pytest.raises(MXNetError):
+        gru_mod.gru_cell(i2h, h2h.cpu(), hp)
+    with pytest.raises(MXNetError):
+        gru_mod.gru_cell_bwd(dh.t().contiguous().t(), i2h, h2h, hp)
+
+
+def _rms_sets(device, sizes, centered, offset, seed):
+    rng = np.random.default_rng(seed)
+
+    def make(scale, positive=False):
+        out = []
+        for n in sizes:
+            a = scale * rng.standard_normal(n + offset)
+            a = np.abs(a) if positive else a
+            out.append(torch.from_numpy(a.astype(np.float32)).to(device)[
+                offset:])
+        return out
+
+    ws, gs, ns = make(0.05), make(1.0), make(1e-3, positive=True)
+    if not centered:
+        return ws, gs, ns, None, None
+    gms = make(1e-3)
+    for n, gm in zip(ns, gms):
+        n.add_(gm * gm)
+    return ws, gs, ns, gms, make(1e-4)
+
+
+def _flat(*groups):
+    return [t for g in groups if g is not None for t in g]
+
+
+@pytest.mark.parametrize("centered", [False, True])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("wd, clip, clip_w", [(0.0, -1.0, -1.0),
+                                              (1e-2, 0.3, 0.04)])
+def test_rmsprop_multi_bit_for_bit(card, centered, offset, wd, clip, clip_w):
+    sizes = (1, 7, 65, 8193, 70001)
+    ws, gs, ns, gms, dls = _rms_sets(card, sizes, centered, offset, 3)
+    ref = [[t.clone() for t in x] if x is not None else None
+           for x in (ws, ns, gms, dls)]
+    lrs, wds = [0.01, 0.02, 0.01, 0.03, 0.001], [wd] * len(sizes)
+    cache = {}
+    before = rms_mod.LAUNCHES.value
+    builds = rms_mod.TABLE_BUILDS.value
+    for _ in range(2):
+        rms_mod.rmsprop_multi(ws, gs, ns, lrs, wds, 0.9, 1e-8, 1 / 32, clip,
+                              clip_w, gms, dls, 0.8, cache=cache)
+        rms_mod.rmsprop_multi_plain(ref[0], gs, ref[1], lrs, wds, 0.9, 1e-8,
+                                    1 / 32, clip, clip_w, ref[2], ref[3],
+                                    0.8)
+    assert rms_mod.LAUNCHES.value == before + 2
+    assert rms_mod.TABLE_BUILDS.value == builds + 1  # cached between steps
+    for got, want in zip(_flat(ws, ns, gms, dls), _flat(*ref)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("centered", [False, True])
+def test_rmsprop_multi_guard_skips_a_non_finite_step_in_one_launch(
+        card, centered):
+    sizes = (5, 9000, 70001)
+    ws, gs, ns, gms, dls = _rms_sets(card, sizes, centered, 0, 4)
+    aux, snap = torch.ones(9000, device=card), torch.zeros(9000, device=card)
+    guard = sgd_mod.Guard(torch.zeros(2, dtype=torch.int32, device=card),
+                          [(aux, snap)])
+    before = [t.clone() for t in _flat(ws, ns, gms, dls)]
+    gs[2][123] = float("nan")
+    args = ([1e-3] * 3, [1e-4] * 3, 0.9, 1e-8, 1.0, -1.0, -1.0, gms, dls)
+    n = rms_mod.LAUNCHES.value
+    rms_mod.rmsprop_multi(ws, gs, ns, *args, guard=guard)
+    assert rms_mod.LAUNCHES.value == n + 1  # the probe folded in
+    assert guard.counters.tolist() == [1, 1] and torch.equal(aux, snap)
+    for got, want in zip(_flat(ws, ns, gms, dls), before):
+        assert torch.equal(got, want)
+    gs[2][123] = 0.0
+    aux.fill_(2.0)
+    ref = [[t.clone() for t in x] if x is not None else None
+           for x in (ws, ns, gms, dls)]
+    rms_mod.rmsprop_multi(ws, gs, ns, *args, guard=guard)
+    rms_mod.rmsprop_multi_plain(ref[0], gs, ref[1], *args[:7], ref[2],
+                                ref[3])
+    assert guard.counters.tolist() == [1, 0] and bool((aux == 2.0).all())
+    for got, want in zip(_flat(ws, ns, gms, dls), _flat(*ref)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["gru", "lstm"])
+def test_rnn_op_launches_one_cell_step_each_way(card, mode):
+    import mxnet_tpu_torch as mx
+
+    steps, layers, dirs = 5, 2, 2
+    sym = mx.sym.RNN(mx.sym.Variable("data"), mode=mode, state_size=8,
+                     num_layers=layers, bidirectional=True,
+                     state_outputs=True, name="rnn")
+    exe = sym.simple_bind(mx.gpu(0), grad_req="write", data=(steps, 3, 4))
+    for name, arr in exe.arg_dict.items():
+        arr[:] = np.random.default_rng(len(name)).uniform(
+            -0.3, 0.3, arr.shape).astype(np.float32)
+    mod = gru_mod if mode == "gru" else lstm_mod
+    before = (mod.LAUNCHES.value, mod.BWD_LAUNCHES.value)
+    exe.forward(is_train=True)
+    exe.backward([mx.nd.ones(o.shape, ctx=mx.gpu(0)) for o in exe.outputs])
+    want = layers * dirs * steps
+    assert (mod.LAUNCHES.value - before[0],
+            mod.BWD_LAUNCHES.value - before[1]) == (want, want)
