@@ -321,19 +321,25 @@ Run from the root of a checkout. Phases, each printing its own lines:
     ``examples/train_mnist.py --network mlp`` under
     ``MXNET_TRAIN_WINDOW=auto`` through the launcher (the chosen K,
     validation accuracy within ``MNIST_ACC_MARGIN``, launches, samples/s);
-21. GRU kernels — ``gru_cell`` and ``gru_cell_bwd`` against their plain
-    versions at the GRU model's (32, 3 x 200) (``gru_cases``: the path,
-    h_prev zero, an ``i2h`` one float off alignment, N, H = 7, 13; a
-    non-contiguous ``i2h`` refused),
-    training and inference, ``dnext_h`` given and None
-    (``LSTM_RTOL``/``LSTM_ATOL``); ``rmsprop_multi`` bit for bit over the
+21. GRU kernels — ``gru_cell`` and ``gru_cell_bwd``, one whole GRU step
+    each way (the recurrent product ``h_prev @ Wh.T + bh`` inside the
+    forward launch, the whole ``dh_prev`` out of the backward one),
+    against their plain versions at the GRU model's (32, 3 x 200)
+    (``gru_cases``: the path, h_prev zero, no bias, ``i2h``, ``h_prev``
+    and the weight one float off alignment, N, H = 7, 13 and 5, 1500; a
+    non-contiguous ``i2h`` or weight refused), training and inference,
+    ``dnext_h`` given and None (``GRU_STEP_RTOL``/``GRU_STEP_ATOL`` for
+    what passes through the product, ``LSTM_RTOL``/``LSTM_ATOL`` for
+    ``di2h`` and ``dh2h``); ``rmsprop_multi`` bit for bit over the
     model's 11 tensors (4.49 M values), plain and centred, with wd,
     clip_gradient and clip_weights on and off, over sizes no multiple of 4
     and views one float off alignment, and a NaN gradient under the guard
-    skipping the step in one launch; each timed warm, L2-cold, on the
-    device, beside the plain version, the bound, the library call
-    (``_thnn_fused_gru_cell[_backward]``, ``torch.optim.RMSprop(
-    foreach=True)``) and its host us a call;
+    skipping the step in one launch; one GRU step each way
+    (``gru_step_times``) and ``rmsprop_multi`` timed warm, L2-cold, on the
+    device (every kernel of the call, with its launches), beside the plain
+    version, the bound, the library call (``F.linear`` +
+    ``_thnn_fused_gru_cell``, ``_thnn_fused_gru_cell_backward`` + ``mm``
+    + add, ``torch.optim.RMSprop(foreach=True)``) and its host us a call;
 22. GRU training — the GRU language model (``gru_lm_sym_gen``: the
     LSTM-PTB configuration with ``GRUCell``, built from the public cell
     API) trained by ``BucketingModule.fit`` on ``gpu(0)`` with RMSProp
@@ -342,7 +348,9 @@ Run from the root of a checkout. Phases, each printing its own lines:
     ``rmsprop_multi``, ``softmax_rows`` and ``softmax_output_bwd`` and no
     plain version, one RMSProp table per bucket executor over one storage,
     the second epoch's Train-Perplexity below ``GRU_PPL_LIMIT``; per
-    bucket ms per step, tokens/s and a profile;
+    bucket ms per step, tokens/s and a profile (kernel launches per
+    step); then one step of the T=8 bucket in which no ``F.linear`` call
+    takes an h2h weight (``fc_calls``);
 23. GRU parity — two RMSProp steps of the T=8 bucket at full width on the
     card and on the port's CPU path, plain and centred, each from the same
     state, within ``GRU_PARITY_TOL`` in norm (loss, parameters, n, and g
@@ -351,9 +359,10 @@ Run from the root of a checkout. Phases, each printing its own lines:
     bound by ``simple_bind`` at (T, N, C) = ``RNN_OP_SHAPE`` on ``gpu(0)``
     in the lstm and gru modes, one and two directions: forward and
     backward (random head gradients on every output) against the port's
-    CPU path within ``RNN_OP_TOL`` in norm, L*D*T cell launches each way,
-    and the inference forward's time beside cuDNN's ``torch.nn.GRU`` /
-    ``torch.nn.LSTM``.
+    CPU path within ``RNN_OP_TOL`` in norm, L*D*T cell launches each way
+    (in the gru mode each one whole step, its product inside), and the
+    inference forward's time and kernel launches beside cuDNN's
+    ``torch.nn.GRU`` / ``torch.nn.LSTM``.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. Any failed phase exits non-zero before the result
@@ -394,16 +403,19 @@ runs phase 19's MNIST scripts on the port's CPU path (``--cpu``) and
 prints each epoch's validation accuracy (the readings ``MNIST_CPU_ACC``
 was fixed from); it needs no card.
 
-    python3 chip_smoke.py --kernel-times [ROOT]
+    python3 chip_smoke.py --kernel-times [ROOT] [--gru]
 
-prints phase 5b's times, phase 13b's (on the SSD heads recorded by
-``ssd_nms_heads``), phase 13c's, phase 13d's and phase 13e's (on the calls
-recorded with those heads) alone (after phases 1-2), for the package of
-the checkout at ``ROOT`` when given (say, the parent commit unpacked under
-``build/``), else for this one's: run both in one call, in turns, to
-compare two versions on one card. Each turn keeps a digest of phase 13e's
-output bits in ``KERNEL_BITS`` (under ``build/``) and prints whether the
-checkouts timed before it in the same call gave the same bits.
+prints one GRU step's times each way (``gru_step_times``, as phase 21
+takes them; a checkout whose ``gru_cell`` takes a ready ``h2h`` is timed
+as ``F.linear`` + ``gru_cell`` and ``gru_cell_bwd`` + ``mm`` + add), then,
+without ``--gru``, phase 5b's times, phase 13b's (on the SSD heads
+recorded by ``ssd_nms_heads``), phase 13c's, phase 13d's and phase 13e's
+(on the calls recorded with those heads) alone (after phases 1-2), for the
+package of the checkout at ``ROOT`` when given (say, the parent commit
+unpacked under ``build/``), else for this one's: run both in one call, in
+turns, to compare two versions on one card. Each turn keeps a digest of
+phase 13e's output bits in ``KERNEL_BITS`` (under ``build/``) and prints
+whether the checkouts timed before it in the same call gave the same bits.
 
     python3 chip_smoke.py --bn-bwd-plans
 
@@ -1611,8 +1623,10 @@ def kernel_times(torch, mx):
 def print_kernel_times(times, card, tag):
     for name, paths in times.items():
         for path, r in paths.items():
-            dev = (f"; device {r['device_ms']:.4f} ms" if "device_ms" in r
-                   else "")
+            dev = (f"; device {r['device_ms']:.4f} ms" if r.get("device_ms")
+                   is not None else "")
+            if "device_launches" in r:
+                dev += f" in {r['device_launches']:g} launches a call"
             print(f"[{tag}] {name} {path} {r['what']} on {card}: kernel "
                   f"{r['ms']:.4f} ms warm, {r['cold_ms']:.4f} ms cold "
                   f"({100 * r['bound_ms'] / r['cold_ms']:.0f}% of the "
@@ -4691,7 +4705,8 @@ def cpu_perplexity(seeds, fit=lstm_fit, tag="cpu-perplexity"):
               f"{epochs} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
-def lm_training(torch, mx, card, tag, fit, cell, update, limit):
+def lm_training(torch, mx, card, tag, fit, cell, update, limit,
+                fused_fc=None):
     """A language model's main path on ``gpu(0)``: ``fit(mx, seed,
     **callbacks)`` (:func:`lm_fit`) with every launch count at 0 just
     before it; every bucket visited, every step launching exactly 2T
@@ -4699,8 +4714,11 @@ def lm_training(torch, mx, card, tag, fit, cell, update, limit):
     ``softmax_output_bwd`` and no plain version, one update table per
     bucket executor over one storage, the second epoch's Train-Perplexity
     below ``limit`` and the first's; then per bucket ms per step, tokens/s
-    and a profile. Returns the launches and the port kernels' device ms per
-    step at the widest bucket."""
+    and a profile; with ``fused_fc`` (a weight name's ending), one more
+    step of the smallest bucket in which no ``F.linear`` call takes such a
+    weight (:func:`fc_calls`: the cell kernel computes that product).
+    Returns the launches and the port kernels' device ms per step at the
+    widest bucket."""
     from mxnet_tpu_torch import telemetry as tm
     from mxnet_tpu_torch import kernels as K
 
@@ -4805,7 +4823,41 @@ def lm_training(torch, mx, card, tag, fit, cell, update, limit):
                 ours.items())), flush=True)
         if b == max(LSTM_BUCKETS):
             device_ms = {k: v[0] for k, v in ours.items()}
+    if fused_fc is not None:
+        b = min(batches_by_key)
+        calls, fused = fc_calls(torch, mod, batches_by_key[b], fused_fc)
+        if fused or not calls:
+            fail(f"{tag}: one step of bucket {b} called F.linear {calls} "
+                 f"times, {fused} of them on a *{fused_fc}; expected none "
+                 f"there (the {cell} kernel computes that product)")
+        print(f"[{tag}] one step of bucket {b}: {calls} F.linear calls, none "
+              f"on a *{fused_fc} (the {cell} launches compute that product)",
+              flush=True)
     return launches, device_ms
+
+
+def fc_calls(torch, mod, batch, ending):
+    """``(F.linear calls, those on a weight whose name ends with
+    ``ending``)`` in one ``forward_backward`` of ``batch`` on a bucketing
+    module, by the weights' storage."""
+    import torch.nn.functional as F
+
+    args = mod._buckets[batch.bucket_key]._exec_group._exec.arg_dict
+    ptrs = {a._data.data_ptr() for name, a in args.items()
+            if name.endswith(ending)}
+    linear, seen = F.linear, []
+
+    def counted(x, weight, *rest, **kw):
+        seen.append(weight.data_ptr() in ptrs)
+        return linear(x, weight, *rest, **kw)
+
+    F.linear = counted
+    try:
+        mod.forward_backward(batch)
+        torch.cuda.synchronize()
+    finally:
+        F.linear = linear
+    return len(seen), sum(seen)
 
 
 def phase_lstm_training(torch, mx, card):
@@ -7680,6 +7732,13 @@ RNN_OP_LAYERS = 2
 # four cases (the 32 steps of two layers compound the products' rounding):
 # 1e-5 leaves ~25x
 RNN_OP_TOL = 1e-5
+# the fused GRU step against its plain version (float32): what passes
+# through the recurrent product (next_h, the saved planes, dh_prev) sums H
+# or 3H products in another order than cuBLAS, about sqrt(3H) * 2**-24 of
+# the products' magnitude apart (1e-6 at the path's scales: weights of
+# 1 / sqrt(H), unit states), so 1e-5 absolute; di2h and dh2h repeat the
+# plain chain on the same saved planes (LSTM_RTOL/LSTM_ATOL)
+GRU_STEP_RTOL, GRU_STEP_ATOL = 1e-5, 1e-5
 
 
 def gru_lm_sym_gen(mx, num_hidden=200, num_layers=2, num_embed=200,
@@ -7724,18 +7783,135 @@ def gru_numpy(mx, seed):
 
 
 def gru_cases(torch, randn, n, h):
-    """``(name, i2h, h2h, h_prev, dnext_h)`` at the path's (n, 3h): the
-    path, h_prev zero, an i2h one float off the 16-byte alignment, and N, H
-    no multiple of 4."""
-    i2h, h2h = 2 * randn(n, 3 * h), 2 * randn(n, 3 * h)
-    hp, dh = randn(n, h), randn(n, h)
-    odd = (7, 13)
-    return [("path", i2h, h2h, hp, dh),
-            ("h_prev 0", i2h, h2h, torch.zeros_like(hp), dh),
-            ("i2h off alignment", 2 * randn(n * 3 * h + 1)[1:].view(
-                n, 3 * h), h2h, hp, dh),
-            (f"odd {odd}", 2 * randn(odd[0], 3 * odd[1]),
-             2 * randn(odd[0], 3 * odd[1]), randn(*odd), randn(*odd))]
+    """``(name, i2h, h_prev, weight, bias, dnext_h)`` at the path's (n, 3h):
+    the path, h_prev zero, no bias, i2h, h_prev and the weight each one
+    float off the 16-byte alignment, N, H no multiple of 4, and H = 1500
+    (the kernels' sums in passes); weights of 1 / sqrt(H), about what the
+    path's initializer gives."""
+    def off(*shape):
+        return randn(math.prod(shape) + 1)[1:].view(shape)
+
+    def case(n, h):
+        return (2 * randn(n, 3 * h), randn(n, h),
+                randn(3 * h, h) / math.sqrt(h), randn(3 * h) / math.sqrt(h),
+                randn(n, h))
+
+    i2h, hp, w, b, dh = case(n, h)
+    odd, wide = (7, 13), (5, 1500)
+    return [("path", i2h, hp, w, b, dh),
+            ("h_prev 0", i2h, torch.zeros_like(hp), w, b, dh),
+            ("no bias", i2h, hp, w, None, dh),
+            ("off alignment", 2 * off(n, 3 * h), off(n, h),
+             off(3 * h, h) / math.sqrt(h), b, dh),
+            (f"odd {odd}", *case(*odd)), (f"wide {wide}", *case(*wide))]
+
+
+def gru_step_calls(torch, gc, i2h, hp, w, b, dh):
+    """One GRU step each way through ``gc`` (a checkout's ``gru_cell``
+    module): ``(design, forward, backward, plain forward, plain
+    backward)``. This checkout's step is one launch each way, the
+    recurrent product inside; a checkout whose ``gru_cell`` takes a ready
+    ``h2h`` runs the product as ``F.linear`` beside the cell launch, and
+    its backward adds ``torch.mm(dh2h, Wh)`` to the cell's direct part of
+    ``dh_prev``."""
+    import inspect
+
+    import torch.nn.functional as F
+
+    if "weight" in inspect.signature(gc.gru_cell).parameters:
+        _h, saved = gc.gru_cell(i2h, hp, w, b)
+        return ("one launch each way",
+                lambda: gc.gru_cell(i2h, hp, w, b),
+                lambda: gc.gru_cell_bwd(dh, saved, hp, w),
+                lambda: gc.gru_cell_plain(i2h, hp, w, b),
+                lambda: gc.gru_cell_bwd_plain(dh, saved, hp, w))
+    h2h = F.linear(hp, w, b)
+    _h, act = gc.gru_cell(i2h, h2h, hp)
+
+    def bwd(cell=gc.gru_cell_bwd):
+        _di2h, dh2h, dh_prev = cell(dh, act, h2h, hp)
+        return dh_prev + torch.mm(dh2h, w)
+
+    return ("F.linear + gru_cell; gru_cell_bwd + mm + add",
+            lambda: gc.gru_cell(i2h, F.linear(hp, w, b), hp), bwd,
+            lambda: gc.gru_cell_plain(i2h, F.linear(hp, w, b), hp),
+            lambda: bwd(gc.gru_cell_bwd_plain))
+
+
+def step_device_ms(torch, run, reps=10, windows=5):
+    """Device milliseconds per call of ``run`` over every kernel it
+    launches, and the launches a call, from the profiler window of
+    ``windows`` that recorded the most kernel events (a window now and then
+    records none or part of them; PERF.md §7)."""
+    best = ({}, 0)
+    for _ in range(windows):
+        got = kernel_events(torch, run, ("",), reps)
+        if got[1] > best[1]:
+            best = got
+    split, events = best
+    return (sum(split.values()) if events else None), events / reps
+
+
+def gru_step_times(torch):
+    """One GRU step of the GRU model's path shape, (32, 3 x 200) with a
+    bias, each way through the package on ``sys.path``
+    (:func:`gru_step_calls`: one launch each way here, ``F.linear`` +
+    ``gru_cell`` and ``gru_cell_bwd`` + ``mm`` + add in a checkout whose
+    cell takes a ready ``h2h``): warm, L2-cold, the device time over every
+    kernel of the step and its launches, the plain version, the library
+    yardstick (``F.linear`` + ``_thnn_fused_gru_cell``;
+    ``_thnn_fused_gru_cell_backward`` + ``mm`` + add) warm and cold, the
+    bound and the host microseconds a call. Returns ``{kernel: {"gru_lm":
+    readings}}`` as :func:`kernel_times` does."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.kernels import gru_cell as gc
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    n, h = LSTM_BATCH, LSTM["num_hidden"]
+    _name, i2h, hp, w, b, dh = gru_cases(torch, randn, n, h)[0]
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
+    design, fwd, bwd, plain_fwd, plain_bwd = gru_step_calls(
+        torch, gc, i2h, hp, w, b, dh)
+    fused = torch.ops.aten._thnn_fused_gru_cell
+    fused_bwd = torch.ops.aten._thnn_fused_gru_cell_backward
+    _hy, ws = fused(i2h, F.linear(hp, w, b), hp)
+
+    def lib_bwd():
+        _dig, dhg, dhx, _dib, _dhb = fused_bwd(dh, ws, False)
+        return dhx + torch.mm(dhg, w)
+
+    # forward: i2h, h_prev, Wh and bh read, next_h and the planes [r, z, o,
+    # ho] written; backward: dnext_h, the planes, h_prev and Wh read, di2h,
+    # dh2h and dh_prev written; the product's 2 * N * 3H * H operations and
+    # about 20 more per (n, j)
+    flops = 2 * n * 3 * h * h + 20 * n * h
+    bounds = {"gru_cell": bound((9 * n * h + 3 * h * h + 3 * h) * 4, flops),
+              "gru_cell_bwd": bound((13 * n * h + 3 * h * h) * 4, flops)}
+    out = {}
+    for name, run, plain, lib, lib_name in (
+            ("gru_cell", fwd, plain_fwd,
+             lambda: fused(i2h, F.linear(hp, w, b), hp),
+             "F.linear + _thnn_fused_gru_cell"),
+            ("gru_cell_bwd", bwd, plain_bwd, lib_bwd,
+             "_thnn_fused_gru_cell_backward + mm + add")):
+        device, launches = step_device_ms(torch, run)
+        out[name] = {"gru_lm": {
+            "what": f"one step ({n}, 3x{h}), bias; {design}",
+            "library": lib_name, "ms": cuda_ms(torch, run, reps=200),
+            "cold_ms": cold_ms(torch, run, flush), "device_ms": device,
+            "device_launches": launches,
+            "plain_ms": cuda_ms(torch, plain, reps=50, warmup=1),
+            "library_ms": cuda_ms(torch, lib, reps=200),
+            "library_cold_ms": cold_ms(torch, lib, flush),
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "host_us": host_us(torch, run)}}
+    return out
 
 
 def rmsprop_sets(torch, gen, dev, shapes, centered, offset=0):
@@ -7783,30 +7959,34 @@ def phase_gru_kernels(torch, mx):
     def close(what, got, want):
         return check(torch, what, got, want, LSTM_RTOL, LSTM_ATOL)
 
+    def step_close(what, got, want):
+        return check(torch, what, got, want, GRU_STEP_RTOL, GRU_STEP_ATOL)
+
     # --- gru_cell / gru_cell_bwd at the path's (32, 3 x 200) and odd ones
     n, h = LSTM_BATCH, LSTM["num_hidden"]
     fwd_err = bwd_err = 0.0
     before = (gc.LAUNCHES.value, gc.BWD_LAUNCHES.value)
     cases = gru_cases(torch, randn, n, h)
-    for name, i2h, h2h, hp, dh in cases:
-        want = gc.gru_cell_plain(i2h, h2h, hp)
-        got = gc.gru_cell(i2h, h2h, hp)
-        got_inf, none = gc.gru_cell(i2h, h2h, hp, save=False)
+    for name, i2h, hp, w, b, dh in cases:
+        want = gc.gru_cell_plain(i2h, hp, w, b)
+        got = gc.gru_cell(i2h, hp, w, b)
+        got_inf, none = gc.gru_cell(i2h, hp, w, b, save=False)
         if none is not None:
-            fail("gru_cell(save=False) returned gates")
-        fwd_err = max(fwd_err, close(f"gru_cell {name} next_h", got[0],
-                                     want[0]),
-                      close(f"gru_cell {name} gates", got[1], want[1]),
-                      close(f"gru_cell {name} inference next_h", got_inf,
-                            want[0]))
+            fail("gru_cell(save=False) returned the saved planes")
+        fwd_err = max(fwd_err, step_close(f"gru_cell {name} next_h", got[0],
+                                          want[0]),
+                      step_close(f"gru_cell {name} saved planes", got[1],
+                                 want[1]),
+                      step_close(f"gru_cell {name} inference next_h",
+                                 got_inf, want[0]))
         for dnext in (dh, None):
-            got_b = gc.gru_cell_bwd(dnext, want[1], h2h, hp)
-            want_b = gc.gru_cell_bwd_plain(dnext, want[1], h2h, hp)
-            for what, g, w in zip(("di2h", "dh2h", "dh_prev"), got_b,
-                                  want_b):
-                bwd_err = max(bwd_err, close(
+            got_b = gc.gru_cell_bwd(dnext, want[1], hp, w)
+            want_b = gc.gru_cell_bwd_plain(dnext, want[1], hp, w)
+            for what, g, wv, chk in zip(("di2h", "dh2h", "dh_prev"), got_b,
+                                        want_b, (close, close, step_close)):
+                bwd_err = max(bwd_err, chk(
                     f"gru_cell_bwd {name} dnext_h="
-                    f"{'None' if dnext is None else 'given'} {what}", g, w))
+                    f"{'None' if dnext is None else 'given'} {what}", g, wv))
     torch.cuda.synchronize()
     if (gc.LAUNCHES.value - before[0], gc.BWD_LAUNCHES.value - before[1]) != (
             2 * len(cases), 2 * len(cases)):
@@ -7814,50 +7994,38 @@ def phase_gru_kernels(torch, mx):
              f"gru_cell_bwd {gc.BWD_LAUNCHES.value - before[1]}; expected "
              f"{2 * len(cases)} each")
     # a row-strided (non-contiguous) view is refused, not misread
-    try:
-        gc.gru_cell(randn(n, 3 * h + 5)[:, :3 * h], cases[0][2], cases[0][3])
-        fail("gru_cell took a non-contiguous i2h")
-    except mx.base.MXNetError:
-        pass
+    _name, i2h, hp, w, b, dh = cases[0]
+    for what, args in (("i2h", (randn(n, 3 * h + 5)[:, :3 * h], hp, w, b)),
+                       ("weight", (i2h, hp, w.t().contiguous().t(), b))):
+        try:
+            gc.gru_cell(*args)
+            fail(f"gru_cell took a non-contiguous {what}")
+        except mx.base.MXNetError:
+            pass
     # torch's fused GRU cell computes the same function (gates r, z, n and
-    # n = tanh(x_n + r * h_n)): a yardstick, checked against the plain
-    # version
-    _name, i2h, h2h, hp, dh = cases[0]
-    zero = torch.zeros(3 * h, device=dev)
-    fused = torch.ops.aten._thnn_fused_gru_cell
-    fused_bwd = torch.ops.aten._thnn_fused_gru_cell_backward
-    hy, ws_ = fused(i2h, h2h, hp, zero, zero)
-    plain = gc.gru_cell_plain(i2h, h2h, hp)
-    lib_err = float((hy - plain[0]).abs().max())
-    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
-    act = plain[1]
-    fwd = timed(torch, lambda: gc.gru_cell(i2h, h2h, hp),
-                lambda: gc.gru_cell_plain(i2h, h2h, hp),
-                lambda: fused(i2h, h2h, hp, zero, zero), flush,
-                ("gru_cell_kernel",), reps=200, plain_reps=100)
-    bwd = timed(torch, lambda: gc.gru_cell_bwd(dh, act, h2h, hp),
-                lambda: gc.gru_cell_bwd_plain(dh, act, h2h, hp),
-                lambda: fused_bwd(dh, ws_, True), flush,
-                ("gru_cell_bwd_kernel",), reps=200, plain_reps=100)
-    # per (n, j): i2h and h2h (3 each) and h_prev read, next_h and the
-    # three gates written, about 20 operations (the sums, two sigmoids, a
-    # tanh, the state update); backward: dnext_h, the gates, h2h's o-slice
-    # and h_prev read, di2h and dh2h (3 each) and dh_prev written
-    fwd["bound_ms"], fwd["bound_by"] = bound(11 * n * h * 4, 20 * n * h)
-    bwd["bound_ms"], bwd["bound_by"] = bound(13 * n * h * 4, 20 * n * h)
-    print(f"[gru-kernels] gru_cell and gru_cell_bwd match their plain "
-          f"versions at ({n}, 3x{h}) ({', '.join(c[0] for c in cases)}; "
-          f"training and inference, dnext_h given and None; a "
-          f"non-contiguous i2h refused): max abs err "
-          f"{fwd_err:g} / {bwd_err:g} (rtol {LSTM_RTOL}, atol {LSTM_ATOL}); "
-          f"torch._thnn_fused_gru_cell computes the same cell to "
-          f"{lib_err:g}", flush=True)
-    for what, r, lib in (("gru_cell", fwd, "_thnn_fused_gru_cell"),
-                         ("gru_cell_bwd", bwd,
-                          "_thnn_fused_gru_cell_backward")):
-        print(f"[gru-kernels] {what}: {r['ms']:.4f} ms warm, "
-              f"{r['cold_ms']:.4f} ms L2-cold, {r['device_ms']:.4f} ms on "
-              f"the device, plain {r['plain_ms']:.4f} ms, {lib} "
+    # n = tanh(x_n + r * h_n)) from a ready h2h: a yardstick, checked
+    # against the plain version
+    hy, _ws = torch.ops.aten._thnn_fused_gru_cell(
+        i2h, torch.nn.functional.linear(hp, w, b), hp)
+    lib_err = float((hy - gc.gru_cell_plain(i2h, hp, w, b)[0]).abs().max())
+    print(f"[gru-kernels] gru_cell and gru_cell_bwd (one launch each way, "
+          f"the recurrent product inside) match their plain versions at "
+          f"({n}, 3x{h}) ({', '.join(c[0] for c in cases)}; training and "
+          f"inference, dnext_h given and None; a non-contiguous i2h and "
+          f"weight refused): max abs err {fwd_err:g} / {bwd_err:g} (next_h, "
+          f"the planes and dh_prev rtol {GRU_STEP_RTOL}, atol "
+          f"{GRU_STEP_ATOL}; di2h and dh2h rtol {LSTM_RTOL}, atol "
+          f"{LSTM_ATOL}); F.linear + torch._thnn_fused_gru_cell computes "
+          f"the same step to {lib_err:g}", flush=True)
+    steps = gru_step_times(torch)
+    fwd, bwd = steps["gru_cell"]["gru_lm"], steps["gru_cell_bwd"]["gru_lm"]
+    for what, r in (("gru_cell", fwd), ("gru_cell_bwd", bwd)):
+        dev_ms = ("not recorded" if r["device_ms"] is None
+                  else f"{r['device_ms']:.4f} ms")
+        print(f"[gru-kernels] {what} {r['what']}: {r['ms']:.4f} ms warm, "
+              f"{r['cold_ms']:.4f} ms L2-cold, {dev_ms} on the device in "
+              f"{r['device_launches']:g} launches a call, plain "
+              f"{r['plain_ms']:.4f} ms, {r['library']} "
               f"{r['library_ms']:.4f} ms ({r['library_cold_ms']:.4f} cold), "
               f"bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}), host "
               f"{r['host_us']:.1f} us a call", flush=True)
@@ -7965,6 +8133,7 @@ def phase_gru_kernels(torch, mx):
           f"then [1, 0], restores copied back)", flush=True)
     # times at the path's 11 tensors, plain and centred, wd 1e-4 on the
     # weights
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
     wds = [1e-4 * k for k in wds0]
     lrs = [0.001] * len(shapes)
     times = {}
@@ -8017,10 +8186,11 @@ def phase_gru_kernels(torch, mx):
 
     src = "mxnet_tpu_torch/csrc/gru_cell.cu"
     cent = times[True]
+    step = ("device_launches", "library_cold_ms")
     return [row("gru_cell", src, "mxnet_tpu/rnn/rnn_cell.py:301", fwd_err,
-                fwd),
+                fwd, {k: fwd[k] for k in step}),
             row("gru_cell_bwd", src, "mxnet_tpu/rnn/rnn_cell.py:301",
-                bwd_err, bwd),
+                bwd_err, bwd, {k: bwd[k] for k in step}),
             row("rmsprop_multi", "mxnet_tpu_torch/csrc/rmsprop_multi.cu",
                 "mxnet_tpu/ops/defs_optimizer.py:104", rm_err, times[False],
                 {f"centered_{k}": cent[k] for k in (
@@ -8030,7 +8200,7 @@ def phase_gru_kernels(torch, mx):
 
 def phase_gru_training(torch, mx, card):
     return lm_training(torch, mx, card, "gru", gru_fit, "gru_cell",
-                       "rmsprop_multi", GRU_PPL_LIMIT)
+                       "rmsprop_multi", GRU_PPL_LIMIT, fused_fc="h2h_weight")
 
 
 def phase_gru_parity(torch, mx):
@@ -8141,9 +8311,13 @@ def phase_rnn_op(torch, mx):
             if not worst[1] <= RNN_OP_TOL:
                 bad.append(f"{mode} bidirectional={bidir} {worst[0]} "
                            f"{worst[1]:.3g}")
-            # the inference forward on the card beside cuDNN's
+            # the inference forward on the card beside cuDNN's, and its
+            # kernel launches (the profiler window with the most)
             fwd_ms = cuda_ms(torch, lambda exe=exe: exe.forward(
                 is_train=False), reps=10)
+            fwd_launches = step_device_ms(
+                torch, lambda exe=exe: exe.forward(is_train=False),
+                reps=3, windows=3)[1]
             net = (torch.nn.GRU if mode == "gru" else torch.nn.LSTM)(
                 width, width, num_layers=RNN_OP_LAYERS,
                 bidirectional=bidir).to(dev)
@@ -8154,14 +8328,16 @@ def phase_rnn_op(torch, mx):
                 lib_ms = cuda_ms(torch, lambda net=net, hx=hx: net(x, hx),
                                  reps=10)
             times[f"{mode}{'_bidirectional' if bidir else ''}"] = {
-                "forward_ms": fwd_ms, "cudnn_ms": lib_ms}
+                "forward_ms": fwd_ms, "cudnn_ms": lib_ms,
+                "forward_launches": fwd_launches}
             print(f"[rnn-op] RNN mode={mode} bidirectional={bidir} at (T, N, "
                   f"C) = {RNN_OP_SHAPE}, {RNN_OP_LAYERS} layers: forward and "
                   f"backward launch {want} exactly; card against the CPU "
                   f"path, worst output or gradient {worst[0]} "
                   f"{worst[1]:.3g} in norm (limit {RNN_OP_TOL}); CPU float32 "
                   f"against float64 {worst64[0]} {worst64[1]:.3g}; inference "
-                  f"forward {fwd_ms:.3f} ms, cuDNN torch.nn."
+                  f"forward {fwd_ms:.3f} ms in {fwd_launches:g} kernel "
+                  f"launches, cuDNN torch.nn."
                   f"{'GRU' if mode == 'gru' else 'LSTM'} {lib_ms:.3f} ms",
                   flush=True)
     if bad:
@@ -8233,7 +8409,7 @@ def main():
         return
     if sys.argv[1:2] == ["--kernel-times"]:
         # time the package of another checkout (its root first on the path)
-        sys.path[:0] = sys.argv[2:3]
+        sys.path[:0] = [a for a in sys.argv[2:3] if not a.startswith("--")]
     import torch
 
     if not torch.cuda.is_available():
@@ -8263,6 +8439,11 @@ def main():
         return
     if sys.argv[1:2] == ["--kernel-times"]:
         print(f"[kernel-times] {mx.__file__}", flush=True)
+        gru = gru_step_times(torch)
+        print_kernel_times(gru, card, "kernel-times")
+        if "--gru" in sys.argv[2:]:
+            print(json.dumps({"kernel_times": gru}))
+            return
         times = kernel_times(torch, mx)
         print_kernel_times(times, card, "kernel-times")
         calls = {}
@@ -8277,8 +8458,8 @@ def main():
             calls["serve"], calls["train"]))
         print_redesign_times(l2d, card, "kernel-times")
         compare_bits(l2d, mx.__file__)
-        print(json.dumps({"kernel_times": {**times, **more, **bwd, **fwd,
-                                           **l2d}}))
+        print(json.dumps({"kernel_times": {**gru, **times, **more, **bwd,
+                                           **fwd, **l2d}}))
         return
     kernels = phase_kernels(torch)
     trained_kernels, bn_act_err = phase_train_kernels(torch, mx)

@@ -40,12 +40,16 @@ i * g`` -> ``next_h = o * tanh(next_c)``) runs as one ``lstm_cell`` launch,
 and in training its backward as one ``lstm_cell_bwd``, when none of its
 intermediates has a consumer outside the chain: ``next_c`` and ``next_h``
 take the places of their nodes, the other nodes of the chain run nothing.
-The gate chain of a GRU cell step (``GRUCell.__call__`` unrolled: two
-``SliceChannel(3)`` of the ``FullyConnected`` outputs -> ``r`` and ``z``
-as sigmoids of the slices' sums -> ``o = tanh(i2h_o + r * h2h_o)`` ->
-``next_h = o + z * (h_prev - o)``) runs as one ``gru_cell`` launch, and in
-training its backward as one ``gru_cell_bwd``, under the same rule:
-``next_h`` takes the place of its node.
+A GRU cell step (``GRUCell.__call__`` unrolled: the h2h
+``FullyConnected`` of ``h_prev`` -> two ``SliceChannel(3)`` of the i2h and
+h2h outputs -> ``r`` and ``z`` as sigmoids of the slices' sums -> ``o =
+tanh(i2h_o + r * h2h_o)`` -> ``next_h = o + z * (h_prev - o)``) runs as one
+``gru_cell`` launch, the recurrent product inside it, and in training its
+backward as one ``gru_cell_bwd``, under the same rule and when the h2h FC
+(the one under the slice whose output 2 feeds ``r * h2h_o``) has
+``flatten=True``, reads the same ``h_prev`` edge the ``_minus`` reads, and
+feeds nothing but that slice: the FC runs nothing and ``next_h`` takes the
+place of its node. Any other GRU chain runs op by op.
 
 Two routes serve SSD's head. A channel ``SoftmaxActivation`` whose only
 consumer is a ``MultiBoxDetection`` runs nothing, and the detection reads
@@ -77,7 +81,7 @@ from .kernels.lstm_cell import LSTMCellFn, lstm_cell
 from .kernels.sgd_mom_multi import Guard
 from .ndarray import NDArray, ones as nd_ones, zeros as nd_zeros
 from .ops.defs_contrib import detect
-from .ops.defs_nn import batch_norm, l2norm_channel_op
+from .ops.defs_nn import _castp, batch_norm, l2norm_channel_op
 from .ops.registry import OpMode
 
 _GRAD_REQ = ("null", "write", "add")
@@ -188,9 +192,10 @@ class _LSTMStep:
 
 
 class _GRUStep:
-    """One GRU cell step's gate chain: ``inputs`` are the ``(node, index)``
-    edges of ``i2h``, ``h2h`` and ``h_prev``; ``h_node`` (the ``next_h``
-    add) runs the fused step; ``members`` are the chain's nodes."""
+    """One GRU cell step, its h2h product included: ``inputs`` are the
+    ``(node, index)`` edges of ``i2h``, ``h_prev``, the h2h weight and (when
+    the FC has one) its bias; ``h_node`` (the ``next_h`` add) runs the fused
+    step; ``members`` are the step's nodes, the h2h FC among them."""
 
     def __init__(self, inputs, h_node, members):
         self.inputs = inputs
@@ -201,10 +206,13 @@ class _GRUStep:
     def run(ins, mode):
         """``[next_h]`` of the step, through the cell kernels (their
         wrappers check the shapes and types)."""
-        i2h, h2h, h_prev = ins
+        i2h, h_prev, weight = ins[:3]
+        bias = ins[3] if len(ins) > 3 else None
+        # as the FC casts its parameters to the activations' dtype
+        weight, bias = _castp(weight, h_prev), _castp(bias, h_prev)
         if mode.is_train and torch.is_grad_enabled():
-            return [GRUCellFn.apply(i2h, h2h, h_prev)]
-        return [gru_cell(i2h, h2h, h_prev, save=False)[0]]
+            return [GRUCellFn.apply(i2h, h_prev, weight, bias)]
+        return [gru_cell(i2h, h_prev, weight, bias, save=False)[0]]
 
 
 def _pass(ins, mode):
@@ -297,10 +305,11 @@ def _fused_lstm(topo, consumers):
 
 
 def _fused_gru(topo, consumers):
-    """``{id(next_h node): _GRUStep}`` for every GRU gate chain the
-    interpreter may fuse: the chain of ``GRUCell.__call__`` from the two
-    ``SliceChannel(3)`` of ``FullyConnected`` outputs to ``next_h``, whose
-    intermediates feed nothing outside it."""
+    """``{id(next_h node): _GRUStep}`` for every GRU cell step the
+    interpreter may fuse: the chain of ``GRUCell.__call__`` from the h2h
+    ``FullyConnected`` of ``h_prev`` and the two ``SliceChannel(3)`` to
+    ``next_h``, whose intermediates (the h2h FC's output among them) feed
+    nothing outside it."""
 
     def sole(node, idx=0):
         use = consumers.get((id(node), idx), [])
@@ -378,13 +387,18 @@ def _fused_gru(topo, consumers):
                 (sl_i, 1, z_gate[2]), (sl_h, 1, z_gate[2]),
                 (sl_i, 2, add_o), (sl_h, 2, mul_o))):
             continue
-        members = [sl_i, sl_h, r_gate[2], r_act, z_gate[2], z_act, mul_o,
-                   add_o, o, sub, mul_z, h_node]
+        # the h2h FC: over the same h_prev edge, its output into sl_h alone
+        fc = sl_h.inputs[0][0]
         h_prev = sub.inputs[0]
+        if (fc.inputs[0] != h_prev
+                or consumers.get((id(fc), 0)) != [sl_h]):
+            continue
+        members = [fc, sl_i, sl_h, r_gate[2], r_act, z_gate[2], z_act, mul_o,
+                   add_o, o, sub, mul_z, h_node]
         if h_prev[0] in members:
             continue
         steps[id(h_node)] = _GRUStep(
-            [sl_i.inputs[0], sl_h.inputs[0], h_prev], h_node, members)
+            [sl_i.inputs[0], h_prev] + list(fc.inputs[1:]), h_node, members)
     return steps
 
 

@@ -14,13 +14,15 @@ the final states (and cells), visible when ``state_outputs``.
 Where the reference scans one jitted step over time (``lax.scan``), the
 port runs a Python loop per layer and direction: one ``torch.addmm`` for
 the whole sequence's input projection (the reference's ``einsum``), then
-per step one ``torch.addmm`` for ``h @ Wh.T + bh`` and the cell kernel:
-``lstm_cell`` (``LSTMCellFn`` in training; no forget bias, as the op has
-none) and ``gru_cell`` (``GRUCellFn``), each one launch forward and one
-backward a step. The ``rnn_tanh`` and ``rnn_relu`` modes run their step as
-``RNNCell`` does, a product and the ported ``Activation`` body: the vanilla
-cell-step kernel is ``ROADMAP.md`` 2b item 5. Dropout between layers
-(``p > 0`` in training with two layers or more) raises
+per step the cell: in the gru mode one ``gru_cell`` launch that computes
+``h @ Wh.T + bh`` and the gates (``GRUCellFn`` in training, whose
+backward is one ``gru_cell_bwd`` launch plus the weight's and bias's
+``mm``/``sum``); in the lstm mode one ``torch.addmm`` for ``h @ Wh.T +
+bh`` and one ``lstm_cell`` launch (``LSTMCellFn`` in training; no forget
+bias, as the op has none). The ``rnn_tanh`` and ``rnn_relu`` modes run
+their step as ``RNNCell`` does, a product and the ported ``Activation``
+body: the vanilla cell-step kernel is ``ROADMAP.md`` 2b item 5. Dropout
+between layers (``p > 0`` in training with two layers or more) raises
 :class:`MXNetError`: the reference draws a JAX Bernoulli mask there, and
 ``Dropout`` is ``ROADMAP.md`` queue 1 item 12.
 """
@@ -80,11 +82,11 @@ def _slice_rnn_params(arr, mode, num_layers, bidirectional, input_size, h):
 def _step(mode, xg, hp, cp, wh, bh, train):
     """One time step: ``(next_h, next_c)`` (``next_c`` None but for
     lstm)."""
-    h2h = torch.addmm(bh, hp, wh.t())
     if mode == "gru":
         if train:
-            return GRUCellFn.apply(xg, h2h, hp), None
-        return gru_cell(xg, h2h, hp, save=False)[0], None
+            return GRUCellFn.apply(xg, hp, wh, bh), None
+        return gru_cell(xg, hp, wh, bh, save=False)[0], None
+    h2h = torch.addmm(bh, hp, wh.t())
     if mode == "lstm":
         if train:
             return LSTMCellFn.apply(xg, h2h, cp, 0.0)

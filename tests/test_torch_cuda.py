@@ -83,15 +83,20 @@ back in a call. Training windows: a window of 4 steps of a conv +
 BatchNorm net (SGD and Adam) bit for bit 4 serial steps under
 deterministic cuDNN, its launch counts 4 times a step's; prefetched
 batches stacked for a window under a long step bit for bit their sources.
-The GRU slice: ``gru_cell`` and ``gru_cell_bwd`` at the GRU language
-model's (32, 3 x 200) and at N, H no multiple of 4, on an ``i2h`` one
-float off the 16-byte alignment, from a zero and a random state, training and inference,
-``dnext_h`` given and None (rtol 1e-5 / atol 1e-6: ``expf`` and ``tanhf``
-against torch's own kernels); ``rmsprop_multi`` bit for bit, plain and
-centred, with wd, clip_gradient and clip_weights, on sizes no multiple of
-4 and views one float off the 16-byte alignment, and under the guard (the
-skip in one launch); the RNN op's gru and lstm modes at two layers and
-two directions launching L * D * T cell steps each way.
+The GRU slice: the fused step's ``gru_cell`` and ``gru_cell_bwd`` (the
+recurrent product inside each launch) at the GRU language model's (32, 3 x
+200), at N, H no multiple of 4 and at H = 1500 (the sums in passes, two
+rows a backward block), on ``i2h``, ``h_prev`` and the weight one float off
+the 16-byte alignment, from a zero and a random state, with and without a
+bias, training and inference, ``dnext_h`` given and None (``GRU_STEP_TOL``,
+rtol 1e-5 / atol 1e-5, for what passes through the product, summed in
+another order than cuBLAS's; rtol 1e-5 / atol 1e-6 for ``di2h`` and
+``dh2h``: ``expf`` and ``tanhf`` against torch's own kernels); its outputs
+views of one allocation each way; ``rmsprop_multi`` bit for bit, plain and
+centred, with wd, clip_gradient and clip_weights, on sizes no multiple of 4
+and views one float off the 16-byte alignment, and under the guard (the
+skip in one launch); the RNN op's gru and lstm modes at two layers and two
+directions launching L * D * T cell steps each way.
 """
 
 import math
@@ -1726,55 +1731,90 @@ def test_prefetched_batches_stacked_under_a_long_step(card):
 
 
 # -- the GRU slice -----------------------------------------------------------
+# the fused GRU step's outputs that pass through the recurrent product
+# (next_h, the saved planes, dh_prev): the kernel sums H (forward) or 3H
+# (backward) products in another order than cuBLAS, about sqrt(3H) *
+# 2**-24 of the products' magnitude apart, 1e-6 at these scales (weights
+# of 1 / sqrt(H), unit states), so 1e-5 absolute; di2h and dh2h repeat the
+# plain chain on the same saved planes (LSTM_TOL)
+GRU_STEP_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
 def _gru_inputs(device, n, hidden, offset):
-    """i2h (``offset`` floats into its storage), h2h, h_prev and
-    dnext_h."""
+    """i2h, h_prev and the recurrent weight (each ``offset`` floats into
+    its storage), the recurrent bias and dnext_h."""
     rng = np.random.default_rng(n + hidden)
 
-    def t(*shape, scale=1.0):
-        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(
-            np.float32)).to(device)
+    def t(*shape, scale=1.0, off=0):
+        a = scale * rng.standard_normal(math.prod(shape) + off)
+        return torch.from_numpy(a.astype(np.float32)).to(device)[off:].view(
+            shape)
 
-    i2h = t(n * 3 * hidden + offset, scale=2.0)[offset:].view(n, 3 * hidden)
-    return i2h, t(n, 3 * hidden, scale=2.0), t(n, hidden), t(n, hidden)
+    lim = 1 / math.sqrt(hidden)
+    return (t(n, 3 * hidden, scale=2.0, off=offset),
+            t(n, hidden, off=offset),
+            t(3 * hidden, hidden, scale=lim, off=offset),
+            t(3 * hidden, scale=lim), t(n, hidden))
 
 
-@pytest.mark.parametrize("shape", [(32, 200), (7, 13), (3, 5)])
+@pytest.mark.parametrize("shape", [(32, 200), (7, 13), (3, 5), (5, 1500)])
 @pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("h_zero", [False, True])
-def test_gru_cell_kernels_match_plain(card, shape, offset, h_zero):
-    i2h, h2h, hp, dh = _gru_inputs(card, *shape, offset)
+@pytest.mark.parametrize("bias", [True, False])
+def test_gru_cell_kernels_match_plain(card, shape, offset, h_zero, bias):
+    i2h, hp, w, b, dh = _gru_inputs(card, *shape, offset)
     if h_zero:
         hp.zero_()
+    if not bias:
+        b = None
     before = (gru_mod.LAUNCHES.value, gru_mod.BWD_LAUNCHES.value)
-    got = gru_mod.gru_cell(i2h, h2h, hp)
-    want = gru_mod.gru_cell_plain(i2h, h2h, hp)
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, **LSTM_TOL)
-    inf_h, none = gru_mod.gru_cell(i2h, h2h, hp, save=False)
+    got = gru_mod.gru_cell(i2h, hp, w, b)
+    want = gru_mod.gru_cell_plain(i2h, hp, w, b)
+    for g, wv in zip(got, want):
+        torch.testing.assert_close(g, wv, **GRU_STEP_TOL)
+    inf_h, none = gru_mod.gru_cell(i2h, hp, w, b, save=False)
     assert none is None
-    torch.testing.assert_close(inf_h, want[0], **LSTM_TOL)
+    torch.testing.assert_close(inf_h, want[0], **GRU_STEP_TOL)
     for dnext in (dh, None):
-        got_b = gru_mod.gru_cell_bwd(dnext, want[1], h2h, hp)
-        want_b = gru_mod.gru_cell_bwd_plain(dnext, want[1], h2h, hp)
-        for g, w in zip(got_b, want_b):
-            torch.testing.assert_close(g, w, **LSTM_TOL)
+        got_b = gru_mod.gru_cell_bwd(dnext, want[1], hp, w)
+        want_b = gru_mod.gru_cell_bwd_plain(dnext, want[1], hp, w)
+        for g, wv, tol in zip(got_b, want_b,
+                              (LSTM_TOL, LSTM_TOL, GRU_STEP_TOL)):
+            torch.testing.assert_close(g, wv, **tol)
     assert (gru_mod.LAUNCHES.value, gru_mod.BWD_LAUNCHES.value) == (
         before[0] + 2, before[1] + 2)
 
 
+def test_gru_cell_outputs_share_one_allocation(card):
+    i2h, hp, w, b, dh = _gru_inputs(card, 7, 13, 0)
+    next_h, saved = gru_mod.gru_cell(i2h, hp, w, b)
+    assert saved.shape == (4, 7, 13) and saved.is_contiguous()
+    assert saved.data_ptr() == next_h.data_ptr() + 7 * 13 * 4
+    di2h, dh2h, dh_prev = gru_mod.gru_cell_bwd(dh, saved, hp, w)
+    assert all(t.is_contiguous() for t in (di2h, dh2h, dh_prev))
+    assert dh2h.data_ptr() == di2h.data_ptr() + 7 * 39 * 4
+    assert dh_prev.data_ptr() == dh2h.data_ptr() + 7 * 39 * 4
+
+
 def test_gru_cell_kernels_raise_on_what_they_do_not_take(card):
-    i2h, h2h, hp, dh = _gru_inputs(card, 4, 8, 0)
+    i2h, hp, w, b, dh = _gru_inputs(card, 4, 8, 0)
     with pytest.raises(MXNetError):
-        gru_mod.gru_cell(i2h.double(), h2h.double(), hp.double())
+        gru_mod.gru_cell(i2h.double(), hp.double(), w.double(), b.double())
     with pytest.raises(MXNetError):
-        gru_mod.gru_cell(i2h, h2h, hp[:, :7])
+        gru_mod.gru_cell(i2h, hp[:, :7], w, b)
     with pytest.raises(MXNetError):
-        gru_mod.gru_cell(torch.cat([i2h, i2h], 1)[:, :24], h2h, hp)
+        gru_mod.gru_cell(torch.cat([i2h, i2h], 1)[:, :24], hp, w, b)
     with pytest.raises(MXNetError):
-        gru_mod.gru_cell(i2h, h2h.cpu(), hp)
+        gru_mod.gru_cell(i2h, hp.cpu(), w, b)
     with pytest.raises(MXNetError):
-        gru_mod.gru_cell_bwd(dh.t().contiguous().t(), i2h, h2h, hp)
+        gru_mod.gru_cell(i2h, hp, w.t().contiguous().t(), b)
+    with pytest.raises(MXNetError):
+        gru_mod.gru_cell(i2h, hp, w, b.cpu())
+    _h, saved = gru_mod.gru_cell(i2h, hp, w, b)
+    with pytest.raises(MXNetError):
+        gru_mod.gru_cell_bwd(dh.t().contiguous().t(), saved, hp, w)
+    with pytest.raises(MXNetError):
+        gru_mod.gru_cell_bwd(dh, saved, hp, w.cpu())
 
 
 def _rms_sets(device, sizes, centered, offset, seed):

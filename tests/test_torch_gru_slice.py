@@ -211,9 +211,9 @@ def _cell_step(pkg, ctx, hidden, x, h, w_h2h, head):
 @pytest.mark.parametrize("h_zero", [False, True])
 def test_gru_cell_plain_matches_reference_cell(h_zero):
     """The plain ``gru_cell``/``gru_cell_bwd`` (through ``GRUCellFn``, the
-    h2h product by autograd) against the reference's ``GRUCell`` graph,
-    from a zero and a random previous state; and the port's own GRUCell
-    graph, routed through the same step."""
+    h2h product inside the step) against the reference's ``GRUCell``
+    graph, from a zero and a random previous state; and the port's own
+    GRUCell graph, routed through the same step."""
     n, hidden = 5, 6
     x = _randn(n, 3 * hidden, seed=6, scale=2.0)
     h = np.zeros((n, hidden), np.float32) if h_zero else _randn(n, hidden,
@@ -224,22 +224,20 @@ def test_gru_cell_plain_matches_reference_cell(h_zero):
     before = (gru_mod.LAUNCHES.value, gru_mod.BWD_LAUNCHES.value)
     tx, th, tw = (torch.from_numpy(a.copy()).requires_grad_(True)
                   for a in (x, h, w))
-    next_h = gru_mod.GRUCellFn.apply(tx, th @ tw.t(), th)
+    next_h = gru_mod.GRUCellFn.apply(tx, th, tw, torch.zeros(3 * hidden))
     next_h.backward(torch.from_numpy(head))
     got = [next_h.detach().numpy(), tx.grad.numpy(), th.grad.numpy()]
     assert (gru_mod.LAUNCHES.value, gru_mod.BWD_LAUNCHES.value) == before
     for g, wv in zip(got, want):
         np.testing.assert_allclose(g, wv, **TOL)
-    # the plain pair directly: next_h, the saved gates, di2h and the
-    # direct part of dh_prev
+    # the plain pair directly: next_h, the saved planes, di2h and the
+    # whole dh_prev
     t = torch.from_numpy
-    h2h = t(h) @ t(w).t()
-    nh, act = gru_mod.gru_cell(t(x), h2h, t(h))
-    di2h, dh2h, dh_prev = gru_mod.gru_cell_bwd(t(head), act, h2h, t(h))
+    nh, saved = gru_mod.gru_cell(t(x), t(h), t(w))
+    di2h, _dh2h, dh_prev = gru_mod.gru_cell_bwd(t(head), saved, t(h), t(w))
     np.testing.assert_allclose(nh.numpy(), want[0], **TOL)
     np.testing.assert_allclose(di2h.numpy(), want[1], **TOL)
-    np.testing.assert_allclose((dh_prev + dh2h @ t(w)).numpy(), want[2],
-                               **TOL)
+    np.testing.assert_allclose(dh_prev.numpy(), want[2], **TOL)
     pgot, pexe = _cell_step(pmx, pmx.cpu(), hidden, x, h, w, head)
     assert len(pexe.graph.gru) == 1
     for g, wv in zip(pgot, want):
@@ -445,18 +443,19 @@ def test_rmsprop_states_carry_across_packages(cs, params, jax_fit,
         np.testing.assert_allclose(got[k], want[k], err_msg=k, **FIT_TOL)
 
 
-def _zero_update_gate(dnext_h, act, h2h, h_prev):
-    di2h, dh2h, dh_prev = _GOOD_BWD(dnext_h, act, h2h, h_prev)
+def _zero_update_gate(dnext_h, saved, h_prev, weight):
+    di2h, dh2h, _dh_prev = _GOOD_BWD(dnext_h, saved, h_prev, weight)
     hidden = h_prev.shape[1]
     di2h, dh2h = di2h.clone(), dh2h.clone()
     di2h[:, hidden:2 * hidden] = 0
     dh2h[:, hidden:2 * hidden] = 0
-    return di2h, dh2h, dh_prev
+    direct = 0 if dnext_h is None else saved[1] * dnext_h
+    return di2h, dh2h, direct + dh2h @ weight
 
 
-def _drop_direct_dh(dnext_h, act, h2h, h_prev):
-    di2h, dh2h, dh_prev = _GOOD_BWD(dnext_h, act, h2h, h_prev)
-    return di2h, dh2h, torch.zeros_like(dh_prev)
+def _drop_direct_dh(dnext_h, saved, h_prev, weight):
+    di2h, dh2h, _dh_prev = _GOOD_BWD(dnext_h, saved, h_prev, weight)
+    return di2h, dh2h, dh2h @ weight
 
 
 def _plain_tanh_grad(ct, t):  # ct * (1 - t): the a * t term dropped
