@@ -2,8 +2,9 @@
 """Drive the PyTorch port's main paths once on one CUDA card: ResNet-50
 serving and training, LSTM-PTB training, SSD-VGG16 serving and training,
 DCGAN training, the repository's BASELINE training scripts, training
-windows, a bucketed GRU language model trained with RMSProp, and the
-fused ``RNN`` op.
+windows, a bucketed GRU language model trained with RMSProp, the fused
+``RNN`` op, the LSTM and vanilla-RNN language models served through
+sequence buckets, and an unrolled ``RNNCell`` stack trained.
 
     python3 chip_smoke.py
 
@@ -357,12 +358,44 @@ Run from the root of a checkout. Phases, each printing its own lines:
     and delta centred), beside the CPU path in float64;
 24. RNN op — ``mx.sym.RNN`` (2 layers, state_size 200, state_outputs)
     bound by ``simple_bind`` at (T, N, C) = ``RNN_OP_SHAPE`` on ``gpu(0)``
-    in the lstm and gru modes, one and two directions: forward and
-    backward (random head gradients on every output) against the port's
-    CPU path within ``RNN_OP_TOL`` in norm, L*D*T cell launches each way
-    (in the gru mode each one whole step, its product inside), and the
-    inference forward's time and kernel launches beside cuDNN's
-    ``torch.nn.GRU`` / ``torch.nn.LSTM``.
+    in the lstm, gru, rnn_tanh and rnn_relu modes, one and two
+    directions: forward and backward (random head gradients on every
+    output) against the port's CPU path within ``RNN_OP_TOL`` in norm,
+    L*D*T cell launches each way (in the gru and rnn modes each one whole
+    step, its product inside), and the inference forward's time and
+    kernel launches beside cuDNN's ``torch.nn.LSTM`` / ``GRU`` / ``RNN``;
+25. RNN kernels — ``rnn_cell`` and ``rnn_cell_bwd`` against their plain
+    versions for tanh and relu at the served model's (32, 200) and at
+    ``rnn_cases``' odd ones (h_prev 0, no bias, views 1 and 3 floats off
+    alignment, H = 37, N = 1, N = 33, H = 1500), training and inference,
+    ``dnext_h`` given and None (``RNN_STEP_RTOL``/``RNN_STEP_ATOL`` for
+    ``next_h`` and ``dh_prev``, ``LSTM_RTOL``/``LSTM_ATOL`` for ``da``;
+    relu's ``da`` 0 where ``next_h`` is 0); CPU, mixed-device and
+    non-contiguous inputs refused; one step each way (``rnn_step_times``)
+    warm, L2-cold and on the device beside the plain version, the bound,
+    the two-call library pair (``torch.addmm`` + ``tanh_``/``relu_``;
+    ``tanh_backward``/``threshold_backward`` + ``mm``) and the host us a
+    call;
+26. LM serving — the LSTM language model (``LSTM``'s configuration,
+    ``models.lstm_lm_serving_sym_gen``) and the same with
+    ``RNNCell(tanh)`` (``rnn_lm_serving_sym_gen``), random Xavier
+    weights from the seed, each behind ``ModelServer(None, params,
+    {"data": (32,)}, ServingConfig(buckets=(1, 8, 32), seq_buckets=(8,
+    16, 24, 32)), input_types={"data": "int32"}, sym_gen=...)``: 73
+    requests of lengths 1..32 from the seed in concurrent waves that fill
+    the (batch, seq) buckets (32, 32), (32, 16), (8, 8) and (1, 24), with
+    exactly 2S cell launches a batch at seq bucket S and no other port
+    kernel (``F.linear`` on an h2h weight 2S times for the LSTM, whose
+    route takes a ready h2h, never for the RNN), every answer within
+    ``LM_SERVE_TOL`` of the port's CPU ``Predictor`` at the padded shape,
+    two identical requests bit for bit, a 33-token request refused; then
+    ms a batch and tokens/s at (32, 32) through the server and for the
+    forward alone, ms at (1, 8), and the (32, 32) forward's profile;
+27. RNNCell route — an unrolled 2-layer ``RNNCell`` stack (tanh and
+    relu) at (T, N, C) = ``RNN_ROUTE_SHAPE`` by ``simple_bind`` on the
+    card and on the port's CPU path from the same weights, forward and
+    backward within ``RNN_ROUTE_TOL`` in norm, exactly 2T ``rnn_cell``
+    and 2T ``rnn_cell_bwd`` launches.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. Any failed phase exits non-zero before the result
@@ -381,6 +414,14 @@ runs phase 22's GRU fit on the port's CPU path for each seed given, phase
 float64, and prints the readings ``GRU_PPL_LIMIT``, ``GRU_PARITY_TOL`` and
 ``RNN_OP_TOL`` were fixed from (full width: ~1.5 minutes on the card
 machine's 8 cores); it needs no card.
+
+    python3 chip_smoke.py --cpu-rnn
+
+runs phase 26's answers of both models, phase 27's stacks and phase 24's
+rnn_tanh and rnn_relu cases on the port's CPU path in float32 and in
+float64 and prints how far they are apart (the readings ``LM_SERVE_TOL``,
+``RNN_ROUTE_TOL`` and ``RNN_OP_TOL``'s rnn modes were fixed from; full
+width: run it on the card machine's CPU); it needs no card.
 
     python3 chip_smoke.py --cpu-ssd
 
@@ -510,11 +551,14 @@ PORT_KERNELS = {"bn_stats": "bn_stats_kernel", "bn_act": "bn_act_",
                 "multibox_target": "multibox_target_kernel",
                 "gru_cell": "gru_cell_kernel",
                 "gru_cell_bwd": "gru_cell_bwd_kernel",
-                "rmsprop_multi": "rmsprop_multi_kernel"}
+                "rmsprop_multi": "rmsprop_multi_kernel",
+                "rnn_cell": "rnn_cell_kernel",
+                "rnn_cell_bwd": "rnn_cell_bwd_kernel"}
 # kernels counted beside another one, in that one's module
 BWD_COUNTERS = {"lstm_cell_bwd": ("lstm_cell", "BWD_LAUNCHES"),
                 "l2norm_channel_bwd": ("l2norm_channel", "BWD_LAUNCHES"),
-                "gru_cell_bwd": ("gru_cell", "BWD_LAUNCHES")}
+                "gru_cell_bwd": ("gru_cell", "BWD_LAUNCHES"),
+                "rnn_cell_bwd": ("rnn_cell", "BWD_LAUNCHES")}
 PARITY_BATCH = 8
 TRAIN_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
 LOSS_RATIO = 0.7  # cross-entropy after 10 steps on one batch / its first
@@ -8272,26 +8316,35 @@ def rnn_op_run(mx, mode, bidir, ctx, seed, dtype=np.float32):
     return exe, res
 
 
+def rnn_op_seed(mode, bidir):
+    """The seed of one RNN op case of phase 24."""
+    dirs = 2 if bidir else 1
+    if mode in ("lstm", "gru"):
+        return SEED + 50 + 2 * dirs + (mode == "gru")
+    return SEED + 60 + 2 * dirs + (mode == "rnn_relu")
+
+
 def phase_rnn_op(torch, mx):
     """``mx.sym.RNN`` (``RNN_OP_LAYERS`` layers, state_size 200,
     state_outputs) at ``RNN_OP_SHAPE`` bound by ``simple_bind`` on
-    ``gpu(0)`` for the lstm and gru modes, one and two directions: forward
-    and backward against the port's CPU path on the same inputs (and
-    beside it the CPU path in float64), L*D*T cell launches each way with
-    every count at 0 before, and the inference forward's time beside
-    cuDNN's ``torch.nn.GRU``/``torch.nn.LSTM`` at the same shapes. Returns
-    each kernel's launches and the forward times."""
+    ``gpu(0)`` for the lstm, gru, rnn_tanh and rnn_relu modes, one and two
+    directions: forward and backward against the port's CPU path on the
+    same inputs (and beside it the CPU path in float64), L*D*T cell
+    launches each way with every count at 0 before, and the inference
+    forward's time beside cuDNN's ``torch.nn.LSTM``/``GRU``/``RNN`` at the
+    same shapes. Returns each kernel's launches and the forward times."""
     from mxnet_tpu_torch import telemetry as tm
 
     kernels = launch_counters()
     steps, batch, width = RNN_OP_SHAPE
     dev = torch.device("cuda", 0)
     launches, times, bad = {}, {}, []
-    for mode in ("lstm", "gru"):
-        cell = f"{mode}_cell"
+    nets = {"lstm": "LSTM", "gru": "GRU", "rnn_tanh": "RNN", "rnn_relu": "RNN"}
+    for mode in ("lstm", "gru", "rnn_tanh", "rnn_relu"):
+        cell = {"lstm": "lstm_cell", "gru": "gru_cell"}.get(mode, "rnn_cell")
         for bidir in (False, True):
             dirs = 2 if bidir else 1
-            seed = SEED + 50 + 2 * dirs + (mode == "gru")
+            seed = rnn_op_seed(mode, bidir)
             tm.reset()
             exe, card = rnn_op_run(mx, mode, bidir, mx.gpu(0), seed)
             torch.cuda.synchronize()
@@ -8318,12 +8371,14 @@ def phase_rnn_op(torch, mx):
             fwd_launches = step_device_ms(
                 torch, lambda exe=exe: exe.forward(is_train=False),
                 reps=3, windows=3)[1]
-            net = (torch.nn.GRU if mode == "gru" else torch.nn.LSTM)(
-                width, width, num_layers=RNN_OP_LAYERS,
-                bidirectional=bidir).to(dev)
+            extra = ({"nonlinearity": mode[4:]} if mode.startswith("rnn")
+                     else {})
+            net = getattr(torch.nn, nets[mode])(
+                width, width, num_layers=RNN_OP_LAYERS, bidirectional=bidir,
+                **extra).to(dev)
             x = exe.arg_dict["data"]._data
             h0 = torch.zeros(RNN_OP_LAYERS * dirs, batch, width, device=dev)
-            hx = h0 if mode == "gru" else (h0, h0.clone())
+            hx = (h0, h0.clone()) if mode == "lstm" else h0
             with torch.no_grad():
                 lib_ms = cuda_ms(torch, lambda net=net, hx=hx: net(x, hx),
                                  reps=10)
@@ -8337,8 +8392,9 @@ def phase_rnn_op(torch, mx):
                   f"{worst[1]:.3g} in norm (limit {RNN_OP_TOL}); CPU float32 "
                   f"against float64 {worst64[0]} {worst64[1]:.3g}; inference "
                   f"forward {fwd_ms:.3f} ms in {fwd_launches:g} kernel "
-                  f"launches, cuDNN torch.nn."
-                  f"{'GRU' if mode == 'gru' else 'LSTM'} {lib_ms:.3f} ms",
+                  f"launches, cuDNN torch.nn.{nets[mode]}"
+                  f"{'(' + repr(extra['nonlinearity']) + ')' if extra else ''}"
+                  f" {lib_ms:.3f} ms",
                   flush=True)
     if bad:
         fail(f"RNN op: card and CPU differ beyond {RNN_OP_TOL} in {bad}")
@@ -8378,7 +8434,669 @@ def gru_cpu_readings(seeds):
                           f"{worst_rel:.3g}", flush=True)
         for mode in ("lstm", "gru"):
             for bidir in (False, True):
-                seed = SEED + 50 + 2 * (2 if bidir else 1) + (mode == "gru")
+                seed = rnn_op_seed(mode, bidir)
+                cpu = rnn_op_run(mx, mode, bidir, mx.cpu(), seed)[1]
+                cpu64 = rnn_op_run(mx, mode, bidir, mx.cpu(), seed,
+                                   np.float64)[1]
+                _rel, worst, rel = parity_diff(cpu, cpu64)
+                print(f"[cpu-rnn-op] mode={mode} bidirectional={bidir}: "
+                      f"float32 against float64, worst {worst} {rel:.3g} in "
+                      f"norm", flush=True)
+
+
+# --- sequence-bucketed LM serving and the vanilla-RNN step (phases 25-27) --
+def rnn_lm_serving_sym_gen(mx, num_hidden=200, num_layers=2, num_embed=200,
+                           vocab_size=10000, activation="tanh"):
+    """``sym_gen(seq_len)`` of the vanilla-RNN language model for serving,
+    built from ``mx``'s public cell API (either package) as
+    ``models.lstm_lm_serving_sym_gen`` builds the LSTM one: an
+    ``Embedding``, a ``SequentialRNNCell`` of ``RNNCell``s unrolled over the
+    bucket, a ``FullyConnected`` to the vocabulary, and the logits ``(batch,
+    seq_len, vocab)`` named ``logits``; no label."""
+    stack = mx.rnn.SequentialRNNCell()
+    for i in range(num_layers):
+        stack.add(mx.rnn.RNNCell(num_hidden=num_hidden, activation=activation,
+                                 prefix=f"rnn_l{i}_"))
+
+    def sym_gen(seq_len):
+        data = mx.sym.Variable("data")
+        embed = mx.sym.Embedding(data, input_dim=vocab_size,
+                                 output_dim=num_embed, name="embed")
+        stack.reset()
+        outputs, _states = stack.unroll(seq_len, inputs=embed,
+                                        merge_outputs=True)
+        pred = mx.sym.Reshape(outputs, shape=(-1, num_hidden))
+        pred = mx.sym.FullyConnected(pred, num_hidden=vocab_size,
+                                     name="pred")
+        pred = mx.sym.Reshape(pred, shape=(-1, seq_len, vocab_size),
+                              name="logits")
+        return pred, ("data",), ()
+
+    return sym_gen
+
+
+# the vanilla-RNN step against its plain version (float32): next_h and
+# dh_prev pass through the recurrent product, which the kernels sum over H
+# in another order than cuBLAS, about sqrt(H) * 2**-24 of the products'
+# magnitude apart (GRU_STEP_RTOL/ATOL's reading, one gate: well under
+# 1e-6 at the path's scales), so 1e-5 absolute; da is the activation's
+# derivative on the same next_h (LSTM_RTOL/LSTM_ATOL)
+RNN_STEP_RTOL, RNN_STEP_ATOL = 1e-5, 1e-5
+# sequence-bucketed serving of the LSTM language model (the LSTM-PTB
+# configuration ``LSTM``, models.lstm_lm_serving_sym_gen) and of the same
+# configuration with RNNCell(tanh) (rnn_lm_serving_sym_gen), each behind
+# ModelServer(buckets=LM_SERVE_BUCKETS, seq_buckets=LSTM_BUCKETS): the
+# waves, each (requests, shortest and longest length, the (batch, seq)
+# bucket it fills), lengths drawn from the seed
+LM_SERVE_BUCKETS = (1, 8, 32)
+LM_WAVES = ((32, 25, 32, (32, 32)), (32, 9, 16, (32, 16)), (8, 1, 8, (8, 8)),
+            (1, 17, 24, (1, 24)))
+LM_SERVE_REPS = 5  # closed-loop batches timed at (32, 32) and at (1, 8)
+# every served answer (the logits, padded to its seq bucket) against the
+# port's CPU Predictor at the padded shape: |card - cpu| <= atol + rtol *
+# |cpu|, element by element. Fixed from ``--cpu-rnn``: the CPU path in
+# float32 against float64
+LM_SERVE_TOL = (1e-4, 1e-5)
+# the RNNCell route's training check: an unrolled 2-layer RNNCell stack at
+# (T, N, C) = RNN_ROUTE_SHAPE, C = H = 200, on the card and on the port's
+# CPU path, forward and backward, in norm per output or gradient:
+# |card - cpu| <= RNN_ROUTE_TOL * |cpu|. The CPU path in float32 against
+# float64 (``--cpu-rnn``, and in the card's process) read 3.4e-7 to
+# 4.6e-7 over four processes and 1.77e-5 in one, always on the tanh
+# stack's begin-state gradient (sum_c da[c] * Wh[c][j] over H = 200 terms
+# that cancel, in whatever order the CPU's GEMM took that time); the card
+# against float64 read 2.8e-7. So 1e-4: ~5x that worst CPU reading, and
+# far below what a wrong derivative or a dropped term gives (order 1)
+RNN_ROUTE_SHAPE = (8, 32, 200)
+RNN_ROUTE_TOL = 1e-4
+
+
+def rnn_cases(torch, randn, n, h):
+    """``(name, i2h, h_prev, weight, bias, dnext_h)`` of one RNN step: the
+    path's (n, h), h_prev zero, no bias, i2h, h_prev and the weight each a
+    view 1 and 3 floats into its storage (off the 16-byte alignment), H =
+    37, N = 1, N = 33 and H = 1500 (the kernels' sums in passes); weights
+    of 1 / sqrt(H), about what the path's initializer gives."""
+    def view(k, scale, *shape):
+        return (randn(math.prod(shape) + k) * scale)[k:].view(shape)
+
+    def case(n, h):
+        return (view(0, 2.0, n, h), view(0, 1.0, n, h),
+                view(0, 1 / math.sqrt(h), h, h), view(0, 1 / math.sqrt(h), h),
+                view(0, 1.0, n, h))
+
+    i2h, hp, w, b, dh = case(n, h)
+    cases = [("path", i2h, hp, w, b, dh),
+             ("h_prev 0", i2h, torch.zeros_like(hp), w, b, dh),
+             ("no bias", i2h, hp, w, None, dh)]
+    for k in (1, 3):
+        cases.append((f"offset {k}", view(k, 2.0, n, h), view(k, 1.0, n, h),
+                      view(k, 1 / math.sqrt(h), h, h), b, dh))
+    for shape in ((3, 37), (1, h), (33, h), (5, 1500)):
+        cases.append((f"{shape}", *case(*shape)))
+    return cases
+
+
+def rnn_step_times(torch, act):
+    """One RNN step of the served model's path shape, (32, 200) with a
+    bias, each way: warm, L2-cold, the device time over every kernel of the
+    step and its launches, the plain version, the library yardstick warm
+    and cold (``torch.addmm`` + ``tanh_``/``relu_`` on an i2h with the bias
+    folded in; ``tanh_backward``/``threshold_backward`` + ``mm``: no one
+    PyTorch call takes a ready i2h), the bound and the host microseconds a
+    call."""
+    from mxnet_tpu_torch.kernels import rnn_cell as rc
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    n, h = LSTM_BATCH, LSTM["num_hidden"]
+    _name, i2h, hp, w, b, dh = rnn_cases(torch, randn, n, h)[0]
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
+    y = rc.rnn_cell(i2h, hp, w, b, act)[0]
+    i2hb = i2h + b
+    aten = torch.ops.aten
+    if act == "tanh":
+        def lib_fwd():
+            return torch.addmm(i2hb, hp, w.t()).tanh_()
+
+        def lib_bwd():
+            return torch.mm(aten.tanh_backward(dh, y), w)
+
+        names = ("torch.addmm + tanh_", "tanh_backward + mm")
+    else:
+        def lib_fwd():
+            return torch.addmm(i2hb, hp, w.t()).relu_()
+
+        def lib_bwd():
+            return torch.mm(aten.threshold_backward(dh, y, 0), w)
+
+        names = ("torch.addmm + relu_", "threshold_backward + mm")
+    # forward: i2h, h_prev, Wh and bh read, next_h written; backward:
+    # dnext_h, next_h and Wh read, da and dh_prev written; the product's
+    # 2 * N * H * H operations and a few more per (n, j)
+    flops = 2 * n * h * h + 3 * n * h
+    bounds = {"rnn_cell": bound((3 * n * h + h * h + h) * 4, flops),
+              "rnn_cell_bwd": bound((4 * n * h + h * h) * 4, flops)}
+    out = {}
+    for name, run, plain, lib, lib_name in (
+            ("rnn_cell", lambda: rc.rnn_cell(i2h, hp, w, b, act, save=False),
+             lambda: rc.rnn_cell_plain(i2h, hp, w, b, act), lib_fwd,
+             names[0]),
+            ("rnn_cell_bwd", lambda: rc.rnn_cell_bwd(dh, y, hp, w, act),
+             lambda: rc.rnn_cell_bwd_plain(dh, y, hp, w, act), lib_bwd,
+             names[1])):
+        device, launches = step_device_ms(torch, run)
+        out[name] = {
+            "what": f"one step ({n}, {h}), {act}, bias", "library": lib_name,
+            "ms": cuda_ms(torch, run, reps=200),
+            "cold_ms": cold_ms(torch, run, flush), "device_ms": device,
+            "device_launches": launches,
+            "plain_ms": cuda_ms(torch, plain, reps=50, warmup=1),
+            "library_ms": cuda_ms(torch, lib, reps=200),
+            "library_cold_ms": cold_ms(torch, lib, flush),
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "host_us": host_us(torch, run)}
+    return out
+
+
+def phase_rnn_kernels(torch, mx):
+    """``rnn_cell`` and ``rnn_cell_bwd`` against their plain versions on the
+    card for tanh and relu at the served model's (32, 200) and at odd
+    shapes and offsets (:func:`rnn_cases`), training and inference,
+    ``dnext_h`` given and None; the refusals; then one step each way timed
+    (:func:`rnn_step_times`). Returns the two kernels' rows."""
+    from mxnet_tpu_torch.kernels import rnn_cell as rc
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def step_close(what, got, want):
+        return check(torch, what, got, want, RNN_STEP_RTOL, RNN_STEP_ATOL)
+
+    n, h = LSTM_BATCH, LSTM["num_hidden"]
+    cases = rnn_cases(torch, randn, n, h)
+    fwd_err = bwd_err = 0.0
+    before = (rc.LAUNCHES.value, rc.BWD_LAUNCHES.value)
+    for act in ("tanh", "relu"):
+        for name, i2h, hp, w, b, dh in cases:
+            what = f"rnn_cell {act} {name}"
+            want = rc.rnn_cell_plain(i2h, hp, w, b, act)
+            got, saved = rc.rnn_cell(i2h, hp, w, b, act)
+            got_inf, none = rc.rnn_cell(i2h, hp, w, b, act, save=False)
+            if saved is not got or none is not None:
+                fail(f"{what}: saved is not next_h, or save=False saved")
+            fwd_err = max(fwd_err, step_close(what, got, want),
+                          step_close(f"{what} inference", got_inf, want))
+            for dnext in (dh, None):
+                tag = f"{what} dnext_h={'None' if dnext is None else 'given'}"
+                da, dh_prev = rc.rnn_cell_bwd(dnext, want, hp, w, act)
+                want_da, want_dh = rc.rnn_cell_bwd_plain(dnext, want, hp, w,
+                                                         act)
+                bwd_err = max(bwd_err, check(torch, f"{tag} da", da, want_da,
+                                             LSTM_RTOL, LSTM_ATOL),
+                              step_close(f"{tag} dh_prev", dh_prev, want_dh))
+                if act == "relu" and bool(da[want == 0].any()):
+                    fail(f"{tag}: da is not 0 where next_h is 0")
+    torch.cuda.synchronize()
+    runs = 2 * 2 * len(cases)
+    if (rc.LAUNCHES.value - before[0], rc.BWD_LAUNCHES.value - before[1]) != (
+            runs, runs):
+        fail(f"rnn_cell launches {rc.LAUNCHES.value - before[0]}, "
+             f"rnn_cell_bwd {rc.BWD_LAUNCHES.value - before[1]}; expected "
+             f"{runs} each")
+    # mixed devices and row-strided (non-contiguous) views are refused
+    _name, i2h, hp, w, b, dh = cases[0]
+    y = rc.rnn_cell(i2h, hp, w, b)[0]
+    for what, call in (
+            ("a CPU h_prev", lambda: rc.rnn_cell(i2h, hp.cpu(), w, b)),
+            ("a CPU weight", lambda: rc.rnn_cell(i2h, hp, w.cpu(), b)),
+            ("a CPU bias", lambda: rc.rnn_cell(i2h, hp, w, b.cpu())),
+            ("a non-contiguous i2h", lambda: rc.rnn_cell(
+                randn(n, h + 5)[:, :h], hp, w, b)),
+            ("a non-contiguous weight", lambda: rc.rnn_cell(
+                i2h, hp, w.t().contiguous().t(), b)),
+            ("a CPU dnext_h", lambda: rc.rnn_cell_bwd(dh.cpu(), y, hp, w)),
+            ("a CPU weight in the backward",
+             lambda: rc.rnn_cell_bwd(dh, y, hp, w.cpu()))):
+        try:
+            call()
+        except mx.base.MXNetError:
+            continue
+        fail(f"rnn_cell took {what}")
+    print(f"[rnn-kernels] rnn_cell and rnn_cell_bwd (one launch each way, "
+          f"the recurrent product inside) match their plain versions for "
+          f"tanh and relu ({', '.join(c[0] for c in cases)}; training and "
+          f"inference, dnext_h given and None; relu's da 0 where next_h is "
+          f"0; CPU, mixed-device and non-contiguous inputs refused): max abs "
+          f"err {fwd_err:g} / {bwd_err:g} (next_h and dh_prev rtol "
+          f"{RNN_STEP_RTOL}, atol {RNN_STEP_ATOL}; da rtol {LSTM_RTOL}, atol "
+          f"{LSTM_ATOL})", flush=True)
+    times = {act: rnn_step_times(torch, act) for act in ("tanh", "relu")}
+    for act, steps in times.items():
+        for what, r in steps.items():
+            dev_ms = ("not recorded" if r["device_ms"] is None
+                      else f"{r['device_ms']:.4f} ms")
+            print(f"[rnn-kernels] {what} {r['what']}: {r['ms']:.4f} ms warm, "
+                  f"{r['cold_ms']:.4f} ms L2-cold, {dev_ms} on the device in "
+                  f"{r['device_launches']:g} launches a call, plain "
+                  f"{r['plain_ms']:.4f} ms, {r['library']} "
+                  f"{r['library_ms']:.4f} ms ({r['library_cold_ms']:.4f} "
+                  f"cold), bound {r['bound_ms'] * 1e3:.3f} us "
+                  f"({r['bound_by']}), host {r['host_us']:.1f} us a call",
+                  flush=True)
+    rows = []
+    for name, err in (("rnn_cell", fwd_err), ("rnn_cell_bwd", bwd_err)):
+        r = times["tanh"][name]
+        row = {"name": name, "route": "cuda",
+               "source": "mxnet_tpu_torch/csrc/rnn_cell.cu",
+               "replaces": "mxnet_tpu/rnn/rnn_cell.py:202",
+               "max_abs_err": err}
+        row.update({k: r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "cold_ms", "device_ms", "host_us", "device_launches",
+            "library_cold_ms")})
+        row.update({f"relu_{k}": times["relu"][name][k] for k in (
+            "ms", "cold_ms", "device_ms", "plain_ms", "library_ms",
+            "host_us")})
+        rows.append(row)
+    return rows
+
+
+def lm_serving_models(mx):
+    """``(name, sym_gen, cell kernel)`` of the two served language models:
+    the LSTM one and the same configuration with RNNCell(tanh)."""
+    return (("lstm", mx.models.lstm_lm_serving_sym_gen(**LSTM), "lstm_cell"),
+            ("rnn", rnn_lm_serving_sym_gen(mx, **LSTM), "rnn_cell"))
+
+
+def lm_serving_params(sym_gen, seed):
+    """``(numpy parameters, begin-state names)`` of a served language
+    model: Xavier(factor_type="in", magnitude=2.34) uniform weights, as
+    :func:`lm_numpy` gives them, and biases U(-0.1, 0.1)."""
+    sym = sym_gen(8)[0]
+    states = [n for n in sym.list_arguments() if "begin_state" in n]
+    shapes = {"data": (1, 8)}
+    shapes.update({n: (1, LSTM["num_hidden"]) for n in states})
+    arg_shapes, _, _ = sym.infer_shape(**shapes)
+    rng = np.random.default_rng(seed)
+    args = {}
+    for name, shape in zip(sym.list_arguments(), arg_shapes):
+        if name in shapes:
+            continue
+        scale = (math.sqrt(2.34 / shape[1]) if name.endswith("_weight")
+                 else 0.1)
+        args[name] = rng.uniform(-scale, scale, shape).astype(np.float32)
+    return args, states
+
+
+def lm_serving_waves(seed):
+    """``[(requests, (batch, seq) bucket)]`` of :data:`LM_WAVES`: int32
+    token sequences of lengths drawn from the seed; the first wave's first
+    two requests are the same."""
+    rng = np.random.default_rng(seed)
+    waves = []
+    for count, lo, hi, bucket in LM_WAVES:
+        reqs = [rng.integers(0, LSTM["vocab_size"], int(rng.integers(
+            lo, hi + 1))).astype(np.int32) for _ in range(count)]
+        waves.append((reqs, bucket))
+    waves[0][0][1] = waves[0][0][0].copy()
+    return waves
+
+
+def lm_cpu_logits(mx, sym_gen, args, states, reqs, seq, dtype=np.float32):
+    """The port's CPU ``Predictor`` on ``reqs`` zero-padded to ``seq``, in
+    ``dtype`` (the parameters and the zero begin states bound in it): the
+    logits ``(len(reqs), seq, vocab)`` as float64."""
+    n, hidden = len(reqs), LSTM["num_hidden"]
+    shapes = {"data": (n, seq)}
+    shapes.update({s: (n, hidden) for s in states})
+    types = {"data": "int32"}
+    types.update({s: np.dtype(dtype).name for s in states})
+    params = mx.convert.params_from_numpy(
+        {k: v.astype(dtype) for k, v in args.items()}, {}, "cpu")[0]
+    pred = mx.predictor.Predictor(
+        sym_gen(seq)[0], {f"arg:{k}": v for k, v in params.items()}, shapes,
+        dev_type="cpu", input_types=types)
+    tokens = np.stack([np.pad(x, (0, seq - len(x))) for x in reqs])
+    zeros = {s: np.zeros((n, hidden), dtype) for s in states}
+    return pred.run(data=tokens, **zeros)[0].astype(np.float64)
+
+
+def profile_rows(torch, fn, reps=3):
+    """``fn`` under torch.profiler: ``(device busy ms, wall ms, kernel
+    launches, top (ms, count, name) rows)`` per call. Measurement only."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(ev.self_device_time_total / reps / 1e3, ev.count / reps, ev.key)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and ev.self_device_time_total]
+    return (sum(r[0] for r in rows), wall_us / reps / 1e3,
+            sum(r[1] for r in rows), sorted(rows, reverse=True)[:6])
+
+
+def lm_serve_times(torch, srv, card, name):
+    """Phase 26's times of one model's server: closed loops of 32 requests
+    of 32 tokens at (32, 32) and of one request of 8 tokens at (1, 8) (no
+    batching delay), the forward alone at both by CUDA events and by the
+    host's clock, and a profile of the (32, 32) forward."""
+    from mxnet_tpu_torch import telemetry as tm
+
+    x32 = np.random.default_rng(SEED + 73).integers(
+        0, LSTM["vocab_size"], (32, 32)).astype(np.int32)
+    tm.reset()
+    t0 = time.perf_counter()
+    for _ in range(LM_SERVE_REPS):
+        for f in [srv.submit(x32[i]) for i in range(32)]:
+            f.result(timeout=300)
+    batch_ms = (time.perf_counter() - t0) / LM_SERVE_REPS * 1e3
+    infer = tm.histogram("serving.infer")
+    wait = tm.histogram("serving.queue_wait")
+    delay = srv._batcher.max_delay
+    srv._batcher.max_delay = 0.0
+    try:
+        t0 = time.perf_counter()
+        for _ in range(LM_SERVE_REPS):
+            srv.predict(x32[0, :8], timeout=300)
+        one_ms = (time.perf_counter() - t0) / LM_SERVE_REPS * 1e3
+    finally:
+        srv._batcher.max_delay = delay
+    out = {"batch_ms": batch_ms, "tokens_s": 32 * 32e3 / batch_ms,
+           "infer_ms": infer.sum / infer.count / 1e3,
+           "queue_wait_ms": wait.sum / wait.count / 1e3, "one_ms": one_ms}
+    for key, b, s in (("32x32", 32, 32), ("1x8", 1, 8)):
+        pred = srv.predictor((b, s))
+        out[f"forward_{key}_ms"] = cuda_ms(torch, pred.forward, reps=10,
+                                           warmup=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            pred.forward()
+        torch.cuda.synchronize()
+        out[f"forward_{key}_host_ms"] = (time.perf_counter() - t0) * 1e2
+    busy, wall, launches, top = profile_rows(torch,
+                                             srv.predictor((32, 32)).forward)
+    out.update({"busy_ms": busy, "wall_ms": wall,
+                "forward_launches": launches})
+    print(f"[lm-serving] {name} LM on {card}: (32, 32) {batch_ms:.2f} ms per "
+          f"batch through the server ({out['tokens_s']:.0f} tokens/s; "
+          f"serving.infer mean {out['infer_ms']:.2f} ms, serving.queue_wait "
+          f"mean {out['queue_wait_ms']:.2f} ms), forward alone "
+          f"{out['forward_32x32_ms']:.2f} ms by CUDA events, "
+          f"{out['forward_32x32_host_ms']:.2f} ms by the host's clock "
+          f"({32 * 32e3 / out['forward_32x32_ms']:.0f} tokens/s); (1, 8) "
+          f"{one_ms:.2f} ms a request through the server, forward "
+          f"{out['forward_1x8_ms']:.2f} ms ({out['forward_1x8_host_ms']:.2f} "
+          f"ms host); profile at (32, 32): device busy {busy:.2f} ms of "
+          f"{wall:.2f} ms wall ({100 * busy / wall:.0f}%), {launches:g} "
+          f"kernel launches a forward; top:", flush=True)
+    for ms, count, key in top:
+        print(f"[lm-serving]   {ms:8.3f} ms {100 * ms / busy:5.1f}% "
+              f"x{count:<4g} {key[:90]}")
+    return out
+
+
+def serve_lm(torch, mx, card, name, sym_gen, cell):
+    """Phase 26 for one model: its server up, the waves of
+    :func:`lm_serving_waves` with every count at 0 just before and read
+    after each wave (exactly 2S ``cell`` launches a batch at seq bucket S,
+    no other port kernel, ``F.linear`` on an h2h weight 2S times for the
+    LSTM, whose route takes a ready h2h, and never for the RNN), the
+    refusal, the bits of identical requests, every answer against the CPU
+    ``Predictor``, then :func:`lm_serve_times`. Returns the launches and
+    the times."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch import telemetry as tm
+    from mxnet_tpu_torch.serving import ModelServer, ServingConfig
+
+    t0 = time.perf_counter()
+    args, states = lm_serving_params(sym_gen, SEED + 70 + (name == "rnn"))
+    srv = ModelServer(
+        None, mx.convert.params_from_numpy(args, {}, "cpu")[0],
+        {"data": (LSTM_BUCKETS[-1],)},
+        config=ServingConfig(buckets=LM_SERVE_BUCKETS,
+                             seq_buckets=LSTM_BUCKETS, max_delay_ms=200),
+        input_types={"data": "int32"}, sym_gen=sym_gen)
+    kernels = launch_counters()
+    try:
+        srv.warmup()
+        srv.start()
+        keys = sorted(srv.replicas[0].predictors)
+        pred = srv.predictor((32, 32))
+        h2h = {a._data.data_ptr() for n, a in pred._exec.arg_dict.items()
+               if n.endswith("h2h_weight")}
+        routed = len(getattr(pred._exec.graph, name))
+        print(f"[lm-serving] {name} LM server up in "
+              f"{time.perf_counter() - t0:.1f} s: replicas "
+              f"{[r['device'] for r in srv.stats()['replicas']]}, "
+              f"{len(keys)} (batch, seq) predictors {keys[0]}..{keys[-1]}, "
+              f"{routed} {cell} steps routed at (32, 32)", flush=True)
+        if routed != 2 * 32:
+            fail(f"{name} LM: {routed} {cell} steps routed at seq 32, "
+                 f"expected 64")
+        waves = lm_serving_waves(SEED + 72)
+        linear, h2h_calls = F.linear, [0]
+
+        def counted(x, weight, *rest, **kw):
+            h2h_calls[0] += weight.data_ptr() in h2h
+            return linear(x, weight, *rest, **kw)
+
+        answers, per_wave = [], []
+        # the main path: every count at 0 just before, read after each wave
+        tm.reset()
+        F.linear = counted
+        try:
+            for reqs, _bucket in waves:
+                seen = {k: c.value for k, c in kernels.items()}
+                calls = h2h_calls[0]
+                futs = [srv.submit(x) for x in reqs]
+                answers.append([(f.result(timeout=300)[0], f.bucket)
+                                for f in futs])
+                per_wave.append((
+                    {k: c.value - seen[k] for k, c in kernels.items()
+                     if c.value != seen[k]}, h2h_calls[0] - calls))
+        finally:
+            F.linear = linear
+        launches = {k: c.value for k, c in kernels.items() if c.value}
+        batches = tm.counter("serving.batches").value
+        for (reqs, bucket), got, (wave_launches, fc) in zip(
+                waves, answers, per_wave):
+            s = bucket[1]
+            if {b for _a, b in got} != {bucket}:
+                fail(f"{name} LM: a wave of {len(reqs)} ran in "
+                     f"{sorted({b for _a, b in got})}, expected {bucket}")
+            want_fc = 2 * s if cell == "lstm_cell" else 0
+            if wave_launches != {cell: 2 * s} or fc != want_fc:
+                fail(f"{name} LM at {bucket}: launches {wave_launches}, "
+                     f"F.linear on an h2h weight {fc}; expected "
+                     f"{{{cell!r}: {2 * s}}} and {want_fc}")
+        if batches != len(waves):
+            fail(f"{name} LM: {batches} batches for {len(waves)} waves")
+        print(f"[lm-serving] {name} LM: {sum(len(w[0]) for w in waves)} "
+              f"requests of lengths 1..32 served in {batches} batches "
+              f"{[w[1] for w in waves]}: {cell} launches per batch "
+              f"{[pw[0].get(cell, 0) for pw in per_wave]} = 2S, no other "
+              f"port kernel, F.linear on an h2h weight "
+              f"{[pw[1] for pw in per_wave]}", flush=True)
+        # a request past the last seq bucket is refused; identical requests
+        # give the same bits
+        try:
+            srv.submit(np.zeros(LSTM_BUCKETS[-1] + 1, np.int32))
+        except mx.base.MXNetError:
+            pass
+        else:
+            fail(f"{name} LM: a {LSTM_BUCKETS[-1] + 1}-token request was "
+                 f"served")
+        if not np.array_equal(answers[0][0][0], answers[0][1][0]):
+            fail(f"{name} LM: two identical requests gave other bits")
+        # every answer against the port's CPU Predictor at the padded shape
+        rtol, atol = LM_SERVE_TOL
+        worst = 0.0
+        for (reqs, bucket), got in zip(waves, answers):
+            cpu = lm_cpu_logits(mx, sym_gen, args, states, reqs, bucket[1])
+            card_out = np.stack([a for a, _b in got]).astype(np.float64)
+            err = np.abs(card_out - cpu)
+            if (card_out.shape != cpu.shape
+                    or not np.isfinite(card_out).all()
+                    or (err > atol + rtol * np.abs(cpu)).any()):
+                fail(f"{name} LM at {bucket}: shape {card_out.shape} vs "
+                     f"{cpu.shape}, max abs err {float(err.max()):g} "
+                     f"(rtol {rtol}, atol {atol})")
+            worst = max(worst, float(err.max()))
+        print(f"[lm-serving] {name} LM answers (logits padded to the "
+              f"bucket) match the CPU Predictor: max abs err {worst:g} "
+              f"(rtol {rtol}, atol {atol}); identical requests bit for bit; "
+              f"a {LSTM_BUCKETS[-1] + 1}-token request refused", flush=True)
+        times = lm_serve_times(torch, srv, card, name)
+    finally:
+        srv.close()
+    return launches, times
+
+
+def phase_lm_serving(torch, mx, card):
+    """The LSTM and the vanilla-RNN language models at full width behind
+    ``ModelServer(sym_gen=..., seq_buckets=...)`` on ``gpu(0)``
+    (:func:`serve_lm`). Returns the kernels' launches summed over both and
+    each model's times."""
+    launches, times = {}, {}
+    for name, sym_gen, cell in lm_serving_models(mx):
+        got, times[name] = serve_lm(torch, mx, card, name, sym_gen, cell)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    return launches, times
+
+
+def rnn_route_run(mx, act, ctx, seed, dtype=np.float32):
+    """One training forward and backward of an unrolled 2-layer RNNCell
+    stack (``act``) at ``RNN_ROUTE_SHAPE`` on ``ctx`` in ``dtype`` with a
+    random head gradient: data N(0, 1), weights and biases U(-0.07, 0.07)
+    (about 1 / sqrt(200)), begin states N(0, 0.5), all from ``seed``.
+    Returns ``{output or gradient name: float64 numpy}``."""
+    steps, batch, width = RNN_ROUTE_SHAPE
+    stack = mx.rnn.SequentialRNNCell()
+    for i in range(2):
+        stack.add(mx.rnn.RNNCell(width, activation=act, prefix=f"rnn_l{i}_"))
+    out, _ = stack.unroll(steps, inputs=mx.sym.Variable("data"),
+                          merge_outputs=True)
+    names = out.list_arguments()
+    shapes = {"data": (batch, steps, width)}
+    shapes.update({n: (batch, width) for n in names if "begin_state" in n})
+    exe = out.simple_bind(ctx, grad_req="write",
+                          type_dict={n: np.dtype(dtype).name for n in names},
+                          **shapes)
+    rng = np.random.default_rng(seed)
+    for name in names:
+        shape = exe.arg_dict[name].shape
+        if name == "data":
+            v = rng.standard_normal(shape)
+        elif name in shapes:
+            v = 0.5 * rng.standard_normal(shape)
+        else:
+            v = rng.uniform(-0.07, 0.07, shape)
+        exe.arg_dict[name][:] = v.astype(dtype)
+    exe.forward(is_train=True)
+    head = rng.standard_normal(exe.outputs[0].shape).astype(dtype)
+    exe.backward([mx.nd.array(head, ctx=ctx, dtype=dtype)])
+    res = {"out": exe.outputs[0].asnumpy().astype(np.float64)}
+    res.update({f"d{n}": g.asnumpy().astype(np.float64)
+                for n, g in exe.grad_dict.items()})
+    return res
+
+
+def phase_rnn_route(torch, mx):
+    """An unrolled 2-layer ``RNNCell`` stack (tanh and relu) bound by
+    ``simple_bind`` at ``RNN_ROUTE_SHAPE`` on ``gpu(0)`` and on the port's
+    CPU path from the same weights: forward and backward within
+    ``RNN_ROUTE_TOL`` in norm, exactly 2T ``rnn_cell`` and 2T
+    ``rnn_cell_bwd`` launches. Returns the launches."""
+    from mxnet_tpu_torch import telemetry as tm
+
+    kernels = launch_counters()
+    steps = RNN_ROUTE_SHAPE[0]
+    launches, bad = {}, []
+    for act in ("tanh", "relu"):
+        seed = SEED + 80 + (act == "relu")
+        tm.reset()
+        card_res = rnn_route_run(mx, act, mx.gpu(0), seed)
+        torch.cuda.synchronize()
+        got = {k: c.value for k, c in kernels.items() if c.value}
+        want = {"rnn_cell": 2 * steps, "rnn_cell_bwd": 2 * steps}
+        if got != want:
+            fail(f"RNNCell stack ({act}): launches {got}, expected {want}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        cpu = rnn_route_run(mx, act, mx.cpu(), seed)
+        cpu64 = rnn_route_run(mx, act, mx.cpu(), seed, np.float64)
+        worst, worst64, card64 = (parity_diff(card_res, cpu)[1:],
+                                  parity_diff(cpu, cpu64)[1:],
+                                  parity_diff(card_res, cpu64)[1:])
+        if not worst[1] <= RNN_ROUTE_TOL:
+            bad.append(f"{act} {worst[0]} {worst[1]:.3g}")
+        print(f"[rnn-route] unrolled 2-layer RNNCell({act}) stack at (T, N, "
+              f"C) = {RNN_ROUTE_SHAPE}: forward and backward launch {want} "
+              f"exactly; card against the CPU path, worst output or gradient "
+              f"{worst[0]} {worst[1]:.3g} in norm (limit {RNN_ROUTE_TOL}); "
+              f"CPU float32 against float64 {worst64[0]} {worst64[1]:.3g}; "
+              f"card against float64 {card64[0]} {card64[1]:.3g}",
+              flush=True)
+    if bad:
+        fail(f"RNNCell route: card and CPU differ beyond {RNN_ROUTE_TOL} in "
+             f"{bad}")
+    return launches
+
+
+def rnn_cpu_readings():
+    """The readings ``LM_SERVE_TOL``, ``RNN_ROUTE_TOL`` and ``RNN_OP_TOL``
+    (for the rnn modes) were fixed from, on the port's CPU path in float32
+    against float64: phase 26's answers for both models, phase 27's stacks
+    and phase 24's rnn_tanh and rnn_relu cases. Needs no card (full width:
+    run it on a machine with many cores)."""
+    import mxnet_tpu_torch as mx
+
+    with mx.cpu():
+        for name, sym_gen, _cell in lm_serving_models(mx):
+            args, states = lm_serving_params(sym_gen,
+                                             SEED + 70 + (name == "rnn"))
+            worst = (0.0, 0.0)
+            for reqs, bucket in lm_serving_waves(SEED + 72):
+                got, want = (lm_cpu_logits(mx, sym_gen, args, states, reqs,
+                                           bucket[1], dtype)
+                             for dtype in (np.float32, np.float64))
+                err = np.abs(got - want)
+                worst = (max(worst[0], float(err.max())),
+                         max(worst[1], float((err / np.maximum(
+                             np.abs(want), 1e-3)).max())))
+            print(f"[cpu-lm-serving] {name} LM answers, float32 against "
+                  f"float64: max abs err {worst[0]:.3g}, max relative "
+                  f"(|cpu| >= 1e-3) {worst[1]:.3g}", flush=True)
+        for act in ("tanh", "relu"):
+            seed = SEED + 80 + (act == "relu")
+            _rel, worst, rel = parity_diff(
+                rnn_route_run(mx, act, mx.cpu(), seed),
+                rnn_route_run(mx, act, mx.cpu(), seed, np.float64))
+            print(f"[cpu-rnn-route] RNNCell({act}) stack: float32 against "
+                  f"float64, worst {worst} {rel:.3g} in norm", flush=True)
+        for mode in ("rnn_tanh", "rnn_relu"):
+            for bidir in (False, True):
+                seed = rnn_op_seed(mode, bidir)
                 cpu = rnn_op_run(mx, mode, bidir, mx.cpu(), seed)[1]
                 cpu64 = rnn_op_run(mx, mode, bidir, mx.cpu(), seed,
                                    np.float64)[1]
@@ -8394,6 +9112,9 @@ def main():
         return
     if sys.argv[1:2] == ["--cpu-gru"]:
         gru_cpu_readings([int(a) for a in sys.argv[2:]])
+        return
+    if sys.argv[1:2] == ["--cpu-rnn"]:
+        rnn_cpu_readings()
         return
     if sys.argv[1:2] == ["--cpu-ssd"]:
         ssd_cpu_readings()
@@ -8538,6 +9259,9 @@ def main():
     gru_trained, gru_device_ms = phase_gru_training(torch, mx, card)
     phase_gru_parity(torch, mx)
     rnn_op, rnn_op_times = phase_rnn_op(torch, mx)
+    kernels += phase_rnn_kernels(torch, mx)
+    lm_served, lm_times = phase_lm_serving(torch, mx, card)
+    rnn_route = phase_rnn_route(torch, mx)
     for k in kernels:
         name = k["name"]
         k["launches_serving"] = served.get(name, 0)
@@ -8550,6 +9274,8 @@ def main():
         k["launches_windows"] = windows.get(name, 0)
         k["launches_gru"] = gru_trained.get(name, 0)
         k["launches_rnn_op"] = rnn_op.get(name, 0)
+        k["launches_lm_serving"] = lm_served.get(name, 0)
+        k["launches_rnn_route"] = rnn_route.get(name, 0)
         if name in mnist_paths:
             k.setdefault("paths", {}).update(mnist_paths[name])
             k["max_abs_err"] = max(k["max_abs_err"], *(
@@ -8558,16 +9284,20 @@ def main():
                          + k["launches_lstm"] + k["launches_ssd"]
                          + k["launches_ssd_train"] + k["launches_dcgan"]
                          + k["launches_baseline"] + k["launches_windows"]
-                         + k["launches_gru"] + k["launches_rnn_op"])
+                         + k["launches_gru"] + k["launches_rnn_op"]
+                         + k["launches_lm_serving"]
+                         + k["launches_rnn_route"])
         k["step_device_ms"] = device_ms.get(name)
         k["lstm_step_device_ms"] = lstm_device_ms.get(name)
         k["ssd_forward_device_ms"] = ssd_device_ms.get(name)
         k["ssd_step_device_ms"] = ssd_train_device_ms.get(name)
         k["dcgan_step_device_ms"] = dcgan_device_ms.get(name)
         k["gru_step_device_ms"] = gru_device_ms.get(name)
-        if name in ("lstm_cell", "gru_cell"):
+        if name in ("lstm_cell", "gru_cell", "rnn_cell"):
             k["rnn_op"] = {key: t for key, t in rnn_op_times.items()
                            if key.startswith(name[:3])}
+        if name in ("lstm_cell", "rnn_cell"):
+            k["lm_serving"] = lm_times[name[:-len("_cell")]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,8 +13,8 @@ Each variable is one of three kinds:
   training, ``ModelServer`` for serving; :func:`check_unported`) — never
   silently ignored.
 
-The serving mesh, sequence buckets and checkpoint watcher are honoured
-variables whose non-default values raise where they are read.
+The serving mesh and checkpoint watcher are honoured variables whose
+non-default values raise where they are read.
 """
 
 from __future__ import annotations
@@ -112,8 +112,17 @@ _declare("MXNET_SERVING_MESH", str, "auto",
          "Per-replica device-group layout. Only 'auto' (one-device "
          "replicas) is ported; any other value raises MXNetError.")
 _declare("MXNET_SERVING_SEQ_BUCKETS", str, "",
-         "Sequence-length buckets. Not yet ported: a non-empty value "
-         "raises MXNetError.")
+         "Comma-separated sequence-length buckets for variable-length "
+         "serving (BucketingModule-style): each request's seq axis "
+         "(MXNET_SERVING_SEQ_AXIS) is zero-padded up to the smallest "
+         "covering bucket and batched only with same-bucket requests; "
+         "warmup() runs one forward per (batch, seq) bucket pair. Requires "
+         "a sym_gen-style ModelServer symbol (the symbol varies with "
+         "seq_len). Empty (default) = fixed-shape serving.")
+_declare("MXNET_SERVING_SEQ_AXIS", int, 0,
+         "Sample axis (batch axis excluded) that MXNET_SERVING_SEQ_BUCKETS "
+         "buckets on: 0 = first per-sample axis, i.e. dimension 1 of the "
+         "stacked batch — the seq axis of (batch, seq) LSTM inputs.")
 _declare("MXNET_SERVING_WATCH", float, 0.0,
          "Checkpoint-watch poll period for hot reload. Not yet ported: a "
          "non-zero value raises MXNetError.")
@@ -272,8 +281,6 @@ _unported("MXNET_IO_WORKER_TIMEOUT_MS", float, 60000.0, 6, _FIT,
           "Hung-decode watchdog of the decode pool.")
 _unported("MXNET_SERVING_MAX_BODY_BYTES", int, 64 << 20, 5, _SERVING,
           "HTTP request-body cap of the serving front end.")
-_unported("MXNET_SERVING_SEQ_AXIS", int, 0, "9.4", _SERVING,
-          "Sample axis that MXNET_SERVING_SEQ_BUCKETS buckets on.")
 _unported("MXNET_SERVING_CANARY_PCT", float, 0.0, 5, _SERVING,
           "Share of traffic routed to a canary weight set.")
 _unported("MXNET_SERVING_SHADOW", int, 0, 5, _SERVING,

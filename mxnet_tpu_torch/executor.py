@@ -49,7 +49,18 @@ backward as one ``gru_cell_bwd``, under the same rule and when the h2h FC
 (the one under the slice whose output 2 feeds ``r * h2h_o``) has
 ``flatten=True``, reads the same ``h_prev`` edge the ``_minus`` reads, and
 feeds nothing but that slice: the FC runs nothing and ``next_h`` takes the
-place of its node. Any other GRU chain runs op by op.
+place of its node. Any other GRU chain runs op by op. A vanilla-RNN cell
+step (``RNNCell.__call__`` unrolled: ``Activation(act_type="tanh" or
+"relu")`` over the ``_plus`` of the i2h and h2h ``FullyConnected``
+outputs) runs as one ``rnn_cell`` launch, the recurrent product inside it,
+and in training its backward as one ``rnn_cell_bwd``, when the ``_plus``
+feeds the activation alone and the second operand's FC, the h2h one, has
+``flatten=True`` and feeds the ``_plus`` alone: the first operand's output
+is the ready ``i2h``, the h2h FC and the ``_plus`` run nothing and
+``next_h`` takes the place of the activation's node. Any other activation
+or chain runs op by op, and so does a matched step whose h2h FC turns out
+at run time not to map an ``(N, H)`` state to ``(N, H)`` (then it is not a
+recurrent step).
 
 Two routes serve SSD's head. A channel ``SoftmaxActivation`` whose only
 consumer is a ``MultiBoxDetection`` runs nothing, and the detection reads
@@ -78,10 +89,11 @@ from .base import MXNetError, np_dtype
 from .context import Context
 from .kernels.gru_cell import GRUCellFn, gru_cell
 from .kernels.lstm_cell import LSTMCellFn, lstm_cell
+from .kernels.rnn_cell import RNNCellFn, rnn_cell
 from .kernels.sgd_mom_multi import Guard
 from .ndarray import NDArray, ones as nd_ones, zeros as nd_zeros
 from .ops.defs_contrib import detect
-from .ops.defs_nn import _castp, batch_norm, l2norm_channel_op
+from .ops.defs_nn import _ACTS, _castp, batch_norm, l2norm_channel_op
 from .ops.registry import OpMode
 
 _GRAD_REQ = ("null", "write", "add")
@@ -213,6 +225,38 @@ class _GRUStep:
         if mode.is_train and torch.is_grad_enabled():
             return [GRUCellFn.apply(i2h, h_prev, weight, bias)]
         return [gru_cell(i2h, h_prev, weight, bias, save=False)[0]]
+
+
+class _RNNStep:
+    """One vanilla-RNN cell step, its h2h product included: ``inputs`` are
+    the ``(node, index)`` edges of ``i2h``, ``h_prev``, the h2h weight and
+    (when the FC has one) its bias; ``act`` is ``"tanh"`` or ``"relu"``;
+    ``h_node`` (the activation) runs the fused step; ``members`` are the
+    step's nodes, the h2h FC among them."""
+
+    def __init__(self, inputs, act, h_node, members):
+        self.inputs = inputs
+        self.act = act
+        self.h_node = h_node
+        self.members = members
+
+    def run(self, ins, mode):
+        """``[next_h]`` of the step, through the cell kernels (their
+        wrappers check the types)."""
+        i2h, h_prev, weight = ins[:3]
+        bias = ins[3] if len(ins) > 3 else None
+        # as the FC casts its parameters to the activations' dtype
+        weight, bias = _castp(weight, h_prev), _castp(bias, h_prev)
+        if (i2h.dim() != 2 or h_prev.shape != i2h.shape
+                or weight.shape != (i2h.shape[1], i2h.shape[1])):
+            # the h2h FC does not map an (N, H) state to (N, H): not a
+            # recurrent step, so the chain as written
+            h2h = torch.nn.functional.linear(
+                h_prev.reshape(h_prev.shape[0], -1), weight, bias)
+            return [_ACTS[self.act](i2h + h2h)]
+        if mode.is_train and torch.is_grad_enabled():
+            return [RNNCellFn.apply(i2h, h_prev, weight, bias, self.act)]
+        return [rnn_cell(i2h, h_prev, weight, bias, self.act, save=False)[0]]
 
 
 def _pass(ins, mode):
@@ -402,6 +446,31 @@ def _fused_gru(topo, consumers):
     return steps
 
 
+def _fused_rnn(topo, consumers):
+    """``{id(activation node): _RNNStep}`` for every vanilla-RNN cell step
+    the interpreter may fuse: ``RNNCell.__call__``'s ``Activation(tanh or
+    relu)`` over ``_plus(i2h FC, h2h FC)``, whose ``_plus`` and h2h FC
+    output feed nothing outside the step."""
+    steps = {}
+    for act in topo:
+        if not (_is_op(act, "Activation", act_type="tanh")
+                or _is_op(act, "Activation", act_type="relu")):
+            continue
+        add, idx = act.inputs[0]
+        if (idx or not _is_op(add, "_plus")
+                or consumers.get((id(add), 0)) != [act]):
+            continue
+        (i2h, i_idx), (fc, f_idx) = add.inputs
+        if (i_idx or f_idx or not _is_op(i2h, "FullyConnected")
+                or not _is_op(fc, "FullyConnected", flatten=True)
+                or consumers.get((id(fc), 0)) != [add]):
+            continue
+        steps[id(act)] = _RNNStep([add.inputs[0]] + list(fc.inputs),
+                                  act.params()["act_type"], act,
+                                  [fc, add, act])
+    return steps
+
+
 def _fused_producers(topo, consumers, op, producer, **params):
     """``{id(node): (node, producer node)}`` for every node running ``op``
     whose first input is the only use of a ``producer`` op's output with
@@ -447,6 +516,7 @@ class _Graph:
         self._fused_bns = {id(bn): slope for bn, slope in self.fused.values()}
         self.lstm = _fused_lstm(self.topo, consumers)
         self.gru = _fused_gru(self.topo, consumers)
+        self.rnn = _fused_rnn(self.topo, consumers)
         self.detection = _fused_producers(
             self.topo, consumers, "MultiBoxDetection", "SoftmaxActivation",
             mode="channel")
@@ -456,7 +526,8 @@ class _Graph:
         # nodes that run a fused route: {id(node): (the edges it reads,
         # run(ins, mode) -> outputs)}; the other members of a route run
         # nothing. A fused LSTM step reads the chain's inputs at its next_c
-        # node, a fused GRU step at its next_h node; a fused detection
+        # node, a fused GRU step at its next_h node, a fused RNN step at its
+        # activation node; a fused detection
         # reads the softmax's logits; a fused l2norm reads the
         # normalization's input at its _mul_scalar node
         routes, skip = {}, set()
@@ -465,7 +536,7 @@ class _Graph:
             routes[id(st.h_node)] = ([(st.c_node, 1)], _pass)
             skip.update(id(m) for m in st.members
                         if m is not st.c_node and m is not st.h_node)
-        for st in self.gru.values():
+        for st in (*self.gru.values(), *self.rnn.values()):
             routes[id(st.h_node)] = (st.inputs, st.run)
             skip.update(id(m) for m in st.members if m is not st.h_node)
         for det, sm in self.detection.values():

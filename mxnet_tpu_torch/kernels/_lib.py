@@ -55,6 +55,8 @@ _SIGNATURES = {
     "mxt_lstm_cell_bwd_f32": [_P],
     "mxt_gru_cell_f32": [_P],
     "mxt_gru_cell_bwd_f32": [_P],
+    "mxt_rnn_cell_f32": [_P],
+    "mxt_rnn_cell_bwd_f32": [_P],
     "mxt_rmsprop_multi_f32": [_P],
     "mxt_adam_multi_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _LL]
     + [ctypes.c_float] * 7 + [_P, _P, _P],

@@ -17,11 +17,12 @@ the whole sequence's input projection (the reference's ``einsum``), then
 per step the cell: in the gru mode one ``gru_cell`` launch that computes
 ``h @ Wh.T + bh`` and the gates (``GRUCellFn`` in training, whose
 backward is one ``gru_cell_bwd`` launch plus the weight's and bias's
-``mm``/``sum``); in the lstm mode one ``torch.addmm`` for ``h @ Wh.T +
-bh`` and one ``lstm_cell`` launch (``LSTMCellFn`` in training; no forget
-bias, as the op has none). The ``rnn_tanh`` and ``rnn_relu`` modes run
-their step as ``RNNCell`` does, a product and the ported ``Activation``
-body: the vanilla cell-step kernel is ``ROADMAP.md`` 2b item 5. Dropout
+``mm``/``sum``); in the ``rnn_tanh`` and ``rnn_relu`` modes one
+``rnn_cell`` launch that computes ``act(xg + (h @ Wh.T + bh))``
+(``RNNCellFn`` in training, whose backward is one ``rnn_cell_bwd`` launch
+plus the weight's and bias's ``mm``/``sum``); in the lstm mode one
+``torch.addmm`` for ``h @ Wh.T + bh`` and one ``lstm_cell`` launch
+(``LSTMCellFn`` in training; no forget bias, as the op has none). Dropout
 between layers (``p > 0`` in training with two layers or more) raises
 :class:`MXNetError`: the reference draws a JAX Bernoulli mask there, and
 ``Dropout`` is ``ROADMAP.md`` queue 1 item 12.
@@ -34,7 +35,7 @@ import torch
 from ..base import MXNetError, parse_bool, parse_float, parse_int, parse_str
 from ..kernels.gru_cell import GRUCellFn, gru_cell
 from ..kernels.lstm_cell import LSTMCellFn, lstm_cell
-from .defs_nn import _ACTS
+from ..kernels.rnn_cell import RNNCellFn, rnn_cell
 from .registry import Param, register
 
 _GATES = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}
@@ -86,13 +87,16 @@ def _step(mode, xg, hp, cp, wh, bh, train):
         if train:
             return GRUCellFn.apply(xg, hp, wh, bh), None
         return gru_cell(xg, hp, wh, bh, save=False)[0], None
-    h2h = torch.addmm(bh, hp, wh.t())
-    if mode == "lstm":
+    if mode != "lstm":
+        act = "relu" if mode == "rnn_relu" else "tanh"
         if train:
-            return LSTMCellFn.apply(xg, h2h, cp, 0.0)
-        hn, cn, _act = lstm_cell(xg, h2h, cp, 0.0, save=False)
-        return hn, cn
-    return _ACTS["relu" if mode == "rnn_relu" else "tanh"](xg + h2h), None
+            return RNNCellFn.apply(xg, hp, wh, bh, act), None
+        return rnn_cell(xg, hp, wh, bh, act, save=False)[0], None
+    h2h = torch.addmm(bh, hp, wh.t())
+    if train:
+        return LSTMCellFn.apply(xg, h2h, cp, 0.0)
+    hn, cn, _act = lstm_cell(xg, h2h, cp, 0.0, save=False)
+    return hn, cn
 
 
 def _run_layer(mode, x, wi, wh, bi, bh, h0, c0, reverse, train):

@@ -8,12 +8,13 @@ fused and unfused layouts. The cells only build symbols.
 
 The port runs every cell as its unrolled graph, as the JAX package does.
 Each step of an ``LSTMCell`` is the gate chain that the executor routes to
-the hand-written ``lstm_cell``/``lstm_cell_bwd`` kernels, and each step of
-a ``GRUCell``, its h2h product included, the chain it routes to
-``gru_cell``/``gru_cell_bwd``;
-``RNNCell`` (op by op: its step kernel is ``ROADMAP.md`` 2b item 5),
-``ResidualCell``, ``BidirectionalCell`` and ``FusedRNNCell`` (unfused into
-the other cells) build from ported ops alone. A cell that needs an op the
+the hand-written ``lstm_cell``/``lstm_cell_bwd`` kernels, each step of a
+``GRUCell``, its h2h product included, the chain it routes to
+``gru_cell``/``gru_cell_bwd``, and each step of an ``RNNCell`` with a tanh
+or relu activation, its h2h product included, the chain it routes to
+``rnn_cell``/``rnn_cell_bwd``; ``ResidualCell``, ``BidirectionalCell`` and
+``FusedRNNCell`` (unfused into the other cells) build from ported ops
+alone. A cell that needs an op the
 port does not have yet (``DropoutCell`` and ``ZoneoutCell``: ``Dropout``,
 ...) raises :class:`MXNetError` naming its ``ROADMAP.md`` item when its
 symbol is built, before any bind.

@@ -5,7 +5,9 @@ Counterpart of ``mxnet_tpu/serving/server.py``. A :class:`ModelServer`
 owns N :class:`Replica`\\ s — one per CUDA device, clamped to
 ``torch.cuda.device_count()`` — each holding one
 :class:`~mxnet_tpu_torch.predictor.Predictor` per configured bucket batch
-size over its own device-resident copy of the weights, plus a
+size (or per (batch, seq) bucket pair, when a ``sym_gen`` gives one
+symbol per sequence-length bucket) over its own device-resident copy of
+the weights, plus a
 :class:`~mxnet_tpu_torch.serving.batcher.DynamicBatcher` that coalesces
 concurrent requests into those fixed shapes and a
 :class:`~mxnet_tpu_torch.serving.replica.ReplicaPool` that routes every
@@ -14,11 +16,15 @@ one forward per (replica, bucket) before traffic is admitted, so CUDA
 module loading, cuDNN's algorithm choice and the kernel build never land
 behind a request.
 
+With sequence buckets (``ServingConfig(seq_buckets=...)`` and a
+``sym_gen``), each request's sequence axis is zero-padded up to the
+smallest covering bucket, only requests of one bucket share a batch, and
+each answer comes back padded to its bucket, as the reference serves them.
+
 Not yet ported, and refused with :class:`MXNetError` rather than ignored:
-device-group replicas (``mesh``), sequence buckets (``seq_buckets``,
-``sym_gen``), hot reload (:meth:`ModelServer.reload`, ``watch_dir``),
-the ``int8`` variant, checkpoint-directory parameters and the HTTP
-frontend (``max_body_bytes``).
+device-group replicas (``mesh``), hot reload (:meth:`ModelServer.reload`,
+``watch_dir``), the ``int8`` variant, checkpoint-directory parameters and
+the HTTP frontend (``max_body_bytes``).
 """
 
 from __future__ import annotations
@@ -82,14 +88,20 @@ class ServingConfig:
     cb_slow_ms
         Replica-pool health policy (watchdog, failover re-dispatches,
         hedging, circuit breaker); see ``serving/replica.py``.
-    mesh, seq_buckets, seq_axis, watch_dir, watch_period, max_body_bytes
+    seq_buckets : sequence of int or str
+        Sequence-length buckets (empty: fixed-shape serving); with them the
+        server needs a ``sym_gen``.
+    seq_axis : int
+        The per-sample axis that ``seq_buckets`` bucket on (0: the first).
+    mesh, watch_dir, watch_period, max_body_bytes
         Not yet ported: a value other than the default raises
         :class:`MXNetError`.
     """
 
     __slots__ = ("buckets", "max_delay", "queue_depth", "deadline",
                  "fold_bn", "replicas", "replica_timeout", "max_retries",
-                 "hedge", "cb_errors", "cb_probe", "cb_slow")
+                 "hedge", "cb_errors", "cb_probe", "cb_slow", "seq_buckets",
+                 "seq_axis")
 
     def __init__(self, buckets=None, max_delay_ms=None, queue_depth=None,
                  deadline_ms=None, watch_dir=None, watch_period=None,
@@ -102,11 +114,6 @@ class ServingConfig:
             mesh = _env.get("MXNET_SERVING_MESH")
         if str(mesh or "auto").strip().lower() not in ("", "auto"):
             raise _not_ported(f"serving mesh {mesh!r}")
-        if seq_buckets is None:
-            seq_buckets = _env.get("MXNET_SERVING_SEQ_BUCKETS")
-        if (seq_buckets.strip() if isinstance(seq_buckets, str)
-                else seq_buckets) or seq_axis is not None:
-            raise _not_ported("sequence-bucketed serving")
         if watch_period is None:
             watch_period = _env.get("MXNET_SERVING_WATCH")
         if watch_dir or float(watch_period) > 0:
@@ -148,6 +155,19 @@ class ServingConfig:
         self.cb_probe = _ms(cb_probe_ms, "MXNET_SERVING_CB_PROBE_MS",
                             floor=1.0)
         self.cb_slow = _ms(cb_slow_ms, "MXNET_SERVING_CB_SLOW_MS")
+        if seq_buckets is None:
+            seq_buckets = _env.get("MXNET_SERVING_SEQ_BUCKETS")
+        if isinstance(seq_buckets, str):
+            self.seq_buckets = (_parse_buckets(seq_buckets)
+                                if seq_buckets.strip() else ())
+        elif seq_buckets:
+            self.seq_buckets = _parse_buckets(
+                ",".join(map(str, seq_buckets)))
+        else:
+            self.seq_buckets = ()
+        if seq_axis is None:
+            seq_axis = _env.get("MXNET_SERVING_SEQ_AXIS")
+        self.seq_axis = max(0, int(seq_axis))
 
 
 def _load_params(source):
@@ -181,12 +201,14 @@ class ModelServer:
     Parameters
     ----------
     symbol : Symbol, json str, or symbol file path
-        The model graph (resolved exactly like ``Predictor``).
+        The model graph (resolved exactly like ``Predictor``); None with a
+        ``sym_gen``.
     params : dict / ``.params`` path / param blob
         Initial weights.
     input_shapes : dict name -> per-SAMPLE shape
         e.g. ``{"data": (3, 224, 224)}`` — no batch dimension; the bucket
-        predictors prepend their batch sizes.
+        predictors prepend their batch sizes (and, with seq buckets, set
+        the seq axis to their bucket's length).
     config : ServingConfig or None
         None reads the ``MXNET_SERVING_*`` defaults.
     ctx, dev_type, dev_id
@@ -194,9 +216,14 @@ class ModelServer:
         Without CUDA a gpu context raises :class:`MXNetError`.
     input_types : dict name -> dtype, optional
         Input dtypes (forwarded to each bucket ``Predictor``).
-    sym_gen, variant
-        Not yet ported: anything but ``None`` (or ``variant="f32"``)
-        raises :class:`MXNetError`.
+    sym_gen : callable, optional
+        ``sym_gen(seq_len)`` -> symbol (or BucketingModule's ``(symbol,
+        data_names, label_names)``), called once per seq bucket; required
+        with seq buckets, refused without them. BatchNorm folding is then
+        skipped.
+    variant
+        Not yet ported: anything but ``None`` or ``"f32"`` raises
+        :class:`MXNetError`.
 
     Lifecycle: ``warmup()`` (one forward per replica × bucket) →
     ``start()`` (accept traffic; implies warmup) → ``submit``/``predict``
@@ -209,27 +236,48 @@ class ModelServer:
         from ..context import Context
         from ..symbol import Symbol, fromjson, load as sym_load
 
-        if sym_gen is not None:
-            raise _not_ported("sym_gen (sequence-bucketed serving)")
         if variant not in (None, "f32"):
             raise _not_ported(f"serving variant {variant!r}")
         self.config = config or ServingConfig()
         self.logger = logger or logging.getLogger("mxnet_tpu_torch.serving")
         self.variant = "f32"
-        if isinstance(symbol, Symbol):
+        self._sym_gen = sym_gen
+        if sym_gen is not None:
+            # BucketingModule-style sequence serving: the symbol varies
+            # per seq-len bucket; fold_bn is skipped (folding per-bucket
+            # graphs against one shared weight set is out of scope)
+            if not self.config.seq_buckets:
+                raise MXNetError(
+                    "sym_gen given but no seq buckets configured "
+                    "(MXNET_SERVING_SEQ_BUCKETS / ServingConfig"
+                    "(seq_buckets=...))")
+            sym = None
+        elif self.config.seq_buckets:
+            raise MXNetError(
+                "seq buckets configured but no sym_gen given: "
+                "variable-length serving needs the per-seq-len symbol "
+                "factory (BucketingModule's sym_gen contract)")
+        elif isinstance(symbol, Symbol):
             sym = symbol
         elif isinstance(symbol, str) and symbol.lstrip().startswith("{"):
             sym = fromjson(symbol)
         else:
             sym = sym_load(symbol)
         arg_params, aux_params = _load_params(params)
-        self._symbol, arg_params, aux_params = self._fold(
-            sym, arg_params, aux_params)
+        if sym is None:
+            self._symbol = None
+        else:
+            self._symbol, arg_params, aux_params = self._fold(
+                sym, arg_params, aux_params)
         self._sample_shapes = {k: tuple(v) for k, v in input_shapes.items()}
         self._input_names = tuple(self._sample_shapes)
         self._input_types = dict(input_types or {})
         self._ctx = ctx or Context(dev_type, dev_id)
         self._ctx.torch_device()  # no card for a gpu context: raise now
+        # one symbol per seq bucket, generated once (every replica and
+        # batch bucket shares the same per-seq graph)
+        self._seq_syms = {s: self._gen_symbol(s)
+                          for s in self.config.seq_buckets}
 
         replicas = []
         for rid, rctx in enumerate(self._replica_contexts()):
@@ -238,8 +286,9 @@ class ModelServer:
             # tensors (as_in_context is a no-op in-context)
             r_args = self._to_ctx(arg_params, rctx)
             r_aux = self._to_ctx(aux_params, rctx)
-            preds = {b: self._make_predictor(shapes, rctx, r_args, r_aux)
-                     for b, shapes in self._bucket_items()}
+            preds = {key: self._make_predictor(bsym, shapes, rctx, r_args,
+                                               r_aux)
+                     for key, bsym, shapes in self._bucket_items()}
             replicas.append(Replica(rid, rctx, preds))
         self._pool = ReplicaPool(
             replicas,
@@ -267,17 +316,38 @@ class ModelServer:
         self.version = 0
 
     # -- construction helpers ------------------------------------------
-    def _bucket_items(self):
-        """``(bucket, batched input shapes)`` per served shape."""
-        for b in self.config.buckets:
-            yield b, {n: (b,) + shape
-                      for n, shape in self._sample_shapes.items()}
+    def _gen_symbol(self, seq_len):
+        sym = self._sym_gen(seq_len)
+        if isinstance(sym, tuple):  # (symbol, data_names, label_names)
+            sym = sym[0]
+        return sym
 
-    def _make_predictor(self, shapes, rctx, r_args, r_aux):
+    def _seq_shape(self, sample_shape, seq_len):
+        shape = list(sample_shape)
+        shape[self.config.seq_axis] = seq_len
+        return tuple(shape)
+
+    def _bucket_items(self):
+        """Yield ``(predictor key, symbol, batched input shapes)`` per
+        served shape: plain batch buckets, or ``(batch, seq)`` composite
+        keys when seq bucketing is on — every program one replica hosts
+        (and warmup runs)."""
+        for b in self.config.buckets:
+            if self.config.seq_buckets:
+                for s in self.config.seq_buckets:
+                    shapes = {n: (b,) + self._seq_shape(shape, s)
+                              for n, shape in self._sample_shapes.items()}
+                    yield (b, s), self._seq_syms[s], shapes
+            else:
+                shapes = {n: (b,) + shape
+                          for n, shape in self._sample_shapes.items()}
+                yield b, self._symbol, shapes
+
+    def _make_predictor(self, sym, shapes, rctx, r_args, r_aux):
         from ..predictor import Predictor
 
         return Predictor(
-            self._symbol, self._combined(r_args, r_aux), shapes, ctx=rctx,
+            sym, self._combined(r_args, r_aux), shapes, ctx=rctx,
             fold_bn=False, input_types=self._input_types or None)
 
     def _replica_contexts(self):
@@ -334,8 +404,9 @@ class ModelServer:
         return d
 
     def predictor(self, bucket, replica=0):
-        """A replica's underlying Predictor for one bucket (benchmarks and
-        tests; do not drive it while traffic is flowing)."""
+        """A replica's underlying Predictor for one bucket, a batch size or
+        a ``(batch, seq)`` pair (benchmarks and tests; do not drive it
+        while traffic is flowing)."""
         return self._pool.replicas[replica].predictors[bucket]
 
     @property
@@ -345,7 +416,8 @@ class ModelServer:
 
     # -- lifecycle -----------------------------------------------------
     def warmup(self):
-        """Run one forward per (replica, bucket) before traffic. Returns
+        """Run one forward per (replica, bucket) before traffic, a bucket
+        being a ``(batch, seq)`` pair under seq bucketing. Returns
         {replica: {bucket: warmed kinds}}."""
         done = {rep.rid: {} for rep in self._pool.replicas}
         with _tm.span("serving.warmup"):
@@ -392,18 +464,47 @@ class ModelServer:
     # -- request path --------------------------------------------------
     def _coerce(self, inputs):
         """Validate one request's inputs against the per-sample contract
-        and coerce to the BOUND dtypes."""
+        and coerce to the BOUND dtypes. Returns ``(coerced, group)`` —
+        with seq bucketing on, the variable seq axis is zero-padded up to
+        its seq-len bucket and ``group`` is that bucket (the batcher's
+        second bucketing axis); otherwise ``group`` is None."""
         if not isinstance(inputs, dict):
             if len(self._input_names) != 1:
                 raise MXNetError(
                     f"model has inputs {self._input_names}; pass a dict")
             inputs = {self._input_names[0]: inputs}
+        seq_buckets = self.config.seq_buckets
+        axis = self.config.seq_axis
+        group = seq_len = None
         out = {}
         for name, shape in self._sample_shapes.items():
             if name not in inputs:
                 raise MXNetError(f"missing input {name!r}")
             arr = np.asarray(inputs[name])
-            if tuple(arr.shape) != shape:
+            if seq_buckets:
+                if arr.ndim != len(shape):
+                    raise MXNetError(
+                        f"input {name!r}: rank {len(shape)} expected, "
+                        f"got {arr.ndim}")
+                if seq_len is None:
+                    # the FIRST input fixes the request's seq length;
+                    # every other input must agree (one shared bucket)
+                    seq_len = int(arr.shape[axis])
+                    if not 1 <= seq_len <= seq_buckets[-1]:
+                        raise MXNetError(
+                            f"input {name!r}: seq length {seq_len} not "
+                            f"served (seq buckets {list(seq_buckets)})")
+                    group = next(s for s in seq_buckets if s >= seq_len)
+                expect = self._seq_shape(shape, seq_len)
+                if tuple(arr.shape) != expect:
+                    raise MXNetError(
+                        f"input {name!r}: per-sample shape {expect} "
+                        f"expected, got {tuple(arr.shape)}")
+                if seq_len < group:
+                    pad = [(0, 0)] * arr.ndim
+                    pad[axis] = (0, group - seq_len)
+                    arr = np.pad(arr, pad)
+            elif tuple(arr.shape) != shape:
                 raise MXNetError(
                     f"input {name!r}: per-sample shape {shape} expected, "
                     f"got {tuple(arr.shape)}")
@@ -412,21 +513,23 @@ class ModelServer:
         unknown = set(inputs) - set(self._sample_shapes)
         if unknown:
             raise MXNetError(f"unknown inputs {sorted(unknown)}")
-        return out
+        return out, group
 
     def submit(self, inputs, deadline_ms=None):
         """Admit one request; returns a ``Future`` resolving to the list
-        of output arrays (one per model output, per-sample shape). Sheds
-        with ``ServerOverloaded`` when the (capacity-scaled) queue is
-        full, ``NoHealthyReplicas`` when the whole pool is down."""
+        of output arrays (one per model output, per-sample shape; with
+        seq bucketing the seq axis comes back padded to its bucket).
+        Sheds with ``ServerOverloaded`` when the (capacity-scaled) queue
+        is full, ``NoHealthyReplicas`` when the whole pool is down."""
         if self._closed:
             raise ServerClosed("server closed")
-        coerced = self._coerce(inputs)
+        coerced, group = self._coerce(inputs)
         if deadline_ms is None and self.config.deadline > 0:
             deadline_ms = self.config.deadline * 1e3
         deadline = (time.monotonic() + deadline_ms / 1e3
                     if deadline_ms else None)
-        return self._batcher.submit(coerced, deadline=deadline)
+        return self._batcher.submit(coerced, deadline=deadline,
+                                    group=group)
 
     def predict(self, inputs, timeout=None, deadline_ms=None):
         """Synchronous :meth:`submit` — blocks for the outputs."""

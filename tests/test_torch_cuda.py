@@ -96,7 +96,18 @@ views of one allocation each way; ``rmsprop_multi`` bit for bit, plain and
 centred, with wd, clip_gradient and clip_weights, on sizes no multiple of 4
 and views one float off the 16-byte alignment, and under the guard (the
 skip in one launch); the RNN op's gru and lstm modes at two layers and two
-directions launching L * D * T cell steps each way.
+directions launching L * D * T cell steps each way. The vanilla-RNN step:
+``rnn_cell`` and ``rnn_cell_bwd`` (the recurrent product inside each
+launch) for tanh and relu at the language model's (32, 200), at H = 37,
+N = 1, N = 33 and H = 1500 (the sums in passes), on ``i2h``, ``h_prev`` and
+the weight one and three floats off the 16-byte alignment, from a zero and
+a random state, with and without a bias, training and inference,
+``dnext_h`` given and None (``RNN_STEP_TOL``, rtol 1e-5 / atol 1e-5, for
+``next_h`` and ``dh_prev``, summed in another order than cuBLAS's;
+``LSTM_TOL`` for ``da``, the activation's derivative on the same
+``next_h``); relu's derivative 0 where ``next_h`` is 0; the refusals; the
+RNN op's rnn_tanh and rnn_relu modes and an unrolled ``RNNCell`` stack
+launching one cell step each way per step.
 """
 
 import math
@@ -118,6 +129,7 @@ from mxnet_tpu_torch.kernels import multibox_decode as dec_mod
 from mxnet_tpu_torch.kernels import multibox_target as mbt_mod
 from mxnet_tpu_torch.kernels import nms as nms_mod
 from mxnet_tpu_torch.kernels import rmsprop_multi as rms_mod
+from mxnet_tpu_torch.kernels import rnn_cell as rnn_mod
 from mxnet_tpu_torch.kernels import sgd_mom_multi as sgd_mod
 from mxnet_tpu_torch.kernels import softmax_output_bwd as sob_mod
 from mxnet_tpu_torch.kernels import softmax_rows as sm_mod
@@ -1915,3 +1927,130 @@ def test_rnn_op_launches_one_cell_step_each_way(card, mode):
     want = layers * dirs * steps
     assert (mod.LAUNCHES.value - before[0],
             mod.BWD_LAUNCHES.value - before[1]) == (want, want)
+
+
+# -- the vanilla-RNN step ----------------------------------------------------
+# next_h and dh_prev pass through the recurrent product, summed over H in
+# another order than cuBLAS (GRU_STEP_TOL's reading); da is the activation's
+# derivative on the same next_h (LSTM_TOL)
+RNN_STEP_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _rnn_inputs(device, n, hidden, offset):
+    """i2h, h_prev and the recurrent weight (each ``offset`` floats into
+    its storage), the recurrent bias and dnext_h."""
+    rng = np.random.default_rng(n + hidden + offset)
+
+    def t(*shape, scale=1.0, off=0):
+        a = scale * rng.standard_normal(math.prod(shape) + off)
+        return torch.from_numpy(a.astype(np.float32)).to(device)[off:].view(
+            shape)
+
+    lim = 1 / math.sqrt(hidden)
+    return (t(n, hidden, off=offset), t(n, hidden, off=offset),
+            t(hidden, hidden, scale=lim, off=offset), t(hidden, scale=lim),
+            t(n, hidden))
+
+
+@pytest.mark.parametrize("shape", [(32, 200), (3, 37), (1, 200), (33, 200),
+                                   (5, 1500)])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("act", ["tanh", "relu"])
+@pytest.mark.parametrize("h_zero, bias", [(False, True), (True, True),
+                                          (False, False)])
+def test_rnn_cell_kernels_match_plain(card, shape, offset, act, h_zero,
+                                      bias):
+    i2h, hp, w, b, dh = _rnn_inputs(card, *shape, offset)
+    if h_zero:
+        hp.zero_()
+    if not bias:
+        b = None
+    before = (rnn_mod.LAUNCHES.value, rnn_mod.BWD_LAUNCHES.value)
+    got, saved = rnn_mod.rnn_cell(i2h, hp, w, b, act)
+    want = rnn_mod.rnn_cell_plain(i2h, hp, w, b, act)
+    assert saved is got
+    torch.testing.assert_close(got, want, **RNN_STEP_TOL)
+    inf_h, none = rnn_mod.rnn_cell(i2h, hp, w, b, act, save=False)
+    assert none is None
+    torch.testing.assert_close(inf_h, want, **RNN_STEP_TOL)
+    for dnext in (dh, None):
+        da, dh_prev = rnn_mod.rnn_cell_bwd(dnext, want, hp, w, act)
+        want_da, want_dh = rnn_mod.rnn_cell_bwd_plain(dnext, want, hp, w,
+                                                      act)
+        torch.testing.assert_close(da, want_da, **LSTM_TOL)
+        torch.testing.assert_close(dh_prev, want_dh, **RNN_STEP_TOL)
+        if act == "relu":
+            assert not da[want == 0].any()
+    assert (rnn_mod.LAUNCHES.value, rnn_mod.BWD_LAUNCHES.value) == (
+        before[0] + 2, before[1] + 2)
+
+
+def test_rnn_cell_bwd_outputs_share_one_allocation(card):
+    i2h, hp, w, b, dh = _rnn_inputs(card, 7, 13, 0)
+    next_h, _saved = rnn_mod.rnn_cell(i2h, hp, w, b)
+    da, dh_prev = rnn_mod.rnn_cell_bwd(dh, next_h, hp, w)
+    assert da.is_contiguous() and dh_prev.is_contiguous()
+    assert dh_prev.data_ptr() == da.data_ptr() + 7 * 13 * 4
+
+
+def test_rnn_cell_kernels_raise_on_what_they_do_not_take(card):
+    i2h, hp, w, b, dh = _rnn_inputs(card, 4, 8, 0)
+    for args in ((i2h.double(), hp.double(), w.double(), b.double()),
+                 (i2h, hp[:, :7], w, b),
+                 (torch.cat([i2h, i2h], 1)[:, :8], hp, w, b),
+                 (i2h, hp.cpu(), w, b), (i2h, hp, w.t().contiguous().t(), b),
+                 (i2h, hp, w, b.cpu()), (i2h, hp, w[:, :7], b)):
+        with pytest.raises(MXNetError):
+            rnn_mod.rnn_cell(*args)
+    with pytest.raises(MXNetError):
+        rnn_mod.rnn_cell(i2h, hp, w, b, "sigmoid")
+    next_h, _saved = rnn_mod.rnn_cell(i2h, hp, w, b)
+    with pytest.raises(MXNetError):
+        rnn_mod.rnn_cell_bwd(dh.t().contiguous().t(), next_h, hp, w)
+    with pytest.raises(MXNetError):
+        rnn_mod.rnn_cell_bwd(dh, next_h, hp, w.cpu())
+    with pytest.raises(MXNetError):
+        rnn_mod.rnn_cell_bwd(dh.cpu(), next_h, hp, w)
+
+
+@pytest.mark.parametrize("mode", ["rnn_tanh", "rnn_relu"])
+def test_rnn_op_rnn_modes_launch_one_cell_step_each_way(card, mode):
+    import mxnet_tpu_torch as mx
+
+    steps, layers, dirs = 5, 2, 2
+    sym = mx.sym.RNN(mx.sym.Variable("data"), mode=mode, state_size=8,
+                     num_layers=layers, bidirectional=True,
+                     state_outputs=True, name="rnn")
+    exe = sym.simple_bind(mx.gpu(0), grad_req="write", data=(steps, 3, 4))
+    for name, arr in exe.arg_dict.items():
+        arr[:] = np.random.default_rng(len(name)).uniform(
+            -0.3, 0.3, arr.shape).astype(np.float32)
+    before = (rnn_mod.LAUNCHES.value, rnn_mod.BWD_LAUNCHES.value)
+    exe.forward(is_train=True)
+    exe.backward([mx.nd.ones(o.shape, ctx=mx.gpu(0)) for o in exe.outputs])
+    want = layers * dirs * steps
+    assert (rnn_mod.LAUNCHES.value - before[0],
+            rnn_mod.BWD_LAUNCHES.value - before[1]) == (want, want)
+
+
+@pytest.mark.parametrize("act", ["tanh", "relu"])
+def test_rnn_cell_stack_routes_each_step_to_the_kernels(card, act):
+    import mxnet_tpu_torch as mx
+
+    steps, hidden = 4, 8
+    stack = mx.rnn.SequentialRNNCell()
+    for i in range(2):
+        stack.add(mx.rnn.RNNCell(hidden, activation=act, prefix=f"r{i}_"))
+    out, _ = stack.unroll(steps, inputs=mx.sym.Variable("data"),
+                          merge_outputs=True)
+    shapes = {"data": (3, steps, 5), "r0_begin_state_0": (3, hidden),
+              "r1_begin_state_0": (3, hidden)}
+    exe = out.simple_bind(mx.gpu(0), grad_req="write", **shapes)
+    for name, arr in exe.arg_dict.items():
+        arr[:] = np.random.default_rng(len(name)).uniform(
+            -0.5, 0.5, arr.shape).astype(np.float32)
+    before = (rnn_mod.LAUNCHES.value, rnn_mod.BWD_LAUNCHES.value)
+    exe.forward(is_train=True)
+    exe.backward([mx.nd.ones(exe.outputs[0].shape, ctx=mx.gpu(0))])
+    assert (rnn_mod.LAUNCHES.value - before[0],
+            rnn_mod.BWD_LAUNCHES.value - before[1]) == (2 * steps, 2 * steps)

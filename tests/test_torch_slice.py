@@ -150,7 +150,7 @@ def test_model_server_matches_reference_per_request(model):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"mesh": "tp2"}, {"seq_buckets": (4, 8)}, {"watch_dir": "/nonexistent"},
+    {"mesh": "tp2"}, {"watch_period": 1.0}, {"watch_dir": "/nonexistent"},
     {"max_body_bytes": 1024},
 ])
 def test_unported_serving_options_raise(kwargs):
@@ -161,8 +161,10 @@ def test_unported_serving_options_raise(kwargs):
 def test_unported_server_arguments_raise(model):
     _jsym, psym, args, auxs = model
     params = _torch_params(args, auxs)
-    for kwargs in ({"variant": "int8"}, {"sym_gen": lambda n: psym}):
-        with pytest.raises(MXNetError, match="not yet ported"):
+    for kwargs, match in (({"variant": "int8"}, "not yet ported"),
+                          ({"sym_gen": lambda n: psym},
+                           "no seq buckets configured")):
+        with pytest.raises(MXNetError, match=match):
             ModelServer(psym, params, {"data": SAMPLE},
                         config=ServingConfig(buckets=(1,)), dev_type="cpu",
                         **kwargs)
