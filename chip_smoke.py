@@ -4,7 +4,8 @@ serving and training, LSTM-PTB training, SSD-VGG16 serving and training,
 DCGAN training, the repository's BASELINE training scripts, training
 windows, a bucketed GRU language model trained with RMSProp, the fused
 ``RNN`` op, the LSTM and vanilla-RNN language models served through
-sequence buckets, and an unrolled ``RNNCell`` stack trained.
+sequence buckets, an unrolled ``RNNCell`` stack trained, and the LSTM
+language model with dropout trained at Zaremba et al.'s medium widths.
 
     python3 chip_smoke.py
 
@@ -395,7 +396,40 @@ Run from the root of a checkout. Phases, each printing its own lines:
     relu) at (T, N, C) = ``RNN_ROUTE_SHAPE`` by ``simple_bind`` on the
     card and on the port's CPU path from the same weights, forward and
     backward within ``RNN_ROUTE_TOL`` in norm, exactly 2T ``rnn_cell``
-    and 2T ``rnn_cell_bwd`` launches.
+    and 2T ``rnn_cell_bwd`` launches;
+28. dropout kernel — ``dropout`` against ``dropout_plain`` bit for bit
+    (the plain version on CPU copies) at ``DROPOUT_SHAPES`` (the dropout
+    model's (20, 650), the RNN op's (35, 20, 650) with ``divide``, 1, 3
+    and 2**20 + 3 elements) and on views at a float offset of 1 and 3, at
+    p 0.1, 0.5 and 0.9 in float32, float16 and bfloat16; the kept share
+    over 2**24 draws within 5 sigma of keep; the same (key, step, serial,
+    stream) gives the same bits and each changes them; CPU tensors launch
+    nothing, float64, int32 and non-contiguous inputs are refused; times
+    warm, L2-cold and on the device beside the plain version, the bound,
+    ``F.dropout`` and the host microseconds a call;
+29. LSTM LM with dropout — ``lstm_lm_sym_gen(num_hidden=650,
+    num_embed=650, num_layers=2, vocab_size=10000, dropout=0.5)`` (Zaremba
+    et al.'s medium PTB widths) trained by ``BucketingModule.fit`` on
+    ``gpu(0)`` at batch 20 over buckets (10, 20, 35) with the LSTM-PTB
+    phase's Adam and metric (phase 9's checks, every step of bucket T
+    launching exactly T ``dropout``, 2T ``lstm_cell``, 2T
+    ``lstm_cell_bwd``, the second epoch's Train-Perplexity under
+    ``DROP_PPL_LIMIT``; ms a step, busy share and top operations by
+    bucket); an eval forward of each bucket launches no ``dropout``; then
+    one T = 35 step on the card against the port's CPU path from the same
+    weights and executor key (so the same masks), loss and every gradient
+    within ``DROP_PARITY_TOL``;
+30. RNN op with dropout — phase 24's setup in the lstm mode with p 0.5,
+    one and two directions, card against CPU from the same key within
+    ``RNN_OP_TOL``, L - 1 ``dropout`` launches in the training forward
+    and L - 1 in its backward (the same bits drawn again on the gradient)
+    beside L*D*T ``lstm_cell``;
+31. zoneout — ``ZoneoutCell(LSTMCell(650))`` at T = 8, N = 20 in training,
+    card against CPU from the same key within ``ZONEOUT_TOL``;
+32. op sweep — the 115 ops of the elementwise, reduce and tensor slice
+    (and ``Dropout``, ``softmax``, ``log_softmax``) once each on the card
+    against the port's CPU result, forward and gradient, at small shapes
+    (``OP_SWEEP_TOL``; the exact ops bit for bit).
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
 "device": {...}}``. Any failed phase exits non-zero before the result
@@ -422,6 +456,15 @@ rnn_tanh and rnn_relu cases on the port's CPU path in float32 and in
 float64 and prints how far they are apart (the readings ``LM_SERVE_TOL``,
 ``RNN_ROUTE_TOL`` and ``RNN_OP_TOL``'s rnn modes were fixed from; full
 width: run it on the card machine's CPU); it needs no card.
+
+    python3 chip_smoke.py --cpu-dropout 0 1
+
+runs phase 29's parity step, phase 31's zoneout and phase 30's RNN op
+cases on the port's CPU path in float32 and in float64 and prints how far
+they are apart, then phase 29's fit for each seed given and its
+Train-Perplexity by epoch (the readings ``DROP_PARITY_TOL``,
+``ZONEOUT_TOL`` and ``DROP_PPL_LIMIT`` were fixed from; full width: run it
+on the card machine's CPU); it needs no card.
 
     python3 chip_smoke.py --cpu-ssd
 
@@ -553,7 +596,8 @@ PORT_KERNELS = {"bn_stats": "bn_stats_kernel", "bn_act": "bn_act_",
                 "gru_cell_bwd": "gru_cell_bwd_kernel",
                 "rmsprop_multi": "rmsprop_multi_kernel",
                 "rnn_cell": "rnn_cell_kernel",
-                "rnn_cell_bwd": "rnn_cell_bwd_kernel"}
+                "rnn_cell_bwd": "rnn_cell_bwd_kernel",
+                "dropout": "dropout_kernel"}
 # kernels counted beside another one, in that one's module
 BWD_COUNTERS = {"lstm_cell_bwd": ("lstm_cell", "BWD_LAUNCHES"),
                 "l2norm_channel_bwd": ("l2norm_channel", "BWD_LAUNCHES"),
@@ -2898,10 +2942,12 @@ def mbt_edge_case(name):
 
 
 def same_bits(torch, got, want):
-    """``got`` and ``want`` (float32, any devices) hold the same bits:
-    signed zeros told apart, NaNs equal to themselves."""
-    return torch.equal(got.cpu().view(torch.int32),
-                       want.cpu().view(torch.int32))
+    """``got`` and ``want`` (one float dtype of 4 or 2 bytes, any devices)
+    hold the same bits: signed zeros told apart, NaNs equal to
+    themselves."""
+    view = {4: torch.int32, 2: torch.int16}[got.element_size()]
+    return got.dtype == want.dtype and torch.equal(
+        got.cpu().contiguous().view(view), want.cpu().contiguous().view(view))
 
 
 def bits_apart(torch, got, want):
@@ -4704,15 +4750,15 @@ def kernel_modules():
 
 
 def lm_fit(mx, seed, sym_gen, states, optimizer, optimizer_params,
-           **callbacks):
+           batch=LSTM_BATCH, buckets=LSTM_BUCKETS, **callbacks):
     """``BucketingModule.fit`` of a language model's ``sym_gen`` on the
     current context, parameters initialized from ``seed``:
-    ``LSTM_EPOCHS`` epochs of ``synthetic_corpus(10000, n=2000)`` at batch
-    ``LSTM_BATCH`` over ``LSTM_BUCKETS``. Returns ``(iterator, module,
+    ``LSTM_EPOCHS`` epochs of ``synthetic_corpus(10000, n=2000)`` at
+    ``batch`` over ``buckets``. Returns ``(iterator, module,
     Train-Perplexity of each epoch)``."""
     it = mx.rnn.BucketSentenceIter(
-        synthetic_corpus(LSTM["vocab_size"], n=2000), LSTM_BATCH,
-        buckets=list(LSTM_BUCKETS), invalid_label=0)
+        synthetic_corpus(LSTM["vocab_size"], n=2000), batch,
+        buckets=list(buckets), invalid_label=0)
     mx.random.seed(seed)
     mod = mx.mod.BucketingModule(sym_gen,
                                  default_bucket_key=it.default_bucket_key,
@@ -4750,7 +4796,8 @@ def cpu_perplexity(seeds, fit=lstm_fit, tag="cpu-perplexity"):
 
 
 def lm_training(torch, mx, card, tag, fit, cell, update, limit,
-                fused_fc=None):
+                fused_fc=None, batch=LSTM_BATCH, buckets=LSTM_BUCKETS,
+                per_step=None):
     """A language model's main path on ``gpu(0)``: ``fit(mx, seed,
     **callbacks)`` (:func:`lm_fit`) with every launch count at 0 just
     before it; every bucket visited, every step launching exactly 2T
@@ -4761,15 +4808,17 @@ def lm_training(torch, mx, card, tag, fit, cell, update, limit,
     and a profile; with ``fused_fc`` (a weight name's ending), one more
     step of the smallest bucket in which no ``F.linear`` call takes such a
     weight (:func:`fc_calls`: the cell kernel computes that product).
-    Returns the launches and the port kernels' device ms per step at the
-    widest bucket."""
+    ``batch`` and ``buckets`` are the fit's; ``per_step(T)`` adds the
+    launches of other kernels a step of bucket T must make (the dropout
+    model's T ``dropout``). Returns the launches and the port kernels'
+    device ms per step at the widest bucket."""
     from mxnet_tpu_torch import telemetry as tm
     from mxnet_tpu_torch import kernels as K
 
     t0 = time.perf_counter()
     kernels = launch_counters()
     plain_calls = count_plain_calls(torch, kernel_modules())
-    per_step = []  # (epoch, bucket, launches of the step, host s, event)
+    steps = []  # (epoch, bucket, launches of the step, host s, event)
     last = {}
 
     def on_batch(param):
@@ -4778,7 +4827,7 @@ def lm_training(torch, mx, card, tag, fit, cell, update, limit,
         ev.record()
         step = {k: v - last.get(k, 0) for k, v in now.items()}
         last.update(now)
-        per_step.append((param.epoch, param.locals["data_batch"].bucket_key,
+        steps.append((param.epoch, param.locals["data_batch"].bucket_key,
                          step, time.perf_counter(), ev))
 
     # the main path (on gpu(0)): every count at 0 just before, read just
@@ -4795,21 +4844,22 @@ def lm_training(torch, mx, card, tag, fit, cell, update, limit,
         w = {k: 0 for k in kernels}
         w.update({cell: 2 * seq_len, f"{cell}_bwd": 2 * seq_len, update: 1,
                   "softmax_rows": 1, "softmax_output_bwd": 1})
+        w.update(per_step(seq_len) if per_step else {})
         return w
 
-    visited = sorted({b for _e, b, _s, _t, _ev in per_step})
-    if visited != sorted(LSTM_BUCKETS):
-        fail(f"{tag} fit visited buckets {visited}, expected "
-             f"{LSTM_BUCKETS}")
-    bad = [(e, b, s) for e, b, s, _t, _ev in per_step if s != want(b)]
-    if bad or batches != len(per_step):
-        fail(f"{tag} launches per step: {len(bad)} of {len(per_step)} steps "
-             f"off, first {bad[:1]}; expected per step {want(8)} at T=8")
+    visited = sorted({b for _e, b, _s, _t, _ev in steps})
+    if visited != sorted(buckets):
+        fail(f"{tag} fit visited buckets {visited}, expected {buckets}")
+    bad = [(e, b, s) for e, b, s, _t, _ev in steps if s != want(b)]
+    if bad or batches != len(steps):
+        fail(f"{tag} launches per step: {len(bad)} of {len(steps)} steps "
+             f"off, first {bad[:1]}; expected per step "
+             f"{want(min(buckets))} at T={min(buckets)}")
     if any(plain_calls.values()):
         fail(f"plain versions ran on the card's main path: {plain_calls}")
     execs = [m._exec_group._exec for m in mod._buckets.values()]
     keys = {e._update_cache.get("key") for e in execs}
-    if builds != len(LSTM_BUCKETS) or len(keys) != 1 or None in keys:
+    if builds != len(buckets) or len(keys) != 1 or None in keys:
         fail(f"{update} tables: {builds} built for {len(execs)} bucket "
              f"executors, {len(keys)} distinct pointer sets; expected one "
              f"build per executor, all over the same storage")
@@ -4823,7 +4873,8 @@ def lm_training(torch, mx, card, tag, fit, cell, update, limit,
           f"{LSTM_EPOCHS} epochs, {batches} steps over buckets {visited} in "
           f"{fit_s:.1f} s (binding, cuBLAS's choices and first launches "
           f"included); launches exactly 2T {cell}, 2T {cell}_bwd, 1 "
-          f"{update}, 1 softmax_rows, 1 softmax_output_bwd per step of "
+          f"{update}, 1 softmax_rows, 1 softmax_output_bwd"
+          f"{', ' + str(per_step('T')) if per_step else ''} per step of "
           f"bucket T, totals {launches}; no plain version ran; {update} "
           f"tables built {builds} times (once per bucket executor, one "
           f"pointer set); Train-Perplexity by epoch "
@@ -4831,7 +4882,7 @@ def lm_training(torch, mx, card, tag, fit, cell, update, limit,
 
     # ms per step of the last epoch by bucket: between consecutive
     # batch-end callbacks (its first step follows the epoch-end work)
-    timed = [r for r in per_step if r[0] == LSTM_EPOCHS - 1]
+    timed = [r for r in steps if r[0] == LSTM_EPOCHS - 1]
     by_bucket = {}
     for prev, cur in zip(timed, timed[1:]):
         host = (cur[3] - prev[3]) * 1e3
@@ -4844,7 +4895,7 @@ def lm_training(torch, mx, card, tag, fit, cell, update, limit,
         stats[b] = (host, dev)
         print(f"[{tag}] bucket {b} on {card}: {host:.2f} ms per step by the "
               f"host's clock, {dev:.2f} ms by CUDA events "
-              f"({LSTM_BATCH * b * 1e3 / host:.0f} tokens/s) over "
+              f"({batch * b * 1e3 / host:.0f} tokens/s) over "
               f"{len(by_bucket[b])} steps of fit's last epoch", flush=True)
 
     # the device's busy share and top operations per bucket
@@ -4865,7 +4916,7 @@ def lm_training(torch, mx, card, tag, fit, cell, update, limit,
         print(f"[{tag}-profile]   port kernels per step: " + ", ".join(
             f"{k} {ms:.4f} ms in {cnt}" for k, (ms, cnt) in sorted(
                 ours.items())), flush=True)
-        if b == max(LSTM_BUCKETS):
+        if b == max(buckets):
             device_ms = {k: v[0] for k, v in ours.items()}
     if fused_fc is not None:
         b = min(batches_by_key)
@@ -8282,17 +8333,21 @@ def phase_gru_parity(torch, mx):
              f"tolerance in {bad}")
 
 
-def rnn_op_run(mx, mode, bidir, ctx, seed, dtype=np.float32):
+def rnn_op_run(mx, mode, bidir, ctx, seed, dtype=np.float32, p=0.0,
+               key=None, after_forward=None):
     """One training forward and backward of ``mx.sym.RNN`` (``mode``,
-    ``bidir``, ``RNN_OP_LAYERS`` layers, state_outputs) at
-    ``RNN_OP_SHAPE`` on ``ctx`` in ``dtype``, with random head gradients on
-    every output: data N(0, 1), parameters U(-0.07, 0.07) (about 1 /
-    sqrt(200)), states N(0, 0.5), all from ``seed``. Returns ``(executor,
-    {output or gradient name: float64 numpy})``."""
+    ``bidir``, ``RNN_OP_LAYERS`` layers, state_outputs, dropout ``p``
+    between layers) at ``RNN_OP_SHAPE`` on ``ctx`` in ``dtype``, with
+    random head gradients on every output: data N(0, 1), parameters
+    U(-0.07, 0.07) (about 1 / sqrt(200)), states N(0, 0.5), all from
+    ``seed``; ``key`` is the executor's random key (the same masks on two
+    devices); ``after_forward()`` runs between the forward and the
+    backward. Returns ``(executor, {output or gradient name: float64
+    numpy})``."""
     data = mx.sym.Variable("data")
     sym = mx.sym.RNN(data, mode=mode, state_size=RNN_OP_SHAPE[2],
                      num_layers=RNN_OP_LAYERS, bidirectional=bidir,
-                     state_outputs=True, name="rnn")
+                     state_outputs=True, p=p, name="rnn")
     exe = sym.simple_bind(ctx, grad_req="write",
                           type_dict={"data": np.dtype(dtype).name},
                           data=RNN_OP_SHAPE)
@@ -8306,7 +8361,11 @@ def rnn_op_run(mx, mode, bidir, ctx, seed, dtype=np.float32):
         else:
             v = 0.5 * rng.standard_normal(shape)
         exe.arg_dict[name][:] = v.astype(dtype)
+    if key is not None:
+        exe.rng_key = key
     exe.forward(is_train=True)
+    if after_forward is not None:
+        after_forward()
     heads = [rng.standard_normal(o.shape).astype(dtype) for o in exe.outputs]
     exe.backward([mx.nd.array(hd, ctx=ctx, dtype=dtype) for hd in heads])
     res = {f"out{i}": o.asnumpy().astype(np.float64)
@@ -9106,6 +9165,623 @@ def rnn_cpu_readings():
                       f"norm", flush=True)
 
 
+# --- the LSTM language model with dropout ---------------------------------
+# Zaremba, Sutskever & Vinyals, "Recurrent Neural Network Regularization"
+# (arXiv:1409.2329), the medium PTB model: 2 layers of 650 units, dropout
+# 0.5, vocabulary 10000, batch 20, unrolled 35 steps. The repo's model
+# drops between its layers only (a DropoutCell after each layer but the
+# last); the paper also drops the embedding's output and the top layer's
+DROP_LM = {"num_hidden": 650, "num_layers": 2, "num_embed": 650,
+           "vocab_size": 10000, "dropout": 0.5}
+DROP_BATCH = 20
+DROP_BUCKETS = (10, 20, 35)
+# Train-Perplexity of the dropout fit's second epoch must fall below it and
+# below the first epoch's. The port's CPU path at this size
+# (``--cpu-dropout 0 1 2``, on the card machine's CPU) read 8042.2, 8939.9
+# and 8397.1 over three initialization seeds (mean 8460, sd 452; first
+# epoch 31630..60813: the 650-wide Xavier start is overconfident; guessing
+# uniformly over 10000 words gives 10000). The card initializes from its
+# own generator, so the limit is the LSTM's, 95 % of uniform guessing,
+# ~2.3 sd above that mean
+DROP_PPL_LIMIT = 9500.0
+# one T = 35 training step (forward and backward) on the card against the
+# port's CPU path from the same weights and executor key, so both draw the
+# same masks: the loss and every gradient in norm, |card - cpu| <= tol *
+# |cpu|. The CPU path in float32 against float64 (``--cpu-dropout``) read
+# 6.66e-8 (loss) and 3.84e-7 to 4.47e-7 (gradients; worst tensor 1.33e-6)
+# in two calls, so 1e-5 leaves ~20x for the card's other summation order,
+# as LSTM_PARITY_TOL does
+DROP_PARITY_TOL = {"loss": 1e-5, "grad": 1e-5}
+DROP_PARITY_KEY = 0x5DEECE66D2B7E151
+# ZoneoutCell(LSTMCell(650)) at T = 8, N = 20 in training, card against
+# CPU from the same key: outputs and every gradient in norm. The CPU path
+# in float32 against float64 (``--cpu-dropout``) read 2.9e-7 (worst tensor
+# 4.17e-7): 1e-5 leaves ~25x. (The RNN op's lstm mode with p 0.5 read
+# 3.59e-7 / 4.3e-7 there, within RNN_OP_TOL's ~25x)
+ZONEOUT_SHAPE = (20, 8, 650)
+ZONEOUT_P = (0.3, 0.5)  # zoneout_outputs, zoneout_states
+ZONEOUT_TOL = 1e-5
+# dropout kernel phase: shapes, drop probabilities and types held bit for
+# bit to the plain version (run on CPU copies of the inputs)
+DROPOUT_SHAPES = (((20, 650), False), ((35, 20, 650), True), ((1,), False),
+                  ((3,), False), (((1 << 20) + 3,), False))
+DROPOUT_PS = (0.1, 0.5, 0.9)
+DROPOUT_SHARE_N = 1 << 24
+# the op sweep: every op this slice registers once on the card against the
+# port's CPU result; the exact ones (selections, indexing, rounding, shapes,
+# creation) bit for bit, the others within (rtol, atol): the card's
+# transcendental functions and sums round apart from the CPU's by an ulp
+# or two
+OP_SWEEP_TOL = (1e-5, 1e-6)
+
+
+def drop_fit(mx, seed, **callbacks):
+    """:func:`lm_fit` of the dropout model (``DROP_LM``) with the LSTM-PTB
+    phase's Adam and metric, at ``DROP_BATCH`` over ``DROP_BUCKETS``."""
+    return lm_fit(mx, seed, *mx.models.lstm_lm_sym_gen(**DROP_LM), "adam",
+                  LSTM_OPT, batch=DROP_BATCH, buckets=DROP_BUCKETS,
+                  **callbacks)
+
+
+def dropout_case_inputs(torch, shape, dtype, seed):
+    return torch.randn(shape, generator=torch.Generator().manual_seed(seed),
+                       dtype=torch.float32).to(dtype)
+
+
+def dropout_times(torch, dk, shape, divide):
+    """One call of ``dropout`` at ``shape`` (float32, p 0.5): warm, L2-cold,
+    on the device, the plain version on the card, the bound, one
+    ``F.dropout`` call (PyTorch's own mask, other semantics: a boolean
+    mask kept inside) and the wrapper's host microseconds a call."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda", 0)
+    x = torch.randn(shape, device=dev)
+    n = x.numel()
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
+
+    def run():
+        return dk.dropout(x, 0.5, DROP_PARITY_KEY, 1, 0, 0, divide)
+
+    def plain():
+        return dk.dropout_plain(x, 0.5, DROP_PARITY_KEY, 1, 0, 0, divide)
+
+    def lib():
+        return F.dropout(x, 0.5, True)
+
+    # x read, y (and without divide the mask) written; the Philox rounds
+    # are integer work far below the card's rate
+    ms_bound, by = bound(n * 4 * (2 if divide else 3), 0)
+    device, launches = step_device_ms(torch, run)
+    return {"what": f"{shape} float32 p 0.5{' divide' if divide else ''}",
+            "ms": cuda_ms(torch, run, reps=200),
+            "cold_ms": cold_ms(torch, run, flush), "device_ms": device,
+            "device_launches": launches,
+            "plain_ms": cuda_ms(torch, plain, reps=20, warmup=1),
+            "library_ms": cuda_ms(torch, lib, reps=200),
+            "library_cold_ms": cold_ms(torch, lib, flush),
+            "bound_ms": ms_bound, "bound_by": by,
+            "host_us": host_us(torch, run)}
+
+
+def phase_dropout_kernel(torch, mx):
+    """``dropout`` against ``dropout_plain`` bit for bit (the plain version
+    on CPU copies): ``DROPOUT_SHAPES`` (the dropout model's (20, 650), the
+    RNN op's (35, 20, 650) with ``divide``, 1, 3 and 2**20 + 3 elements)
+    and views at a float offset of 1 and 3, at each of ``DROPOUT_PS`` in
+    float32, float16 and bfloat16; the kept share over ``DROPOUT_SHARE_N``
+    draws within 5 sigma of keep; the same ``(key, step, serial, stream)``
+    gives the same bits and a change in any one changes them; refusals;
+    then the times. Returns the kernel's row."""
+    from mxnet_tpu_torch.kernels import dropout as dk
+
+    dev = torch.device("cuda", 0)
+    dtypes = (torch.float32, torch.float16, torch.bfloat16)
+    before = dk.LAUNCHES.value
+    calls, bad, err = 0, [], 0.0
+    rng = (DROP_PARITY_KEY, 7, 3, 2)
+
+    def worst(err, got, want):
+        # the largest |got - want| so far, as float64; a NaN stays NaN
+        if got is None:
+            return err
+        d = float((got.cpu().double() - want.double()).abs().max())
+        return err if math.isnan(err) or d <= err else d
+    for dt in dtypes:
+        for i, (shape, divide) in enumerate(DROPOUT_SHAPES):
+            x = dropout_case_inputs(torch, shape, dt, SEED + 90 + i)
+            xd = x.to(dev)
+            for p in DROPOUT_PS:
+                y, m = dk.dropout(xd, p, *rng, divide=divide)
+                calls += 1
+                yp, mp = dk.dropout_plain(x, p, *rng, divide=divide)
+                err = worst(worst(err, y, yp), m, mp)
+                if not (same_bits(torch, y.cpu(), yp) and (
+                        divide or same_bits(torch, m.cpu(), mp))):
+                    bad.append(f"{dt} {shape} divide={divide} p={p}")
+        for off in (1, 3):
+            base = dropout_case_inputs(torch, (4099 + off,), dt, SEED + 97)
+            view = base.to(dev)[off:off + 4099]
+            for divide in (False, True):
+                y, m = dk.dropout(view, 0.5, *rng, divide=divide)
+                calls += 1
+                yp, mp = dk.dropout_plain(base[off:off + 4099], 0.5, *rng,
+                                          divide=divide)
+                err = worst(worst(err, y, yp), m, mp)
+                if not (same_bits(torch, y.cpu(), yp) and (
+                        divide or same_bits(torch, m.cpu(), mp))):
+                    bad.append(f"{dt} view at offset {off} divide={divide}")
+    if bad:
+        fail(f"dropout differs from dropout_plain in {bad}")
+    ones = torch.ones(DROPOUT_SHARE_N, device=dev)
+    shares = {}
+    for p in DROPOUT_PS:
+        m = dk.dropout(ones, p, *rng)[1]
+        calls += 1
+        share = float((m != 0).double().mean())
+        sigma = math.sqrt(p * (1 - p) / DROPOUT_SHARE_N)
+        shares[p] = share
+        if abs(share - (1 - p)) > 5 * sigma:
+            fail(f"dropout p={p}: kept share {share} over "
+                 f"{DROPOUT_SHARE_N} draws, more than 5 sigma "
+                 f"({sigma:.3g}) from {1 - p}")
+    x = torch.randn(4096, device=dev)
+    base = dk.dropout(x, 0.5, *rng)[1]
+    again = dk.dropout(x, 0.5, *rng)[1]
+    calls += 2
+    if not torch.equal(base, again):
+        fail("dropout: the same (key, step, serial, stream) gave other bits")
+    for k in range(4):
+        moved = list(rng)
+        moved[k] = moved[k] ^ (1 << (40 if k == 0 else 3))
+        calls += 1
+        if torch.equal(base, dk.dropout(x, 0.5, *moved)[1]):
+            fail(f"dropout: changing {('key', 'step', 'serial', 'stream')[k]}"
+                 f" left the bits as they were")
+    torch.cuda.synchronize()
+    if dk.LAUNCHES.value - before != calls:
+        fail(f"dropout launches {dk.LAUNCHES.value - before}, expected "
+             f"{calls}")
+    # a CPU tensor takes the plain version (no launch); the card refuses
+    # float64, integers and non-contiguous views
+    n0 = dk.LAUNCHES.value
+    dk.dropout(torch.randn(8), 0.5, *rng)
+    if dk.LAUNCHES.value != n0:
+        fail("dropout launched the kernel for a CPU tensor")
+    for what, t in (("float64", torch.randn(8, device=dev,
+                                            dtype=torch.float64)),
+                    ("int32", torch.ones(8, device=dev, dtype=torch.int32)),
+                    ("a non-contiguous view",
+                     torch.randn(8, 6, device=dev)[:, :4])):
+        try:
+            dk.dropout(t, 0.5, *rng)
+        except mx.base.MXNetError:
+            continue
+        fail(f"dropout took {what}")
+    print(f"[dropout-kernel] dropout matches dropout_plain bit for bit in "
+          f"{calls - 9} calls (shapes {[s for s, _d in DROPOUT_SHAPES]}, "
+          f"views at float offsets 1 and 3; p {DROPOUT_PS}; float32, "
+          f"float16, bfloat16; divide where the RNN op takes it); kept share "
+          f"over {DROPOUT_SHARE_N} draws {shares}; the same key, step, "
+          f"serial and stream give the same bits and each changes them; CPU "
+          f"tensors launch nothing; float64, int32 and non-contiguous inputs "
+          f"refused", flush=True)
+    times = {"path": dropout_times(torch, dk, (DROP_BATCH, 650), False),
+             "rnn_op": dropout_times(torch, dk, (35, DROP_BATCH, 650), True)}
+    for key, r in times.items():
+        dev_ms = ("not recorded" if r["device_ms"] is None
+                  else f"{r['device_ms']:.4f} ms")
+        print(f"[dropout-kernel] dropout {r['what']}: {r['ms']:.4f} ms warm, "
+              f"{r['cold_ms']:.4f} ms L2-cold, {dev_ms} on the device in "
+              f"{r['device_launches']:g} launches a call, plain "
+              f"{r['plain_ms']:.4f} ms, F.dropout {r['library_ms']:.4f} ms "
+              f"({r['library_cold_ms']:.4f} cold), bound "
+              f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}), host "
+              f"{r['host_us']:.1f} us a call", flush=True)
+    r = times["path"]
+    row = {"name": "dropout", "route": "cuda",
+           "source": "mxnet_tpu_torch/csrc/dropout.cu",
+           "replaces": "mxnet_tpu/ops/defs_nn.py:627", "max_abs_err": err}
+    row.update({k: r[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "cold_ms",
+        "device_ms", "host_us", "device_launches", "library_cold_ms")})
+    row["rnn_op_shape"] = times["rnn_op"]
+    return row
+
+
+def phase_dropout_training(torch, mx, card):
+    """The dropout model's main path on ``gpu(0)``: :func:`lm_training` of
+    :func:`drop_fit`, every step of bucket T launching exactly T
+    ``dropout`` beside 2T ``lstm_cell`` and 2T ``lstm_cell_bwd``; then one
+    eval forward per bucket, which launches no ``dropout``."""
+    launches, device_ms = lm_training(
+        torch, mx, card, "lstm-dropout", drop_fit, "lstm_cell",
+        "adam_multi", DROP_PPL_LIMIT, batch=DROP_BATCH,
+        buckets=DROP_BUCKETS, per_step=lambda t: {"dropout": t})
+    drop_eval_check(torch, mx)
+    return launches, device_ms
+
+
+def drop_eval_check(torch, mx):
+    """An eval forward of each bucket of a freshly bound dropout model
+    launches no ``dropout``."""
+    from mxnet_tpu_torch.kernels import dropout as dk
+
+    sym_gen, states = mx.models.lstm_lm_sym_gen(**DROP_LM)
+    for t in DROP_BUCKETS:
+        sym = sym_gen(t)[0]
+        mod = mx.mod.Module(sym, state_names=states, context=mx.gpu(0))
+        shape = (DROP_BATCH, t)
+        mod.bind(data_shapes=[mx.io.DataDesc("data", shape)],
+                 label_shapes=[mx.io.DataDesc("softmax_label", shape)],
+                 for_training=False)
+        mod.init_params(initializer=mx.init.Xavier(factor_type="in",
+                                                   magnitude=2.34))
+        n0 = dk.LAUNCHES.value
+        batch = mx.io.DataBatch([mx.nd.ones(shape, ctx=mx.gpu(0))],
+                                [mx.nd.ones(shape, ctx=mx.gpu(0))])
+        mod.forward(batch, is_train=False)
+        torch.cuda.synchronize()
+        if dk.LAUNCHES.value != n0:
+            fail(f"an eval forward of bucket {t} launched "
+                 f"{dk.LAUNCHES.value - n0} dropout")
+    print(f"[lstm-dropout] an eval forward of each bucket {DROP_BUCKETS} "
+          f"launches no dropout", flush=True)
+
+
+def drop_parity_side(mx, ctx, dtype, seed):
+    """One T = 35 training step of the dropout model on ``ctx`` in
+    ``dtype`` from the weights of ``seed`` (Xavier-uniform, zero biases)
+    and the executor key ``DROP_PARITY_KEY``: ``{"loss": ..., "grad":
+    {name: gradient}}`` as float64 numpy."""
+    import torch
+
+    sym_gen, states = mx.models.lstm_lm_sym_gen(**DROP_LM)
+    t = max(DROP_BUCKETS)
+    sym, _states, params = lm_param_shapes(sym_gen, states,
+                                           DROP_LM["num_hidden"], t)
+    _sym, _st, args = lm_numpy(sym, states, params, seed)
+    mod = mx.mod.Module(sym, state_names=states, context=ctx)
+    shape = (DROP_BATCH, t)
+    mod.bind(data_shapes=[mx.io.DataDesc("data", shape, dtype)],
+             label_shapes=[mx.io.DataDesc("softmax_label", shape, dtype)])
+    mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu(), dtype=dtype)
+                                for k, v in args.items()})
+    exe = mod._exec_group._exec
+    exe.rng_key, exe.rng_step = DROP_PARITY_KEY, 0
+    rng = np.random.default_rng(seed + 1)
+    words = rng.integers(1, DROP_LM["vocab_size"], (DROP_BATCH, t + 1))
+    x, y = words[:, :t].astype(dtype), words[:, 1:].astype(dtype)
+    mod.forward_backward(mx.io.DataBatch([mx.nd.array(x, ctx=ctx,
+                                                      dtype=dtype)],
+                                         [mx.nd.array(y, ctx=ctx,
+                                                      dtype=dtype)]))
+    out = mod.get_outputs()[0]._data
+    loss = cross_entropy(torch, out, torch.from_numpy(y.reshape(-1)).to(
+        out.device))
+    return {"loss": {"loss": np.array([float(loss)])},
+            "grad": {n: exe.grad_dict[n].asnumpy().astype(np.float64)
+                     for n in args}}
+
+
+def phase_dropout_parity(torch, mx):
+    """One T = 35 step of the dropout model at full width on the card
+    against the port's CPU path, from the same weights and executor key
+    (the masks are the same bits on both), loss and every gradient in norm
+    within ``DROP_PARITY_TOL``; beside them the CPU path in float64."""
+    t0 = time.perf_counter()
+    seed = SEED + 91
+    card = drop_parity_side(mx, mx.gpu(0), np.float32, seed)
+    cpu = drop_parity_side(mx, mx.cpu(), np.float32, seed)
+    cpu64 = drop_parity_side(mx, mx.cpu(), np.float64, seed)
+    bad = []
+    for kind, tol in DROP_PARITY_TOL.items():
+        rel, worst, worst_rel = parity_diff(card[kind], cpu[kind])
+        rel64, worst64, worst64_rel = parity_diff(cpu[kind], cpu64[kind])
+        print(f"[lstm-dropout-parity] {kind}: |card - cpu| / |cpu| = "
+              f"{rel:.3g} (tol {tol}), worst {worst} {worst_rel:.3g}; "
+              f"|cpu - cpu float64| / |cpu float64| = {rel64:.3g}, worst "
+              f"{worst64} {worst64_rel:.3g}", flush=True)
+        if not rel <= tol:
+            bad.append(f"{kind} {rel:.3g} > {tol}")
+    print(f"[lstm-dropout-parity] one T={max(DROP_BUCKETS)} step at batch "
+          f"{DROP_BATCH}, widths {DROP_LM['num_hidden']}, losses card "
+          f"{card['loss']['loss'][0]} "
+          f"cpu {cpu['loss']['loss'][0]} cpu64 {cpu64['loss']['loss'][0]} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if bad:
+        fail(f"dropout LM step: card and CPU differ beyond the tolerance in "
+             f"{bad}")
+
+
+def phase_dropout_rnn_op(torch, mx):
+    """The ``RNN`` op (lstm, ``RNN_OP_LAYERS`` layers, p 0.5, one and two
+    directions) at ``RNN_OP_SHAPE`` on ``gpu(0)`` against the port's CPU
+    path from the same executor key: outputs and gradients within
+    ``RNN_OP_TOL``; launches exactly L - 1 ``dropout`` in the training
+    forward (one mask per layer output, the directions joined) and L - 1
+    more in its backward, which draws the same bits on the gradient,
+    beside L*D*T ``lstm_cell`` and ``lstm_cell_bwd``. Returns the
+    launches."""
+    from mxnet_tpu_torch import telemetry as tm
+    from mxnet_tpu_torch.kernels import dropout as dk
+
+    kernels = launch_counters()
+    steps = RNN_OP_SHAPE[0]
+    launches, bad = {}, []
+    for bidir in (False, True):
+        dirs = 2 if bidir else 1
+        seed = rnn_op_seed("lstm", bidir) + 5
+        fwd = []
+        tm.reset()
+        _exe, card = rnn_op_run(
+            mx, "lstm", bidir, mx.gpu(0), seed, p=0.5, key=DROP_PARITY_KEY,
+            after_forward=lambda: fwd.append(dk.LAUNCHES.value))
+        torch.cuda.synchronize()
+        got = {k: c.value for k, c in kernels.items() if c.value}
+        want = {"lstm_cell": RNN_OP_LAYERS * dirs * steps,
+                "lstm_cell_bwd": RNN_OP_LAYERS * dirs * steps,
+                "dropout": 2 * (RNN_OP_LAYERS - 1)}
+        if got != want or fwd != [RNN_OP_LAYERS - 1]:
+            fail(f"RNN op lstm p=0.5 bidirectional={bidir}: launches {got} "
+                 f"({fwd} dropout in the forward), expected {want} "
+                 f"({RNN_OP_LAYERS - 1} in the forward)")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        cpu = rnn_op_run(mx, "lstm", bidir, mx.cpu(), seed, p=0.5,
+                         key=DROP_PARITY_KEY)[1]
+        cpu64 = rnn_op_run(mx, "lstm", bidir, mx.cpu(), seed, np.float64,
+                           p=0.5, key=DROP_PARITY_KEY)[1]
+        worst, worst64 = (parity_diff(card, cpu)[1:],
+                          parity_diff(cpu, cpu64)[1:])
+        if not worst[1] <= RNN_OP_TOL:
+            bad.append(f"bidirectional={bidir} {worst[0]} {worst[1]:.3g}")
+        print(f"[rnn-op-dropout] RNN mode=lstm p=0.5 bidirectional={bidir} "
+              f"at {RNN_OP_SHAPE}, {RNN_OP_LAYERS} layers: launches {want} "
+              f"exactly ({RNN_OP_LAYERS - 1} dropout in the forward); card "
+              f"against the CPU path, worst {worst[0]} {worst[1]:.3g} in norm "
+              f"(limit {RNN_OP_TOL}); CPU float32 against float64 "
+              f"{worst64[0]} {worst64[1]:.3g}", flush=True)
+    if bad:
+        fail(f"RNN op with dropout: card and CPU differ beyond {RNN_OP_TOL} "
+             f"in {bad}")
+    return launches
+
+
+def zoneout_run(mx, ctx, dtype, seed):
+    """``ZoneoutCell(LSTMCell(650))`` unrolled over ``ZONEOUT_SHAPE`` in
+    training on ``ctx`` in ``dtype`` with the executor key
+    ``DROP_PARITY_KEY``: ``{output or gradient name: float64 numpy}``."""
+    n, t, h = ZONEOUT_SHAPE
+    cell = mx.rnn.ZoneoutCell(mx.rnn.LSTMCell(h, prefix="zo_"),
+                              zoneout_outputs=ZONEOUT_P[0],
+                              zoneout_states=ZONEOUT_P[1])
+    outs, _ = cell.unroll(t, inputs=mx.sym.Variable("data"),
+                          merge_outputs=True)
+    shapes = {"data": ZONEOUT_SHAPE}
+    shapes.update({a: (n, h) for a in outs.list_arguments()
+                   if "begin_state" in a})
+    dt = np.dtype(dtype).name
+    exe = outs.simple_bind(ctx, grad_req="write",
+                           type_dict={a: dt for a in outs.list_arguments()},
+                           **shapes)
+    rng = np.random.default_rng(seed)
+    for name, arr in exe.arg_dict.items():
+        scale = 1 / math.sqrt(h) if name.endswith("weight") else 0.5
+        arr[:] = (rng.standard_normal(arr.shape) * scale).astype(dtype)
+    exe.rng_key, exe.rng_step = DROP_PARITY_KEY, 0
+    exe.forward(is_train=True)
+    head = rng.standard_normal(exe.outputs[0].shape).astype(dtype)
+    exe.backward([mx.nd.array(head, ctx=ctx, dtype=dtype)])
+    res = {"out": exe.outputs[0].asnumpy().astype(np.float64)}
+    res.update({f"d{k}": g.asnumpy().astype(np.float64)
+                for k, g in exe.grad_dict.items()})
+    return res
+
+
+def phase_zoneout(torch, mx):
+    """``ZoneoutCell(LSTMCell(650))`` at T = 8, N = 20 in training on the
+    card against the port's CPU path from the same key, within
+    ``ZONEOUT_TOL`` in norm (beside it the CPU path in float64)."""
+    from mxnet_tpu_torch.kernels import dropout as dk
+
+    n0 = dk.LAUNCHES.value
+    card = zoneout_run(mx, mx.gpu(0), np.float32, SEED + 93)
+    torch.cuda.synchronize()
+    drops = dk.LAUNCHES.value - n0
+    cpu = zoneout_run(mx, mx.cpu(), np.float32, SEED + 93)
+    cpu64 = zoneout_run(mx, mx.cpu(), np.float64, SEED + 93)
+    rel, worst, worst_rel = parity_diff(card, cpu)
+    _r64, worst64, worst64_rel = parity_diff(cpu, cpu64)
+    print(f"[zoneout] ZoneoutCell(LSTMCell({ZONEOUT_SHAPE[2]}), {ZONEOUT_P}) "
+          f"at (N, T, C) "
+          f"= {ZONEOUT_SHAPE} in training: {drops} dropout launches (a mask "
+          f"for the output and for each state a step but the last step's "
+          f"states, which no output reads); card against the CPU "
+          f"path {rel:.3g} in norm, worst {worst} {worst_rel:.3g} (tol "
+          f"{ZONEOUT_TOL}); CPU float32 against float64 worst {worst64} "
+          f"{worst64_rel:.3g}", flush=True)
+    want = 3 * ZONEOUT_SHAPE[1] - 2
+    if not rel <= ZONEOUT_TOL or drops != want:
+        fail(f"ZoneoutCell: card against CPU {rel:.3g} (tol {ZONEOUT_TOL}), "
+             f"{drops} dropout launches (expected {want})")
+
+
+# the op sweep's inputs: (params, input shapes or arrays, indices of inputs
+# with a gradient); the ops missing here take (3, 4) inputs in (0.2, 0.9)
+# (binary ops two of them) and a gradient on each
+SWEEP_IDX = np.array([0, 2, 1, 2], np.float32)
+SWEEP = {
+    "add_n": ({"num_args": 3}, [(3, 4)] * 3, [0, 1, 2]),
+    "ElementWiseSum": ({"num_args": 2}, [(3, 4)] * 2, [0, 1]),
+    "_sum": ({"num_args": 2}, [(3, 4)] * 2, [0, 1]),
+    "stack": ({"num_args": 2, "axis": 1}, [(3, 4)] * 2, [0, 1]),
+    "SwapAxis": ({"dim1": 0, "dim2": 1}, [(3, 4)], [0]),
+    "swapaxes": ({"dim1": 0, "dim2": 1}, [(3, 4)], [0]),
+    "dot": ({}, [(3, 4), (4, 5)], [0, 1]),
+    "batch_dot": ({}, [(2, 3, 4), (2, 4, 5)], [0, 1]),
+    "slice": ({"begin": (0, -3), "end": (2, None)}, [(3, 4)], [0]),
+    "crop": ({"begin": (0, 1), "end": (2, 3)}, [(3, 4)], [0]),
+    "slice_axis": ({"axis": 1, "begin": 1, "end": 3}, [(3, 4)], [0]),
+    "take": ({"mode": "wrap"}, [(3, 4), SWEEP_IDX], [0]),
+    "batch_take": ({}, [(4, 3), SWEEP_IDX], [0]),
+    "pick": ({"axis": 1}, [(4, 3), SWEEP_IDX], [0]),
+    "one_hot": ({"depth": 3}, [SWEEP_IDX], []),
+    "gather_nd": ({}, [(3, 4), np.array([[0, 2], [1, 3]], np.float32)], [0]),
+    "clip": ({"a_min": 0.3, "a_max": 0.6}, [(3, 4)], [0]),
+    "repeat": ({"repeats": 2, "axis": 0}, [(3, 4)], [0]),
+    "tile": ({"reps": (2, 1)}, [(3, 4)], [0]),
+    "reverse": ({"axis": (1,)}, [(3, 4)], [0]),
+    "flip": ({"axis": (0,)}, [(3, 4)], [0]),
+    "where": ({}, [np.array([1, 0, 1], np.float32), (3, 4), (3, 4)], [1, 2]),
+    "broadcast_to": ({"shape": (2, 3, 4)}, [(1, 3, 4)], [0]),
+    "broadcast_axis": ({"axis": (0,), "size": (3,)}, [(1, 4)], [0]),
+    "broadcast_axes": ({"axis": (0,), "size": (3,)}, [(1, 4)], [0]),
+    "_zeros": ({"shape": (2, 3)}, [], []),
+    "_ones": ({"shape": (2, 3)}, [], []),
+    "_full": ({"shape": (2, 3), "value": 1.5}, [], []),
+    "_arange": ({"start": 0.0, "stop": 6.0, "step": 1.5}, [], []),
+    "topk": ({"k": 2, "ret_typ": "both"}, [(3, 4)], [0]),
+    "Dropout": ({"p": 0.5}, [(3, 4)], [0]),
+}
+SWEEP_INEXACT = {
+    "cbrt", "rcbrt", "exp", "log", "log10", "log2", "log1p", "expm1", "sin",
+    "cos", "tan", "arcsin", "arccos", "arctan", "degrees", "radians", "sinh",
+    "cosh", "tanh", "arcsinh", "arccosh", "arctanh", "gamma", "gammaln",
+    "sigmoid", "softsign", "erf", "sqrt", "rsqrt", "reciprocal", "softmax",
+    "log_softmax", "_div", "_Div", "elemwise_div", "broadcast_div", "_power",
+    "_Power", "broadcast_power", "broadcast_hypot", "_mod", "_Mod",
+    "broadcast_mod", "sum", "sum_axis", "mean", "prod", "nansum", "nanprod",
+    "norm", "dot", "batch_dot", "add_n", "ElementWiseSum", "_sum",
+    "broadcast_axis", "broadcast_axes", "broadcast_to", "tile", "square"}
+# the names the elementwise, reduce and tensor slice registers
+SWEEP_FILES = ("defs_elemwise", "defs_reduce", "defs_tensor")
+SWEEP_BEFORE = {
+    "_plus", "_Plus", "elemwise_add", "_minus", "_Minus", "elemwise_sub",
+    "_mul", "_Mul", "elemwise_mul", "broadcast_sub", "broadcast_minus",
+    "Reshape", "reshape", "Flatten", "flatten", "transpose", "expand_dims",
+    "identity", "_copy", "Concat", "concat", "SliceChannel", "split",
+    "Embedding"}
+
+
+def sweep_names(mx):
+    """The 115 op names this slice registers."""
+    from mxnet_tpu_torch.ops import registry as reg
+
+    cmp = ("equal", "not_equal", "greater", "greater_equal", "lesser",
+           "lesser_equal")
+    old = SWEEP_BEFORE | {f"_{c}" for c in cmp} | {
+        f"broadcast_{c}" for c in cmp}
+    names = {n for n, op in reg._OPS.items()
+             if op.fn.__module__.rsplit(".", 1)[-1] in SWEEP_FILES
+             and n not in old and "_scalar" not in n and "Scalar" not in n}
+    return sorted(names | {"Dropout", "softmax", "log_softmax"})
+
+
+def sweep_case(mx, name, ctx, seed):
+    """One op of the sweep on ``ctx``: its outputs and input gradients in
+    a training forward and backward, as float64 numpy."""
+    from mxnet_tpu_torch.ops import registry as reg
+
+    params, inputs, grads = SWEEP.get(name, (None, None, None))
+    op = reg.get(name)
+    if params is None:
+        n_in = len(op.arg_names(op.parse_params({})))
+        params, inputs, grads = {}, [(3, 4)] * n_in, list(range(n_in))
+    names = op.arg_names(op.parse_params(params))
+    rng = np.random.default_rng(seed)
+    arrays = [a if isinstance(a, np.ndarray)
+              else rng.uniform(0.2, 0.9, a).astype(np.float32)
+              for a in inputs]
+    sym = getattr(mx.sym, name)(*[mx.sym.Variable(n) for n in names],
+                                name="op", **params)
+    req = {n: ("write" if i in grads else "null")
+           for i, n in enumerate(names)}
+    exe = sym.simple_bind(ctx, grad_req=req,
+                          **{n: a.shape for n, a in zip(names, arrays)})
+    exe.forward(is_train=name != "Dropout",
+                **{n: mx.nd.array(a, ctx=ctx) for n, a in zip(names,
+                                                              arrays)})
+    res = {f"out{i}": o.asnumpy().astype(np.float64)
+           for i, o in enumerate(exe.outputs)}
+    if grads and name != "Dropout":
+        heads = [rng.standard_normal(o.shape).astype(np.float32)
+                 for o in exe.outputs]
+        exe.backward([mx.nd.array(h, ctx=ctx) for h in heads])
+        res.update({f"d{names[i]}": exe.grad_dict[names[i]].asnumpy()
+                    .astype(np.float64) for i in grads})
+    return res
+
+
+def phase_op_sweep(torch, mx):
+    """Every op this slice registers once on the card against the port's
+    CPU result: the forward and, where the op has one, the gradient, at
+    small shapes (``OP_SWEEP_TOL``; the exact ops bit for bit)."""
+    t0 = time.perf_counter()
+    names = sweep_names(mx)
+    if len(names) != 115:
+        fail(f"op sweep: {len(names)} names, expected 115")
+    rtol, atol = OP_SWEEP_TOL
+    bad = []
+    for i, name in enumerate(names):
+        card = sweep_case(mx, name, mx.gpu(0), SEED + 100 + i)
+        cpu = sweep_case(mx, name, mx.cpu(), SEED + 100 + i)
+        for k, want in cpu.items():
+            got = card[k]
+            if name in SWEEP_INEXACT:
+                ok = got.shape == want.shape and np.allclose(
+                    got, want, rtol=rtol, atol=atol, equal_nan=True)
+            else:
+                ok = got.shape == want.shape and np.array_equal(
+                    got, want, equal_nan=True)
+            if not ok:
+                bad.append(f"{name} {k}")
+    torch.cuda.synchronize()
+    print(f"[op-sweep] {len(names)} ops of the elementwise, reduce and "
+          f"tensor slice once on the card against the CPU path, forward and "
+          f"gradient ({len(names) - len(SWEEP_INEXACT & set(names))} bit for "
+          f"bit, the rest within rtol {rtol}, atol {atol}) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if bad:
+        fail(f"op sweep: card and CPU differ in {bad}")
+
+
+def dropout_cpu_readings(seeds):
+    """The readings ``DROP_PPL_LIMIT``, ``DROP_PARITY_TOL`` and
+    ``ZONEOUT_TOL`` were fixed from, and the RNN op's with dropout: the
+    dropout fit's Train-Perplexity on the port's CPU path for each seed,
+    and the CPU path in float32 against float64 for the parity step, the
+    zoneout check and the RNN op. Needs no card (full width: run it on a
+    machine with many cores)."""
+    import mxnet_tpu_torch as mx
+
+    with mx.cpu():
+        seed = SEED + 91
+        cpu = drop_parity_side(mx, mx.cpu(), np.float32, seed)
+        cpu64 = drop_parity_side(mx, mx.cpu(), np.float64, seed)
+        for kind in DROP_PARITY_TOL:
+            rel, worst, worst_rel = parity_diff(cpu[kind], cpu64[kind])
+            print(f"[cpu-dropout] T={max(DROP_BUCKETS)} step {kind}: float32 "
+                  f"against float64 {rel:.3g} in norm, worst {worst} "
+                  f"{worst_rel:.3g}", flush=True)
+        rel, worst, worst_rel = parity_diff(
+            zoneout_run(mx, mx.cpu(), np.float32, SEED + 93),
+            zoneout_run(mx, mx.cpu(), np.float64, SEED + 93))
+        print(f"[cpu-dropout] zoneout: float32 against float64 {rel:.3g} in "
+              f"norm, worst {worst} {worst_rel:.3g}", flush=True)
+        for bidir in (False, True):
+            s = rnn_op_seed("lstm", bidir) + 5
+            _rel, worst, worst_rel = parity_diff(
+                rnn_op_run(mx, "lstm", bidir, mx.cpu(), s, p=0.5,
+                           key=DROP_PARITY_KEY)[1],
+                rnn_op_run(mx, "lstm", bidir, mx.cpu(), s, np.float64,
+                           p=0.5, key=DROP_PARITY_KEY)[1])
+            print(f"[cpu-dropout] RNN op lstm p=0.5 bidirectional={bidir}: "
+                  f"float32 against float64, worst {worst} {worst_rel:.3g}",
+                  flush=True)
+    cpu_perplexity(seeds, fit=drop_fit, tag="cpu-dropout")
+
+
 def main():
     if sys.argv[1:2] == ["--cpu-perplexity"]:
         cpu_perplexity([int(a) for a in sys.argv[2:]])
@@ -9115,6 +9791,9 @@ def main():
         return
     if sys.argv[1:2] == ["--cpu-rnn"]:
         rnn_cpu_readings()
+        return
+    if sys.argv[1:2] == ["--cpu-dropout"]:
+        dropout_cpu_readings([int(a) for a in sys.argv[2:]])
         return
     if sys.argv[1:2] == ["--cpu-ssd"]:
         ssd_cpu_readings()
@@ -9262,6 +9941,12 @@ def main():
     kernels += phase_rnn_kernels(torch, mx)
     lm_served, lm_times = phase_lm_serving(torch, mx, card)
     rnn_route = phase_rnn_route(torch, mx)
+    kernels.append(phase_dropout_kernel(torch, mx))
+    drop_trained, drop_device_ms = phase_dropout_training(torch, mx, card)
+    phase_dropout_parity(torch, mx)
+    drop_rnn_op = phase_dropout_rnn_op(torch, mx)
+    phase_zoneout(torch, mx)
+    phase_op_sweep(torch, mx)
     for k in kernels:
         name = k["name"]
         k["launches_serving"] = served.get(name, 0)
@@ -9276,6 +9961,8 @@ def main():
         k["launches_rnn_op"] = rnn_op.get(name, 0)
         k["launches_lm_serving"] = lm_served.get(name, 0)
         k["launches_rnn_route"] = rnn_route.get(name, 0)
+        k["launches_lstm_dropout"] = drop_trained.get(name, 0)
+        k["launches_rnn_op_dropout"] = drop_rnn_op.get(name, 0)
         if name in mnist_paths:
             k.setdefault("paths", {}).update(mnist_paths[name])
             k["max_abs_err"] = max(k["max_abs_err"], *(
@@ -9286,13 +9973,16 @@ def main():
                          + k["launches_baseline"] + k["launches_windows"]
                          + k["launches_gru"] + k["launches_rnn_op"]
                          + k["launches_lm_serving"]
-                         + k["launches_rnn_route"])
+                         + k["launches_rnn_route"]
+                         + k["launches_lstm_dropout"]
+                         + k["launches_rnn_op_dropout"])
         k["step_device_ms"] = device_ms.get(name)
         k["lstm_step_device_ms"] = lstm_device_ms.get(name)
         k["ssd_forward_device_ms"] = ssd_device_ms.get(name)
         k["ssd_step_device_ms"] = ssd_train_device_ms.get(name)
         k["dcgan_step_device_ms"] = dcgan_device_ms.get(name)
         k["gru_step_device_ms"] = gru_device_ms.get(name)
+        k["lstm_dropout_step_device_ms"] = drop_device_ms.get(name)
         if name in ("lstm_cell", "gru_cell", "rnn_cell"):
             k["rnn_op"] = {key: t for key, t in rnn_op_times.items()
                            if key.startswith(name[:3])}

@@ -18,7 +18,7 @@ step's forward, backward and update launches on the stream, with no host
 wait between them. ``set_monitor_callback`` and ``partial_forward`` run
 the graph op by op as written, as the reference's interpret mode does;
 ``reshape`` and ``debug_str`` are the reference's. The NHWC,
-rematerialisation, device-placement and rng branches of the reference
+rematerialisation and device-placement branches of the reference
 interpreter and small-parameter packing are not yet ported; CUDA-graph
 capture of the step is a later performance change (``ROADMAP.md``).
 
@@ -76,6 +76,15 @@ as it was built.
 A ``MultiBoxPrior`` depends only on its input's shape: the graph computes
 its anchors once per shape and device and holds them, unless they are a
 head of the graph (a caller may write to an output).
+
+Random ops (``need_rng``: ``Dropout``, the ``RNN`` op) draw counter-based
+bits, as the reference folds keys (``mxnet_tpu/executor.py:251-258, 449-453,
+1189``): each executor takes a key from :func:`random.next_key` at bind,
+each ``need_rng`` node a serial in topological order, and every
+``forward`` advances the step count, training or not (a window's steps
+each run one). A random node runs with ``OpMode.rng = (key, step,
+serial)``; the key and step reach the kernel by value, so nothing is
+uploaded and the host never waits.
 """
 
 from __future__ import annotations
@@ -85,6 +94,7 @@ import functools
 import torch
 
 from . import env as _env
+from . import random as _random
 from .base import MXNetError, np_dtype
 from .context import Context
 from .kernels.gru_cell import GRUCellFn, gru_cell
@@ -511,6 +521,11 @@ class _Graph:
         self._arg_index = {n: i for i, n in enumerate(self.arg_names)}
         self._aux_index = {n: i for i, n in enumerate(self.aux_names)}
         self.heads = symbol._outputs
+        # serials of the random nodes, in topological order
+        self.rng_serial = {}
+        for node in self.topo:
+            if not node.is_variable and node.op.need_rng:
+                self.rng_serial[id(node)] = len(self.rng_serial)
         consumers = _consumers(symbol, self.topo)
         self.fused = _fused_bn_relu(self.topo, consumers)
         self._fused_bns = {id(bn): slope for bn, slope in self.fused.values()}
@@ -573,9 +588,11 @@ class _Graph:
             self._last_use[id(node)] = len(self.topo)
 
     def evaluate(self, arg_vals, aux_vals, is_train, device=None,
-                 monitor=None, monitor_all=False, limit=None):
+                 monitor=None, monitor_all=False, limit=None, rng=None):
         """Run the graph on ``device`` (where an op without inputs places
-        its output). Returns the head outputs.
+        its output). Returns the head outputs. ``rng`` is the executor's
+        ``(key, step)``: each random node runs with ``(key, step,
+        serial)``.
 
         With ``monitor`` (a callback ``(name, tensor)``) or ``limit`` every
         op runs as written, no fused route (the reference's interpret
@@ -603,7 +620,12 @@ class _Graph:
             if reads is None:
                 continue  # inside a fused cell step
             ins = [env[id(inode)][idx] for (inode, idx) in reads]
-            if plain:
+            serial = self.rng_serial.get(id(node))
+            if serial is not None and rng is not None:
+                node_mode = OpMode(is_train=is_train, device=device,
+                                   rng=(rng[0], rng[1], serial))
+                outs, new_aux = node.op.apply(ins, node.params(), node_mode)
+            elif plain:
                 outs, new_aux = node.op.apply(ins, node.params(), mode)
             elif id(node) in self._routes:
                 outs, new_aux = self._routes[id(node)][1](ins, mode), []
@@ -703,6 +725,10 @@ class Executor:
         self._guard_dev = None  # device int32 [total, consecutive] skips
         self._update_cache = {}  # the update kernel's packs or table
         self._torch_device = None
+        # the random ops' key, taken from the global chain at bind, and the
+        # forward count folded in with it
+        self.rng_key = _random.next_key()
+        self.rng_step = 0
 
     @staticmethod
     def _norm_arrays(arrays, names, what, allow_missing=False):
@@ -760,15 +786,17 @@ class Executor:
         self._write_inputs(kwargs, "forward")
         self._recorded = None
         self._grads_fresh = False
+        self.rng_step += 1
         aux_vals = [self.aux_dict[n]._data for n in self.aux_names]
         monitor = {"monitor": self._monitor_callback,
                    "monitor_all": self._monitor_all}
+        rng = (self.rng_key, self.rng_step)
         if not is_train:
             with torch.inference_mode():
                 outs = self.graph.evaluate(
                     [self.arg_dict[n]._data for n in self.arg_names],
                     aux_vals, is_train=False, device=self._device(),
-                    **monitor)
+                    rng=rng, **monitor)
             self._outputs = [NDArray(o) for o in outs]
             return list(self._outputs)
         if nonfinite_guard_on():
@@ -785,7 +813,8 @@ class Executor:
             arg_vals.append(t)
         with torch.enable_grad():
             outs = self.graph.evaluate(arg_vals, aux_vals, is_train=True,
-                                       device=self._device(), **monitor)
+                                       device=self._device(), rng=rng,
+                                       **monitor)
         self._recorded = (outs, leaves)
         self._outputs = [NDArray(o.detach()) for o in outs]
         return list(self._outputs)
@@ -1051,7 +1080,8 @@ class Executor:
         with torch.inference_mode():
             outs = self.graph.evaluate(
                 [self.arg_dict[n]._data for n in self.arg_names], aux,
-                is_train=is_train, device=self._device(), limit=num_nodes)
+                is_train=is_train, device=self._device(), limit=num_nodes,
+                rng=(self.rng_key, self.rng_step))
         return [NDArray(o) for o in outs]
 
     def set_monitor_callback(self, callback, monitor_all=False):

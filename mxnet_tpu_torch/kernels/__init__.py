@@ -7,6 +7,7 @@ Sources are in ``mxnet_tpu_torch/csrc``; :mod:`._lib` builds them.
 """
 
 from . import (  # noqa: F401
-    adam_multi, bn_act, bn_act_bwd, bn_stats, gru_cell, l2norm_channel,
+    adam_multi, bn_act, bn_act_bwd, bn_stats, dropout, gru_cell,
+    l2norm_channel,
     lstm_cell, multibox_decode, multibox_target, nms, rmsprop_multi,
     rnn_cell, sgd_mom_multi, softmax_output_bwd, softmax_rows)

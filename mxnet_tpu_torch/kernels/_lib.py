@@ -66,6 +66,7 @@ _SIGNATURES = {
     "mxt_multibox_decode_f32": [_P],
     "mxt_nms_caps": [_P, _P],
     "mxt_nms_f32": [_P],
+    "mxt_dropout": [_P],
 }
 
 _lock = threading.Lock()

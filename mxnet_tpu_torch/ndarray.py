@@ -4,8 +4,9 @@ Counterpart of ``mxnet_tpu/ndarray.py`` for what the serving and training
 paths need: the array handle with ``asnumpy``/``copyto``/``copy``/
 ``as_in_context``, assignment, the arithmetic the optimizer, initializers
 and metrics use, the creation helpers :func:`array`, :func:`zeros`,
-:func:`ones` and :func:`empty`, :func:`clip`, one function per registered
-op (``nd.sgd_mom_update(w, g, mom, out=w, ...)``), and ``.params``
+:func:`ones` and :func:`empty`, one function per registered op
+(``nd.sgd_mom_update(w, g, mom, out=w, ...)``, ``nd.clip(x, a_min=0,
+a_max=1)``), and ``.params``
 :func:`save`/:func:`load`/:func:`load_buffer`, byte-compatible with the
 JAX package and the reference (``src/ndarray/ndarray.cc`` NDArray::Save V2,
 list container magic 0x112); :func:`load` also reads the legacy V1 and V0
@@ -35,6 +36,7 @@ directions: an int64 record loads as int32, as in the reference.
 
 from __future__ import annotations
 
+import builtins
 import io
 import struct
 import sys
@@ -285,13 +287,66 @@ class NDArray:
         self._data.div_(self._operand(o))
         return self
 
-    def sum(self, axis=None, keepdims=False):
+    def wait_to_write(self):
+        return self.wait_to_read()
+
+    def to_device(self, context):
+        return self.as_in_context(context)
+
+    # --- shape ops (views, as the reference's jnp results are values) -----
+    def transpose(self, axes=None):
+        axes = tuple(axes) if axes else tuple(reversed(range(self.ndim)))
+        return NDArray(self._data.permute(*axes))
+
+    def flatten(self):
+        return self.reshape((self.shape[0], -1))
+
+    def expand_dims(self, axis):
+        return NDArray(torch.unsqueeze(self._data, axis))
+
+    def broadcast_to(self, shape):
+        return NDArray(self._data.expand(*shape))
+
+    def slice(self, begin, end):
+        return NDArray(self._data[tuple(builtins.slice(b, e)
+                                        for b, e in zip(begin, end))])
+
+    def slice_axis(self, axis, begin, end):
+        return NDArray(torch.narrow(self._data, axis, begin, end - begin))
+
+    # --- reductions -------------------------------------------------------
+    def _reduce(self, fn, axis, keepdims):
         if axis is None:
-            return NDArray(self._data.sum())
-        return NDArray(self._data.sum(dim=axis, keepdim=keepdims))
+            out = fn(self._data)
+            return NDArray(out.reshape((1,) * self.ndim) if keepdims
+                           else out)
+        return NDArray(fn(self._data, dim=axis, keepdim=keepdims))
+
+    def sum(self, axis=None, keepdims=False):
+        return self._reduce(torch.sum, axis, keepdims)
+
+    def mean(self, axis=None, keepdims=False):
+        return self._reduce(torch.mean, axis, keepdims)
+
+    def max(self, axis=None, keepdims=False):
+        return self._reduce(torch.amax, axis, keepdims)
+
+    def min(self, axis=None, keepdims=False):
+        return self._reduce(torch.amin, axis, keepdims)
 
     def clip(self, a_min, a_max):
         return NDArray(torch.clamp(self._data, a_min, a_max))
+
+    def abs(self):
+        return self.__abs__()
+
+    def argmax(self, axis=None):
+        """Indices of the maxima in the array's dtype (the first of ties)."""
+        return NDArray(torch.argmax(self._data, dim=axis).to(self._data.dtype))
+
+    def argmin(self, axis=None):
+        """Indices of the minima in the array's dtype (the first of ties)."""
+        return NDArray(torch.argmin(self._data, dim=axis).to(self._data.dtype))
 
     def __repr__(self):
         return (f"<NDArray {'x'.join(map(str, self.shape))} "
@@ -354,15 +409,6 @@ def ones(shape, ctx=None, dtype=None):
 
 def empty(shape, ctx=None, dtype=None):
     return _filled(torch.empty, shape, ctx, dtype, "empty")
-
-
-def clip(data, a_min, a_max, out=None):
-    """Elementwise ``min(max(data, a_min), a_max)``."""
-    res = torch.clamp(data._data, a_min, a_max)
-    if out is None:
-        return NDArray(res)
-    out._data.copy_(res)
-    return out
 
 
 def waitall():
@@ -544,8 +590,13 @@ def _make_ndarray_function(opdef, func_name):
                 raise MXNetError(f"{func_name}: missing input {nm!r}")
         if pos or arrays:
             raise MXNetError(f"{func_name}: unexpected inputs")
+        rng = None
+        if opdef.need_rng:
+            from . import random as _random
+
+            rng = (_random.next_key(), 0, 0)  # a fresh key for each call
         outputs, new_aux = opdef.apply([i._data for i in inputs], params,
-                                       OpMode(is_train=False))
+                                       OpMode(is_train=False, rng=rng))
         n_args = len(opdef.arg_names(params))
         for handle, value in zip(inputs[n_args:], new_aux):
             if value is not handle._data:

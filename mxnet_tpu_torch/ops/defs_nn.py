@@ -10,7 +10,9 @@ L2Normalization (its channel mode on the ``l2norm_channel`` kernel, in
 training with the ``l2norm_channel_bwd`` kernel as its backward),
 SoftmaxActivation (at inference), and the loc-loss chain of SSD training:
 ``smooth_l1`` and ``MakeLoss`` (plain PyTorch, a loss layer whose backward
-ignores the head gradient). Convolution and FullyConnected are
+ignores the head gradient); ``Dropout`` on the ``dropout`` kernel (the
+mask, a hidden second output, from counter-based bits), ``softmax`` and
+``log_softmax``. Convolution and FullyConnected are
 cuDNN/cuBLAS calls through torch, as the JAX package leaves them to XLA;
 float32 runs without TF32 (``mxnet_tpu_torch/__init__.py`` clears both
 flags), matching the reference's ``precision=HIGHEST``. BatchNorm (with the ReLU the executor
@@ -40,6 +42,7 @@ from ..base import (
 from ..kernels.bn_act import bn_act
 from ..kernels.bn_act_bwd import bn_act_bwd
 from ..kernels.bn_stats import bn_stats
+from ..kernels.dropout import DropoutFn
 from ..kernels.softmax_output_bwd import softmax_output_bwd
 from ..kernels.l2norm_channel import L2NormChannelFn, l2norm_channel
 from ..kernels.multibox_decode import channel_softmax
@@ -696,3 +699,52 @@ for _name, _transform, _grad in (
         fill_in_shapes=lambda shapes, p: [shapes[0], shapes[1] or shapes[0]],
         is_loss=True,
     )
+
+
+# --- Dropout (mxnet_tpu/ops/defs_nn.py:627-645) -----------------------------
+def _dropout(ins, params, mode):
+    """Identity with a mask of ones at inference or for ``p <= 0``; in
+    training the ``dropout`` kernel's ``(x * mask, mask)``, its bits from the
+    node's ``OpMode.rng``, and the backward ``g * mask``. ``mode="always"``
+    changes nothing, as in the reference. At ``p = 1`` the mask is 0 / 0,
+    NaN, as the reference's ``bernoulli(0) / 0``."""
+    (x,) = ins
+    p = params["p"]
+    if not mode.is_train or p <= 0.0:
+        return [x, torch.ones_like(x)]
+    if mode.rng is None:
+        raise MXNetError("Dropout: a training forward needs OpMode.rng")
+    key, step, serial = mode.rng
+    y, mask = DropoutFn.apply(x.contiguous(), p, key, step, serial, 0)
+    return [y, mask]
+
+
+register(
+    "Dropout",
+    _dropout,
+    arg_names=["data"],
+    param_schema={"p": Param(parse_float, 0.5),
+                  "mode": Param(parse_str, "training")},
+    need_rng=True,
+    num_outputs=2,
+    num_visible_outputs=1,
+)
+
+
+# --- softmax family (mxnet_tpu/ops/defs_nn.py:650-668) ----------------------
+register(
+    "softmax",
+    lambda ins, p, m: torch.softmax(ins[0] / p["temperature"], p["axis"]),
+    arg_names=["data"],
+    param_schema={"axis": Param(parse_int, -1),
+                  "temperature": Param(parse_float, 1.0)},
+)
+
+register(
+    "log_softmax",
+    lambda ins, p, m: torch.log_softmax(ins[0] / p["temperature"],
+                                        p["axis"]),
+    arg_names=["data"],
+    param_schema={"axis": Param(parse_int, -1),
+                  "temperature": Param(parse_float, 1.0)},
+)

@@ -22,10 +22,12 @@ backward is one ``gru_cell_bwd`` launch plus the weight's and bias's
 (``RNNCellFn`` in training, whose backward is one ``rnn_cell_bwd`` launch
 plus the weight's and bias's ``mm``/``sum``); in the lstm mode one
 ``torch.addmm`` for ``h @ Wh.T + bh`` and one ``lstm_cell`` launch
-(``LSTMCellFn`` in training; no forget bias, as the op has none). Dropout
-between layers (``p > 0`` in training with two layers or more) raises
-:class:`MXNetError`: the reference draws a JAX Bernoulli mask there, and
-``Dropout`` is ``ROADMAP.md`` queue 1 item 12.
+(``LSTMCellFn`` in training; no forget bias, as the op has none). In
+training with ``p > 0``, each layer's output but the last, the two
+directions joined, goes through one ``dropout`` launch with ``divide``
+(``x * kept / keep``, the reference's rounding, ``:176-179``), its bits
+from the node's ``OpMode.rng`` with ``stream = 1 + layer``; its backward
+draws the same bits again on the gradient (``DivideDropoutFn``).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from ..base import MXNetError, parse_bool, parse_float, parse_int, parse_str
+from ..kernels.dropout import DivideDropoutFn
 from ..kernels.gru_cell import GRUCellFn, gru_cell
 from ..kernels.lstm_cell import LSTMCellFn, lstm_cell
 from ..kernels.rnn_cell import RNNCellFn, rnn_cell
@@ -125,11 +128,6 @@ def _rnn(ins, params, mode_ctx):
     else:
         (data, parameters, state), state_cell = ins, None
     train = mode_ctx.is_train and torch.is_grad_enabled()
-    if params["p"] > 0 and mode_ctx.is_train and num_layers > 1:
-        raise MXNetError(
-            "RNN: dropout between layers (p > 0 in training) needs the "
-            "'Dropout' op, not yet ported to mxnet_tpu_torch (ROADMAP.md "
-            "queue 1 item 12)")
     _steps, _n, c = data.shape
     dirs = 2 if bidir else 1
     layers = _slice_rnn_params(parameters, mode, num_layers, bidir, c, h)
@@ -149,6 +147,14 @@ def _rnn(ins, params, mode_ctx):
             if is_lstm:
                 c_last.append(ct)
         x = outs[0] if dirs == 1 else torch.cat(outs, dim=-1)
+        if (params["p"] > 0 and mode_ctx.is_train
+                and layer < num_layers - 1):
+            if mode_ctx.rng is None:
+                raise MXNetError("RNN: dropout between layers in training "
+                                 "needs OpMode.rng")
+            key, step, serial = mode_ctx.rng
+            x = DivideDropoutFn.apply(x.contiguous(), params["p"], key, step,
+                                      serial, 1 + layer)
     outputs = [x, torch.stack(h_last)]
     if is_lstm:
         outputs.append(torch.stack(c_last))
@@ -195,6 +201,7 @@ register(
         "lstm_q_": Param(parse_bool, None),
     },
     fill_in_shapes=_rnn_fill,
+    need_rng=True,
     num_outputs=lambda p: 3 if p["mode"] == "lstm" else 2,
     num_visible_outputs=lambda p: (
         (3 if p["mode"] == "lstm" else 2) if p["state_outputs"] else 1

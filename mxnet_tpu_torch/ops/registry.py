@@ -46,10 +46,15 @@ class OpMode:
     backward); ``device`` is where an op without inputs (a sampler)
     places its output: the executor's device, ``meta`` during shape
     inference, None for an imperative call (the op's ``ctx`` parameter or
-    the current context)."""
+    the current context); ``rng`` is a random op's ``(key, step,
+    serial)``: the executor's key from :func:`mxnet_tpu_torch.random.
+    next_key`, its forward count and the node's serial among the graph's
+    ``need_rng`` nodes (an imperative call: a fresh key, 0, 0), or None
+    where the op draws nothing (shape inference)."""
 
     is_train: bool = False
     device: Optional[torch.device] = None
+    rng: Optional[tuple] = None
 
 
 class Param:
@@ -94,6 +99,7 @@ class OpDef:
         mutate: Sequence = (),
         doc: str = "",
         infer_dtype: Optional[Callable] = None,
+        need_rng: bool = False,
     ):
         self.name = name
         self.fn = fn
@@ -111,6 +117,8 @@ class OpDef:
         self.doc = doc
         # (params) -> output dtype, for ops whose inputs do not decide it
         self._infer_dtype = infer_dtype
+        # a random op: the executor hands it OpMode.rng
+        self.need_rng = bool(need_rng)
 
     # --- introspection ---------------------------------------------------
     def arg_names(self, params) -> list:

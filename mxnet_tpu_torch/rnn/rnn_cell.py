@@ -12,12 +12,10 @@ the hand-written ``lstm_cell``/``lstm_cell_bwd`` kernels, each step of a
 ``GRUCell``, its h2h product included, the chain it routes to
 ``gru_cell``/``gru_cell_bwd``, and each step of an ``RNNCell`` with a tanh
 or relu activation, its h2h product included, the chain it routes to
-``rnn_cell``/``rnn_cell_bwd``; ``ResidualCell``, ``BidirectionalCell`` and
-``FusedRNNCell`` (unfused into the other cells) build from ported ops
-alone. A cell that needs an op the
-port does not have yet (``DropoutCell`` and ``ZoneoutCell``: ``Dropout``,
-...) raises :class:`MXNetError` naming its ``ROADMAP.md`` item when its
-symbol is built, before any bind.
+``rnn_cell``/``rnn_cell_bwd``; ``DropoutCell`` and ``ZoneoutCell`` draw
+their masks with the ``Dropout`` op (the ``dropout`` kernel), and
+``ResidualCell``, ``BidirectionalCell`` and ``FusedRNNCell`` (unfused into
+the other cells) build from the ported ops.
 """
 
 from __future__ import annotations
@@ -27,23 +25,6 @@ import torch
 from .. import symbol
 from ..base import MXNetError
 from ..ndarray import NDArray, zeros
-from ..ops import registry as _reg
-
-# ROADMAP.md items of the ops the other cells need
-_ROADMAP = {"Dropout": "queue 1 item 12, defs_random.py",
-            "ones_like": "queue 1 item 3, the rest of defs_tensor.py",
-            "zeros_like": "queue 1 item 3, the rest of defs_tensor.py",
-            "where": "queue 1 item 3, the rest of defs_tensor.py"}
-
-
-def _require_ops(cell, *ops):
-    """Raise :class:`MXNetError` naming the ``ROADMAP.md`` item of the
-    first op in ``ops`` that the port does not have yet."""
-    for op in ops:
-        if not _reg.exists(op):
-            raise MXNetError(
-                f"{type(cell).__name__} needs the op {op!r}, not yet ported "
-                f"to mxnet_tpu_torch (ROADMAP.md {_ROADMAP[op]})")
 
 
 def concatenate(arrays):
@@ -609,7 +590,6 @@ class DropoutCell(BaseRNNCell):
     def __call__(self, inputs, states):
         if self.dropout <= 0:
             return inputs, states
-        _require_ops(self, "Dropout")
         return symbol.Dropout(data=inputs, p=self.dropout), states
 
 
@@ -663,7 +643,6 @@ class ZoneoutCell(ModifierCell):
         self.prev_output = None
 
     def __call__(self, inputs, states):
-        _require_ops(self, "Dropout", "ones_like", "zeros_like", "where")
         cell, p_outputs, p_states = (
             self.base_cell, self.zoneout_outputs, self.zoneout_states
         )

@@ -107,7 +107,13 @@ a random state, with and without a bias, training and inference,
 ``LSTM_TOL`` for ``da``, the activation's derivative on the same
 ``next_h``); relu's derivative 0 where ``next_h`` is 0; the refusals; the
 RNN op's rnn_tanh and rnn_relu modes and an unrolled ``RNNCell`` stack
-launching one cell step each way per step.
+launching one cell step each way per step. The dropout kernel:
+``dropout`` bit for bit against ``dropout_plain`` run on the CPU copy (the
+same Philox words and the same roundings) at the dropout model's (20,
+650), the RNN op's (35, 20, 650) with ``divide``, 1, 3 and 2**20 + 3
+elements and on views at float offsets 1 and 3, at p 0.1, 0.5 and 0.9 in
+float32, float16 and bfloat16, one launch a call; the refusals; the
+op's backward by the saved mask and the divide form's by the same bits.
 """
 
 import math
@@ -122,6 +128,7 @@ from mxnet_tpu_torch.kernels import adam_multi as adam_mod
 from mxnet_tpu_torch.kernels import bn_act as bn_mod
 from mxnet_tpu_torch.kernels import bn_act_bwd as bwd_mod
 from mxnet_tpu_torch.kernels import bn_stats as stats_mod
+from mxnet_tpu_torch.kernels import dropout as drop_mod
 from mxnet_tpu_torch.kernels import gru_cell as gru_mod
 from mxnet_tpu_torch.kernels import l2norm_channel as l2_mod
 from mxnet_tpu_torch.kernels import lstm_cell as lstm_mod
@@ -2054,3 +2061,74 @@ def test_rnn_cell_stack_routes_each_step_to_the_kernels(card, act):
     exe.backward([mx.nd.ones(exe.outputs[0].shape, ctx=mx.gpu(0))])
     assert (rnn_mod.LAUNCHES.value - before[0],
             rnn_mod.BWD_LAUNCHES.value - before[1]) == (2 * steps, 2 * steps)
+
+
+def _same_bits(got, want):
+    view = {4: torch.int32, 2: torch.int16}[got.element_size()]
+    return got.dtype == want.dtype and torch.equal(
+        got.contiguous().view(view), want.contiguous().view(view))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("p", [0.1, 0.5, 0.9])
+@pytest.mark.parametrize("shape, divide", [((20, 650), False),
+                                           ((35, 20, 650), True),
+                                           ((1,), False), ((3,), False),
+                                           (((1 << 20) + 3,), False)])
+def test_dropout_matches_plain_bit_for_bit(card, dtype, p, shape, divide):
+    """``dropout`` against ``dropout_plain`` (run on the CPU copy) bit for
+    bit, one launch a call."""
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(3)).to(
+        dtype)
+    n0 = drop_mod.LAUNCHES.value
+    y, m = drop_mod.dropout(x.to(card), p, 0xDEADBEEF12345678, 9, 4, 1,
+                            divide)
+    torch.cuda.synchronize()
+    assert drop_mod.LAUNCHES.value - n0 == 1
+    yp, mp = drop_mod.dropout_plain(x, p, 0xDEADBEEF12345678, 9, 4, 1,
+                                    divide)
+    assert _same_bits(y.cpu(), yp)
+    assert (m is None) == divide
+    if not divide:
+        assert _same_bits(m.cpu(), mp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("divide", [False, True])
+def test_dropout_on_views_at_an_offset(card, dtype, offset, divide):
+    base = torch.randn(4099 + offset).to(dtype)
+    y, m = drop_mod.dropout(base.to(card)[offset:offset + 4099], 0.5, 77, 2,
+                            1, 0, divide)
+    yp, mp = drop_mod.dropout_plain(base[offset:offset + 4099], 0.5, 77, 2,
+                                    1, 0, divide)
+    assert _same_bits(y.cpu(), yp)
+    if not divide:
+        assert _same_bits(m.cpu(), mp)
+
+
+def test_dropout_raises_on_what_it_does_not_take(card):
+    for t in (torch.randn(8, device=card, dtype=torch.float64),
+              torch.ones(8, device=card, dtype=torch.int32),
+              torch.randn(8, 6, device=card)[:, :4]):
+        with pytest.raises(MXNetError):
+            drop_mod.dropout(t, 0.5, 1, 1, 0)
+    n0 = drop_mod.LAUNCHES.value
+    drop_mod.dropout(torch.randn(8), 0.5, 1, 1, 0)  # the CPU: plain
+    assert drop_mod.LAUNCHES.value == n0
+
+
+def test_dropout_op_backward_is_the_saved_mask(card):
+    """In training ``Dropout``'s backward multiplies by the mask it saved;
+    the ``RNN`` op's divide form draws the same bits on the gradient."""
+    x = torch.randn(20, 650, device=card, requires_grad=True)
+    g = torch.randn(20, 650, device=card)
+    y, mask = drop_mod.DropoutFn.apply(x, 0.5, 5, 1, 0, 0)
+    (dx,) = torch.autograd.grad(y, x, g)
+    assert torch.equal(dx, g * mask)
+    y = drop_mod.DivideDropoutFn.apply(x, 0.5, 5, 1, 0, 2)
+    (dx,) = torch.autograd.grad(y, x, g)
+    want = drop_mod.dropout_plain(g.cpu(), 0.5, 5, 1, 0, 2, divide=True)[0]
+    assert _same_bits(dx.cpu(), want)

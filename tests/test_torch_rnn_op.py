@@ -8,7 +8,8 @@ one and two directions, ``state_outputs`` on and off, at T <= 6, with
 random head gradients on the visible outputs; then the gradients of
 ``data``, ``parameters``, ``state`` and ``state_cell``. Also the parameter
 blob's size and the shape fill-in, the symbol JSON, and dropout between
-layers in training, which raises naming its ROADMAP item.
+layers in training, which draws its masks from the op's ``OpMode.rng``
+(its parity and gradients are in ``tests/test_torch_dropout.py``).
 
 Tolerances, float32 on both sides: rtol 1e-4 / atol 1e-5, because the
 error of each step's products and activations compounds over the steps
@@ -129,11 +130,16 @@ def test_rnn_dropout_between_layers_raises_naming_its_roadmap_item():
     params = pop.parse_params({"mode": "gru", "state_size": HIDDEN,
                                "num_layers": 2, "p": 0.5})
     tensors = [torch.from_numpy(a) for a in ins]
-    with pytest.raises(MXNetError, match="queue 1 item 12"):
+    # dropout between layers is ported: a training call draws its masks
+    # from OpMode.rng and raises only without one
+    with pytest.raises(MXNetError, match="OpMode.rng"):
         pop.apply(tensors, params, POpMode(is_train=True))
+    train, _ = pop.apply(tensors, params,
+                         POpMode(is_train=True, rng=(12345, 1, 0)))
     # at inference the reference applies no dropout, nor after the last
     # layer
-    pop.apply(tensors, params, POpMode(is_train=False))
+    infer, _ = pop.apply(tensors, params, POpMode(is_train=False))
+    assert not torch.allclose(train[0], infer[0])
     one = pop.parse_params({"mode": "gru", "state_size": HIDDEN,
                             "num_layers": 1, "p": 0.5})
     pop.apply([torch.from_numpy(_inputs("gru", 1, False, 3, 2, 4, 1)[0][k])

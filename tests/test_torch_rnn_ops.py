@@ -25,7 +25,6 @@ from mxnet_tpu.ops import registry as jreg
 from mxnet_tpu.ops.registry import OpMode as JOpMode
 
 import mxnet_tpu_torch as pmx
-from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.kernels import adam_multi as adam_mod
 from mxnet_tpu_torch.kernels import lstm_cell as lstm_mod
 from mxnet_tpu_torch.kernels import sgd_mom_multi as sgd_mod
@@ -387,19 +386,53 @@ def test_bucket_sentence_iter_matches_reference_batch_for_batch(layout):
     assert enc_p == enc_j
 
 
-def test_cells_without_ported_ops_raise_naming_their_roadmap_item():
-    """DropoutCell and ZoneoutCell need ``Dropout``, not yet ported.
-    GRUCell, which needed ``elemwise_sub``, builds now (see
-    ``test_gru_cell_unrolls_and_matches_reference``)."""
-    cell = pmx.rnn.ZoneoutCell(pmx.rnn.LSTMCell(8, prefix="z_"),
-                               zoneout_outputs=0.5)
-    with pytest.raises(MXNetError, match="ROADMAP.md"):
-        cell.unroll(3, inputs=pmx.sym.Variable("data"))
-    stack = pmx.rnn.SequentialRNNCell()
-    stack.add(pmx.rnn.LSTMCell(8, prefix="l0_"))
-    stack.add(pmx.rnn.DropoutCell(0.5, prefix="d0_"))
-    with pytest.raises(MXNetError, match="ROADMAP.md"):
-        stack.unroll(3, inputs=pmx.sym.Variable("data"))
+@pytest.mark.parametrize("cell", ["dropout", "zoneout"])
+def test_dropout_and_zoneout_cells_unroll_and_match_reference(cell):
+    """DropoutCell and ZoneoutCell build now that ``Dropout``,
+    ``ones_like``, ``zeros_like`` and ``where`` are ported. Unrolled at
+    inference, where no bit is drawn (so each is its LSTM stack), they give
+    the reference's outputs; a training forward and backward gives finite
+    input gradients in both packages, whose masks differ. Their training
+    forms are held to the reference, fed the port's masks, in
+    ``tests/test_torch_dropout.py``."""
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((2, 3, 5)).astype(np.float32)
+    head = rng.standard_normal((2, 3, 4)).astype(np.float32)
+    shapes = {"l0_i2h_weight": (16, 5), "l0_h2h_weight": (16, 4),
+              "l0_i2h_bias": (16,), "l0_h2h_bias": (16,)}
+    if cell == "dropout":
+        shapes.update({"l1_i2h_weight": (16, 4), "l1_h2h_weight": (16, 4),
+                       "l1_i2h_bias": (16,), "l1_h2h_bias": (16,)})
+    weights = {k: (rng.standard_normal(s) * 0.5).astype(np.float32)
+               for k, s in shapes.items()}
+    got = []
+    for pkg, ctx in ((jmx, jmx.cpu()), (pmx, pmx.cpu())):
+        stack = pkg.rnn.SequentialRNNCell()
+        if cell == "dropout":
+            stack.add(pkg.rnn.LSTMCell(4, prefix="l0_"))
+            stack.add(pkg.rnn.DropoutCell(0.5, prefix="d0_"))
+            stack.add(pkg.rnn.LSTMCell(4, prefix="l1_"))
+        else:
+            stack.add(pkg.rnn.ZoneoutCell(pkg.rnn.LSTMCell(4, prefix="l0_"),
+                                          zoneout_outputs=0.5,
+                                          zoneout_states=0.3))
+        outs, _ = stack.unroll(3, inputs=pkg.sym.Variable("data"),
+                               merge_outputs=True)
+        states = {n: (2, 4) for n in outs.list_arguments()
+                  if "begin_state" in n}
+        exe = outs.simple_bind(ctx, grad_req={"data": "write"},
+                               data=x.shape, **states)
+        exe.copy_params_from({k: pkg.nd.array(v, ctx=ctx)
+                              for k, v in weights.items()},
+                             allow_extra_params=True)
+        exe.forward(is_train=False, data=x)
+        out = exe.outputs[0].asnumpy()
+        exe.forward(is_train=True, data=x)
+        exe.backward([pkg.nd.array(head, ctx=ctx)])
+        got.append((out, exe.grad_dict["data"].asnumpy()))
+    (jo, jg), (po, pg) = got
+    np.testing.assert_allclose(po, jo, **TOL)
+    assert np.isfinite(pg).all() and np.isfinite(jg).all()
 
 
 def test_gru_cell_unrolls_and_matches_reference():
