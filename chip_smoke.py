@@ -597,12 +597,13 @@ PORT_KERNELS = {"bn_stats": "bn_stats_kernel", "bn_act": "bn_act_",
                 "rmsprop_multi": "rmsprop_multi_kernel",
                 "rnn_cell": "rnn_cell_kernel",
                 "rnn_cell_bwd": "rnn_cell_bwd_kernel",
-                "dropout": "dropout_kernel"}
+                "dropout": "dropout_kernel", "rnn_seq": "rnn_seq_kernel"}
 # kernels counted beside another one, in that one's module
 BWD_COUNTERS = {"lstm_cell_bwd": ("lstm_cell", "BWD_LAUNCHES"),
                 "l2norm_channel_bwd": ("l2norm_channel", "BWD_LAUNCHES"),
                 "gru_cell_bwd": ("gru_cell", "BWD_LAUNCHES"),
-                "rnn_cell_bwd": ("rnn_cell", "BWD_LAUNCHES")}
+                "rnn_cell_bwd": ("rnn_cell", "BWD_LAUNCHES"),
+                "rnn_seq": ("rnn_cell", "SEQ_LAUNCHES")}
 PARITY_BATCH = 8
 TRAIN_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
 LOSS_RATIO = 0.7  # cross-entropy after 10 steps on one batch / its first
@@ -7827,6 +7828,19 @@ RNN_OP_LAYERS = 2
 # four cases (the 32 steps of two layers compound the products' rounding):
 # 1e-5 leaves ~25x
 RNN_OP_TOL = 1e-5
+# the rnn_tanh mode past the sequence kernel's widest layer (928): one
+# layer of (T, N, C) = (6, 4, 1024), which runs one rnn_cell launch a step
+RNN_OP_WIDE_SHAPE = (6, 4, 1024)
+# the sequence kernel (rnn_seq): the RNN op's (T, N, H) and Zaremba et al.'s
+# medium model's (35, 20, 650), where ys is held bit for bit against T
+# launches of rnn_cell a direction; against its plain version (a loop of
+# rnn_cell_plain: cuBLAS's order of the products' sums) in norm per
+# direction, |kernel - plain| <= RNN_SEQ_TOL * |plain|: the per-step
+# kernel reads within RNN_STEP_ATOL 1e-5 of its plain version at unit
+# scale, and tanh's and relu's recurrences at weights of 1 /
+# sqrt(H) carry a step's rounding forward without growth, so 1e-5 in norm
+RNN_SEQ_SHAPES = (RNN_OP_SHAPE, (35, 20, 650))
+RNN_SEQ_TOL = 1e-5
 # the fused GRU step against its plain version (float32): what passes
 # through the recurrent product (next_h, the saved planes, dh_prev) sums H
 # or 3H products in another order than cuBLAS, about sqrt(3H) * 2**-24 of
@@ -8334,32 +8348,34 @@ def phase_gru_parity(torch, mx):
 
 
 def rnn_op_run(mx, mode, bidir, ctx, seed, dtype=np.float32, p=0.0,
-               key=None, after_forward=None):
+               key=None, after_forward=None, shape=RNN_OP_SHAPE,
+               layers=RNN_OP_LAYERS):
     """One training forward and backward of ``mx.sym.RNN`` (``mode``,
-    ``bidir``, ``RNN_OP_LAYERS`` layers, state_outputs, dropout ``p``
-    between layers) at ``RNN_OP_SHAPE`` on ``ctx`` in ``dtype``, with
-    random head gradients on every output: data N(0, 1), parameters
-    U(-0.07, 0.07) (about 1 / sqrt(200)), states N(0, 0.5), all from
-    ``seed``; ``key`` is the executor's random key (the same masks on two
-    devices); ``after_forward()`` runs between the forward and the
-    backward. Returns ``(executor, {output or gradient name: float64
-    numpy})``."""
+    ``bidir``, ``layers`` layers, state_outputs, dropout ``p`` between
+    layers) at ``shape`` (T, N, C), state_size C, on ``ctx`` in ``dtype``,
+    with random head gradients on every output: data N(0, 1), parameters
+    U(-a, a) with a = 0.07 * sqrt(200 / C) (about 1 / sqrt(C)), states
+    N(0, 0.5), all from ``seed``; ``key`` is the executor's random key (the
+    same masks on two devices); ``after_forward()`` runs between the
+    forward and the backward. Returns ``(executor, {output or gradient
+    name: float64 numpy})``."""
     data = mx.sym.Variable("data")
-    sym = mx.sym.RNN(data, mode=mode, state_size=RNN_OP_SHAPE[2],
-                     num_layers=RNN_OP_LAYERS, bidirectional=bidir,
+    sym = mx.sym.RNN(data, mode=mode, state_size=shape[2],
+                     num_layers=layers, bidirectional=bidir,
                      state_outputs=True, p=p, name="rnn")
     exe = sym.simple_bind(ctx, grad_req="write",
                           type_dict={"data": np.dtype(dtype).name},
-                          data=RNN_OP_SHAPE)
+                          data=shape)
     rng = np.random.default_rng(seed)
+    lim = 0.07 * math.sqrt(RNN_OP_SHAPE[2] / shape[2])
     for name in sym.list_arguments():
-        shape = exe.arg_dict[name].shape
+        dims = exe.arg_dict[name].shape
         if name == "data":
-            v = rng.standard_normal(shape)
+            v = rng.standard_normal(dims)
         elif name.endswith("parameters"):
-            v = rng.uniform(-0.07, 0.07, shape)
+            v = rng.uniform(-lim, lim, dims)
         else:
-            v = 0.5 * rng.standard_normal(shape)
+            v = 0.5 * rng.standard_normal(dims)
         exe.arg_dict[name][:] = v.astype(dtype)
     if key is not None:
         exe.rng_key = key
@@ -8373,6 +8389,26 @@ def rnn_op_run(mx, mode, bidir, ctx, seed, dtype=np.float32, p=0.0,
     res.update({f"d{n}": g.asnumpy().astype(np.float64)
                 for n, g in exe.grad_dict.items()})
     return exe, res
+
+
+def rnn_op_bound(mode, dirs):
+    """The bound of one inference forward of the RNN op at
+    ``RNN_OP_SHAPE`` with ``RNN_OP_LAYERS`` layers: its operations (each
+    layer's and direction's input projection and recurrent product, 2 *
+    T * N * (in + H) * gates * H) at the float32 peak, or its bytes (data,
+    parameters and states read once, outputs and states written once) at
+    the memory rate, the larger."""
+    steps, n, h = RNN_OP_SHAPE
+    gates = {"lstm": 4, "gru": 3}.get(mode, 1)
+    flops = params = 0
+    width = h  # the data's width C: RNN_OP_SHAPE's C equals H
+    for _layer in range(RNN_OP_LAYERS):
+        flops += dirs * 2 * steps * n * (width + h) * gates * h
+        params += dirs * gates * h * (width + h + 2)
+        width = h * dirs
+    states = RNN_OP_LAYERS * dirs * n * h * (2 if mode == "lstm" else 1)
+    nbytes = 4 * (steps * n * h + params + 2 * states + steps * n * h * dirs)
+    return bound(nbytes, flops)
 
 
 def rnn_op_seed(mode, bidir):
@@ -8389,10 +8425,16 @@ def phase_rnn_op(torch, mx):
     ``gpu(0)`` for the lstm, gru, rnn_tanh and rnn_relu modes, one and two
     directions: forward and backward against the port's CPU path on the
     same inputs (and beside it the CPU path in float64), L*D*T cell
-    launches each way with every count at 0 before, and the inference
+    launches each way with every count at 0 before (the rnn modes: L
+    ``rnn_seq`` launches forward, L*D*T ``rnn_cell_bwd``), and the inference
     forward's time beside cuDNN's ``torch.nn.LSTM``/``GRU``/``RNN`` at the
-    same shapes. Returns each kernel's launches and the forward times."""
+    same shapes. Then rnn_tanh at ``RNN_OP_WIDE_SHAPE``, one layer, one and
+    two directions, past the sequence kernel's widest layer: D*T
+    ``rnn_cell`` and D*T ``rnn_cell_bwd`` launches, the step regime, card
+    against CPU within ``RNN_OP_TOL``. Returns each kernel's launches and
+    the forward times."""
     from mxnet_tpu_torch import telemetry as tm
+    from mxnet_tpu_torch.kernels import rnn_cell as rc
 
     kernels = launch_counters()
     steps, batch, width = RNN_OP_SHAPE
@@ -8408,11 +8450,18 @@ def phase_rnn_op(torch, mx):
             exe, card = rnn_op_run(mx, mode, bidir, mx.gpu(0), seed)
             torch.cuda.synchronize()
             got = {k: c.value for k, c in kernels.items() if c.value}
-            want = {cell: RNN_OP_LAYERS * dirs * steps,
+            # the rnn modes: one rnn_seq launch a layer forward (both
+            # directions), a step each way back; the others a step each way
+            fwd = "rnn_seq" if cell == "rnn_cell" else cell
+            want = {fwd: RNN_OP_LAYERS * (1 if cell == "rnn_cell" else
+                                          dirs * steps),
                     f"{cell}_bwd": RNN_OP_LAYERS * dirs * steps}
-            if got != want:
+            regime = {k: tm.counter(f"rnn_op.{k}_layers").value
+                      for k in ("seq", "step")}
+            if got != want or (cell == "rnn_cell" and regime != {
+                    "seq": RNN_OP_LAYERS, "step": 0}):
                 fail(f"RNN op {mode} bidirectional={bidir}: launches {got}, "
-                     f"expected {want}")
+                     f"layers by regime {regime}; expected {want}")
             for k, v in got.items():
                 launches[k] = launches.get(k, 0) + v
             cpu = rnn_op_run(mx, mode, bidir, mx.cpu(), seed)[1]
@@ -8441,23 +8490,311 @@ def phase_rnn_op(torch, mx):
             with torch.no_grad():
                 lib_ms = cuda_ms(torch, lambda net=net, hx=hx: net(x, hx),
                                  reps=10)
+            bound_ms, bound_by = rnn_op_bound(mode, dirs)
             times[f"{mode}{'_bidirectional' if bidir else ''}"] = {
                 "forward_ms": fwd_ms, "cudnn_ms": lib_ms,
-                "forward_launches": fwd_launches}
+                "forward_launches": fwd_launches, "bound_ms": bound_ms,
+                "bound_by": bound_by}
+            how = ("the sequence regime (one rnn_seq launch a layer forward)"
+                   if cell == "rnn_cell" else "a cell launch a step")
             print(f"[rnn-op] RNN mode={mode} bidirectional={bidir} at (T, N, "
-                  f"C) = {RNN_OP_SHAPE}, {RNN_OP_LAYERS} layers: forward and "
-                  f"backward launch {want} exactly; card against the CPU "
+                  f"C) = {RNN_OP_SHAPE}, {RNN_OP_LAYERS} layers, {how}: "
+                  f"forward and backward launch {want} exactly; card "
+                  f"against the CPU "
                   f"path, worst output or gradient {worst[0]} "
                   f"{worst[1]:.3g} in norm (limit {RNN_OP_TOL}); CPU float32 "
                   f"against float64 {worst64[0]} {worst64[1]:.3g}; inference "
                   f"forward {fwd_ms:.3f} ms in {fwd_launches:g} kernel "
-                  f"launches, cuDNN torch.nn.{nets[mode]}"
+                  f"launches (bound {bound_ms * 1e3:.2f} us, {bound_by}), "
+                  f"cuDNN torch.nn.{nets[mode]}"
                   f"{'(' + repr(extra['nonlinearity']) + ')' if extra else ''}"
                   f" {lib_ms:.3f} ms",
                   flush=True)
+    # past the sequence kernel's widest layer the rnn modes run one
+    # rnn_cell launch a step each way, decided from the shape
+    steps = RNN_OP_WIDE_SHAPE[0]
+    assert RNN_OP_WIDE_SHAPE[2] > rc.SEQ_MAX_HIDDEN
+    for bidir in (False, True):
+        dirs = 2 if bidir else 1
+        seed = SEED + 70 + dirs
+        tm.reset()
+        card = rnn_op_run(mx, "rnn_tanh", bidir, mx.gpu(0), seed,
+                          shape=RNN_OP_WIDE_SHAPE, layers=1)[1]
+        torch.cuda.synchronize()
+        got = {k: c.value for k, c in kernels.items() if c.value}
+        want = {"rnn_cell": dirs * steps, "rnn_cell_bwd": dirs * steps}
+        regime = {k: tm.counter(f"rnn_op.{k}_layers").value
+                  for k in ("seq", "step")}
+        if got != want or regime != {"seq": 0, "step": 1}:
+            fail(f"RNN op rnn_tanh at {RNN_OP_WIDE_SHAPE} bidirectional="
+                 f"{bidir}: launches {got}, layers by regime {regime}; "
+                 f"expected {want} in the step regime")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        cpu = rnn_op_run(mx, "rnn_tanh", bidir, mx.cpu(), seed,
+                         shape=RNN_OP_WIDE_SHAPE, layers=1)[1]
+        cpu64 = rnn_op_run(mx, "rnn_tanh", bidir, mx.cpu(), seed, np.float64,
+                           shape=RNN_OP_WIDE_SHAPE, layers=1)[1]
+        worst, worst64 = (parity_diff(card, cpu)[1:],
+                          parity_diff(cpu, cpu64)[1:])
+        if not worst[1] <= RNN_OP_TOL:
+            bad.append(f"rnn_tanh {RNN_OP_WIDE_SHAPE} bidirectional={bidir} "
+                       f"{worst[0]} {worst[1]:.3g}")
+        print(f"[rnn-op] RNN mode=rnn_tanh bidirectional={bidir} at (T, N, "
+              f"C) = {RNN_OP_WIDE_SHAPE}, 1 layer, past the sequence "
+              f"kernel's widest layer (H {rc.SEQ_MAX_HIDDEN}): the step regime, forward "
+              f"and backward launch {want} exactly; card against the CPU "
+              f"path, worst output or gradient {worst[0]} {worst[1]:.3g} in "
+              f"norm (limit {RNN_OP_TOL}); CPU float32 against float64 "
+              f"{worst64[0]} {worst64[1]:.3g}", flush=True)
     if bad:
         fail(f"RNN op: card and CPU differ beyond {RNN_OP_TOL} in {bad}")
     return launches, times
+
+
+def rnn_seq_inputs(torch, gen, shape, dirs, bias=True, offset=0):
+    """Per direction the input projection N(0, 1), Wh N(0, 1 / H), bh
+    N(0, 1 / H) (or None) and h0 N(0, 0.25) on the card; ``offset`` floats
+    into their storage (off the 16-byte alignment: the 4-byte copies)."""
+    steps, n, h = shape
+
+    def randn(scale, *dims):
+        t = torch.randn(math.prod(dims) + offset, generator=gen,
+                        device="cuda")
+        return (t * scale)[offset:].view(dims)
+
+    xis = [randn(1.0, steps, n, h) for _ in range(dirs)]
+    ws = [randn(1 / math.sqrt(h), h, h) for _ in range(dirs)]
+    bs = [randn(1 / math.sqrt(h), h) if bias else None for _ in range(dirs)]
+    h0s = [randn(0.5, n, h) for _ in range(dirs)]
+    return xis, ws, bs, h0s
+
+
+def rnn_cell_chain(rc, xis, ws, bs, h0s, act):
+    """The sequence as T launches of ``rnn_cell`` a direction (direction 1
+    from the last step down): ``ys`` ``(D, T, N, H)``."""
+    out = []
+    for d, (xi, w, b, h) in enumerate(zip(xis, ws, bs, h0s)):
+        steps = xi.shape[0]
+        ys = [None] * steps
+        for t in (range(steps - 1, -1, -1) if d == 1 else range(steps)):
+            h = rc.rnn_cell(xi[t], h, w, b, act, save=False)[0]
+            ys[t] = h
+        out.append(ys)
+    return out
+
+
+def rnn_seq_times(torch, rc, shape, dirs, act="tanh"):
+    """One sequence launch at ``shape`` (one layer, ``dirs`` directions):
+    warm, L2-cold, device time and launches, host microseconds; the same
+    recurrence as T launches of ``rnn_cell`` a direction (the per-step
+    regime) warm and on the device; the plain version; cuDNN's one-layer
+    ``torch.nn.RNN`` on an input of width H (it computes the input
+    projection too); the bound and the device microseconds a step."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 65)
+    xis, ws, bs, h0s = rnn_seq_inputs(torch, gen, shape, dirs)
+    steps, n, h = shape
+    dev = torch.device("cuda", 0)
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
+
+    def run():
+        return rc.rnn_seq(xis, ws, bs, h0s, act)
+
+    def chain():
+        return rnn_cell_chain(rc, xis, ws, bs, h0s, act)
+
+    net = torch.nn.RNN(h, h, num_layers=1, nonlinearity=act,
+                       bidirectional=dirs == 2).to(dev)
+    x = torch.randn(shape, generator=gen, device="cuda")
+    hx = torch.stack(h0s)
+
+    def lib():
+        with torch.no_grad():
+            return net(x, hx)
+
+    # i2h read and ys written (D * T * N * H each), Wh, bh and h0 read;
+    # 2 * D * T * N * H * H operations of the products
+    nbytes = 4 * dirs * (2 * steps * n * h + h * h + h + n * h)
+    ms_bound, by = bound(nbytes, 2 * dirs * steps * n * h * h)
+    device, launches = step_device_ms(torch, run)
+    chain_device, chain_launches = step_device_ms(torch, chain, reps=3)
+    return {"what": f"{shape} {act} directions {dirs}",
+            "ms": cuda_ms(torch, run, reps=50),
+            "cold_ms": cold_ms(torch, run, flush), "device_ms": device,
+            "device_launches": launches,
+            "step_us": None if device is None else device * 1e3 / steps,
+            "chain_ms": cuda_ms(torch, chain, reps=5),
+            "chain_device_ms": chain_device,
+            "chain_launches": chain_launches,
+            "plain_ms": cuda_ms(torch, lambda: rc.rnn_seq_plain(
+                xis, ws, bs, h0s, act), reps=5, warmup=1),
+            "library_ms": cuda_ms(torch, lib, reps=50),
+            "library_cold_ms": cold_ms(torch, lib, flush),
+            "bound_ms": ms_bound, "bound_by": by,
+            "host_us": host_us(torch, run, reps=50)}
+
+
+def phase_rnn_seq(torch, mx):
+    """``rnn_seq`` on the card: at each of ``RNN_SEQ_SHAPES``, tanh and
+    relu, one and two directions, ``ys`` bit for bit against T launches of
+    ``rnn_cell`` a direction and within ``RNN_SEQ_TOL`` in norm of
+    ``rnn_seq_plain``; also H = 37 without a bias, N = 33, T = 1, H at the
+    kernel's limit and inputs off the 16-byte alignment; one launch a call;
+    the refusals; then the times at both shapes. Returns the kernel's
+    row."""
+    from mxnet_tpu_torch.kernels import rnn_cell as rc
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 64)
+    cases = [(shape, act, dirs, True, 0) for shape in RNN_SEQ_SHAPES
+             for act in ("tanh", "relu") for dirs in (1, 2)]
+    cases += [((5, 3, 37), "tanh", 2, False, 0),
+              ((4, 33, 200), "relu", 1, True, 0),
+              ((1, 32, 200), "tanh", 2, True, 0),
+              ((3, 4, rc.SEQ_MAX_HIDDEN), "tanh", 2, True, 0),
+              ((6, 7, 200), "relu", 2, True, 1),
+              ((6, 7, 200), "tanh", 1, True, 3)]
+    before = (rc.SEQ_LAUNCHES.value, rc.LAUNCHES.value)
+    calls = cell_calls = 0
+    err, bad = 0.0, []
+    for shape, act, dirs, bias, offset in cases:
+        what = (f"{shape} {act} directions {dirs}"
+                f"{'' if bias else ' no bias'}"
+                f"{f' offset {offset}' if offset else ''}")
+        xis, ws, bs, h0s = rnn_seq_inputs(torch, gen, shape, dirs, bias,
+                                          offset)
+        ys = rc.rnn_seq(xis, ws, bs, h0s, act)
+        calls += 1
+        chain = rnn_cell_chain(rc, xis, ws, bs, h0s, act)
+        cell_calls += dirs * shape[0]
+        for d in range(dirs):
+            apart = [t for t in range(shape[0])
+                     if not same_bits(torch, ys[d, t], chain[d][t])]
+            if apart:
+                bad.append(f"{what} direction {d}: steps {apart[:5]} differ "
+                           f"from rnn_cell's bits")
+        plain = rc.rnn_seq_plain(xis, ws, bs, h0s, act)
+        for d in range(dirs):
+            rel = float((ys[d] - plain[d]).norm() / plain[d].norm())
+            if not rel <= RNN_SEQ_TOL:
+                bad.append(f"{what} direction {d}: {rel:.3g} from the plain "
+                           f"version in norm")
+        err = max(err, float((ys - plain).abs().max()))
+    torch.cuda.synchronize()
+    got = (rc.SEQ_LAUNCHES.value - before[0], rc.LAUNCHES.value - before[1])
+    if got != (calls, cell_calls):
+        fail(f"rnn_seq launches {got[0]}, rnn_cell {got[1]}; expected "
+             f"{calls} and {cell_calls}")
+    if bad:
+        fail(f"rnn_seq: {bad}")
+    # mixed devices, non-contiguous views, float64 and a layer past the
+    # kernel's limit are refused
+    xis, ws, bs, h0s = rnn_seq_inputs(torch, gen, (4, 3, 8), 2)
+    wide = rnn_seq_inputs(torch, gen, (2, 2, rc.SEQ_MAX_HIDDEN + 1), 1)
+    for what, args in (
+            ("a CPU h0", (xis, ws, bs, [h0s[0], h0s[1].cpu()])),
+            ("a CPU weight", (xis, [ws[0].cpu(), ws[1]], bs, h0s)),
+            ("a non-contiguous i2h", ([xis[0].transpose(0, 1).contiguous()
+                                       .transpose(0, 1), xis[1]], ws, bs,
+                                      h0s)),
+            ("float64", ([x.double() for x in xis], [w.double() for w in ws],
+                         [b.double() for b in bs],
+                         [h.double() for h in h0s])),
+            ("three directions", (xis * 2, ws * 2, bs * 2, h0s * 2)),
+            (f"H = {rc.SEQ_MAX_HIDDEN + 1}", wide)):
+        try:
+            rc.rnn_seq(*args)
+        except mx.base.MXNetError:
+            continue
+        fail(f"rnn_seq took {what}")
+    if rc.SEQ_LAUNCHES.value - before[0] != calls:
+        fail("rnn_seq launched on inputs it refuses")
+    print(f"[rnn-seq] rnn_seq (every step of a layer, both directions, in "
+          f"one launch) equals T launches of rnn_cell bit for bit in "
+          f"{calls} cases ({', '.join(c[0].__repr__() for c in cases[:1])} "
+          f"and {RNN_SEQ_SHAPES[1]}, tanh and relu, one and two directions; "
+          f"H 37 without a bias, N 33, T 1, H {rc.SEQ_MAX_HIDDEN}, offsets 1 "
+          f"and 3) and is within {RNN_SEQ_TOL} of rnn_seq_plain in norm (max "
+          f"abs err {err:g}); one launch a call; CPU, non-contiguous, "
+          f"float64, three-direction and H {rc.SEQ_MAX_HIDDEN + 1} inputs "
+          f"refused", flush=True)
+    times = {f"{shape}_{dirs}": rnn_seq_times(torch, rc, shape, dirs)
+             for shape in RNN_SEQ_SHAPES for dirs in (1, 2)}
+    for r in times.values():
+        dev_ms = ("not recorded" if r["device_ms"] is None
+                  else f"{r['device_ms']:.4f} ms ({r['step_us']:.3f} us a "
+                       f"step)")
+        chain_dev = ("not recorded" if r["chain_device_ms"] is None
+                     else f"{r['chain_device_ms']:.4f} ms")
+        print(f"[rnn-seq] rnn_seq {r['what']}: {r['ms']:.4f} ms warm, "
+              f"{r['cold_ms']:.4f} ms L2-cold, {dev_ms} on the device in "
+              f"{r['device_launches']:g} launches a call; T launches of "
+              f"rnn_cell a direction {r['chain_ms']:.4f} ms, {chain_dev} on "
+              f"the device in {r['chain_launches']:g}; plain "
+              f"{r['plain_ms']:.4f} ms; cuDNN torch.nn.RNN (one layer, the "
+              f"input projection too) {r['library_ms']:.4f} ms "
+              f"({r['library_cold_ms']:.4f} cold); bound "
+              f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}); host "
+              f"{r['host_us']:.1f} us a call", flush=True)
+    r = times[f"{RNN_OP_SHAPE}_1"]
+    row = {"name": "rnn_seq", "route": "cuda",
+           "source": "mxnet_tpu_torch/csrc/rnn_cell.cu",
+           "replaces": "mxnet_tpu/ops/defs_rnn.py:90", "max_abs_err": err}
+    row.update({k: r[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "cold_ms",
+        "device_ms", "host_us", "device_launches", "library_cold_ms",
+        "step_us", "chain_ms", "chain_device_ms")})
+    row["paths"] = times
+    return row
+
+
+def redesign_times(torch, mx):
+    """The readings the dropout and rnn_seq redesign is judged by, through
+    entry points the parent has too (``--redesign-times ROOT`` runs them on
+    another checkout's package): ``dropout`` at (20, 650) and at the RNN
+    op's (35, 20, 650) with divide, the wrapper's host parts, and the RNN
+    op's rnn_tanh and rnn_relu modes at ``RNN_OP_SHAPE``, one and two
+    directions: the inference forward and a training forward and backward
+    by CUDA events, the forward's kernel launches, cuDNN's
+    ``torch.nn.RNN`` beside it."""
+    from mxnet_tpu_torch.kernels import dropout as dk
+
+    out = {"dropout": dropout_times(torch, dk, (DROP_BATCH, 650), False),
+           "dropout_rnn_op": dropout_times(torch, dk, (35, DROP_BATCH, 650),
+                                           True),
+           "dropout_host_parts": dropout_host_parts(torch, dk)}
+    steps, batch, width = RNN_OP_SHAPE
+    dev = torch.device("cuda", 0)
+    for mode in ("rnn_tanh", "rnn_relu"):
+        for bidir in (False, True):
+            dirs = 2 if bidir else 1
+            exe, _res = rnn_op_run(mx, mode, bidir, mx.gpu(0),
+                                   rnn_op_seed(mode, bidir))
+            heads = [mx.nd.ones(o.shape, ctx=mx.gpu(0)) for o in exe.outputs]
+
+            def train(exe=exe, heads=heads):
+                exe.forward(is_train=True)
+                exe.backward(heads)
+
+            def infer(exe=exe):
+                exe.forward(is_train=False)
+
+            net = torch.nn.RNN(width, width, num_layers=RNN_OP_LAYERS,
+                               nonlinearity=mode[4:],
+                               bidirectional=bidir).to(dev)
+            x = exe.arg_dict["data"]._data
+            h0 = torch.zeros(RNN_OP_LAYERS * dirs, batch, width, device=dev)
+
+            def lib(net=net, x=x, h0=h0):
+                with torch.no_grad():
+                    return net(x, h0)
+
+            out[f"{mode}{'_bidirectional' if bidir else ''}"] = {
+                "forward_ms": cuda_ms(torch, infer, reps=20),
+                "forward_launches": step_device_ms(torch, infer, reps=3,
+                                                   windows=3)[1],
+                "train_ms": cuda_ms(torch, train, reps=5),
+                "cudnn_ms": cuda_ms(torch, lib, reps=20)}
+    return out
 
 
 def gru_cpu_readings(seeds):
@@ -9253,7 +9590,11 @@ def dropout_times(torch, dk, shape, divide):
     # are integer work far below the card's rate
     ms_bound, by = bound(n * 4 * (2 if divide else 3), 0)
     device, launches = step_device_ms(torch, run)
+    lib_device, lib_launches = step_device_ms(torch, lib)
     return {"what": f"{shape} float32 p 0.5{' divide' if divide else ''}",
+            "library_device_ms": lib_device,
+            "library_device_launches": lib_launches,
+            "library_host_us": host_us(torch, lib),
             "ms": cuda_ms(torch, run, reps=200),
             "cold_ms": cold_ms(torch, run, flush), "device_ms": device,
             "device_launches": launches,
@@ -9371,22 +9712,77 @@ def phase_dropout_kernel(torch, mx):
     for key, r in times.items():
         dev_ms = ("not recorded" if r["device_ms"] is None
                   else f"{r['device_ms']:.4f} ms")
+        lib_dev = ("not recorded" if r["library_device_ms"] is None
+                   else f"{r['library_device_ms']:.4f} ms")
         print(f"[dropout-kernel] dropout {r['what']}: {r['ms']:.4f} ms warm, "
               f"{r['cold_ms']:.4f} ms L2-cold, {dev_ms} on the device in "
               f"{r['device_launches']:g} launches a call, plain "
               f"{r['plain_ms']:.4f} ms, F.dropout {r['library_ms']:.4f} ms "
-              f"({r['library_cold_ms']:.4f} cold), bound "
+              f"({r['library_cold_ms']:.4f} cold, {lib_dev} on the device in "
+              f"{r['library_device_launches']:g} launches, host "
+              f"{r['library_host_us']:.1f} us), bound "
               f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}), host "
               f"{r['host_us']:.1f} us a call", flush=True)
+    parts = dropout_host_parts(torch, dk)
+    print(f"[dropout-kernel] the wrapper's host time at (20, 650), us a "
+          f"call: {parts}", flush=True)
     r = times["path"]
     row = {"name": "dropout", "route": "cuda",
            "source": "mxnet_tpu_torch/csrc/dropout.cu",
            "replaces": "mxnet_tpu/ops/defs_nn.py:627", "max_abs_err": err}
     row.update({k: r[k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "cold_ms",
-        "device_ms", "host_us", "device_launches", "library_cold_ms")})
+        "device_ms", "host_us", "device_launches", "library_cold_ms",
+        "library_device_ms", "library_host_us")})
     row["rnn_op_shape"] = times["rnn_op"]
+    row["host_parts_us"] = parts
     return row
+
+
+def dropout_host_parts(torch, dk, reps=2000):
+    """Host microseconds a call of the parts of ``dropout``'s launch path at
+    (20, 650), each on its own by ``time.perf_counter_ns`` over ``reps``
+    calls (the card's work left queued): the whole wrapper, the keep
+    probability as the parent computed it (a 0-d tensor read back) and
+    from the cache, the allocations (two ``empty_like``, one ``(2, ...)``
+    allocation unbound into two views), the checks, the packed launch
+    alone and the launch counter."""
+    from mxnet_tpu_torch.kernels import _lib
+
+    x = torch.randn(DROP_BATCH, 650, device="cuda")
+    y, m = torch.empty_like(x), torch.empty_like(x)
+    lib = _lib.library()
+    args = (x.data_ptr(), y.data_ptr(), m.data_ptr(), x.numel(),
+            DROP_PARITY_KEY, 1, 0, 0, 0.5, 0, 0)
+    pack = dk._PACK
+
+    def timed(fn):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(reps):
+            fn()
+        ns = time.perf_counter_ns() - t0
+        torch.cuda.synchronize()
+        return round(ns / reps / 1e3, 2)
+
+    parts = {
+        "wrapper": lambda: dk.dropout(x, 0.5, DROP_PARITY_KEY, 1, 0),
+        "keep32 tensor": lambda: float(dk.keep32(0.5)),
+        "two empty_like": lambda: (torch.empty_like(x),
+                                   torch.empty_like(x)),
+        "one allocation, unbind": lambda: x.new_empty(
+            (2, *x.shape)).unbind(0),
+        "checks": lambda: (x.is_cuda, dk._DTYPES.get(x.dtype), x.numel(),
+                           x.is_contiguous()),
+        "launch_packed": lambda: _lib.launch_packed(
+            x, lib.mxt_dropout, pack, *args),
+        "counter": dk.LAUNCHES.inc,
+        "F.dropout": lambda: torch.nn.functional.dropout(x, 0.5, True)}
+    if hasattr(dk, "keep32_value"):
+        parts["keep32 cached"] = lambda: dk.keep32_value(0.5)
+    return {k: timed(fn) for k, fn in parts.items()}
 
 
 def phase_dropout_training(torch, mx, card):
@@ -9807,7 +10203,7 @@ def main():
     if sys.argv[1:2] == ["--cpu-baseline"]:
         cpu_baseline()
         return
-    if sys.argv[1:2] == ["--kernel-times"]:
+    if sys.argv[1:2] in (["--kernel-times"], ["--redesign-times"]):
         # time the package of another checkout (its root first on the path)
         sys.path[:0] = [a for a in sys.argv[2:3] if not a.startswith("--")]
     import torch
@@ -9836,6 +10232,11 @@ def main():
     if sys.argv[1:2] == ["--l2norm-bwd-sweep"]:
         sweep = l2norm_bwd_sweep(torch, range(int(sys.argv[2])))
         print(json.dumps({"l2norm_bwd_sweep": sweep}))
+        return
+    if sys.argv[1:2] == ["--redesign-times"]:
+        print(f"[redesign-times] {mx.__file__}", flush=True)
+        print(json.dumps({"redesign_times": redesign_times(torch, mx)}),
+              flush=True)
         return
     if sys.argv[1:2] == ["--kernel-times"]:
         print(f"[kernel-times] {mx.__file__}", flush=True)
@@ -9939,6 +10340,7 @@ def main():
     phase_gru_parity(torch, mx)
     rnn_op, rnn_op_times = phase_rnn_op(torch, mx)
     kernels += phase_rnn_kernels(torch, mx)
+    kernels.append(phase_rnn_seq(torch, mx))
     lm_served, lm_times = phase_lm_serving(torch, mx, card)
     rnn_route = phase_rnn_route(torch, mx)
     kernels.append(phase_dropout_kernel(torch, mx))
@@ -9983,7 +10385,7 @@ def main():
         k["dcgan_step_device_ms"] = dcgan_device_ms.get(name)
         k["gru_step_device_ms"] = gru_device_ms.get(name)
         k["lstm_dropout_step_device_ms"] = drop_device_ms.get(name)
-        if name in ("lstm_cell", "gru_cell", "rnn_cell"):
+        if name in ("lstm_cell", "gru_cell", "rnn_cell", "rnn_seq"):
             k["rnn_op"] = {key: t for key, t in rnn_op_times.items()
                            if key.startswith(name[:3])}
         if name in ("lstm_cell", "rnn_cell"):

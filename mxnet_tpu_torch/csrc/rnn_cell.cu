@@ -1,5 +1,9 @@
 // Vanilla RNN cell step, forward and backward, float32: the recurrent
-// product and the activation in one launch each way.
+// product and the activation in one launch each way; and the sequence
+// entry, every step of one layer of the RNN op's rnn modes in one launch
+// (mxt_rnn_seq_f32, below the step kernels: it replaces the scan of
+// mxnet_tpu/ops/defs_rnn.py _run_layer, :90-140, that XLA compiles into
+// one loop).
 //
 // Replaces one RNNCell step, mxnet_tpu/rnn/rnn_cell.py RNNCell.__call__
 // (:202-217) from the h2h FullyConnected on — the same arithmetic as the
@@ -602,6 +606,431 @@ int launch_bwd(const CellBwdArgs& a, dim3 grid, long long smem, int rb,
   return (int)cudaGetLastError();
 }
 
+// --- the sequence entry: one launch runs every step of a layer -----------
+//
+// Thread-block clusters of 8 or 16 CTAs (seq_plan picks). A cluster owns
+// one direction and a block of `rows` batch rows; CTA rank c owns the hidden
+// units [c * units, (c + 1) * units) and keeps their rows of Wh in shared
+// memory for the whole sequence, each row padded to ld = round16(H) + 8
+// floats (ld = 8 mod 16: the float4 reads of a quarter-warp, two groups
+// on rows 2 apart, fall in the two halves of the banks). Every CTA also
+// holds the cluster's whole state h (rows x H) twice: step i reads buffer
+// i % 2, and each CTA sends its slice of its output into buffer (i + 1) % 2
+// of every CTA of the cluster by st.async (a remote store that completes
+// its bytes on the receiver's mbarrier of that buffer, at mapa addresses).
+// A CTA starts step i + 1 once that mbarrier has counted the whole state,
+// rows x H x 4 bytes: no cluster barrier a step, and no fence that would
+// wait for the step's global loads and stores. Step i + 1's stores into
+// buffer i % 2 of a peer cannot race the peer's reads of step i - 1: the
+// sender holds the peer's step i output, sent after those reads. A CTA
+// re-arms a buffer's mbarrier (arrive.expect_tx) after a __syncthreads
+// that follows every thread's wait on it, so no thread can miss a phase.
+// One cluster barrier after setup (every CTA started, its mbarriers armed)
+// and one at exit (no CTA leaves while a peer may still store into it);
+// clusters never wait on each other.
+//
+// Thread layout: groups of four lanes, group = a tile of 2 rows x 2 units,
+// lane g of the group the residues s = 4g .. 4g + 3 (k = 16m + 4g + x, one
+// float4 of h and of Wh a row and chunk of 16 columns). Each lane keeps the
+// 16 partial sums of its residues (4 outputs x 4 residues) by fmaf from 0
+// in k order; lane 0 of the group then adds p0 .. p3, its peers' p4 .. p15
+// (shuffles) in s order, and hands output g of the tile to lane g, which
+// adds the bias, i2h and the activation: per output exactly the per-step
+// kernel's order, so ys equals T launches of rnn_cell bit for bit. i2h of
+// step i + 1 is loaded during step i.
+//
+// Shared memory: 4 * ld * (round2(units) + 2 * round2(rows)) bytes; with
+// 16-CTA clusters and rows = 1 it fits the H100's 227 KB up to H = 928
+// (the wrapper's SEQ_MAX_HIDDEN): wider layers keep the per-step launches
+// (the op decides that from the shape), and a launch no plan fits is
+// refused. Wh's rows and h0 come in by one bulk copy
+// a row (the Tensor Memory Accelerator) where H % 4 == 0 and the pointers
+// are 16-byte aligned, else by 4-byte cp.async; either way once a launch.
+//
+// Bound at the RNN op's (T, N, H) = (32, 32, 200), one direction: the
+// 2 * T * N * H * H = 81.9 MFLOP of float32 FMAs take 1.22 us at 67
+// TFLOP/s, the bytes (i2h, ys, Wh, bh, h0) 1.8 MB 0.54 us; the steps run
+// one after another, so a launch takes T times a step's latency (its
+// products, the shuffles, the remote stores and the mbarrier wait).
+
+constexpr int kSeqMaxThreads = 512;   // 128 tiles of 2 x 2 outputs
+constexpr int kSeqTileFloor = 32;     // tiles that cost a step's latency
+constexpr unsigned kFull = 0xffffffffu;
+
+struct SeqParams {
+  const float* xi[2];
+  const float* w[2];
+  const float* b[2];
+  const float* h0[2];
+  float* ys;
+  int steps, rows, hidden;  // T, N, H
+  int cluster;              // CTAs a cluster
+  int crows;                // batch rows a cluster
+  int units;                // hidden units a CTA
+  int ld;                   // floats a row of shared memory
+};
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// the shared::cluster address of `addr` (a shared::cta address) in CTA
+// `rank` of the cluster
+__device__ __forceinline__ unsigned map_rank(unsigned addr, unsigned rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// `v` into shared::cluster address `addr`, its 4 bytes completed on the
+// mbarrier at shared::cluster address `bar` (in the same CTA as addr)
+__device__ __forceinline__ void st_async(unsigned addr, float v,
+                                         unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];" ::"r"(addr),
+      "r"(__float_as_uint(v)), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void fma4(float* a, float4 h, float4 w) {
+  a[0] = fmaf(h.x, w.x, a[0]);
+  a[1] = fmaf(h.y, w.y, a[1]);
+  a[2] = fmaf(h.z, w.z, a[2]);
+  a[3] = fmaf(h.w, w.w, a[3]);
+}
+
+// the last chunk's first `cnt` residues only: no product past H enters
+__device__ __forceinline__ void fma4_tail(float* a, float4 h, float4 w,
+                                          int cnt) {
+  if (cnt > 0) a[0] = fmaf(h.x, w.x, a[0]);
+  if (cnt > 1) a[1] = fmaf(h.y, w.y, a[1]);
+  if (cnt > 2) a[2] = fmaf(h.z, w.z, a[2]);
+  if (cnt > 3) a[3] = fmaf(h.w, w.w, a[3]);
+}
+
+template <int kAct, bool kBulk>
+__global__ void __launch_bounds__(kSeqMaxThreads)
+rnn_seq_kernel(const __grid_constant__ SeqParams p) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ __align__(8) unsigned long long bar;
+  // each state buffer's arrivals (st.async bytes)
+  __shared__ __align__(8) unsigned long long ready[2];
+  const int d = blockIdx.y;
+  const int H = p.hidden, ld = p.ld, T = p.steps;
+  const unsigned rank = cluster_rank();
+  const int up = (p.units + 1) & ~1, rp = (p.crows + 1) & ~1;
+  const int j0 = (int)rank * p.units;
+  const int jn = max(0, min(p.units, H - j0));       // units of this CTA
+  const int n0 = (int)(blockIdx.x / p.cluster) * p.crows;
+  const int nn = min(p.crows, p.rows - n0);          // rows of the cluster
+  float* wsm = smem;                                 // up x ld
+  float* hb = smem + up * ld;                        // 2 x rp x ld
+  const float* __restrict__ w = d == 0 ? p.w[0] : p.w[1];
+  const float* __restrict__ h0 = d == 0 ? p.h0[0] : p.h0[1];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warps = blockDim.x / 32;
+
+  // zeros where no copy lands: the padding columns, the rows past the
+  // CTA's units and the cluster's rows, all of buffer 1
+  for (int r = warp; r < up; r += warps) {
+    for (int c = (r < jn ? H : 0) + lane; c < ld; c += 32) {
+      wsm[r * ld + c] = 0.f;
+    }
+  }
+  for (int r = warp; r < rp; r += warps) {
+    for (int c = (r < nn ? H : 0) + lane; c < ld; c += 32) {
+      hb[r * ld + c] = 0.f;
+    }
+    for (int c = lane; c < ld; c += 32) hb[(rp + r) * ld + c] = 0.f;
+  }
+  // the state's bytes a step; each buffer's first phase armed here
+  const unsigned step_bytes = (unsigned)(nn * H * 4);
+  if (threadIdx.x == 0) {
+    bar_init(&bar);
+    bar_init(&ready[0]);
+    bar_init(&ready[1]);
+    bar_fence();
+    bar_expect(&ready[0], step_bytes);
+    bar_expect(&ready[1], step_bytes);
+  }
+  __syncthreads();
+  if (kBulk) {
+    if (warp == 0) {
+      const unsigned bytes = H * 4;
+      if (lane == 0) bar_expect(&bar, bytes * (jn + nn));
+      __syncwarp();
+      for (int r = lane; r < jn + nn; r += 32) {
+        if (r < jn) {
+          bulk_copy(wsm + r * ld, w + (long long)(j0 + r) * H, bytes, &bar);
+        } else {
+          bulk_copy(hb + (r - jn) * ld, h0 + (long long)(n0 + r - jn) * H,
+                    bytes, &bar);
+        }
+      }
+    }
+    bar_wait(&bar, 0);
+  } else {
+    for (int r = warp; r < jn + nn; r += warps) {
+      const float* src = r < jn ? w + (long long)(j0 + r) * H
+                                : h0 + (long long)(n0 + r - jn) * H;
+      float* dst = r < jn ? wsm + r * ld : hb + (r - jn) * ld;
+      for (int c = lane; c < H; c += 32) cp_async4(dst + c, src + c);
+    }
+    cp_async_wait_all();
+  }
+
+  // this lane's tile and, after the fold, its output (row g / 2, unit g % 2)
+  const int g = threadIdx.x & 3, tile = threadIdx.x >> 2;
+  const int uts = up / 2;
+  const bool active = tile < uts * (rp / 2);
+  const int ut = active ? tile % uts : 0, rt = active ? tile / uts : 0;
+  const int nl = 2 * rt + (g >> 1), jl = 2 * ut + (g & 1);
+  const bool mine = active && nl < nn && jl < jn;
+  const int n = n0 + nl, j = j0 + jl;
+  const float* __restrict__ xi = d == 0 ? p.xi[0] : p.xi[1];
+  const float* __restrict__ bias = d == 0 ? p.b[0] : p.b[1];
+  const float bj = mine && bias != nullptr ? bias[j] : 0.f;
+  const bool reverse = d == 1;
+  const long long step_floats = (long long)p.rows * H;
+  const long long at = (long long)n * H + j;
+  float* ys = p.ys + (long long)d * T * step_floats + at;
+  float xnext = mine ? xi[(reverse ? T - 1 : 0) * step_floats + at] : 0.f;
+  const float* wr = wsm + 2 * ut * ld + 4 * g;
+  const int full = H / 16;                  // whole chunks of 16 columns
+  const int tail = min(4, max(0, H - full * 16 - 4 * g));
+  const unsigned hb_addr = smem_addr(hb + nl * ld + j);
+  const unsigned ready_addr = smem_addr(&ready[0]);
+  cluster_sync_all();  // every CTA has started and holds Wh, h0 and zeros
+
+  for (int i = 0; i < T; ++i) {
+    const int t = reverse ? T - 1 - i : i;
+    const int cur = i & 1;
+    if (i > 0) {
+      // step i - 1's state: phase (i - 1) / 2 of buffer cur's mbarrier,
+      // then armed for its next phase (step i + 1's state)
+      bar_wait(&ready[cur], ((i - 1) >> 1) & 1);
+      __syncthreads();
+      if (threadIdx.x == 0) bar_expect(&ready[cur], step_bytes);
+    }
+    const float x = xnext;
+    if (mine && i + 1 < T) {
+      xnext = xi[(long long)(reverse ? t - 1 : t + 1) * step_floats + at];
+    }
+    const float* hr = hb + cur * rp * ld + 2 * rt * ld + 4 * g;
+    float acc[4][4];  // [output: row * 2 + unit][residue 4g + x]
+#pragma unroll
+    for (int o = 0; o < 4; ++o) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[o][q] = 0.f;
+    }
+#pragma unroll 4
+    for (int m = 0; m < full; ++m) {
+      const int k = 16 * m;
+      const float4 h0v = *reinterpret_cast<const float4*>(hr + k);
+      const float4 h1v = *reinterpret_cast<const float4*>(hr + ld + k);
+      const float4 w0v = *reinterpret_cast<const float4*>(wr + k);
+      const float4 w1v = *reinterpret_cast<const float4*>(wr + ld + k);
+      fma4(acc[0], h0v, w0v);
+      fma4(acc[1], h0v, w1v);
+      fma4(acc[2], h1v, w0v);
+      fma4(acc[3], h1v, w1v);
+    }
+    if (tail > 0) {
+      const int k = 16 * full;
+      const float4 h0v = *reinterpret_cast<const float4*>(hr + k);
+      const float4 h1v = *reinterpret_cast<const float4*>(hr + ld + k);
+      const float4 w0v = *reinterpret_cast<const float4*>(wr + k);
+      const float4 w1v = *reinterpret_cast<const float4*>(wr + ld + k);
+      fma4_tail(acc[0], h0v, w0v, tail);
+      fma4_tail(acc[1], h0v, w1v, tail);
+      fma4_tail(acc[2], h1v, w0v, tail);
+      fma4_tail(acc[3], h1v, w1v, tail);
+    }
+    // the 16 partials of each output in s order: lane 0's p0 .. p3, then
+    // lane 1's p4 .. p7, lane 2's, lane 3's
+    float sum[4];
+#pragma unroll
+    for (int o = 0; o < 4; ++o) {
+      sum[o] = acc[o][0];
+#pragma unroll
+      for (int q = 1; q < 4; ++q) sum[o] = __fadd_rn(sum[o], acc[o][q]);
+    }
+#pragma unroll
+    for (int src = 1; src < 4; ++src) {
+#pragma unroll
+      for (int o = 0; o < 4; ++o) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          sum[o] = __fadd_rn(sum[o],
+                             __shfl_down_sync(kFull, acc[o][q], src, 4));
+        }
+      }
+    }
+    float s[4];
+#pragma unroll
+    for (int o = 0; o < 4; ++o) s[o] = __shfl_sync(kFull, sum[o], 0, 4);
+    if (mine) {
+      float v = g == 0 ? s[0] : g == 1 ? s[1] : g == 2 ? s[2] : s[3];
+      if (bias != nullptr) v = __fadd_rn(v, bj);
+      const float y = activate<kAct>(__fadd_rn(x, v));
+      if (i + 1 < T) {
+        const unsigned dst = hb_addr + (unsigned)((cur ^ 1) * rp * ld * 4);
+        const unsigned fb = ready_addr + (unsigned)((cur ^ 1) * 8);
+        for (int r = 0; r < p.cluster; ++r) {
+          st_async(map_rank(dst, r), y, map_rank(fb, r));
+        }
+      }
+      ys[(long long)t * step_floats] = y;
+    }
+  }
+  cluster_sync_all();  // no CTA leaves while a peer may store into it
+}
+
+// The sequence plan of one (T, N, H, D) on the current device: the cluster
+// size, the rows a cluster, the clusters a direction, the threads, units
+// and row stride of a CTA, and its dynamic shared memory.
+struct SeqPlan {
+  int cluster, crows, clusters, threads, units, ld;
+  long long smem;
+};
+
+long long seq_smem(long long hidden, int cluster, long long crows) {
+  const long long ld = (hidden + 15) / 16 * 16 + 8;
+  const long long units = (hidden + cluster - 1) / cluster;
+  return 4 * ld * (((units + 1) & ~1LL) + 2 * ((crows + 1) & ~1LL));
+}
+
+int seq_threads(long long hidden, int cluster, long long crows) {
+  const long long units = (hidden + cluster - 1) / cluster;
+  const long long tiles = ((units + 1) / 2) * ((crows + 1) / 2);
+  return (int)((4 * tiles + 31) / 32 * 32);
+}
+
+using SeqKernel = void (*)(SeqParams);
+
+SeqKernel seq_kernel(int act, bool bulk) {
+  if (act == kTanh) {
+    return bulk ? rnn_seq_kernel<kTanh, true> : rnn_seq_kernel<kTanh, false>;
+  }
+  return bulk ? rnn_seq_kernel<kRelu, true> : rnn_seq_kernel<kRelu, false>;
+}
+
+// Once per device: the four variants opted into the card's shared memory
+// (less their static shared memory, returned) and non-portable cluster
+// sizes (16 is refused where the card does not allow it).
+int seq_setup(long long* smem_limit, bool* allow16) {
+  static long long limit[kMaxDevices];
+  static bool big[kMaxDevices];
+  static std::atomic<bool> ready[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!ready[dev].load()) {
+    int fixed = 0;
+    for (int i = 0; i < 4; ++i) {
+      cudaFuncAttributes fa;
+      err = cudaFuncGetAttributes(&fa, (const void*)seq_kernel(i / 2, i % 2));
+      if (err != cudaSuccess) return (int)err;
+      fixed = std::max(fixed, (int)fa.sharedSizeBytes);
+    }
+    const long long lim = smem_optin() - fixed;
+    bool allow = true;
+    for (int i = 0; i < 4; ++i) {
+      const void* k = (const void*)seq_kernel(i / 2, i % 2);
+      err = cudaFuncSetAttribute(
+          k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lim);
+      if (err != cudaSuccess) return (int)err;
+      if (cudaFuncSetAttribute(
+              k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) !=
+          cudaSuccess) {
+        allow = false;
+      }
+    }
+    cudaGetLastError();  // a refused non-portable size is not an error
+    limit[dev] = lim;
+    big[dev] = allow;
+    ready[dev].store(true);
+  }
+  *smem_limit = limit[dev];
+  *allow16 = big[dev];
+  return 0;
+}
+
+// clusters of `cluster` CTAs of (threads, smem) the card runs at once
+int seq_active(SeqKernel kernel, int cluster, int threads, long long smem) {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = (unsigned)cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3((unsigned)cluster);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return n;
+}
+
+// Every cluster size (8 and 16) and every number of batch rows a cluster
+// (up to what the shared memory and kSeqMaxThreads allow), each with the
+// clusters of its kind the card runs at once: the plan of least cost wins.
+// Cost: waves of clusters times (tiles a CTA + kSeqTileFloor), since a
+// step of few tiles costs its latency (the chain of 16-column chunks, the
+// fold, the remote stores) more than its issue slots, plus the cluster
+// size. On a tie, 8 over 16 and more rows over fewer (fewer CTAs to load
+// Wh). Returns false when nothing fits.
+bool seq_plan(SeqKernel kernel, long long rows, long long hidden,
+              long long dirs, long long limit, bool allow16, SeqPlan* out) {
+  bool found = false;
+  long long best = 0;
+  for (int cluster : {8, 16}) {
+    if (cluster == 16 && !allow16) continue;
+    const long long units = (hidden + cluster - 1) / cluster;
+    for (long long crows = 1; crows <= rows; ++crows) {
+      const long long smem = seq_smem(hidden, cluster, crows);
+      const int threads = seq_threads(hidden, cluster, crows);
+      if (smem > limit || threads > kSeqMaxThreads) break;
+      const int active = seq_active(kernel, cluster, threads, smem);
+      if (active < 1) continue;
+      const long long clusters = (rows + crows - 1) / crows;
+      const long long waves = (dirs * clusters + active - 1) / active;
+      const long long cost =
+          waves * (((crows + 1) / 2) * ((units + 1) / 2) + kSeqTileFloor) +
+          cluster;
+      if (found && (cost > best || (cost == best && cluster != out->cluster))) {
+        continue;
+      }
+      found = true;
+      best = cost;
+      out->cluster = cluster;
+      out->crows = (int)crows;
+      out->clusters = (int)clusters;
+      out->threads = threads;
+      out->units = (int)units;
+      out->ld = (int)((hidden + 15) / 16 * 16 + 8);
+      out->smem = smem;
+    }
+  }
+  return found;
+}
+
 }  // namespace
 
 // act is 0 (tanh) or 1 (relu); bias is null for an FC with no_bias. The
@@ -663,4 +1092,109 @@ extern "C" int mxt_rnn_cell_bwd_f32(const void* packed) {
   }
   return bulk ? launch_bwd<kRelu, true>(a, grid, smem, rb, cmax, map)
               : launch_bwd<kRelu, false>(a, grid, smem, rb, cmax, map);
+}
+
+namespace {
+
+// The sequence entries' packed arguments (the wrapper's struct "=9Q5qQ"):
+// per direction the input projection (T, N, H), Wh (H, H), bh (null: no
+// bias) and h0 (N, H); ys (D, T, N, H); then T, N, H, D, the activation
+// and the stream.
+struct SeqArgs {
+  unsigned long long xi[2], weight[2], bias[2], h0[2], ys;
+  long long steps, rows, hidden, dirs, act;
+  unsigned long long stream;
+};
+
+static_assert(sizeof(SeqArgs) == 15 * 8, "SeqArgs: 15 fields of 8 bytes");
+
+// the plan of `a` (kept for the last shapes seen on this thread) and the
+// kernel (with bulk copies or not); an error code, or
+// cudaErrorInvalidValue for what the kernel does not take
+int seq_prepare(const SeqArgs& a, SeqPlan* plan, SeqKernel* kernel) {
+  if (a.act != kTanh && a.act != kRelu) return (int)cudaErrorInvalidValue;
+  if (a.dirs < 1 || a.dirs > 2 || a.rows < 1 || a.rows >= (1LL << 31) ||
+      a.hidden < 1 || a.hidden >= (1LL << 31) || a.steps < 1 ||
+      a.steps >= (1LL << 31)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  bool b = a.hidden % 4 == 0;
+  for (int d = 0; d < a.dirs; ++d) {
+    b = b && aligned16(a.weight[d]) && aligned16(a.h0[d]);
+  }
+  *kernel = seq_kernel((int)a.act, b);
+  long long limit = 0;
+  bool allow16 = false;
+  const int err = seq_setup(&limit, &allow16);
+  if (err != 0) return err;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  struct Entry {
+    long long key[5];
+    SeqPlan plan;
+  };
+  thread_local Entry seen[8];
+  thread_local int used = 0, next = 0;
+  const long long key[5] = {dev, a.act * 2 + (b ? 1 : 0), a.rows, a.hidden,
+                            a.dirs};
+  for (int i = 0; i < used; ++i) {
+    if (std::equal(key, key + 5, seen[i].key)) {
+      *plan = seen[i].plan;
+      return 0;
+    }
+  }
+  if (!seq_plan(*kernel, a.rows, a.hidden, a.dirs, limit, allow16, plan)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  std::copy(key, key + 5, seen[next].key);
+  seen[next].plan = *plan;
+  next = (next + 1) % 8;
+  used = std::max(used, next == 0 ? 8 : next);
+  return 0;
+}
+
+}  // namespace
+
+// Every step of one layer of the RNN op's rnn_tanh / rnn_relu modes, both
+// directions, in one launch of clusters (see rnn_seq_kernel): direction 1
+// runs from t = T - 1 down to 0. Where no cluster fits the card (on the
+// H100 past H = 928), cudaErrorInvalidValue (the wrapper raises).
+extern "C" int mxt_rnn_seq_f32(const void* packed) {
+  const SeqArgs& a = *static_cast<const SeqArgs*>(packed);
+  SeqPlan plan;
+  SeqKernel kernel = nullptr;
+  const int err = seq_prepare(a, &plan, &kernel);
+  if (err != 0) return err;
+  SeqParams p;
+  for (int d = 0; d < 2; ++d) {
+    const int s = d < a.dirs ? d : 0;
+    p.xi[d] = ptr<const float>(a.xi[s]);
+    p.w[d] = ptr<const float>(a.weight[s]);
+    p.b[d] = ptr<const float>(a.bias[s]);
+    p.h0[d] = ptr<const float>(a.h0[s]);
+  }
+  p.ys = ptr<float>(a.ys);
+  p.steps = (int)a.steps;
+  p.rows = (int)a.rows;
+  p.hidden = (int)a.hidden;
+  p.cluster = plan.cluster;
+  p.crows = plan.crows;
+  p.units = plan.units;
+  p.ld = plan.ld;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = (unsigned)plan.cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3((unsigned)(plan.cluster * plan.clusters),
+                     (unsigned)a.dirs);
+  cfg.blockDim = dim3((unsigned)plan.threads);
+  cfg.dynamicSmemBytes = (size_t)plan.smem;
+  cfg.stream = ptr<CUstream_st>(a.stream);
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }

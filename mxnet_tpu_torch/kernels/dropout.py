@@ -82,6 +82,19 @@ def keep32(p):
     return torch.tensor(1.0 - float(p), dtype=torch.float32)
 
 
+_KEEP32 = {}
+
+
+def keep32_value(p):
+    """``float32(1 - p)`` as a Python float (exact: a float32 value),
+    computed once per ``p``: what the kernel's keep test and its roundings
+    read."""
+    k = _KEEP32.get(p)
+    if k is None:
+        k = _KEEP32[p] = float(keep32(p))
+    return k
+
+
 def kept_plain(n, p, key, step, serial, stream=0, device="cpu"):
     """The keep decisions (bool) of ``n`` elements, in flat order."""
     groups = (n + 3) // 4
@@ -130,7 +143,8 @@ def dropout(x, p, key, step, serial, stream=0, divide=False):
             return dropout_plain(x, p, key, step, serial, stream, divide)
         raise MXNetError(f"dropout: no kernel for device {x.device}")
     code = _DTYPES.get(x.dtype)
-    if code is None or not x.is_contiguous() or x.numel() > MAX_ELEMENTS:
+    n = x.numel()
+    if code is None or n > MAX_ELEMENTS or not x.is_contiguous():
         raise MXNetError(
             f"dropout: x must be a contiguous float32, float16 or bfloat16 "
             f"tensor of at most 2**34 elements, got {x.dtype} "
@@ -139,9 +153,9 @@ def dropout(x, p, key, step, serial, stream=0, divide=False):
     mask = None if divide else torch.empty_like(x)
     err = _lib.launch_packed(
         x, _lib.library().mxt_dropout, _PACK, x.data_ptr(), y.data_ptr(),
-        0 if divide else mask.data_ptr(), x.numel(), int(key) & (2**64 - 1),
+        0 if divide else mask.data_ptr(), n, int(key) & 0xFFFFFFFFFFFFFFFF,
         int(step) & _M32, int(serial) & _M32, int(stream) & _M32,
-        float(keep32(p)), code, int(bool(divide)))
+        keep32_value(p), code, 1 if divide else 0)
     _lib.check(err, "dropout")
     LAUNCHES.inc()
     return y, mask

@@ -1,5 +1,7 @@
 """``rnn_cell`` and ``rnn_cell_bwd``: one whole vanilla-RNN cell step,
-forward and backward, the recurrent product included.
+forward and backward, the recurrent product included; ``rnn_seq``: every
+step of one layer of the ``RNN`` op's rnn modes, both directions, in one
+launch.
 
 Replace one step of ``RNNCell.__call__`` from its h2h ``FullyConnected``
 on (``mxnet_tpu/rnn/rnn_cell.py:202-217``; the same arithmetic as the
@@ -9,9 +11,10 @@ rnn_tanh/rnn_relu scan body of ``mxnet_tpu/ops/defs_rnn.py``
     next_h = act(i2h + (h_prev @ Wh.T + bh)),  act = tanh or relu
 
 The executor routes the unrolled subgraph of each cell step, the h2h
-``FullyConnected`` with it, here (``executor._fused_rnn``), and the ``RNN``
-op's rnn_tanh and rnn_relu modes run their steps here
-(``ops/defs_rnn.py``).
+``FullyConnected`` with it, here (``executor._fused_rnn``); the ``RNN``
+op's rnn_tanh and rnn_relu modes run each layer as one ``rnn_seq`` launch
+(layers wider than :data:`SEQ_MAX_HIDDEN` one ``rnn_cell`` launch a step)
+and step back through ``rnn_cell_bwd`` (``ops/defs_rnn.py``).
 
 Bound on the H100: bytes, 237.6 KB forward and 262.4 KB backward at N =
 32, H = 200 (0.071 and 0.078 us at 3.35 TB/s); in practice a launch's
@@ -28,6 +31,14 @@ in another order than cuBLAS's, so ``next_h`` and ``dh_prev`` may differ
 from the plain version's by the rounding of a sum of H products. Both
 wrappers take the light launch path (:func:`_lib.launch_packed`); the
 backward's outputs are views of one buffer.
+
+``rnn_seq`` (``mxt_rnn_seq_f32``) keeps each CTA's rows of ``Wh`` in shared
+memory for the whole sequence, in thread-block clusters that own one
+direction and a block of batch rows, and passes each step's state between
+the cluster's CTAs through distributed shared memory; per output it sums
+in the step kernel's order, so ``ys`` equals T launches of ``rnn_cell``
+bit for bit. Bound at (32, 32, 200), one direction: operations, 1.22 us;
+the steps run one after another, so a step's latency sets the time.
 """
 
 from __future__ import annotations
@@ -45,10 +56,20 @@ from .lstm_cell import _tanh_grad
 # the C entries' packed arguments (csrc/rnn_cell.cu CellArgs, CellBwdArgs):
 # pointers, sizes, the activation's code, the stream
 _PACK = struct.Struct("=5Q3qQ").pack
+# the sequence entries' (SeqArgs): per direction i2h, Wh, bh, h0; ys; T,
+# N, H, D, the activation's code; the stream
+_SEQ_PACK = struct.Struct("=9Q5qQ").pack
 _ACT_CODES = {"tanh": 0, "relu": 1}
 # count kernel launches only (never the plain versions)
 LAUNCHES = _tm.counter("kernel.rnn_cell.launches")
 BWD_LAUNCHES = _tm.counter("kernel.rnn_cell_bwd.launches")
+SEQ_LAUNCHES = _tm.counter("kernel.rnn_seq.launches")
+# The widest layer the sequence kernel takes on the H100: a CTA of a
+# 16-CTA cluster at one batch row holds 4 * (round16(H) + 8) *
+# (round2(ceil(H / 16)) + 4) bytes (csrc/rnn_cell.cu seq_smem), 232,128 at
+# H = 928, within the card's 232,448 (227 KB); 243,712 at 929. Wider layers
+# keep one rnn_cell launch a step; the kernel refuses a layer no plan fits.
+SEQ_MAX_HIDDEN = 928
 
 
 def _act_code(name, act):
@@ -198,3 +219,155 @@ class RNNCellFn(torch.autograd.Function):
         dweight = torch.mm(dh2h.t(), h_prev) if need[2] else None
         dbias = dh2h.sum(0) if ctx.has_bias and need[3] else None
         return da, dh_prev, dweight, dbias, None
+
+
+def rnn_seq_plain(xis, weights, biases, h0s, act="tanh"):
+    """The plain version of :func:`rnn_seq`: per direction a loop of
+    :func:`rnn_cell_plain` (direction 1 from the last step down), ``ys``
+    ``(D, T, N, H)``."""
+    out = []
+    for d, (xi, w, b, h) in enumerate(zip(xis, weights, biases, h0s)):
+        steps = xi.shape[0]
+        ys = [None] * steps
+        for t in (range(steps - 1, -1, -1) if d == 1 else range(steps)):
+            h = rnn_cell_plain(xi[t], h, w, b, act)
+            ys[t] = h
+        out.append(torch.stack(ys))
+    return torch.stack(out)
+
+
+def _seq_args(xis, weights, biases, h0s, code, ys):
+    """The packed pointers and sizes of the sequence entries (direction 1's
+    pointers repeat direction 0's for one direction)."""
+    dirs = len(xis)
+
+    def ptrs(ts):
+        got = [t.data_ptr() if t is not None else 0 for t in ts]
+        return got + got[:1] * (2 - dirs)
+
+    steps, rows, hidden = xis[0].shape
+    return (*ptrs(xis), *ptrs(weights), *ptrs(biases), *ptrs(h0s),
+            ys.data_ptr(), steps, rows, hidden, dirs, code)
+
+
+def _seq_check(xis, weights, biases, h0s, act):
+    """The activation's code; raises :class:`MXNetError` unless the inputs
+    are one or two directions of contiguous float32 tensors of one shape
+    on one CUDA device, ``hidden`` within :data:`SEQ_MAX_HIDDEN`."""
+    code = _act_code("rnn_seq", act)
+    dirs = len(xis)
+    if not 1 <= dirs <= 2 or not (len(weights) == len(biases) == len(h0s)
+                                  == dirs):
+        raise MXNetError(f"rnn_seq: one or two directions, each with i2h, "
+                         f"weight, bias and h0; got {len(xis)}, "
+                         f"{len(weights)}, {len(biases)}, {len(h0s)}")
+    shape = xis[0].shape
+    if len(shape) != 3:
+        raise MXNetError(f"rnn_seq: i2h must be (T, N, H), got "
+                         f"{tuple(shape)}")
+    _steps, rows, hidden = shape
+    if hidden > SEQ_MAX_HIDDEN:
+        raise MXNetError(f"rnn_seq: H = {hidden} is past the sequence "
+                         f"kernel's {SEQ_MAX_HIDDEN}; wider layers run a "
+                         f"step a launch (rnn_cell)")
+    device = xis[0].device
+    args = []
+    for d in range(dirs):
+        args += [(f"i2h[{d}]", xis[d], shape),
+                 (f"weight[{d}]", weights[d], (hidden, hidden)),
+                 (f"bias[{d}]", biases[d], (hidden,)),
+                 (f"h0[{d}]", h0s[d], (rows, hidden))]
+    f32 = torch.float32
+    if not all(arg.startswith("bias") if t is None else (
+            t.dtype is f32 and t.is_contiguous() and t.device == device
+            and t.shape == want) for arg, t, want in args):
+        raise _lib.refusal("rnn_seq", args, device)
+    return code
+
+
+def rnn_seq(xis, weights, biases, h0s, act="tanh"):
+    """Every step of one layer of the ``RNN`` op's rnn_tanh/rnn_relu modes,
+    for one or two directions at once: per direction ``d`` the input
+    projection ``xis[d]`` ``(T, N, H)``, the recurrent weight ``(H, H)``,
+    its bias ``(H,)`` (None: no bias) and the first state ``(N, H)``;
+    direction 1 runs from ``t = T - 1`` down to 0. Returns ``ys`` ``(D, T,
+    N, H)``, ``ys[d, t]`` the state after step ``t``; the last state is
+    ``ys[0, T - 1]`` forward and ``ys[1, 0]`` backward.
+
+    CPU (and shape-only ``meta``) tensors take the plain version. CUDA
+    tensors launch ``mxt_rnn_seq_f32`` once, for contiguous float32 tensors
+    on one device with ``H <= SEQ_MAX_HIDDEN``; anything else raises
+    :class:`MXNetError`, and so does a launch the card refuses.
+    """
+    first = xis[0]
+    if not first.is_cuda:
+        if first.device.type == "meta":
+            _act_code("rnn_seq", act)
+            return first.new_empty((len(xis), *first.shape))
+        if first.device.type == "cpu":
+            _act_code("rnn_seq", act)
+            return rnn_seq_plain(xis, weights, biases, h0s, act)
+        raise MXNetError(f"rnn_seq: no kernel for device {first.device}")
+    code = _seq_check(xis, weights, biases, h0s, act)
+    ys = first.new_empty((len(xis), *first.shape))
+    if first.shape[0] == 0:
+        return ys
+    err = _lib.launch_packed(first, _lib.library().mxt_rnn_seq_f32,
+                             _SEQ_PACK,
+                             *_seq_args(xis, weights, biases, h0s, code, ys))
+    _lib.check(err, "rnn_seq")
+    SEQ_LAUNCHES.inc()
+    return ys
+
+
+class RNNSeqFn(torch.autograd.Function):
+    """One training layer of the ``RNN`` op's rnn modes, both directions:
+    ``apply(act, dirs, *xis, *weights, *biases, *h0s)`` returns ``ys``
+    ``(D, T, N, H)`` by :func:`rnn_seq`. The backward runs
+    :func:`rnn_cell_bwd` a step, in the reverse of each direction's order,
+    and then forms ``dWh`` as one ``torch.mm`` of every step's ``da``
+    against its ``h_prev`` (T * N rows) and ``dbh`` as one sum."""
+
+    @staticmethod
+    def forward(ctx, act, dirs, *args):
+        xis, weights, biases, h0s = (args[k * dirs:(k + 1) * dirs]
+                                     for k in range(4))
+        ys = rnn_seq(xis, weights, biases, h0s, act)
+        ctx.save_for_backward(ys, *weights, *h0s)
+        ctx.act, ctx.dirs = act, dirs
+        ctx.has_bias = [b is not None for b in biases]
+        return ys
+
+    @staticmethod
+    def backward(ctx, dys):
+        ys, *rest = ctx.saved_tensors
+        dirs = ctx.dirs
+        weights, h0s = rest[:dirs], rest[dirs:]
+        need = ctx.needs_input_grad[2:]
+        dys = dys.contiguous()
+        steps, rows, hidden = ys.shape[1:]
+        grads = [None] * (4 * dirs)
+        for d in range(dirs):
+            # direction 0 runs t = 0 .. T-1, direction 1 t = T-1 .. 0; hp[t]
+            # is step t's h_prev, and the backward walks the other way
+            h0 = h0s[d][None]
+            if d == 0:
+                hp, order = torch.cat((h0, ys[0, :-1])), range(steps - 1,
+                                                                -1, -1)
+            else:
+                hp, order = torch.cat((ys[1, 1:], h0)), range(steps)
+            das = [None] * steps
+            dh = None
+            for t in order:
+                g = dys[d, t] if dh is None else dys[d, t] + dh
+                das[t], dh = rnn_cell_bwd(g, ys[d, t], hp[t], weights[d],
+                                          ctx.act)
+            da = torch.stack(das).view(steps * rows, hidden)
+            grads[d] = da.view(steps, rows, hidden)
+            if need[dirs + d]:
+                grads[dirs + d] = torch.mm(da.t(),
+                                           hp.view(steps * rows, hidden))
+            if ctx.has_bias[d] and need[2 * dirs + d]:
+                grads[2 * dirs + d] = da.sum(0)
+            grads[3 * dirs + d] = dh
+        return (None, None, *grads)

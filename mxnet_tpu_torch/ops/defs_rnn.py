@@ -12,15 +12,20 @@ and, for lstm, state_cell ``(L*D, N, H)``. Outputs: ``(T, N, H*D)`` and
 the final states (and cells), visible when ``state_outputs``.
 
 Where the reference scans one jitted step over time (``lax.scan``), the
-port runs a Python loop per layer and direction: one ``torch.addmm`` for
-the whole sequence's input projection (the reference's ``einsum``), then
-per step the cell: in the gru mode one ``gru_cell`` launch that computes
-``h @ Wh.T + bh`` and the gates (``GRUCellFn`` in training, whose
-backward is one ``gru_cell_bwd`` launch plus the weight's and bias's
-``mm``/``sum``); in the ``rnn_tanh`` and ``rnn_relu`` modes one
-``rnn_cell`` launch that computes ``act(xg + (h @ Wh.T + bh))``
-(``RNNCellFn`` in training, whose backward is one ``rnn_cell_bwd`` launch
-plus the weight's and bias's ``mm``/``sum``); in the lstm mode one
+port computes each layer's input projection for the whole sequence in one
+``torch.addmm`` per direction (the reference's ``einsum``) and then runs
+the recurrence. In the ``rnn_tanh`` and ``rnn_relu`` modes with ``H <=
+SEQ_MAX_HIDDEN`` (928) one ``rnn_seq`` launch runs every step of the
+layer, both directions, ``act(xg + (h @ Wh.T + bh))`` (``RNNSeqFn`` in
+training, whose backward is one ``rnn_cell_bwd`` launch a step in reverse,
+then one ``mm`` for ``dWh`` over every step and one sum for ``dbh``);
+wider rnn layers, decided from the shape, keep a Python loop per direction
+with one ``rnn_cell`` launch a step (``RNNCellFn`` in training). The
+counters ``rnn_op.seq_layers`` and ``rnn_op.step_layers`` count the rnn
+layers of each regime. The other modes loop per direction and step: in the
+gru mode one ``gru_cell`` launch that computes ``h @ Wh.T + bh`` and the
+gates (``GRUCellFn`` in training, whose backward is one ``gru_cell_bwd``
+launch plus the weight's and bias's ``mm``/``sum``); in the lstm mode one
 ``torch.addmm`` for ``h @ Wh.T + bh`` and one ``lstm_cell`` launch
 (``LSTMCellFn`` in training; no forget bias, as the op has none). In
 training with ``p > 0``, each layer's output but the last, the two
@@ -34,14 +39,19 @@ from __future__ import annotations
 
 import torch
 
+from .. import telemetry as _tm
 from ..base import MXNetError, parse_bool, parse_float, parse_int, parse_str
 from ..kernels.dropout import DivideDropoutFn
 from ..kernels.gru_cell import GRUCellFn, gru_cell
 from ..kernels.lstm_cell import LSTMCellFn, lstm_cell
-from ..kernels.rnn_cell import RNNCellFn, rnn_cell
+from ..kernels.rnn_cell import (SEQ_MAX_HIDDEN, RNNCellFn, RNNSeqFn,
+                                rnn_cell, rnn_seq)
 from .registry import Param, register
 
 _GATES = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}
+# the rnn modes' layers by regime: one rnn_seq launch, or a launch a step
+SEQ_LAYERS = _tm.counter("rnn_op.seq_layers")
+STEP_LAYERS = _tm.counter("rnn_op.step_layers")
 
 
 def _rnn_param_size(mode, num_layers, bidirectional, input_size, state_size):
@@ -114,6 +124,24 @@ def _run_layer(mode, x, wi, wh, bi, bh, h0, c0, reverse, train):
     return torch.stack(ys), hp, cp
 
 
+def _seq_layer(act, x, per_dir, h0s, train, h_last):
+    """One rnn_tanh/rnn_relu layer, every direction in one ``rnn_seq``
+    launch; appends the last states and returns the layer's output."""
+    steps, n, li = x.shape
+    x2 = x.reshape(steps * n, li)
+    xis = [torch.addmm(bi, x2, wi.t()).view(steps, n, -1)
+           for wi, _wh, bi, _bh in per_dir]
+    whs = [p[1] for p in per_dir]
+    bhs = [p[3] for p in per_dir]
+    if train:
+        ys = RNNSeqFn.apply(act, len(per_dir), *xis, *whs, *bhs, *h0s)
+    else:
+        ys = rnn_seq(xis, whs, bhs, h0s, act)
+    # direction 1 runs from the last step down: its last state is step 0's
+    h_last += [ys[0, -1]] + ([ys[1, 0]] if len(per_dir) == 2 else [])
+    return ys[0] if len(per_dir) == 1 else torch.cat(tuple(ys), dim=-1)
+
+
 def _rnn(ins, params, mode_ctx):
     mode = params["mode"]
     if mode not in _GATES:
@@ -133,20 +161,18 @@ def _rnn(ins, params, mode_ctx):
     layers = _slice_rnn_params(parameters, mode, num_layers, bidir, c, h)
     x = data
     h_last, c_last = [], []
+    seq = mode.startswith("rnn") and h <= SEQ_MAX_HIDDEN
+    if mode.startswith("rnn") and data.device.type != "meta":
+        (SEQ_LAYERS if seq else STEP_LAYERS).inc(num_layers)
     for layer in range(num_layers):
-        outs = []
-        for d in range(dirs):
-            wi, wh, bi, bh = layers[layer][d]
-            sidx = layer * dirs + d
-            c0 = state_cell[sidx].contiguous() if is_lstm else None
-            ys, ht, ct = _run_layer(mode, x, wi, wh, bi, bh,
-                                    state[sidx].contiguous(), c0, d == 1,
-                                    train)
-            outs.append(ys)
-            h_last.append(ht)
-            if is_lstm:
-                c_last.append(ct)
-        x = outs[0] if dirs == 1 else torch.cat(outs, dim=-1)
+        if seq:
+            x = _seq_layer(
+                "relu" if mode == "rnn_relu" else "tanh", x, layers[layer],
+                [state[layer * dirs + d].contiguous() for d in range(dirs)],
+                train, h_last)
+        else:
+            x = _layer_by_steps(mode, x, layers[layer], state, state_cell,
+                                layer, dirs, train, h_last, c_last)
         if (params["p"] > 0 and mode_ctx.is_train
                 and layer < num_layers - 1):
             if mode_ctx.rng is None:
@@ -159,6 +185,25 @@ def _rnn(ins, params, mode_ctx):
     if is_lstm:
         outputs.append(torch.stack(c_last))
     return outputs
+
+
+def _layer_by_steps(mode, x, per_dir, state, state_cell, layer, dirs, train,
+                    h_last, c_last):
+    """One layer as a loop per direction and step; appends the last states
+    (and cells) and returns the layer's output."""
+    is_lstm = mode == "lstm"
+    outs = []
+    for d in range(dirs):
+        wi, wh, bi, bh = per_dir[d]
+        sidx = layer * dirs + d
+        c0 = state_cell[sidx].contiguous() if is_lstm else None
+        ys, ht, ct = _run_layer(mode, x, wi, wh, bi, bh,
+                                state[sidx].contiguous(), c0, d == 1, train)
+        outs.append(ys)
+        h_last.append(ht)
+        if is_lstm:
+            c_last.append(ct)
+    return outs[0] if dirs == 1 else torch.cat(outs, dim=-1)
 
 
 def _rnn_args(p):

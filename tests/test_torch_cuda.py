@@ -106,14 +106,24 @@ a random state, with and without a bias, training and inference,
 ``next_h`` and ``dh_prev``, summed in another order than cuBLAS's;
 ``LSTM_TOL`` for ``da``, the activation's derivative on the same
 ``next_h``); relu's derivative 0 where ``next_h`` is 0; the refusals; the
-RNN op's rnn_tanh and rnn_relu modes and an unrolled ``RNNCell`` stack
-launching one cell step each way per step. The dropout kernel:
+RNN op's rnn_tanh and rnn_relu modes launching one ``rnn_seq`` a layer
+forward and one ``rnn_cell_bwd`` a step back, and an unrolled ``RNNCell``
+stack launching one cell step each way per step. The dropout kernel:
 ``dropout`` bit for bit against ``dropout_plain`` run on the CPU copy (the
 same Philox words and the same roundings) at the dropout model's (20,
 650), the RNN op's (35, 20, 650) with ``divide``, 1, 3 and 2**20 + 3
 elements and on views at float offsets 1 and 3, at p 0.1, 0.5 and 0.9 in
 float32, float16 and bfloat16, one launch a call; the refusals; the
-op's backward by the saved mask and the divide form's by the same bits.
+op's backward by the saved mask and the divide form's by the same bits;
+sizes past one pass of the grid. The sequence entry: ``rnn_seq``
+bit for bit against T ``rnn_cell`` launches a direction at the RNN op's
+(32, 32, 200), the medium model's (35, 20, 650), H = 37 without a bias,
+N = 33, T = 1 and H = 928 (the kernel's limit), tanh and relu, one and
+two directions, and within 1e-5 in norm of its plain version; on inputs
+off the 16-byte alignment (the 4-byte copies) the same bits as on aligned
+copies; the refusals. The ``RNN`` op's rnn_tanh mode past the sequence kernel's
+widest layer: one ``rnn_cell`` launch a step each way, against the CPU
+path.
 """
 
 import math
@@ -2022,6 +2032,8 @@ def test_rnn_cell_kernels_raise_on_what_they_do_not_take(card):
 
 @pytest.mark.parametrize("mode", ["rnn_tanh", "rnn_relu"])
 def test_rnn_op_rnn_modes_launch_one_cell_step_each_way(card, mode):
+    """The rnn modes: one ``rnn_seq`` launch a layer forward (both
+    directions), no ``rnn_cell``, one ``rnn_cell_bwd`` a step back."""
     import mxnet_tpu_torch as mx
 
     steps, layers, dirs = 5, 2, 2
@@ -2032,12 +2044,49 @@ def test_rnn_op_rnn_modes_launch_one_cell_step_each_way(card, mode):
     for name, arr in exe.arg_dict.items():
         arr[:] = np.random.default_rng(len(name)).uniform(
             -0.3, 0.3, arr.shape).astype(np.float32)
-    before = (rnn_mod.LAUNCHES.value, rnn_mod.BWD_LAUNCHES.value)
+    before = (rnn_mod.SEQ_LAUNCHES.value, rnn_mod.LAUNCHES.value,
+              rnn_mod.BWD_LAUNCHES.value)
     exe.forward(is_train=True)
     exe.backward([mx.nd.ones(o.shape, ctx=mx.gpu(0)) for o in exe.outputs])
-    want = layers * dirs * steps
-    assert (rnn_mod.LAUNCHES.value - before[0],
-            rnn_mod.BWD_LAUNCHES.value - before[1]) == (want, want)
+    assert (rnn_mod.SEQ_LAUNCHES.value - before[0],
+            rnn_mod.LAUNCHES.value - before[1],
+            rnn_mod.BWD_LAUNCHES.value - before[2]) == (
+                layers, 0, layers * dirs * steps)
+
+
+@pytest.mark.parametrize("bidir", [False, True])
+def test_rnn_op_wide_rnn_layer_launches_one_cell_step_each_way(card, bidir):
+    """Past the sequence kernel's widest layer the rnn modes run one
+    ``rnn_cell`` launch a step forward and one ``rnn_cell_bwd`` back, and
+    agree with the CPU path within 1e-5 in norm."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import telemetry as tm
+
+    steps, dirs, hidden = 3, 2 if bidir else 1, rnn_mod.SEQ_MAX_HIDDEN + 1
+    sym = mx.sym.RNN(mx.sym.Variable("data"), mode="rnn_tanh",
+                     state_size=hidden, num_layers=1, bidirectional=bidir,
+                     state_outputs=True, name="rnn")
+    results = {}
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        exe = sym.simple_bind(ctx, grad_req="write", data=(steps, 2, 5))
+        for name, arr in exe.arg_dict.items():
+            arr[:] = np.random.default_rng(len(name)).uniform(
+                -0.03, 0.03, arr.shape).astype(np.float32)
+        before = (rnn_mod.SEQ_LAUNCHES.value, rnn_mod.LAUNCHES.value,
+                  rnn_mod.BWD_LAUNCHES.value,
+                  tm.counter("rnn_op.step_layers").value)
+        exe.forward(is_train=True)
+        exe.backward([mx.nd.ones(o.shape, ctx=ctx) for o in exe.outputs])
+        got = (rnn_mod.SEQ_LAUNCHES.value - before[0],
+               rnn_mod.LAUNCHES.value - before[1],
+               rnn_mod.BWD_LAUNCHES.value - before[2],
+               tm.counter("rnn_op.step_layers").value - before[3])
+        launched = dirs * steps if ctx.device_type == "gpu" else 0
+        assert got == (0, launched, launched, 1)
+        results[ctx.device_type] = [o.asnumpy() for o in exe.outputs] + [
+            g.asnumpy() for g in exe.grad_dict.values()]
+    for c, g in zip(results["cpu"], results["gpu"]):
+        assert np.linalg.norm(g - c) <= 1e-5 * np.linalg.norm(c)
 
 
 @pytest.mark.parametrize("act", ["tanh", "relu"])
@@ -2061,6 +2110,77 @@ def test_rnn_cell_stack_routes_each_step_to_the_kernels(card, act):
     exe.backward([mx.nd.ones(exe.outputs[0].shape, ctx=mx.gpu(0))])
     assert (rnn_mod.LAUNCHES.value - before[0],
             rnn_mod.BWD_LAUNCHES.value - before[1]) == (2 * steps, 2 * steps)
+
+
+def _seq_inputs(device, shape, dirs, bias=True, offset=0):
+    """Per direction i2h N(0, 1), Wh and bh N(0, 1 / H) (bh or None), h0
+    N(0, 0.25), each ``offset`` floats into its storage."""
+    steps, n, h = shape
+    rng = np.random.default_rng(steps * n + h + dirs + offset)
+
+    def t(scale, *dims):
+        a = scale * rng.standard_normal(math.prod(dims) + offset)
+        return torch.from_numpy(a.astype(np.float32)).to(device)[
+            offset:].view(dims)
+
+    lim = 1 / math.sqrt(h)
+    return ([t(1.0, steps, n, h) for _ in range(dirs)],
+            [t(lim, h, h) for _ in range(dirs)],
+            [t(lim, h) if bias else None for _ in range(dirs)],
+            [t(0.5, n, h) for _ in range(dirs)])
+
+
+@pytest.mark.parametrize("shape", [(32, 32, 200), (35, 20, 650), (5, 3, 37),
+                                   (4, 33, 200), (1, 32, 200), (3, 4, 928)])
+@pytest.mark.parametrize("act", ["tanh", "relu"])
+@pytest.mark.parametrize("dirs", [1, 2])
+def test_rnn_seq_equals_rnn_cell_launches_bit_for_bit(card, shape, act,
+                                                      dirs):
+    """One ``rnn_seq`` launch against T ``rnn_cell`` launches a direction
+    (direction 1 from the last step down): the same bits."""
+    xis, ws, bs, h0s = _seq_inputs(card, shape, dirs, bias=shape[2] != 37)
+    n0 = rnn_mod.SEQ_LAUNCHES.value
+    ys = rnn_mod.rnn_seq(xis, ws, bs, h0s, act)
+    torch.cuda.synchronize()
+    assert rnn_mod.SEQ_LAUNCHES.value - n0 == 1
+    assert ys.shape == (dirs, *shape)
+    for d in range(dirs):
+        h = h0s[d]
+        for t in (range(shape[0] - 1, -1, -1) if d == 1
+                  else range(shape[0])):
+            h = rnn_mod.rnn_cell(xis[d][t], h, ws[d], bs[d], act,
+                                 save=False)[0]
+            assert _same_bits(ys[d, t], h), (d, t)
+    plain = rnn_mod.rnn_seq_plain(xis, ws, bs, h0s, act)
+    for d in range(dirs):
+        assert float((ys[d] - plain[d]).norm()) <= 1e-5 * float(
+            plain[d].norm())
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+def test_rnn_seq_off_the_16_byte_alignment(card, offset):
+    xis, ws, bs, h0s = _seq_inputs(card, (6, 7, 200), 2, offset=offset)
+    ys = rnn_mod.rnn_seq(xis, ws, bs, h0s, "tanh")
+    aligned = [[t.clone() for t in ts] if ts[0] is not None else ts
+               for ts in (xis, ws, bs, h0s)]
+    assert _same_bits(ys, rnn_mod.rnn_seq(*aligned, "tanh"))
+
+
+def test_rnn_seq_raises_on_what_it_does_not_take(card):
+    xis, ws, bs, h0s = _seq_inputs(card, (4, 3, 8), 2)
+    wide = _seq_inputs(card, (2, 2, rnn_mod.SEQ_MAX_HIDDEN + 1), 1)
+    n0 = rnn_mod.SEQ_LAUNCHES.value
+    for args in ((xis, ws, bs, [h0s[0], h0s[1].cpu()]),
+                 ([xis[0].transpose(0, 1).contiguous().transpose(0, 1),
+                   xis[1]], ws, bs, h0s),
+                 ([x.double() for x in xis], [w.double() for w in ws],
+                  [b.double() for b in bs], [h.double() for h in h0s]),
+                 (xis * 2, ws * 2, bs * 2, h0s * 2), wide):
+        with pytest.raises(MXNetError):
+            rnn_mod.rnn_seq(*args)
+    with pytest.raises(MXNetError):
+        rnn_mod.rnn_seq(xis, ws, bs, h0s, "sigmoid")
+    assert rnn_mod.SEQ_LAUNCHES.value == n0
 
 
 def _same_bits(got, want):
@@ -2118,6 +2238,20 @@ def test_dropout_raises_on_what_it_does_not_take(card):
     n0 = drop_mod.LAUNCHES.value
     drop_mod.dropout(torch.randn(8), 0.5, 1, 1, 0)  # the CPU: plain
     assert drop_mod.LAUNCHES.value == n0
+
+
+@pytest.mark.parametrize("n", [(1 << 22) + 1, 5 * (1 << 20) + 7])
+@pytest.mark.parametrize("divide", [False, True])
+def test_dropout_bit_for_bit_over_several_passes_of_the_grid(card, n,
+                                                             divide):
+    """Past one pass of the grid (132 x 16 blocks x 256 threads x 4
+    elements: 2,162,688), a ragged end included."""
+    x = torch.randn(n, generator=torch.Generator().manual_seed(n))
+    y, m = drop_mod.dropout(x.to(card), 0.3, 12345, 6, 2, 3, divide)
+    yp, mp = drop_mod.dropout_plain(x, 0.3, 12345, 6, 2, 3, divide)
+    assert _same_bits(y.cpu(), yp)
+    if not divide:
+        assert _same_bits(m.cpu(), mp)
 
 
 def test_dropout_op_backward_is_the_saved_mask(card):

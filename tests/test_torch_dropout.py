@@ -10,6 +10,10 @@ port's masks and hands them to the reference graph as inputs. Where the
 loss is a deterministic function of the inputs (a fixed executor step),
 the training gradients are checked by central differences in float64.
 
+The card wrapper's cached keep probability equals ``float32(1 - p)``, and
+its refusals run on stand-ins that report a CUDA device (``_OnCard``),
+which the wrapper checks before any launch.
+
 Tolerances: bit for bit where no arithmetic differs (identity, the mask
 and its products); float32 rtol 1e-5 / atol 1e-6 for the language model,
 ``ZoneoutCell`` and the ``RNN`` op against the reference (the LSTM's
@@ -31,6 +35,7 @@ from mxnet_tpu.ops.registry import OpMode as JOpMode
 
 import mxnet_tpu_torch as pmx
 from mxnet_tpu_torch import random as prandom
+from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.kernels import dropout as dk
 from mxnet_tpu_torch.ops import registry as preg
 from mxnet_tpu_torch.ops.registry import OpMode as POpMode
@@ -127,6 +132,42 @@ def test_keep_share():
         share = dk.kept_plain(n, p, KEY, 1, 0).double().mean().item()
         sigma = ((1 - p) * p / n) ** 0.5
         assert abs(share - (1 - p)) < 5 * sigma, (p, share)
+
+
+@pytest.mark.parametrize("p", [0.1, 0.5, 0.9, 0.0, 1.0])
+def test_cached_keep_is_the_float32_of_one_minus_p(p):
+    """The wrapper's cached keep probability is ``float32(1 - p)`` exactly,
+    the value the keep test and the roundings read, first call and
+    cached."""
+    for _ in range(2):
+        got = dk.keep32_value(p)
+        assert isinstance(got, float)
+        assert got == float(np.float32(1.0 - p)) == dk.keep32(p).item()
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports CUDA device 0: what the card wrapper checks
+    before any launch."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("case", ["float64", "int32", "non-contiguous"])
+def test_card_wrapper_refuses_what_the_kernel_does_not_take(case):
+    x = {"float64": torch.zeros(8, dtype=torch.float64),
+         "int32": torch.zeros(8, dtype=torch.int32),
+         "non-contiguous": torch.zeros(8, 6)[:, :4]}[case]
+    x = torch.Tensor._make_subclass(_OnCard, x)
+    n0 = dk.LAUNCHES.value
+    with pytest.raises(MXNetError, match="dropout: x must be a contiguous"):
+        dk.dropout(x, 0.5, KEY, 1, 0)
+    assert dk.LAUNCHES.value == n0
 
 
 def test_bits_depend_on_key_step_serial_and_stream():

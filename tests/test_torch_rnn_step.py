@@ -301,24 +301,33 @@ def test_matched_chain_over_another_width_runs_as_written():
 @pytest.mark.parametrize("bidirectional", [False, True])
 def test_rnn_op_runs_one_cell_step_each_way(monkeypatch, mode,
                                             bidirectional):
-    """The RNN op's rnn modes call the cell step L*D*T times in training
-    (``RNNCellFn``, its backward one ``rnn_cell_bwd``) and at inference
-    (``rnn_cell``), and the outputs are the op-by-op chain's."""
-    calls = {"fwd": 0, "bwd": 0, "inf": 0}
-    fn_apply, cell, bwd = (rnn_mod.RNNCellFn.apply, defs_rnn.rnn_cell,
-                           rnn_mod.rnn_cell_bwd)
+    """The RNN op's rnn modes run each layer, both directions, as one
+    sequence call in training (``RNNSeqFn``) and at inference
+    (``rnn_seq``), call no cell step forward (``RNNCellFn``,
+    ``rnn_cell``), and step back L*D*T times (``rnn_cell_bwd``); the
+    inference outputs are the training forward's."""
+    calls = {"fwd": 0, "bwd": 0, "inf": 0, "cell_fwd": 0, "cell_inf": 0}
+    fn_apply, seq, bwd = (rnn_mod.RNNSeqFn.apply, defs_rnn.rnn_seq,
+                          rnn_mod.rnn_cell_bwd)
+    cell_apply, cell = rnn_mod.RNNCellFn.apply, defs_rnn.rnn_cell
 
     def counted(key, real):
         def run(*a, **k):
-            # shape inference at bind runs the op on meta tensors
-            if not any(isinstance(t, torch.Tensor) and t.is_meta for t in a):
+            # shape inference at bind runs the op on meta tensors (rnn_seq
+            # takes lists of them)
+            flat = [u for t in a for u in (t if isinstance(t, list) else [t])]
+            if not any(isinstance(t, torch.Tensor) and t.is_meta
+                       for t in flat):
                 calls[key] += 1
             return real(*a, **k)
         return run
 
-    monkeypatch.setattr(rnn_mod.RNNCellFn, "apply", counted("fwd", fn_apply))
-    monkeypatch.setattr(defs_rnn, "rnn_cell", counted("inf", cell))
+    monkeypatch.setattr(rnn_mod.RNNSeqFn, "apply", counted("fwd", fn_apply))
+    monkeypatch.setattr(defs_rnn, "rnn_seq", counted("inf", seq))
     monkeypatch.setattr(rnn_mod, "rnn_cell_bwd", counted("bwd", bwd))
+    monkeypatch.setattr(rnn_mod.RNNCellFn, "apply",
+                        counted("cell_fwd", cell_apply))
+    monkeypatch.setattr(defs_rnn, "rnn_cell", counted("cell_inf", cell))
     steps, layers = 4, 2
     dirs = 2 if bidirectional else 1
     sym = pmx.sym.RNN(pmx.sym.Variable("data"), mode=mode, state_size=5,
@@ -332,8 +341,8 @@ def test_rnn_op_runs_one_cell_step_each_way(monkeypatch, mode,
     exe.backward([pmx.nd.ones(o.shape, ctx=pmx.cpu()) for o in exe.outputs])
     train_out = [o.asnumpy() for o in exe.outputs]
     exe.forward(is_train=False)
-    want = layers * dirs * steps
-    assert calls == {"fwd": want, "bwd": want, "inf": want}
+    assert calls == {"fwd": layers, "bwd": layers * dirs * steps,
+                     "inf": layers, "cell_fwd": 0, "cell_inf": 0}
     for got, ref in zip(exe.outputs, train_out):
         np.testing.assert_array_equal(got.asnumpy(), ref)
 
